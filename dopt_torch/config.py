@@ -1,0 +1,115 @@
+"""Typed, frozen experiment configuration for the PyTorch port.
+
+The subset of ``dopt.config`` that the gossip D-SGD slice reads, with
+the same field names and defaults, so a preset or a ``--set`` override
+means the same thing in both packages.  Sections of later slices
+(federated, faults, robust, population, comm) exist only as ``None``
+slots: the gossip trainer refuses any that is set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset selection + partitioning (reference ``get_dataset`` args)."""
+
+    dataset: str = "mnist"   # mnist | synthetic
+    iid: bool = True
+    shards: int = 2          # non-IID shards per user
+    num_users: int = 8
+    data_dir: str | None = None   # directory with raw IDX files; None -> synthetic
+    synthetic_train_size: int = 2048
+    synthetic_test_size: int = 512
+    plan_impl: str = "numpy"  # "native" (C++ planner) arrives in a later slice
+    local_holdout: float = 0.0
+    # Fraction of each worker's shard held out as local validation (the
+    # reference's train_val_test split); the holdout loop arrives in a
+    # later slice, so the trainer refuses > 0.
+    holdout_mode: str = "deterministic"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Model zoo selection (reference ``args.model`` string dispatch)."""
+
+    model: str = "model1"    # model1 | model3
+    faithful: bool = True
+    # faithful=True reproduces the reference's Softmax-head +
+    # CrossEntropyLoss double-softmax; False uses the corrected logits
+    # head (and post-conv ReLUs).
+    num_classes: int = 10
+    input_shape: tuple[int, ...] = (28, 28, 1)   # NHWC, as in dopt
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Local SGD settings (torch momentum semantics)."""
+
+    optimizer: str = "sgd"
+    lr: float = 0.01
+    momentum: float = 0.5
+    fused_update: bool = False
+    # True sends every step's momentum-SGD update through the
+    # hand-written CUDA kernel (dopt_torch.ops.fused_sgd_momentum).
+
+
+@dataclass(frozen=True)
+class GossipConfig:
+    """Serverless gossip/consensus path (reference P2 ``simulators.py``)."""
+
+    algorithm: str = "dsgd"
+    topology: str = "circle"    # circle | star | complete | dynamic | random
+    #                           # | torus | hierarchical | one_peer_exp
+    mode: str = "stochastic"    # stochastic | double_stochastic | metropolis | uniform | ones
+    rounds: int = 10
+    local_ep: int = 4
+    local_bs: int = 128
+    eval_mode: str = "full"     # every worker evaluates the whole test split
+    mixing: str = "sync"
+    comm_impl: str = "auto"     # the single-device port always mixes dense
+    block_rounds: int = 1
+    self_weight: bool = False   # reference mixing has a zero diagonal
+    hier_groups: int = 2
+    hier_period: int = 4
+    comm_dtype: str | None = None
+    update_sharding: str = "off"
+    update_bucket_mb: float = 4.0
+    # Per-worker payload bound of one flat bucket of the fused epilogue
+    # (dopt_torch.parallel.collectives.make_update_shard_spec).
+    fused_update: str = "off"
+    # "off" | "on".  "on" carries (post-mix params q, displacement
+    # fbuf) and runs the round epilogue q_t = W·q_{t-1} − fbuf_{t-1} as
+    # one CUDA kernel pass per flat bucket — the D-PSGD ordering of
+    # dopt's GossipConfig.fused_update.
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Top-level experiment description (the notebook form cell, typed)."""
+
+    name: str = "experiment"
+    seed: int = 2022
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimizerConfig = field(default_factory=OptimizerConfig)
+    gossip: GossipConfig | None = None
+    # Sections of later slices; the gossip trainer refuses any that is set.
+    federated: Any = None
+    faults: Any = None
+    robust: Any = None
+    population: Any = None
+    comm: Any = None
+
+    def replace(self, **kw: Any) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num_users(self) -> int:
+        return self.data.num_users

@@ -1,0 +1,75 @@
+"""Weight carry-over between dopt's flax trees and the port's layout.
+
+``params_from_jax`` takes a dopt Model1/Model3 params tree as numpy
+arrays — one worker's (``conv1.kernel`` rank 4) or the ``[W, ...]``
+stacked fleet (rank 5) — and returns the port's parameter dict with the
+same leading axes; ``params_to_jax`` is its exact inverse.  Only
+transposes and reshapes: the round trip is bit-exact.
+
+Layouts (per worker): flax conv ``[kh, kw, Cin, Cout]`` ↔ torch
+``[Cout, Cin, kh, kw]``; flax dense ``[in, out]`` ↔ torch ``[out, in]``;
+and fc1's input, which flax flattens in HWC order from the NHWC
+activations while the port flattens CHW from NCHW ones.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _post_pool(input_shape) -> tuple[int, int]:
+    h, w = input_shape[0], input_shape[1]
+    return h // 2 // 2, w // 2 // 2
+
+
+def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
+    """dopt flax tree (numpy leaves) → port parameter dict."""
+    lead = np.asarray(tree["conv1"]["kernel"]).ndim - 4   # 0 or 1 (worker)
+    a = tuple(range(lead))
+    hp, wp = _post_pool(input_shape)
+
+    def conv(k):
+        return np.transpose(k, a + tuple(lead + i for i in (3, 2, 0, 1)))
+
+    def dense(k):
+        return np.swapaxes(k, -1, -2)
+
+    def fc1(k):
+        c2 = np.asarray(tree["conv2"]["kernel"]).shape[-1]
+        k = k.reshape(k.shape[:lead] + (hp, wp, c2, k.shape[-1]))
+        k = np.transpose(k, a + tuple(lead + i for i in (3, 2, 0, 1)))
+        return k.reshape(k.shape[:lead + 1] + (-1,))
+
+    out = {}
+    for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
+                     ("fc2", dense)):
+        out[f"{layer}.weight"] = np.ascontiguousarray(
+            f(np.asarray(tree[layer]["kernel"])))
+        out[f"{layer}.bias"] = np.array(tree[layer]["bias"])
+    return out
+
+
+def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
+    """Port parameter dict (numpy or tensors) → dopt flax tree."""
+    p = {k: np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+         for k, v in params.items()}
+    lead = p["conv1.weight"].ndim - 4
+    a = tuple(range(lead))
+    hp, wp = _post_pool(input_shape)
+
+    def conv(w):
+        return np.transpose(w, a + tuple(lead + i for i in (2, 3, 1, 0)))
+
+    def dense(w):
+        return np.swapaxes(w, -1, -2)
+
+    def fc1(w):
+        c2 = p["conv2.weight"].shape[lead]
+        w = w.reshape(w.shape[:lead + 1] + (c2, hp, wp))
+        w = np.transpose(w, a + tuple(lead + i for i in (2, 3, 1, 0)))
+        return w.reshape(w.shape[:lead] + (-1, w.shape[-1]))
+
+    return {layer: {"kernel": np.ascontiguousarray(f(p[f"{layer}.weight"])),
+                    "bias": p[f"{layer}.bias"].copy()}
+            for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
+                             ("fc2", dense))}

@@ -1,0 +1,15 @@
+from dopt_torch.data.datasets import Dataset, load_dataset, make_synthetic
+from dopt_torch.data.partition import iid_split, noniid_split, partition
+from dopt_torch.data.pipeline import BatchPlan, eval_batches, make_batch_plan
+
+__all__ = [
+    "Dataset",
+    "load_dataset",
+    "make_synthetic",
+    "iid_split",
+    "noniid_split",
+    "partition",
+    "BatchPlan",
+    "eval_batches",
+    "make_batch_plan",
+]

@@ -1,0 +1,61 @@
+"""IID / non-IID data partitioning across workers.
+
+The port's copy of ``dopt.data.partition``: the same seeded numpy
+draws, so every worker's shard is bit-identical to dopt's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def iid_split(labels: np.ndarray, num_users: int, *,
+              seed: int = 0) -> dict[int, np.ndarray]:
+    """Random equal split; every sample used at most once."""
+    n = len(labels)
+    per_user = n // num_users
+    if per_user < 1:
+        raise ValueError(f"cannot split {n} samples across {num_users} users")
+    perm = np.random.default_rng(seed).permutation(n)
+    return {
+        i: np.sort(perm[i * per_user:(i + 1) * per_user]).astype(np.int64)
+        for i in range(num_users)
+    }
+
+
+def noniid_split(labels: np.ndarray, num_users: int, *,
+                 shards_per_user: int = 2,
+                 seed: int = 0) -> dict[int, np.ndarray]:
+    """Pathological non-IID: sort by label, carve into
+    ``num_users * shards_per_user`` contiguous shards and deal
+    ``shards_per_user`` random shards to each user."""
+    n = len(labels)
+    num_shards = num_users * shards_per_user
+    shard_len = n // num_shards
+    if shard_len < 1:
+        raise ValueError(
+            f"cannot carve {n} samples into {num_shards} shards "
+            f"({num_users} users x {shards_per_user} shards)")
+    order = np.argsort(labels, kind="stable")
+    shard_ids = np.random.default_rng(seed).permutation(num_shards)
+    out: dict[int, np.ndarray] = {}
+    for i in range(num_users):
+        mine = shard_ids[i * shards_per_user:(i + 1) * shards_per_user]
+        idx = np.concatenate([order[s * shard_len:(s + 1) * shard_len]
+                              for s in mine])
+        out[i] = np.sort(idx).astype(np.int64)
+    return out
+
+
+def partition(labels: np.ndarray, num_users: int, *, iid: bool = True,
+              shards_per_user: int = 2,
+              seed: int = 0) -> tuple[dict[int, np.ndarray], np.ndarray]:
+    """Partition + dense form: ``(user_groups, index_matrix)`` with
+    ``index_matrix`` [num_users, L], L the shortest shard length."""
+    groups = (iid_split(labels, num_users, seed=seed) if iid
+              else noniid_split(labels, num_users,
+                                shards_per_user=shards_per_user, seed=seed))
+    lmin = min(len(v) for v in groups.values())
+    matrix = np.stack([groups[i][:lmin]
+                       for i in range(num_users)]).astype(np.int32)
+    return groups, matrix

@@ -1,0 +1,81 @@
+"""Host-side batch planning for the worker-stacked trainer.
+
+The port's copy of the numpy path of ``dopt.data.pipeline``.  Batching
+is data: a per-(seed, round, epoch, worker) shuffled index plan, bit
+for bit the one dopt builds, which the trainer uploads once a round and
+gathers from the device-resident train set.  The last partial batch is
+padded by wraparound with a 0/1 sample weight, so padding never changes
+the math.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class BatchPlan:
+    """Index plan for one round of local training on every worker.
+
+    idx:    [W, S, B] int32 — S = local_ep * steps_per_epoch gather indices
+    weight: [W, S, B] float32 — 1.0 for real samples, 0.0 for padding
+    """
+
+    idx: np.ndarray
+    weight: np.ndarray
+
+
+def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
+                    local_ep: int = 1, seed: int = 0,
+                    round_idx: int = 0) -> BatchPlan:
+    """Build the shuffled batch plan for one round from the [W, L]
+    per-worker index matrix; deterministic in (seed, round_idx, epoch,
+    worker)."""
+    w, l = index_matrix.shape
+    bs = min(batch_size, l)
+    steps_per_epoch = -(-l // bs)
+    padded = steps_per_epoch * bs
+    s = local_ep * steps_per_epoch
+    pad = padded - l
+    perms = np.empty((w, local_ep, padded), dtype=np.int64)
+    for wi in range(w):
+        for ep in range(local_ep):
+            rng = np.random.default_rng(
+                np.random.SeedSequence([seed, round_idx, ep, wi]))
+            perm = rng.permutation(l)
+            if pad:
+                perms[wi, ep, :l] = perm
+                perms[wi, ep, l:] = perm[:pad]
+            else:
+                perms[wi, ep] = perm
+    gathered = np.take_along_axis(index_matrix[:, None, :], perms, axis=2)
+    idx = np.ascontiguousarray(
+        gathered.reshape(w, s, bs).astype(np.int32, copy=False))
+    if pad == 0:
+        weight = np.ones((w, s, bs), np.float32)
+    else:
+        epoch_mask = np.concatenate(
+            [np.ones(l, np.float32), np.zeros(pad, np.float32)]
+        ).reshape(steps_per_epoch, bs)
+        weight = np.tile(epoch_mask[None], (w, local_ep, 1)).reshape(w, s, bs)
+    return BatchPlan(idx=idx, weight=weight)
+
+
+def eval_batches(x: np.ndarray, y: np.ndarray, *, batch_size: int
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static-shape eval split: [S, B, ...] with a wraparound padding
+    mask, shared by all workers (every worker evaluates the whole test
+    split, as the reference's per-client test loader does)."""
+    n = len(y)
+    bs = min(batch_size, n)
+    steps = -(-n // bs)
+    pad = steps * bs - n
+    idx = np.arange(n)
+    if pad:
+        idx = np.concatenate([idx, idx[:pad]])
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    return (x[idx].reshape(steps, bs, *x.shape[1:]),
+            y[idx].reshape(steps, bs).astype(np.int32),
+            mask.reshape(steps, bs))

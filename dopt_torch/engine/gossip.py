@@ -1,0 +1,285 @@
+"""Synchronous gossip D-SGD on one GPU: the port's ``GossipTrainer``.
+
+Counterpart of dopt/engine/gossip.py for its dsgd subset: N workers as
+one ``[W, ...]`` stacked state, each round consensus → eval → local
+epochs (the reference's order), with ``matrices[round % len]``
+schedules, the reference's batch plans and History rows.
+
+Two orderings, as in dopt:
+
+* ``gossip.fused_update="off"`` — mix the carried params, evaluate,
+  train: x ← local(W·x).
+* ``gossip.fused_update="on"`` — the carry is (post-mix q, displacement
+  fbuf) in flat ``[W, padded]`` bucket stores; each round opens with ONE
+  CUDA kernel pass per bucket, q_t = W·q_{t-1} − fbuf_{t-1} (round 0
+  contracts a zero fbuf), evaluates and trains from q_t, and leaves
+  fbuf_t = q_t − p'_t.  The worker's endpoint is q − fbuf (the D-PSGD
+  update ordering, a documented variant of the default trajectory).
+
+With ``optim.fused_update=True`` every SGD step's update is one launch
+of the fused momentum-SGD kernel.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from dopt_torch.config import ExperimentConfig
+from dopt_torch.convert import params_from_jax
+from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
+                             partition)
+from dopt_torch.engine.local import local_steps, stacked_evaluate
+from dopt_torch.models.zoo import (StackedCNN, full_f32, init_worker_params,
+                                   param_shapes, stacked_cnn_forward)
+from dopt_torch.ops.fused_update import fused_mix_update
+from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
+                                             make_update_shard_spec, mix_dense)
+from dopt_torch.topology import build_mixing_matrices
+from dopt_torch.utils.metrics import History
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port runs on the GPU unless the caller names the CPU; a CUDA
+    request on a machine without one raises instead of running on the
+    CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU — pass "
+            "device='cpu' to run on the CPU explicitly")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def _later(what: str, slice_name: str) -> ValueError:
+    return ValueError(
+        f"{what} is not in the PyTorch port's gossip D-SGD slice; it "
+        f"arrives with the '{slice_name}' slice (ROADMAP.md, queue 1)")
+
+
+def validate_slice(cfg: ExperimentConfig) -> None:
+    """Refuse every configuration this slice does not run, naming the
+    later slice that adds it."""
+    g, d, m = cfg.gossip, cfg.data, cfg.model
+    if cfg.federated is not None:
+        raise _later("the federated engine", "federated engine")
+    if g is None:
+        raise ValueError("cfg.gossip must be set for GossipTrainer")
+    for section, slice_name in (("faults", "faults"), ("robust", "robust"),
+                                ("population", "population"),
+                                ("comm", "codecs")):
+        if getattr(cfg, section) is not None:
+            raise _later(f"cfg.{section}", slice_name)
+    if g.algorithm != "dsgd":
+        raise _later(f"gossip algorithm {g.algorithm!r}", "gossip algorithms")
+    if g.eval_mode != "full":
+        raise _later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
+    if g.mixing != "sync":
+        raise _later(f"mixing={g.mixing!r}", "async and one-peer mixing")
+    if g.block_rounds > 1:
+        raise _later("block_rounds > 1", "multi-round blocks")
+    if g.update_sharding != "off":
+        raise _later(f"update_sharding={g.update_sharding!r}",
+                     "scatter and multi-GPU")
+    if g.comm_impl == "shift":
+        raise _later("comm_impl='shift'", "scatter and multi-GPU")
+    if g.comm_dtype:
+        raise _later(f"comm_dtype={g.comm_dtype!r}", "codecs")
+    if g.fused_update not in ("off", "on"):
+        raise ValueError(f"unknown fused_update {g.fused_update!r}; "
+                         "one of off|on")
+    if d.local_holdout > 0:
+        raise _later("the local train/val holdout", "holdout")
+    if d.plan_impl != "numpy":
+        raise _later(f"plan_impl={d.plan_impl!r}", "native planner")
+    if m.model.lower() == "transformer":
+        raise _later("the sequence model", "seqlm")
+    if m.model.lower() not in ("model1", "model3"):
+        raise _later(f"model {m.model!r}", "model zoo")
+    if m.compute_dtype != "float32" or m.param_dtype != "float32":
+        raise _later("bf16 compute or storage", "bf16 compute with clipping")
+    if cfg.optim.optimizer.lower() != "sgd":
+        raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}: only "
+                         "'sgd' exists (the reference's single optimizer)")
+
+
+class GossipTrainer:
+    """Synchronous D-SGD over ``cfg.data.num_users`` workers on one device.
+
+    ``device`` defaults to CUDA and raises where there is none; pass
+    ``device="cpu"`` to run on the CPU (the kernels' plain versions).
+    ``init_params`` takes one worker's dopt params tree (numpy leaves,
+    ``dopt_torch.convert.params_from_jax``'s input) so a run can start
+    at dopt's exact init; otherwise the init is drawn from a
+    ``torch.Generator`` seeded with ``cfg.seed``, with flax's defaults.
+
+    The f32 path runs in full f32: on CUDA, ``run`` and ``evaluate`` set
+    ``torch.backends.cudnn.allow_tf32 = False`` and
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` while they run,
+    because cuDNN convolutions default to TF32, which keeps about three
+    digits; on the CPU they turn oneDNN off
+    (``dopt_torch.models.full_f32``, which restores the flags after).
+    """
+
+    def __init__(self, cfg: ExperimentConfig, *, device=None,
+                 init_params=None):
+        validate_slice(cfg)
+        self.device = dev = resolve_device(device)
+        g, mc = cfg.gossip, cfg.model
+        self.cfg = cfg
+        self.round = 0
+        self.history = History(cfg.name)
+        w = cfg.data.num_users
+        self.num_workers = w
+
+        # Data: load, partition, upload once.
+        self.dataset = ds = load_dataset(
+            cfg.data.dataset, data_dir=cfg.data.data_dir,
+            train_size=cfg.data.synthetic_train_size,
+            test_size=cfg.data.synthetic_test_size, seed=cfg.seed,
+            input_shape=mc.input_shape, num_classes=mc.num_classes)
+        _, self.index_matrix = partition(
+            ds.train_y, w, iid=cfg.data.iid,
+            shards_per_user=cfg.data.shards, seed=cfg.seed)
+        self._sample_shape = tuple(ds.train_x.shape[1:])
+        self._train_x = torch.from_numpy(
+            ds.train_x.reshape(len(ds.train_x), -1)).to(dev)
+        self._train_y = torch.from_numpy(ds.train_y.astype(np.int64)).to(dev)
+        ex, ey, ew = eval_batches(ds.test_x, ds.test_y,
+                                  batch_size=max(g.local_bs, 256))
+        self._eval = (torch.from_numpy(ex).to(dev),
+                      torch.from_numpy(ey.astype(np.int64)).to(dev),
+                      torch.from_numpy(ew).to(dev))
+        l_shard = self.index_matrix.shape[1]
+        self.steps_per_round = g.local_ep * -(-l_shard // min(g.local_bs,
+                                                              l_shard))
+
+        # Model + stacked state: every worker starts from the same init.
+        name = mc.model.lower()
+        if init_params is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            p0 = init_worker_params(name, num_classes=mc.num_classes,
+                                    input_shape=mc.input_shape, generator=gen)
+        else:
+            p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
+                  for k, v in params_from_jax(
+                      init_params, input_shape=mc.input_shape).items()}
+            want = param_shapes(name, num_classes=mc.num_classes,
+                                input_shape=mc.input_shape)
+            got = {k: tuple(v.shape) for k, v in p0.items()}
+            if got != want:
+                raise ValueError(f"init_params shapes {got} do not match "
+                                 f"{name}'s {want}")
+        self.param_count = sum(v.numel() for v in p0.values())
+        stacked = {k: v.expand(w, *v.shape).contiguous().to(dev)
+                   for k, v in p0.items()}
+        self.model = StackedCNN(stacked, faithful=mc.faithful)
+        self._names = [k for k, _ in self.model.named_parameters()]
+        self._params = list(self.model.parameters())
+        self.momentum = [torch.zeros_like(p) for p in self._params]
+
+        self.mixing = build_mixing_matrices(
+            g.topology, g.mode, w, seed=cfg.seed, self_weight=g.self_weight,
+            groups=g.hier_groups, period=g.hier_period)
+
+        # Fused epilogue carry: q (post-mix state) and fbuf (displacement
+        # to the post-local endpoint) as flat bucket stores; round −1's
+        # displacement is zero, so fused round 0 mixes what the default
+        # round 0 mixes.
+        self._fused_on = g.fused_update == "on"
+        self.fused_spec = None
+        if self._fused_on:
+            self.fused_spec = make_update_shard_spec(
+                stacked, bucket_bytes=int(g.update_bucket_mb * (1 << 20)))
+            self._q = alloc_flat(w, self.fused_spec, dev)
+            self._fbuf = alloc_flat(w, self.fused_spec, dev)
+            for k, v in flat_views(self._q, self.fused_spec).items():
+                v.copy_(stacked[k])
+
+    # -- one round ------------------------------------------------------
+    @torch.no_grad()
+    def _consensus(self, w_t: torch.Tensor) -> None:
+        """Leave the round's post-consensus state in the model's params."""
+        if self._fused_on:
+            fused_mix_update(self._q, self._fbuf, w_t, self.fused_spec,
+                             lr=1.0)
+            q = flat_views(self._q, self.fused_spec)
+            for k, p in zip(self._names, self._params):
+                p.copy_(q[k])
+            return
+        mixed = mix_dense(dict(zip(self._names, self._params)), w_t)
+        for k, p in zip(self._names, self._params):
+            p.copy_(mixed[k])
+
+    def _round(self, t: int) -> None:
+        """Round t: consensus → eval → local epochs, one History row."""
+        cfg, g, dev = self.cfg, self.cfg.gossip, self.device
+        w_t = torch.from_numpy(
+            self.mixing.for_round(t).astype(np.float32)).to(dev)
+        plan = make_batch_plan(self.index_matrix, batch_size=g.local_bs,
+                               local_ep=g.local_ep, seed=cfg.seed,
+                               round_idx=t)
+        idx = torch.from_numpy(plan.idx.astype(np.int64)).to(dev)
+        bw = torch.from_numpy(plan.weight).to(dev)
+        self._consensus(w_t)
+        ev = stacked_evaluate(self.model, self.num_workers, *self._eval)
+        losses, accs = local_steps(
+            self.model, self._params, self.momentum, idx, bw,
+            self._train_x, self._train_y, self._sample_shape,
+            lr=cfg.optim.lr, momentum=cfg.optim.momentum,
+            fused=cfg.optim.fused_update)
+        if self._fused_on:
+            with torch.no_grad():
+                q = flat_views(self._q, self.fused_spec)
+                fb = flat_views(self._fbuf, self.fused_spec)
+                for k, p in zip(self._names, self._params):
+                    torch.sub(q[k], p, out=fb[k])
+        # ONE device→host fetch per round.
+        vals = torch.stack([losses.mean(), accs.mean(), ev["acc"].mean(),
+                            ev["loss_mean"].mean()]).tolist()
+        self.history.append(round=t, avg_train_loss=vals[0],
+                            avg_train_acc=vals[1], avg_test_acc=vals[2],
+                            avg_test_loss=vals[3])
+
+    def run(self, rounds: int | None = None) -> History:
+        """Train ``rounds`` rounds (default ``cfg.gossip.rounds``);
+        ``self.round`` persists across calls, as in the reference."""
+        rounds = self.cfg.gossip.rounds if rounds is None else rounds
+        t0 = time.perf_counter()
+        with full_f32(self.device):
+            for _ in range(rounds):
+                self._round(self.round)
+                self.round += 1
+        self.total_time = time.perf_counter() - t0
+        return self.history
+
+    # -- state ----------------------------------------------------------
+    @torch.no_grad()
+    def _debiased_params(self) -> dict[str, torch.Tensor]:
+        """Each worker's current endpoint: the params, or q − fbuf on the
+        fused carry."""
+        if self._fused_on:
+            q = flat_views(self._q, self.fused_spec)
+            fb = flat_views(self._fbuf, self.fused_spec)
+            return {k: q[k] - fb[k] for k in self._names}
+        return {k: p.detach().clone()
+                for k, p in zip(self._names, self._params)}
+
+    def worker_params(self) -> dict[str, np.ndarray]:
+        """Host copy of every worker's parameters ([W, ...] arrays in the
+        port's layout; ``dopt_torch.convert.params_to_jax`` gives dopt's)."""
+        return {k: v.cpu().numpy() for k, v in self._debiased_params().items()}
+
+    def evaluate(self) -> dict[str, np.ndarray]:
+        """Reference-semantics eval: every worker on the full test set."""
+        params = self._debiased_params()
+        with full_f32(self.device):
+            out = stacked_evaluate(
+                lambda x: stacked_cnn_forward(
+                    params, x, faithful=self.cfg.model.faithful),
+                self.num_workers, *self._eval)
+        return {k: v.cpu().numpy() for k, v in out.items()}

@@ -1,0 +1,30 @@
+"""Per-worker loss and metric over the stacked fleet's outputs.
+
+``cross_entropy_stacked`` is ``nn.CrossEntropyLoss`` applied to the
+model output, per worker: with the faithful head the output is already
+softmax probabilities, so this is the reference's double softmax.  The
+per-sample weights are the batch plan's padding mask; the weighted mean
+with ``Σw`` in the denominator makes padded samples invisible.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy_stacked(outputs: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """[W, B, C] outputs → [W] weighted-mean CE, in float32."""
+    logp = torch.log_softmax(outputs.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    w = weights.float()
+    return (nll * w).sum(-1) / w.sum(-1).clamp_min(1.0)
+
+
+def accuracy_stacked(outputs: torch.Tensor, labels: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """[W, B, C] outputs → [W] weighted fraction of correct argmax
+    predictions (first index on ties, as ``jnp.argmax``)."""
+    correct = (outputs.argmax(-1) == labels).float()
+    w = weights.float()
+    return (correct * w).sum(-1) / w.sum(-1).clamp_min(1.0)

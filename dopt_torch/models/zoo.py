@@ -1,0 +1,154 @@
+"""The reference CNNs as worker-stacked PyTorch modules.
+
+Counterpart of dopt's Model1/Model3 (``dopt/models/zoo.py``) in the
+form its engines actually run them: ``_make_stacked_cnn_apply``, the
+whole fleet's forward as one program.  Every parameter carries a
+leading worker axis ``[W, ...]`` and each conv is ONE grouped
+``F.conv2d(..., groups=W)`` over worker-major channels, so worker w's
+channels meet only worker w's kernel.  The two dense layers are batched
+``torch.baddbmm`` products over the worker axis.
+
+Parameters use PyTorch's own layouts (conv ``[W, Cout, Cin, kh, kw]``,
+linear ``[W, out, in]``, fc1's input in CHW flatten order);
+``dopt_torch.convert`` maps them to and from dopt's flax trees.  The
+public input stays dopt's NHWC ``[W, B, H, Wd, C]``.
+
+Faithful quirks (``faithful=True``): no activation after the convs and
+a softmax head, so the cross-entropy on top is the reference's double
+softmax.  The 2×2 max pool routes tie gradients to the FIRST window
+element in scan order — ``F.max_pool2d``'s backward already does, which
+is what dopt's custom VJP reproduces (ties are common: zero-background
+pixels under the no-ReLU conv give exact 4-way ties).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_HIDDEN = {"model1": 512, "model3": 256}
+
+
+def param_shapes(name: str, *, num_classes: int = 10,
+                 input_shape: tuple[int, ...] = (28, 28, 1)
+                 ) -> dict[str, tuple[int, ...]]:
+    """Per-worker parameter shapes of Model1/Model3, in PyTorch layout."""
+    if name not in _HIDDEN:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(_HIDDEN)}")
+    h, w, c = input_shape
+    hidden = _HIDDEN[name]
+    flat = 64 * (h // 2 // 2) * (w // 2 // 2)
+    return {
+        "conv1.weight": (32, c, 5, 5), "conv1.bias": (32,),
+        "conv2.weight": (64, 32, 5, 5), "conv2.bias": (64,),
+        "fc1.weight": (hidden, flat), "fc1.bias": (hidden,),
+        "fc2.weight": (num_classes, hidden), "fc2.bias": (num_classes,),
+    }
+
+
+def init_worker_params(name: str, *, num_classes: int = 10,
+                       input_shape: tuple[int, ...] = (28, 28, 1),
+                       generator: torch.Generator | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """One worker's init with flax's defaults: LeCun-normal weights
+    (normal truncated at ±2σ, σ = √(1/fan_in)/0.8796…) and zero biases.
+    Drawn on the CPU, so a seed gives the same init on every device."""
+    out = {}
+    for key, shape in param_shapes(name, num_classes=num_classes,
+                                   input_shape=input_shape).items():
+        t = torch.zeros(shape, dtype=torch.float32)
+        if key.endswith("weight"):
+            std = math.sqrt(1.0 / math.prod(shape[1:])) / 0.87962566103423978
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        out[key] = t
+    return out
+
+
+@contextlib.contextmanager
+def full_f32(device: torch.device):
+    """Run the f32 path in full f32 on ``device``, restoring the backend
+    flags on exit.  CUDA: TF32 off for cuDNN convolutions and cuBLAS
+    matmuls (cuDNN's TF32 default keeps about three digits).  CPU:
+    oneDNN off, because its grouped-conv backward lost two digits
+    against f64 on the faithful Model1 (3e-2 relative on conv2's weight
+    gradient; 5e-7 with PyTorch's native kernels)."""
+    if device.type == "cuda":
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+    else:
+        with torch.backends.mkldnn.flags(enabled=False):
+            yield
+
+
+def _grouped_conv(z, weight, bias, groups):
+    """'SAME' conv of worker-major channels with [W, Cout, Cin, k, k]
+    kernels as one grouped conv."""
+    k = weight.shape[-1]
+    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]),
+                    bias.reshape(-1), padding=k // 2, groups=groups)
+
+
+def _stacked_linear(zt, weight, bias):
+    """Feature-major [W, in, B] → [W, out, B]: W @ zt + b.  Kept
+    feature-major so autograd hands back CONTIGUOUS [W, out, in] weight
+    gradients (the fused update kernel takes contiguous tensors)."""
+    return torch.baddbmm(bias.unsqueeze(2), weight, zt)
+
+
+def stacked_cnn_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
+                        *, faithful: bool) -> torch.Tensor:
+    """The fleet's forward: NHWC ``[W, B, H, Wd, C]`` inputs and
+    ``[W, ...]`` params → ``[W, B, num_classes]`` (probabilities when
+    faithful, logits otherwise)."""
+    w, b, h, wd, c = x.shape
+    z = x.permute(1, 0, 4, 2, 3).reshape(b, w * c, h, wd)
+    z = _grouped_conv(z, params["conv1.weight"], params["conv1.bias"], w)
+    if not faithful:
+        z = F.relu(z)
+    z = F.max_pool2d(z, 2)
+    z = _grouped_conv(z, params["conv2.weight"], params["conv2.bias"], w)
+    if not faithful:
+        z = F.relu(z)
+    z = F.max_pool2d(z, 2)
+    # [B, W·C2, H', Wd'] → [W, C2·H'·Wd', B] (each worker's CHW flatten)
+    z = z.reshape(b, w, -1).permute(1, 2, 0)
+    z = F.relu(_stacked_linear(z, params["fc1.weight"], params["fc1.bias"]))
+    z = _stacked_linear(z, params["fc2.weight"], params["fc2.bias"])
+    z = z.transpose(1, 2)                     # [W, B, num_classes]
+    return torch.softmax(z, dim=-1) if faithful else z
+
+
+class _Layer(nn.Module):
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+
+class StackedCNN(nn.Module):
+    """Model1 (hidden 512, 1,663,370 params a worker on 28×28×1) or
+    Model3 (hidden 256) for a fleet of workers, built from a dict of
+    ``[W, ...]`` tensors in ``param_shapes`` layout."""
+
+    def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool):
+        super().__init__()
+        self.faithful = faithful
+        for layer in ("conv1", "conv2", "fc1", "fc2"):
+            setattr(self, layer, _Layer(params[f"{layer}.weight"],
+                                        params[f"{layer}.bias"]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return stacked_cnn_forward(dict(self.named_parameters()), x,
+                                   faithful=self.faithful)

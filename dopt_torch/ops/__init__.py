@@ -1,0 +1,12 @@
+from dopt_torch.ops.fused_update import (fused_mix_sgd, fused_mix_update,
+                                         fused_sgd_momentum,
+                                         mix_sgd_reference,
+                                         sgd_momentum_reference)
+
+__all__ = [
+    "fused_mix_sgd",
+    "fused_mix_update",
+    "fused_sgd_momentum",
+    "mix_sgd_reference",
+    "sgd_momentum_reference",
+]

@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+
+The sources under ``dopt_torch/csrc`` have a plain C interface, so one
+``nvcc`` call builds them in seconds (no PyTorch headers).  The library
+goes to ``build/dopt_torch/<source hash>/libdopt_torch_kernels.so`` in
+the checkout at first use and is reused while the sources are
+unchanged.  Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCES = (_PKG / "csrc" / "fused_update.cu",)
+BUILD_DIR = _PKG.parent / "build" / "dopt_torch"
+LIB_NAME = "libdopt_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from dopt_torch/csrc at first use")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _SOURCES:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built;
+    returns the library path.  The write is atomic (temp file, then
+    rename), so a concurrent or interrupted build never leaves a
+    truncated library behind."""
+    out = library_path()
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument and result types declared."""
+    lib = ctypes.CDLL(str(build()))
+    vp, i64, c_int, c_float = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_float)
+    lib.dopt_fused_sgd_momentum.argtypes = [
+        c_int, ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),
+        ctypes.POINTER(i64), c_int, c_float, c_float, vp]
+    lib.dopt_fused_sgd_momentum.restype = c_int
+    lib.dopt_fused_mix_sgd.argtypes = [vp, i64, vp, i64, vp, c_int, i64,
+                                       c_int, c_float, vp]
+    lib.dopt_fused_mix_sgd.restype = c_int
+    lib.dopt_error_string.argtypes = [c_int]
+    lib.dopt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.dopt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

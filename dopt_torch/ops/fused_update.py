@@ -1,0 +1,152 @@
+"""The training round's two bandwidth-bound update ops, as CUDA kernels.
+
+``fused_sgd_momentum`` replaces dopt/ops/fused_update.py
+``fused_sgd_momentum`` (+ its tree wrapper ``fused_sgd_momentum_tree``):
+every SGD step's ``buf ← μ·buf + g;  p ← p − lr·buf`` over all of the
+step's tensors.  Bound on the H100: bytes — 20 an f32 element (read p,
+m, g; write p, m), ~60 µs a Model1 step of six workers at 3.35 TB/s.
+Design: one launch for all tensors of the step, 16-byte vector
+accesses, in place (``data_ptr`` never changes).
+
+``fused_mix_sgd`` replaces dopt/ops/fused_update.py ``fused_mix_sgd``
+(+ ``fused_mix_update``): the gossip epilogue ``p ← W@p − lr·buf`` on
+one ``[n, F]`` flat bucket, W ``[n, n]`` in f32.  Bound: bytes — 12 an
+f32 element (read p, buf; write p).  Design: each thread owns a few
+columns, keeps ``p[:, cols]`` in registers and W in shared memory, and
+writes the n outputs in place.
+
+The kernels live in ``dopt_torch/csrc/fused_update.cu`` (see its header
+for the design).  Beside each is its plain PyTorch version
+(``sgd_momentum_reference``, ``mix_sgd_reference``).  A wrapper takes
+the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises — there is no fallback.  Each wrapper
+counts its kernel launches in ``.launches``; empty work launches
+nothing and counts nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dopt_torch.ops._build import check, load_library
+from dopt_torch.optim import sgd_step
+from dopt_torch.parallel.collectives import flat_buckets
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TENSORS = 16   # tensors per kernel-1 launch (kMaxTensors in the source)
+MAX_MIX_N = 32     # workers per kernel-2 bucket (kMixMaxN in the source)
+
+
+# The plain version of kernel 1 is the port's unfused update itself:
+# torch momentum semantics, f32 math, cast back to the storage dtype.
+sgd_momentum_reference = sgd_step
+
+
+def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
+    """True for CUDA, False for CPU; raises for any other device."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: tensors on {t.device} are not supported")
+    return t.device.type == "cuda"
+
+
+def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float) -> None:
+    """In-place momentum SGD over lists of equally shaped tensors:
+    ``m ← μ·m + g;  p ← p − lr·m``, math in f32, storage f32 or bf16.
+    All tensors contiguous, of one dtype, on one device."""
+    params, moms, grads = list(params), list(moms), list(grads)
+    if not (len(params) == len(moms) == len(grads)) or not params:
+        raise ValueError("fused_sgd_momentum: params/moms/grads must be "
+                         "non-empty lists of equal length")
+    dtype, device = params[0].dtype, params[0].device
+    if dtype not in _DTYPES:
+        raise ValueError(f"fused_sgd_momentum: dtype {dtype} is not f32/bf16")
+    for p, m, g in zip(params, moms, grads):
+        for t in (p, m, g):
+            if t.dtype != dtype or t.device != device:
+                raise ValueError("fused_sgd_momentum: mixed dtypes/devices")
+            if not t.is_contiguous():
+                raise ValueError("fused_sgd_momentum: non-contiguous tensor")
+        if not (p.shape == m.shape == g.shape):
+            raise ValueError(f"fused_sgd_momentum: shapes {p.shape}, "
+                             f"{m.shape}, {g.shape} differ")
+    if not _cuda_or_cpu(params[0], "fused_sgd_momentum"):
+        sgd_momentum_reference(params, moms, grads, lr=lr, momentum=mu)
+        return
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    nonempty = [i for i, p in enumerate(params) if p.numel()]
+    for a in range(0, len(nonempty), MAX_TENSORS):
+        chunk = nonempty[a:a + MAX_TENSORS]
+        n = len(chunk)
+        ptrs = [(ctypes.c_void_p * n)(*[ts[i].data_ptr() for i in chunk])
+                for ts in (params, moms, grads)]
+        sizes = (ctypes.c_int64 * n)(*[params[i].numel() for i in chunk])
+        code = lib.dopt_fused_sgd_momentum(n, *ptrs, sizes, _DTYPES[dtype],
+                                           lr, mu, stream)
+        check(lib, code, "fused_sgd_momentum")
+        fused_sgd_momentum.launches += 1
+
+
+fused_sgd_momentum.launches = 0
+
+
+def mix_sgd_reference(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
+                      *, lr: float) -> None:
+    """Plain PyTorch version of kernel 2 (in place over ``p``): the f32
+    matrix product then the subtract, cast back to the storage dtype."""
+    mixed = w.to(p.device, torch.float32) @ p.float()
+    p.copy_((mixed - lr * buf.float()).to(p.dtype))
+
+
+def fused_mix_sgd(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor, *,
+                  lr: float) -> None:
+    """In place ``p ← W@p − lr·buf`` on one ``[n, F]`` bucket.  ``p`` and
+    ``buf`` may be row-strided views (unit column stride), f32 or bf16
+    storage of one dtype; ``w`` is ``[n, n]`` (used in f32), n <= 32."""
+    if p.dim() != 2 or buf.shape != p.shape:
+        raise ValueError(f"fused_mix_sgd: p {tuple(p.shape)} and buf "
+                         f"{tuple(buf.shape)} must be one [n, F] shape")
+    n, f = p.shape
+    if w.shape != (n, n):
+        raise ValueError(f"fused_mix_sgd: w {tuple(w.shape)} is not [{n}, {n}]")
+    if n > MAX_MIX_N:
+        raise ValueError(f"fused_mix_sgd: {n} workers in one bucket; the "
+                         f"kernel supports n <= {MAX_MIX_N}")
+    if p.dtype not in _DTYPES or buf.dtype != p.dtype:
+        raise ValueError(f"fused_mix_sgd: dtypes {p.dtype}/{buf.dtype} "
+                         "must be one of f32/bf16")
+    if p.device != buf.device or w.device != p.device:
+        raise ValueError("fused_mix_sgd: p, buf and w on different devices")
+    for name, t in (("p", p), ("buf", buf)):
+        if f > 1 and t.stride(1) != 1 or n > 1 and t.stride(0) < f:
+            raise ValueError(f"fused_mix_sgd: {name} strides {t.stride()} "
+                             "are not row-major with unit column stride")
+    if not _cuda_or_cpu(p, "fused_mix_sgd"):
+        mix_sgd_reference(p, buf, w, lr=lr)
+        return
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError("fused_mix_sgd: w must be contiguous float32")
+    if f == 0:
+        return
+    lib = load_library()
+    code = lib.dopt_fused_mix_sgd(
+        p.data_ptr(), max(p.stride(0), f), buf.data_ptr(),
+        max(buf.stride(0), f), w.data_ptr(), n, f, _DTYPES[p.dtype], lr,
+        torch.cuda.current_stream(p.device).cuda_stream)
+    check(lib, code, "fused_mix_sgd")
+    fused_mix_sgd.launches += 1
+
+
+fused_mix_sgd.launches = 0
+
+
+def fused_mix_update(flat_p: torch.Tensor, flat_buf: torch.Tensor,
+                     w: torch.Tensor, spec, *, lr: float) -> None:
+    """The fused epilogue over a whole flat store: ``fused_mix_sgd`` on
+    each of ``spec``'s buckets of the ``[W, padded]`` stores ``flat_p``
+    (updated in place) and ``flat_buf``.  Gossip calls it with
+    ``lr=1.0``: ``q_t = W·q_{t-1} − fbuf_{t-1}``."""
+    for p, b in zip(flat_buckets(flat_p, spec), flat_buckets(flat_buf, spec)):
+        fused_mix_sgd(p, b, w, lr=lr)

@@ -1,0 +1,98 @@
+"""CLI runner for the port: ``python -m dopt_torch.run --preset P``.
+
+Picks a preset, applies ``--set path.to.field=value`` overrides, trains
+on the GPU (or on the CPU with ``--device cpu``), prints one JSON
+history row per round and optionally writes the History CSV in the
+reference's results layout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import sys
+
+
+def apply_override(cfg, spec: str):
+    """``--set path.to.field=value``: frozen-dataclass field override by
+    dotted path, the value coerced from the field's annotation (bool,
+    int, float or str; 'none'/'null' for optional fields)."""
+    path, eq, raw = spec.partition("=")
+    if not eq:
+        raise SystemExit(f"--set expects PATH=VALUE, got {spec!r}")
+    parts = path.split(".")
+    objs = [cfg]
+    for p in parts[:-1]:
+        nxt = getattr(objs[-1], p, None)
+        if p not in {f.name for f in dataclasses.fields(objs[-1])} or \
+                not dataclasses.is_dataclass(nxt):
+            raise SystemExit(f"--set: {path!r} is not a field of this preset")
+        objs.append(nxt)
+    fields = {f.name: f for f in dataclasses.fields(objs[-1])}
+    leaf = parts[-1]
+    if leaf not in fields:
+        raise SystemExit(f"--set: {path!r} is not a field of this preset")
+    ann = str(fields[leaf].type)
+    m = re.match(r"[A-Za-z_]+", ann.strip())
+    primary = m.group(0) if m else ann
+    if primary not in ("bool", "int", "float", "str"):
+        raise SystemExit(f"--set: field {path!r} of type {ann!r} is not "
+                         "settable from the CLI")
+    try:
+        if raw.lower() in ("none", "null") and "None" in ann:
+            val = None
+        elif primary == "bool":
+            val = {"1": True, "true": True, "yes": True, "0": False,
+                   "false": False, "no": False}[raw.lower()]
+        else:
+            val = {"int": int, "float": float, "str": str}[primary](raw)
+    except (KeyError, ValueError):
+        raise SystemExit(f"--set: {path!r} expects a {primary}, got {raw!r}")
+    new = dataclasses.replace(objs[-1], **{leaf: val})
+    for obj, name in zip(reversed(objs[:-1]), reversed(parts[:-1])):
+        new = dataclasses.replace(obj, **{name: new})
+    return new
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--preset", required=True,
+                    help="preset name (see dopt_torch.presets) or 'list'")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="override the round count")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda (raises without one)")
+    ap.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
+                    dest="overrides",
+                    help="override a config field by dotted path, e.g. "
+                         "--set optim.lr=0.05")
+    ap.add_argument("--csv", default=None, help="write the history CSV here")
+    args = ap.parse_args(argv)
+
+    from dopt_torch.engine import GossipTrainer
+    from dopt_torch.presets import PRESETS, get_preset
+
+    if args.preset == "list":
+        for name in sorted(PRESETS):
+            print(name)
+        return 0
+    cfg = get_preset(args.preset)
+    for spec in args.overrides:
+        cfg = apply_override(cfg, spec)
+    trainer = GossipTrainer(cfg, device=args.device)
+    rounds = cfg.gossip.rounds if args.rounds is None else args.rounds
+    trainer.run(rounds=rounds)
+    for row in trainer.history.rows[-rounds:]:
+        print(json.dumps(row))
+    print(f"device={trainer.device} total_time_s={trainer.total_time:.2f}",
+          file=sys.stderr)
+    if args.csv:
+        trainer.history.to_csv(args.csv)
+        print(f"wrote {args.csv}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,285 @@
+"""Communication graphs and mixing matrices for gossip/consensus learning.
+
+The port's copy of ``dopt.topology``'s schedule constructors: the same
+topologies, the same weight modes and the same numpy draws, so every
+matrix is bit-identical to dopt's for the same arguments.  Matrices are
+plain numpy data; the trainer moves each round's matrix to the device.
+
+Faithful-mode invariants (as in dopt): zero diagonal unless
+``self_weight``; ``stochastic`` normalises columns then transposes;
+``double_stochastic`` is Sinkhorn with the reference's star special case
+and final transpose, and raises where no such matrix exists.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+# The reference spells it "compelete"; accept both.
+_TOPOLOGIES = ("circle", "ring", "star", "complete", "compelete", "dynamic",
+               "random", "torus", "hierarchical", "one_peer_exp")
+_MODES = ("stochastic", "double_stochastic", "ones", "metropolis", "uniform")
+
+
+class Topology:
+    """Namespace of adjacency constructors. Each returns a list of [n, n]
+    zero-diagonal 0/1 float64 matrices (len > 1 = time-varying schedule)."""
+
+    @staticmethod
+    def circle(n: int) -> list[np.ndarray]:
+        g = np.zeros((n, n))
+        for i in range(n):
+            g[i, (i + 1) % n] = 1.0
+            g[(i + 1) % n, i] = 1.0
+        return [g]
+
+    ring = circle
+
+    @staticmethod
+    def star(n: int) -> list[np.ndarray]:
+        g = np.zeros((n, n))
+        g[0, 1:] = 1.0
+        g[1:, 0] = 1.0
+        return [g]
+
+    @staticmethod
+    def complete(n: int) -> list[np.ndarray]:
+        return [np.ones((n, n)) - np.eye(n)]
+
+    @staticmethod
+    def dynamic(n: int) -> list[np.ndarray]:
+        """N single-edge graphs, edge (t, t+1 mod n) active in round t."""
+        graphs = []
+        for t in range(n):
+            g = np.zeros((n, n))
+            g[t, (t + 1) % n] = 1.0
+            g[(t + 1) % n, t] = 1.0
+            graphs.append(g)
+        return graphs
+
+    @staticmethod
+    def random(n: int, *, p: float = 0.5, schedule_len: int = 10,
+               rng: np.random.Generator | None = None) -> list[np.ndarray]:
+        """Time-varying Erdős–Rényi schedule with a random Hamiltonian
+        cycle in every round, so no worker is ever isolated."""
+        rng = rng or np.random.default_rng(0)
+        graphs = []
+        for _ in range(schedule_len):
+            g = (rng.random((n, n)) < p).astype(np.float64)
+            g = np.triu(g, 1)
+            g = g + g.T
+            perm = rng.permutation(n)
+            for i in range(n):
+                a, b = perm[i], perm[(i + 1) % n]
+                g[a, b] = g[b, a] = 1.0
+            np.fill_diagonal(g, 0.0)
+            graphs.append(g)
+        return graphs
+
+    @staticmethod
+    def hierarchical(n: int, *, groups: int = 2,
+                     period: int = 4) -> list[np.ndarray]:
+        """period−1 intra-group rounds (block-diagonal complete graphs)
+        then one global round, cycling; worker i is in group
+        i // (n // groups)."""
+        if n % groups:
+            raise ValueError(f"{n} workers do not split into {groups} groups")
+        if period < 2:
+            raise ValueError(f"period must be >= 2, got {period}")
+        size = n // groups
+        intra = np.zeros((n, n))
+        for g in range(groups):
+            s = g * size
+            intra[s:s + size, s:s + size] = np.ones((size, size)) - np.eye(size)
+        global_g = np.ones((n, n)) - np.eye(n)
+        return [intra] * (period - 1) + [global_g]
+
+    @staticmethod
+    def one_peer_exp(n: int) -> list[np.ndarray]:
+        """log2(n) directed single-peer graphs, graph k carrying the edge
+        i -> (i + 2^k) mod n, cycled per round (power-of-2 n only)."""
+        if n < 2 or n & (n - 1):
+            raise ValueError(
+                f"one_peer_exp needs a power-of-2 worker count >= 2, "
+                f"got {n}")
+        idx = np.arange(n)
+        graphs = []
+        for k in range(n.bit_length() - 1):
+            g = np.zeros((n, n))
+            g[idx, (idx + (1 << k)) % n] = 1.0
+            graphs.append(g)
+        return graphs
+
+    @staticmethod
+    def torus(n: int) -> list[np.ndarray]:
+        """2D torus on an r×c grid with r the largest divisor <= √n."""
+        r = int(np.sqrt(n))
+        while n % r:
+            r -= 1
+        c = n // r
+        g = np.zeros((n, n))
+        for i in range(n):
+            x, y = divmod(i, c)
+            for nx, ny in (((x + 1) % r, y), ((x - 1) % r, y),
+                           (x, (y + 1) % c), (x, (y - 1) % c)):
+                j = nx * c + ny
+                if j != i:
+                    g[i, j] = 1.0
+        return [g]
+
+
+def build_adjacency(topology: str, n: int, *, p: float = 0.5,
+                    schedule_len: int = 10, seed: int = 0, groups: int = 2,
+                    period: int = 4) -> list[np.ndarray]:
+    t = topology.lower()
+    if t not in _TOPOLOGIES:
+        raise ValueError(f"unknown topology {topology!r}; one of {_TOPOLOGIES}")
+    if t == "compelete":
+        t = "complete"
+    if t == "ring":
+        t = "circle"
+    if t == "random":
+        return Topology.random(n, p=p, schedule_len=schedule_len,
+                               rng=np.random.default_rng(seed))
+    if t == "hierarchical":
+        return Topology.hierarchical(n, groups=groups, period=period)
+    return getattr(Topology, t)(n)
+
+
+def _with_isolated_self_loops(w: np.ndarray) -> np.ndarray:
+    """Give zero-degree workers an identity row so they keep their own
+    weights (the reference divides by zero there)."""
+    w = w.copy()
+    isolated = w.sum(axis=1) == 0
+    w[isolated, isolated] = 1.0
+    return w
+
+
+def _stochastic_weights(graphs: Sequence[np.ndarray],
+                        rng: np.random.Generator) -> list[np.ndarray]:
+    """Random positive weights on edges; column-normalise then transpose
+    → row-stochastic (the reference's exact recipe)."""
+    n = graphs[0].shape[0]
+    rand = rng.random((n, n))
+    out = []
+    for g in graphs:
+        w = rand * g
+        colsum = w.sum(axis=0)
+        colsum = np.where(colsum == 0, 1.0, colsum)
+        out.append(_with_isolated_self_loops((w / colsum).T))
+    return out
+
+
+def _sinkhorn(w: np.ndarray, *, tol: float = 1e-12,
+              max_iter: int = 10_000) -> np.ndarray:
+    """Alternating row/column normalisation to a doubly-stochastic
+    matrix; raises where the support admits none (zero-diagonal star
+    for n > 2)."""
+    w = w.astype(np.float64).copy()
+    for _ in range(max_iter):
+        rsum = w.sum(axis=1)
+        csum = w.sum(axis=0)
+        if np.all(np.abs(rsum - 1) < tol) and np.all(np.abs(csum - 1) < tol):
+            return w
+        w = w / np.where(csum == 0, 1.0, csum)
+        rs = w.sum(axis=1, keepdims=True)
+        w = w / np.where(rs == 0, 1.0, rs)
+    raise ValueError(
+        "Sinkhorn failed to converge: the graph support admits no "
+        "doubly-stochastic matrix (zero-diagonal star graphs for n>2 are "
+        "infeasible; use mode='metropolis' or self_weight=True).")
+
+
+def _metropolis_weights(graphs: Sequence[np.ndarray]) -> list[np.ndarray]:
+    """Metropolis–Hastings: a_ij = 1/(1+max(d_i,d_j)) on edges, the
+    self-loop takes the remainder (symmetric doubly stochastic)."""
+    out = []
+    for g in graphs:
+        deg = g.sum(axis=1)
+        w = np.zeros_like(g)
+        for i, j in np.argwhere(g > 0):
+            w[i, j] = 1.0 / (1.0 + max(deg[i], deg[j]))
+        np.fill_diagonal(w, 1.0 - w.sum(axis=1))
+        out.append(w)
+    return out
+
+
+def _uniform_weights(graphs: Sequence[np.ndarray],
+                     self_weight: bool) -> list[np.ndarray]:
+    out = []
+    for g in graphs:
+        a = g + np.eye(g.shape[0]) if self_weight else g.copy()
+        rs = a.sum(axis=1, keepdims=True)
+        out.append(_with_isolated_self_loops(a / np.where(rs == 0, 1.0, rs)))
+    return out
+
+
+@dataclass(frozen=True)
+class MixingMatrices:
+    """A (possibly time-varying) schedule of n×n mixing matrices;
+    ``matrices[t % len(matrices)]`` is round t's matrix (the reference's
+    ``adjacent_matrix[round % len(...)]`` selector)."""
+
+    topology: str
+    mode: str
+    matrices: tuple[np.ndarray, ...]
+
+    def for_round(self, t: int) -> np.ndarray:
+        return self.matrices[t % len(self.matrices)]
+
+
+def build_mixing_matrices(
+    topology: str,
+    mode: str,
+    n: int,
+    *,
+    seed: int = 0,
+    self_weight: bool = False,
+    p: float = 0.5,
+    schedule_len: int = 10,
+    groups: int = 2,
+    period: int = 4,
+) -> MixingMatrices:
+    """Build the mixing-matrix schedule for a topology/mode pair."""
+    mode_l = mode.lower()
+    if mode_l not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {_MODES}")
+    if topology.lower() == "one_peer_exp":
+        # W_t = (I + P_{2^t mod log2 n})/2 defines its own weights.
+        if self_weight:
+            raise ValueError(
+                "topology='one_peer_exp' bakes its own exact dyadic "
+                "self-weights (W_t = (I + P)/2); self_weight=True only "
+                "applies to the reference weight modes — drop one of "
+                "the two")
+        mats = [(np.eye(n) + g) / 2.0 for g in build_adjacency(topology, n)]
+        return MixingMatrices(topology="one_peer_exp", mode=mode_l,
+                              matrices=tuple(mats))
+    graphs = build_adjacency(topology, n, p=p, schedule_len=schedule_len,
+                             seed=seed, groups=groups, period=period)
+    rng = np.random.default_rng(seed)
+
+    if mode_l == "stochastic":
+        mats = _stochastic_weights(graphs, rng)
+    elif mode_l == "double_stochastic":
+        # Star special case: uniform 1/n base weights; the reference
+        # transposes the converged matrix on assignment.
+        base = (np.ones((n, n)) / n if topology.lower() == "star"
+                else rng.random((n, n)))
+        mats = [_sinkhorn(_with_isolated_self_loops(base * g)).T.copy()
+                for g in graphs]
+    elif mode_l == "ones":
+        mats = [g.copy() for g in graphs]
+    elif mode_l == "metropolis":
+        mats = _metropolis_weights(graphs)
+    else:  # uniform
+        mats = _uniform_weights(graphs, self_weight)
+
+    if self_weight and mode_l in ("stochastic", "double_stochastic", "ones"):
+        # Lazy gossip, W' = (W + I)/2.
+        mats = [(m + np.eye(n)) / 2.0 for m in mats]
+
+    return MixingMatrices(topology=topology, mode=mode_l, matrices=tuple(mats))

@@ -1,0 +1,83 @@
+"""Structured metrics sink (the reference's ``history`` pattern, typed).
+
+The port's copy of ``dopt.utils.metrics``: the same row schema and the
+same CSV layout (the reference's results/*.csv columns), so a History
+from either package diffs cleanly against the other.
+"""
+
+from __future__ import annotations
+
+import csv
+import io
+import os
+import statistics
+from pathlib import Path
+from typing import Any
+
+
+def atomic_write_text(path: str | Path, text: str,
+                      newline: str | None = None) -> Path:
+    """Crash-safe file write: materialise into a same-directory temp
+    file, then ``os.replace`` into place (atomic on POSIX).  ``newline``
+    passes through to the write (pass ``""`` to keep the csv module's
+    ``\\r\\n`` terminators byte-exact)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.tmp{os.getpid()}")
+    try:
+        tmp.write_text(text, newline=newline)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return path
+
+
+class History:
+    """Append-only per-round record store with CSV/JSON export."""
+
+    # Reference results/*.csv column order; extra columns follow in
+    # first-seen order.
+    _CSV_ORDER = ("round", "avg_test_acc", "avg_test_loss",
+                  "avg_train_loss", "test_acc", "test_loss", "train_loss",
+                  "train_acc")
+
+    def __init__(self, name: str = "history"):
+        self.name = name
+        self.rows: list[dict[str, Any]] = []
+
+    def append(self, **row: Any) -> None:
+        self.rows.append({k: _scalar(v) for k, v in row.items()})
+
+    def to_csv(self, path: str | Path) -> Path:
+        """Write rows in the reference results/*.csv layout (leading
+        unnamed index column, then the union of the rows' columns)."""
+        seen: dict[str, None] = {}
+        for r in self.rows:
+            for k in r:
+                seen.setdefault(k)
+        cols = [c for c in self._CSV_ORDER if c in seen]
+        cols += [c for c in seen if c not in cols]
+        buf = io.StringIO()
+        w = csv.writer(buf)
+        w.writerow([""] + cols)
+        for i, r in enumerate(self.rows):
+            w.writerow([i] + [r.get(c, "") for c in cols])
+        return atomic_write_text(path, buf.getvalue(), newline="")
+
+
+def _scalar(v: Any) -> Any:
+    """Unwrap 0-d arrays / tensors so rows are plain JSON-able."""
+    if hasattr(v, "item") and getattr(v, "ndim", 0) == 0:
+        return v.item()
+    return v
+
+
+def trimmed_stats(values) -> tuple[float, float, list[float]]:
+    """Outlier-hardened reduction of timing samples: with >= 4 samples
+    the min and max are discarded, then (median, spread_pct, kept) over
+    the survivors; spread_pct = (max−min)/median·100 of the kept set."""
+    vals = sorted(float(v) for v in values)
+    kept = vals[1:-1] if len(vals) >= 4 else vals
+    med = statistics.median(kept)
+    spread = 100.0 * (kept[-1] - kept[0]) / med if med > 0 else 0.0
+    return med, spread, kept

@@ -1,0 +1,179 @@
+"""The port's GossipTrainer against dopt's, and the port's boundaries.
+
+Both trainers run the same config from the same init (dopt's, carried
+over with ``params_from_jax``): Model1 on the synthetic set, 4 workers,
+128 train / 32 test, batch 16, one local epoch, 2 rounds, with both
+fused switches off and with both on (dopt runs its Pallas kernels in
+interpret mode; the port takes their plain versions on the CPU).
+Tolerances, as tests/test_torch_backend.py and test_oracle_parity.py
+set them for the oracle: train loss 1e-3 absolute, test accuracy 1e-4
+absolute, final worker params 1e-4 max-relative — reordered float sums
+drift over dependent SGD steps even inside dopt (PARITY.md).
+"""
+
+import dataclasses
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import dopt.config as J
+import dopt_torch.config as T
+from dopt.engine import GossipTrainer as JaxGossipTrainer
+from dopt_torch.convert import params_to_jax
+from dopt_torch.engine import GossipTrainer
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: the suite runs in several worker
+    processes at once, and torch's default (all cores each) oversubscribes
+    the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(mod, shape, fused, **kw):
+    return mod.ExperimentConfig(
+        name="parity", seed=11,
+        data=mod.DataConfig(dataset="synthetic", num_users=4, iid=False,
+                            shards=2, synthetic_train_size=128,
+                            synthetic_test_size=32),
+        model=mod.ModelConfig(model="model1", input_shape=shape,
+                              faithful=True),
+        optim=mod.OptimizerConfig(lr=0.05, momentum=0.5, fused_update=fused),
+        gossip=mod.GossipConfig(algorithm="dsgd", topology="circle",
+                                mode="stochastic", rounds=2, local_ep=1,
+                                local_bs=16,
+                                fused_update="on" if fused else "off"),
+        **kw)
+
+
+@pytest.mark.parametrize("shape,fused", [((8, 8, 1), False),
+                                         ((8, 8, 1), True),
+                                         ((28, 28, 1), False)])
+def test_slice_matches_dopt(shape, fused, devices):
+    jt = JaxGossipTrainer(_cfg(J, shape, fused, mesh_devices=1))
+    init = jax.device_get(jax.tree.map(lambda x: x[0], jt.params))
+    tt = GossipTrainer(_cfg(T, shape, fused), device="cpu", init_params=init)
+    jh, th = jt.run(rounds=2), tt.run(rounds=2)
+    assert len(jh.rows) == len(th.rows) == 2
+    for a, b in zip(jh.rows, th.rows):
+        assert a.keys() == b.keys()
+        assert a["round"] == b["round"]
+        assert abs(a["avg_train_loss"] - b["avg_train_loss"]) <= 1e-3
+        assert abs(a["avg_test_acc"] - b["avg_test_acc"]) <= 1e-4
+    want = jax.device_get(jt.worker_params())
+    got = params_to_jax(tt.worker_params(), input_shape=shape)
+    for layer in want:
+        for k in want[layer]:
+            a, b = np.asarray(want[layer][k]), got[layer][k]
+            assert a.shape == b.shape
+            rel = np.abs(a - b).max() / np.abs(a).max()
+            assert rel <= 1e-4, f"{layer}.{k}: {rel:.3e}"
+    ev = tt.evaluate()
+    assert ev["acc"].shape == (4,) and np.isfinite(ev["loss_mean"]).all()
+
+
+def test_fused_round_zero_equals_default_round_zero():
+    """Round 0 of the fused ordering contracts a zero displacement, so
+    it trains from exactly the default ordering's mixed state."""
+    a = GossipTrainer(_cfg(T, (8, 8, 1), False), device="cpu")
+    b = GossipTrainer(_cfg(T, (8, 8, 1), True), device="cpu")
+    ra, rb = a.run(rounds=1).rows[0], b.run(rounds=1).rows[0]
+    assert ra == rb
+    for k, v in a.worker_params().items():
+        np.testing.assert_allclose(b.worker_params()[k], v, rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_no_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GossipTrainer(_cfg(T, (8, 8, 1), False))
+
+
+def _replace(cfg, section, **kw):
+    return cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
+                                                       **kw)})
+
+
+@pytest.mark.parametrize("edit,match", [
+    (lambda c: _replace(c, "gossip", algorithm="fedlcon"), "gossip algorithm"),
+    (lambda c: _replace(c, "gossip", block_rounds=4), "multi-round blocks"),
+    (lambda c: _replace(c, "gossip", update_sharding="scatter"),
+     "scatter and multi-GPU"),
+    (lambda c: _replace(c, "gossip", comm_dtype="bfloat16"), "codecs"),
+    (lambda c: _replace(c, "gossip", comm_impl="shift"), "scatter"),
+    (lambda c: _replace(c, "gossip", mixing="async"), "async"),
+    (lambda c: _replace(c, "gossip", eval_mode="sharded"), "eval_mode"),
+    (lambda c: _replace(c, "data", local_holdout=0.1), "holdout"),
+    (lambda c: _replace(c, "data", plan_impl="native"), "native planner"),
+    (lambda c: _replace(c, "model", compute_dtype="bfloat16"), "bf16"),
+    (lambda c: _replace(c, "model", model="resnet18"), "model zoo"),
+    (lambda c: _replace(c, "model", model="transformer"), "seqlm"),
+    (lambda c: c.replace(faults=object()), "faults"),
+    (lambda c: c.replace(robust=object()), "robust"),
+    (lambda c: c.replace(population=object()), "population"),
+    (lambda c: c.replace(comm=object()), "codecs"),
+    (lambda c: c.replace(federated=object()), "federated engine"),
+])
+def test_unsupported_configs_raise(edit, match):
+    with pytest.raises(ValueError, match=match):
+        GossipTrainer(edit(_cfg(T, (8, 8, 1), False)), device="cpu")
+
+
+def test_run_cli_on_cpu(tmp_path, capsys):
+    from dopt_torch.run import main
+
+    out = tmp_path / "h.csv"
+    assert main(["--preset", "headline-dsgd-model1", "--device", "cpu",
+                 "--rounds", "1", "--set", "data.synthetic_train_size=240",
+                 "--set", "data.synthetic_test_size=32", "--set",
+                 "gossip.local_ep=1", "--set", "gossip.local_bs=20",
+                 "--csv", str(out)]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["round"] == 0 and np.isfinite(row["avg_train_loss"])
+    assert out.read_text().splitlines()[0] == (
+        ",round,avg_test_acc,avg_test_loss,avg_train_loss,avg_train_acc")
+
+
+def test_port_imports_nothing_of_jax_or_dopt():
+    """A fresh interpreter imports dopt_torch and runs one CPU round;
+    neither jax, flax nor dopt may be loaded.  The sources must not
+    import them either."""
+    code = (
+        "import sys\n"
+        "import dopt_torch\n"
+        "from dopt_torch import config as C\n"
+        "cfg = C.ExperimentConfig(seed=3, data=C.DataConfig("
+        "dataset='synthetic', num_users=2, synthetic_train_size=64, "
+        "synthetic_test_size=16), model=C.ModelConfig(input_shape=(8, 8, 1)),"
+        " optim=C.OptimizerConfig(fused_update=True), gossip=C.GossipConfig("
+        "local_ep=1, local_bs=16, fused_update='on'))\n"
+        "dopt_torch.GossipTrainer(cfg, device='cpu').run(rounds=1)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'dopt'))\n"
+        "print('LOADED', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|dopt)\b", re.M)
+    for path in [*sorted((REPO / "dopt_torch").rglob("*.py")),
+                 REPO / "chip_smoke.py"]:
+        assert not pat.search(path.read_text()), path
