@@ -7,27 +7,41 @@ Phases, each printing its own lines; any failure exits non-zero before
 the final line:
 
 1. environment — nvidia-smi name and power limit, torch/CUDA versions;
-2. build — nvcc builds dopt_torch/csrc into build/ (timed);
+2. build — nvcc builds dopt_torch/csrc into build/ (timed) and ptxas
+   reports each kernel's registers, stack frame and spills;
 3. kernels — each CUDA kernel against its plain PyTorch version on the
-   card at the main path's shapes (plus odd, strided and bf16 cases),
+   card at both main paths' shapes (plus odd, strided and bf16 cases),
    with the tolerance stated, and CUDA-event median times (cold L2) of
    the kernel, the plain version and one library call computing the
    same function, beside the bound (bytes over 3.35 TB/s, operations
-   over the f32 peak);
-4. small-input agreement — a tiny run on the GPU against the same run
-   on the CPU (the kernels' plain versions), same init;
-5. main path — the headline-dsgd-model1 preset (6 workers, Model1 at
-   full width, 60,000/10,000 samples, both fused switches on) for two
-   rounds through GossipTrainer; checks finite metrics and that every
-   kernel launched exactly as often as the round structure implies;
-6. profile — one more round under torch.profiler: device time by kernel.
+   over the f32 peak): gossip (6 workers, kernel 2 at lr = 1) and
+   federated (16 lanes, kernel 2 at lr = −1 with M = mask/Σmask);
+4. small-input agreement — tiny runs on the GPU against the same runs
+   on the CPU (the kernels' plain versions), same init: gossip with both
+   fused switches, federated fedavg with both fused switches, and
+   federated fedadmm on the compact path with the 10% holdout;
+5. gossip main path — the headline-dsgd-model1 preset (6 workers,
+   Model1 at full width, 60,000/10,000 samples, both fused switches on)
+   for two rounds through GossipTrainer; checks finite metrics and that
+   every kernel launched exactly as often as the round structure
+   implies;
+5b. federated main path — the headline-fedavg-model1 preset (16
+   clients, 8 sampled a round, full width, Model1, 60,000/10,000, both
+   fused switches on) for two rounds through FederatedTrainer, with the
+   same checks;
+5c. the federated path users run — baseline3 as typed (compact: only
+   the 8 sampled lanes train; plain SGD update, so no kernel of the
+   port runs) for two rounds, timed beside 5b;
+6. profile — one more round of each path under torch.profiler: device
+   time by kernel.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.
+The line before the last is a JSON object {"kernels": [...]} with one
+entry per kernel and path; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -43,6 +57,8 @@ sys.path.insert(0, str(ROOT))
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 REPS = 25
+# The port's own agreement limits (tests/test_torch_*.py, PARITY.md:90).
+LOSS_TOL, ACC_TOL, PARAM_REL_TOL = 1e-3, 1e-4, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -55,13 +71,21 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def max_rel(want: dict, got: dict) -> float:
+    import numpy as np
+
+    return max(float(np.abs(got[k] - v).max() / max(np.abs(v).max(), 1e-12))
+               for k, v in want.items())
+
+
 def main() -> None:
     try:
         import numpy as np
         import torch
 
-        from dopt_torch.config import DataConfig, GossipConfig, ModelConfig
-        from dopt_torch.engine import GossipTrainer
+        from dopt_torch.config import (DataConfig, FederatedConfig,
+                                       GossipConfig, ModelConfig)
+        from dopt_torch.engine import FederatedTrainer, GossipTrainer
         from dopt_torch.models.zoo import param_shapes
         from dopt_torch.ops import _build
         from dopt_torch.ops.fused_update import (fused_mix_sgd,
@@ -70,7 +94,8 @@ def main() -> None:
                                                  sgd_momentum_reference)
         from dopt_torch.parallel.collectives import (alloc_flat,
                                                      flat_buckets,
-                                                     make_update_shard_spec)
+                                                     make_update_shard_spec,
+                                                     mean_weight_matrix)
         from dopt_torch.presets import get_preset
         from dopt_torch.utils.metrics import trimmed_stats
     except ImportError as e:
@@ -97,6 +122,9 @@ def main() -> None:
     _build.load_library()
     print(f"build: {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t:.2f} s")
+    for line in _build.resource_report().splitlines():
+        if line.strip():
+            print(f"ptxas: {line.strip()}")
 
     # -- 3. kernels against their plain versions --------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -130,7 +158,6 @@ def main() -> None:
                  f"{err.max().item():.3e} (rtol {rtol}, atol {atol})")
         return float(err.max().item())
 
-    workers = 6
     shapes = param_shapes("model1")
     lr1, mu1 = 0.01, 0.5
 
@@ -157,36 +184,38 @@ def main() -> None:
               f"(tolerance rtol {rtol} atol {atol})")
         return p, m, g, err
 
-    leaf_sizes = [workers * math.prod(s) for s in shapes.values()]
-    p, m, g, err1 = sgd_case("model1 W=6 leaves", leaf_sizes, torch.float32)
-    sgd_case("odd length, unaligned", [1_000_003], torch.float32, offset=1)
-    sgd_case("model1 W=6 leaves", leaf_sizes, torch.bfloat16)
+    def time_sgd(label, p, m, g) -> dict:
+        """Kernel 1, its plain version and torch's fused SGD on one
+        step's tensors."""
+        out = {"ms": time_ms(lambda: fused_sgd_momentum(p, m, g, lr=lr1,
+                                                        mu=mu1)),
+               "plain_ms": time_ms(lambda: sgd_momentum_reference(
+                   p, m, g, lr=lr1, momentum=mu1)),
+               "library_ms": None}
+        try:
+            lp = [t.clone().requires_grad_() for t in p]
+            for t, gr in zip(lp, g):
+                t.grad = gr.clone()
+            opt = torch.optim.SGD(lp, lr=lr1, momentum=mu1, fused=True)
+        except (TypeError, ValueError, RuntimeError) as e:
+            print(f"library: torch.optim.SGD(fused=True) unavailable here "
+                  f"({e})")
+        else:
+            out["library_ms"] = time_ms(opt.step)
+        elems = sum(t.numel() for t in p)
+        out["bound_ms"], out["bound_by"] = bound_ms(20 * elems, 4 * elems)
+        lib = out["library_ms"]
+        print(f"time fused_sgd_momentum {label} (one step, {elems} f32 "
+              f"elements): kernel {out['ms']:.4f} ms, plain "
+              f"{out['plain_ms']:.4f} ms, library "
+              f"{lib if lib is None else round(lib, 4)} ms, bound "
+              f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+        return out
 
-    k1_ms = time_ms(lambda: fused_sgd_momentum(p, m, g, lr=lr1, mu=mu1))
-    k1_plain = time_ms(
-        lambda: sgd_momentum_reference(p, m, g, lr=lr1, momentum=mu1))
-    k1_lib = None
-    try:
-        lp = [t.clone().requires_grad_() for t in p]
-        for t, gr in zip(lp, g):
-            t.grad = gr.clone()
-        opt = torch.optim.SGD(lp, lr=lr1, momentum=mu1, fused=True)
-    except (TypeError, ValueError, RuntimeError) as e:
-        print(f"library: torch.optim.SGD(fused=True) unavailable here ({e})")
-    else:
-        k1_lib = time_ms(opt.step)
-    elems = sum(leaf_sizes)
-    k1_bound, k1_by = bound_ms(20 * elems, 4 * elems)
-    print(f"time fused_sgd_momentum (one step, {elems} f32 elements): kernel "
-          f"{k1_ms:.4f} ms, plain {k1_plain:.4f} ms, library "
-          f"{k1_lib if k1_lib is None else round(k1_lib, 4)} ms, bound "
-          f"{k1_bound:.4f} ms ({k1_by})")
-
-    mix_err = 0.0
-    mix_times = []   # main-path buckets: (kernel, plain, library, bytes, ops)
-
-    def mix_case(label, p_, b_, w, lr, main_path):
-        """Kernel 2 on a copy of ``p_`` with the same strides."""
+    def mix_case(label, p_, b_, w, lr, times=None):
+        """Kernel 2 on a copy of ``p_`` with the same strides; with
+        ``times`` (a list) also time kernel, plain version and
+        ``torch.addmm`` on this bucket and append them."""
         out = torch.empty_strided(p_.shape, p_.stride(), dtype=p_.dtype,
                                   device=dev).copy_(p_)
         ref = p_.clone()
@@ -196,155 +225,272 @@ def main() -> None:
         rtol = 0.0 if p_.dtype == torch.float32 else 2 ** -7
         err = within(out, ref, rtol, 1e-5)
         n, f = p_.shape
-        print(f"kernel fused_mix_sgd {label} [{n}, {f}] {p_.dtype} row stride "
-              f"{p_.stride(0)}: max abs err {err:.3e} (tolerance rtol {rtol} "
-              f"atol 1e-5)")
-        if main_path:
-            nonlocal mix_err
-            mix_err = max(mix_err, err)
+        print(f"kernel fused_mix_sgd {label} [{n}, {f}] {p_.dtype} lr {lr} "
+              f"row stride {p_.stride(0)}: max abs err {err:.3e} (tolerance "
+              f"rtol {rtol} atol 1e-5)")
+        if times is not None:
             km = time_ms(lambda: fused_mix_sgd(p_, b_, w, lr=lr))
             pm = time_ms(lambda: mix_sgd_reference(p_, b_, w, lr=lr))
             lm = time_ms(lambda: torch.addmm(b_, w, p_, beta=-lr))
             nbytes, flops = 12 * n * f + 4 * n * n, (2 * n + 2) * n * f
             bd, _ = bound_ms(nbytes, flops)
-            mix_times.append((km, pm, lm, nbytes, flops))
-            print(f"time fused_mix_sgd [{n}, {f}]: kernel {km:.4f} ms, plain "
-                  f"{pm:.4f} ms, library (addmm) {lm:.4f} ms, bound "
-                  f"{bd:.4f} ms")
+            times.append((km, pm, lm, nbytes, flops, err))
+            print(f"time fused_mix_sgd [{n}, {f}] lr {lr}: kernel {km:.4f} "
+                  f"ms, plain {pm:.4f} ms, library (addmm) {lm:.4f} ms, "
+                  f"bound {bd:.4f} ms")
+
+    def epilogue(times) -> dict:
+        """One round's epilogue: its buckets' times summed."""
+        km, pm, lm, nbytes, flops = (sum(t[i] for t in times)
+                                     for i in range(5))
+        bd, by = bound_ms(nbytes, flops)
+        return {"ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bd,
+                "bound_by": by, "max_abs_err": max(t[5] for t in times)}
 
     def stochastic(n):
         w = torch.rand(n, n, device=dev, generator=gen)
         return (w / w.sum(1, keepdim=True)).contiguous()
 
-    w6 = stochastic(workers)
-    for dtype in (torch.float32, torch.bfloat16):
-        # The trainer's flat [W, padded] bucket stores, as it builds them.
+    def stores(workers, dtype):
+        """The trainers' flat [W, padded] stores, as they build them."""
         spec = make_update_shard_spec(
             {k: torch.empty(workers, *s, dtype=dtype)
              for k, s in shapes.items()}, bucket_bytes=4 << 20)
-        fp, fb = alloc_flat(workers, spec, dev), alloc_flat(workers, spec, dev)
+        return spec, alloc_flat(workers, spec, dev), alloc_flat(workers,
+                                                                spec, dev)
+
+    # Gossip: 6 workers, kernel 2 at lr = 1 with a stochastic matrix.
+    gw = 6
+    leaf6 = [gw * math.prod(s) for s in shapes.values()]
+    p, m, g, err1 = sgd_case("model1 W=6 leaves", leaf6, torch.float32)
+    sgd_case("odd length, unaligned", [1_000_003], torch.float32, offset=1)
+    sgd_case("model1 W=6 leaves", leaf6, torch.bfloat16)
+    k1 = {**time_sgd("gossip W=6", p, m, g), "max_abs_err": err1}
+    w6 = stochastic(gw)
+    gossip_times = []
+    for dtype in (torch.float32, torch.bfloat16):
+        spec, fp, fb = stores(gw, dtype)
         fp.copy_(randn(*fp.shape))
         fb.copy_(randn(*fb.shape))
         for pb, bb in zip(flat_buckets(fp, spec), flat_buckets(fb, spec)):
-            mix_case("main-path bucket", pb, bb, w6, 1.0,
-                     dtype == torch.float32)
+            mix_case("gossip bucket", pb, bb, w6, 1.0,
+                     gossip_times if dtype == torch.float32 else None)
         for n in (12, 32):
             mix_case(f"{n} workers", randn(n, 65_537, dtype=dtype),
-                     randn(n, 65_537, dtype=dtype), stochastic(n), 0.5, False)
+                     randn(n, 65_537, dtype=dtype), stochastic(n), 0.5)
+    k2 = epilogue(gossip_times)
+
+    # Federated: 16 lanes; kernel 2 at lr = −1 runs θ'_b = M·disp + θ_b
+    # with M = mask/Σmask for an 8-of-16 sample, the displacement store
+    # as p (masked rows zero) and the θ slab as buf.
+    fw = 16
+    leaf16 = [fw * math.prod(s) for s in shapes.values()]
+    p, m, g, err1f = sgd_case("model1 W=16 leaves", leaf16, torch.float32)
+    k1f = {**time_sgd("federated W=16", p, m, g), "max_abs_err": err1f}
+    mask = torch.zeros(fw, device=dev)
+    mask[torch.randperm(fw, device=dev, generator=gen)[:fw // 2]] = 1.0
+    mean_w = mean_weight_matrix(mask)
+    fed_times = []
+    for dtype in (torch.float32, torch.bfloat16):
+        spec, disp, slab = stores(fw, dtype)
+        disp.copy_(randn(*disp.shape) * mask[:, None])
+        slab.copy_(randn(1, slab.shape[1]).expand_as(slab))
+        for db, sb in zip(flat_buckets(disp, spec), flat_buckets(slab, spec)):
+            mix_case("federated bucket", db, sb, mean_w, -1.0,
+                     fed_times if dtype == torch.float32 else None)
+    k2f = epilogue(fed_times)
     # Empty work launches nothing, so the counters count real launches.
     before = (fused_sgd_momentum.launches, fused_mix_sgd.launches)
     empty = torch.empty(0, device=dev)
     fused_sgd_momentum([empty], [empty.clone()], [empty.clone()],
                        lr=lr1, mu=mu1)
-    e2 = torch.empty(workers, 0, device=dev)
+    e2 = torch.empty(gw, 0, device=dev)
     fused_mix_sgd(e2, e2.clone(), w6, lr=1.0)
     if (fused_sgd_momentum.launches, fused_mix_sgd.launches) != before:
         fail("an empty call counted a kernel launch")
     print("empty work: no launch counted")
-    # One round's epilogue: the two main-path buckets together.
-    k2_ms, k2_plain, k2_lib, k2_bytes, k2_ops = (sum(t[i] for t in mix_times)
-                                                 for i in range(5))
-    k2_bound, k2_by = bound_ms(k2_bytes, k2_ops)
+    del flush, p, m, g
 
-    # -- 4. small-input agreement: GPU run vs CPU run ----------------------
-    tiny = get_preset("headline-dsgd-model1").replace(
-        data=DataConfig(dataset="synthetic", num_users=4, iid=False, shards=2,
-                        synthetic_train_size=128, synthetic_test_size=32),
-        model=ModelConfig(model="model1", input_shape=(8, 8, 1)),
-        gossip=GossipConfig(local_ep=1, local_bs=16, fused_update="on"))
-    runs = {}
-    for d in ("cuda", "cpu"):
-        tr = GossipTrainer(tiny, device=d)
-        tr.run(rounds=2)
-        runs[d] = (tr.history.rows, tr.worker_params())
-    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
-        if (abs(a["avg_train_loss"] - b["avg_train_loss"]) > 1e-3
-                or abs(a["avg_test_acc"] - b["avg_test_acc"]) > 1e-4):
-            fail(f"small-input run disagrees: cuda {a} vs cpu {b}")
-    rel = max(float(np.abs(runs["cuda"][1][k] - v).max() / np.abs(v).max())
-              for k, v in runs["cpu"][1].items())
-    if not rel <= 1e-4:
-        fail(f"small-input final params differ by {rel:.3e} (max-relative)")
-    print(f"small-input check (8x8 Model1, 4 workers, 2 rounds, both fused "
-          f"switches): cuda vs cpu train-loss within 1e-3, params max-rel "
-          f"{rel:.3e} (limit 1e-4)")
+    # -- 4. small-input agreement: GPU runs vs CPU runs --------------------
+    tiny_data = DataConfig(dataset="synthetic", num_users=4, iid=False,
+                           shards=2, synthetic_train_size=128,
+                           synthetic_test_size=32)
+    tiny_model = ModelConfig(model="model1", input_shape=(8, 8, 1))
 
-    # -- 5. main path -----------------------------------------------------
-    cfg = get_preset("headline-dsgd-model1")
-    t = time.perf_counter()
-    trainer = GossipTrainer(cfg, device="cuda")
-    print(f"main path: {cfg.name}, {trainer.num_workers} workers, "
-          f"{trainer.param_count} params a worker, "
-          f"{len(trainer.dataset.train_y)}/{len(trainer.dataset.test_y)} "
-          f"samples, built in {time.perf_counter() - t:.2f} s")
+    def agree(label, cls, cfg, loss_keys, acc_key, states):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            tr = cls(cfg, device=d)
+            tr.run(rounds=2)
+            runs[d] = (tr, tr.history.rows)
+        for a, b in zip(runs["cuda"][1], runs["cpu"][1], strict=True):
+            if (any(abs(a[k] - b[k]) > LOSS_TOL for k in loss_keys)
+                    or abs(a[acc_key] - b[acc_key]) > ACC_TOL):
+                fail(f"small-input {label} disagrees: cuda {a} vs cpu {b}")
+        rel = max(max_rel(getattr(runs["cpu"][0], s)(),
+                          getattr(runs["cuda"][0], s)()) for s in states)
+        if not rel <= PARAM_REL_TOL:
+            fail(f"small-input {label}: final params differ by {rel:.3e} "
+                 "(max-relative)")
+        print(f"small-input check {label} (8x8 Model1, 4 workers, 2 rounds): "
+              f"cuda vs cpu {'/'.join(loss_keys)} within {LOSS_TOL}, "
+              f"{acc_key} within {ACC_TOL}, params max-rel {rel:.3e} "
+              f"(limit {PARAM_REL_TOL})")
+        return runs["cuda"][0]
+
+    agree("gossip, both fused switches", GossipTrainer,
+          get_preset("headline-dsgd-model1").replace(
+              data=tiny_data, model=tiny_model,
+              gossip=GossipConfig(local_ep=1, local_bs=16,
+                                  fused_update="on")),
+          ("avg_train_loss",), "avg_test_acc", ("worker_params",))
+    fed_tiny = get_preset("headline-fedavg-model1").replace(
+        data=tiny_data, model=tiny_model,
+        federated=FederatedConfig(frac=0.5, local_ep=1, local_bs=16,
+                                  fused_update="on"))
+    agree("federated fedavg, both fused switches", FederatedTrainer,
+          fed_tiny, ("train_loss", "local_loss"), "test_acc",
+          ("worker_params", "global_params"))
+    admm = agree(
+        "federated fedadmm, compact, 10% holdout", FederatedTrainer,
+        fed_tiny.replace(
+            data=dataclasses.replace(tiny_data, local_holdout=0.1),
+            federated=FederatedConfig(algorithm="fedadmm", frac=0.5,
+                                      local_ep=2, local_bs=16)),
+        ("train_loss", "local_loss"), "test_acc",
+        ("worker_params", "global_params"))
+    if not admm._use_compact() or len(admm.client_history.rows) != 8:
+        fail("the fedadmm small-input run did not take the compact path "
+             "with per-epoch client rows")
+
+    # -- 5. main paths ----------------------------------------------------
+    def main_path(name, cls, rounds, loss_keys, acc_keys, workers):
+        cfg = get_preset(name)
+        t = time.perf_counter()
+        trainer = cls(cfg, device="cuda")
+        print(f"main path: {cfg.name}, {trainer.num_workers} workers, "
+              f"{trainer.param_count} params a worker, "
+              f"{len(trainer.dataset.train_y)}/{len(trainer.dataset.test_y)} "
+              f"samples, built in {time.perf_counter() - t:.2f} s")
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run(rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"fused_sgd_momentum": fused_sgd_momentum.launches,
+                    "fused_mix_sgd": fused_mix_sgd.launches}
+        for row in trainer.history.rows:
+            print(f"history {json.dumps(row)}")
+        print(f"main path {name}: {rounds} rounds in {wall:.3f} s = "
+              f"{rounds / wall:.4f} rounds/s; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} B")
+        spec = trainer.fused_spec
+        want = {"fused_sgd_momentum": (rounds * trainer.steps_per_round
+                                       if cfg.optim.fused_update else 0),
+                "fused_mix_sgd": rounds * spec.num_buckets if spec else 0}
+        print(f"kernel launches on {name}: {launches} (expected {want})")
+        if launches != want:
+            fail(f"kernel launch counts {launches} != expected {want}")
+        for row in trainer.history.rows:
+            for k in loss_keys:
+                if not math.isfinite(row[k]):
+                    fail(f"non-finite {k} in {row}")
+            for k in acc_keys:
+                if not 0.0 <= row[k] <= 1.0:
+                    fail(f"{k} out of range in {row}")
+        final = trainer.worker_params()
+        for k, s in shapes.items():
+            if final[k].shape != (workers, *s) or not np.isfinite(
+                    final[k]).all():
+                fail(f"final params {k}: shape {final[k].shape} or "
+                     "non-finite")
+        return trainer, launches, wall
+
     rounds = 2
-    fused_sgd_momentum.launches = 0
-    fused_mix_sgd.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    trainer.run(rounds=rounds)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = {"fused_sgd_momentum": fused_sgd_momentum.launches,
-                "fused_mix_sgd": fused_mix_sgd.launches}
-    for row in trainer.history.rows:
-        print(f"history {json.dumps(row)}")
-    print(f"main path: {rounds} rounds in {wall:.3f} s = "
-          f"{rounds / wall:.4f} rounds/s; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B")
-    want = {"fused_sgd_momentum": rounds * trainer.steps_per_round,
-            "fused_mix_sgd": rounds * trainer.fused_spec.num_buckets}
-    print(f"kernel launches on the main path: {launches} (expected {want})")
-    if launches != want:
-        fail(f"kernel launch counts {launches} != expected {want}")
-    for row in trainer.history.rows:
-        for k in ("avg_train_loss", "avg_test_loss"):
-            if not math.isfinite(row[k]):
-                fail(f"non-finite {k} in {row}")
-        for k in ("avg_train_acc", "avg_test_acc"):
-            if not 0.0 <= row[k] <= 1.0:
-                fail(f"{k} out of range in {row}")
-    final = trainer.worker_params()
+    gtr, glaunch, gwall = main_path(
+        "headline-dsgd-model1", GossipTrainer, rounds,
+        ("avg_train_loss", "avg_test_loss"),
+        ("avg_train_acc", "avg_test_acc"), gw)
+    share = (k1["ms"] * glaunch["fused_sgd_momentum"]
+             + k2["ms"] * rounds) / (1e3 * gwall)
+    print(f"kernel share of the gossip main path's wall time (event times "
+          f"x launches): {100 * share:.2f}%")
+    ftr, flaunch, fwall = main_path(
+        "headline-fedavg-model1", FederatedTrainer, rounds,
+        ("train_loss", "test_loss", "local_loss"),
+        ("train_acc", "test_acc"), fw)
+    if ftr._use_compact():
+        fail("the federated main path must run at full width")
+    theta = ftr.global_params()
     for k, s in shapes.items():
-        if final[k].shape != (workers, *s) or not np.isfinite(final[k]).all():
-            fail(f"final params {k}: shape {final[k].shape} or non-finite")
-    share = (k1_ms * launches["fused_sgd_momentum"]
-             + k2_ms * rounds) / (1e3 * wall)
-    print(f"kernel share of the main path's wall time (event times x "
-          f"launches): {100 * share:.2f}%")
+        if theta[k].shape != s or not np.isfinite(theta[k]).all():
+            fail(f"final theta {k}: shape {theta[k].shape} or non-finite")
+    share = (k1f["ms"] * flaunch["fused_sgd_momentum"]
+             + k2f["ms"] * rounds) / (1e3 * fwall)
+    print(f"kernel share of the federated main path's wall time (event "
+          f"times x launches): {100 * share:.2f}%")
+    btr, _, bwall = main_path(
+        "baseline3", FederatedTrainer, rounds,
+        ("train_loss", "test_loss", "local_loss"),
+        ("train_acc", "test_acc"), fw)
+    if not btr._use_compact():
+        fail("baseline3 as typed must take the compact path")
+    print(f"baseline3 as typed ({btr._sampled_count()} of {fw} lanes train, "
+          f"unfused): {rounds / bwall:.4f} rounds/s; headline-fedavg-model1 "
+          f"(all {fw} lanes, both fused switches): {rounds / fwall:.4f} "
+          f"rounds/s; the fused full-width path takes {fwall / bwall:.3f}x "
+          f"the time")
+    del btr
 
-    # -- 6. profile one more round ----------------------------------------
+    # -- 6. profile one more round of each path ---------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.run(rounds=1)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_time_total", 0) > 0
-           and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in evs)
-    print(f"profile (1 round): device kernel time {busy / 1e3:.1f} ms over "
-          f"{len(evs)} kernel names")
-    for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
-        print(f"  {e.device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
-              f"{e.key[:90]}")
+    for label, trainer in (("gossip", gtr), ("federated", ftr)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            trainer.run(rounds=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.device_time_total for e in evs)
+        # Busy time: the union of the kernels' device intervals (µs), so
+        # any overlap or double count in the per-name sums shows.
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, -math.inf
+        for s, e in spans:
+            busy += max(0.0, e - max(s, end))
+            end = max(end, e)
+        print(f"profile ({label}, 1 round, {wall * 1e3:.1f} ms wall under "
+              f"the profiler): device kernel time {total / 1e3:.1f} ms "
+              f"summed over {len(evs)} kernel names, {busy / 1e3:.1f} ms "
+              f"busy (union of {len(spans)} device intervals), idle share "
+              f"{100 * max(0.0, 1 - busy / (wall * 1e6)):.1f}% of the "
+              f"profiled wall")
+        for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
+            print(f"  {e.device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+                  f"{e.key[:90]}")
 
-    kernels = [
-        {"name": "fused_sgd_momentum", "route": "cuda",
-         "source": "dopt_torch/csrc/fused_update.cu",
-         "replaces": "dopt/ops/fused_update.py:57",
-         "launches": launches["fused_sgd_momentum"], "max_abs_err": err1,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
-        {"name": "fused_mix_sgd", "route": "cuda",
-         "source": "dopt_torch/csrc/fused_update.cu",
-         "replaces": "dopt/ops/fused_update.py:134",
-         "launches": launches["fused_mix_sgd"], "max_abs_err": mix_err,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib},
-    ]
+    source = "dopt_torch/csrc/fused_update.cu"
+    kernels = []
+    for suffix, path, l1, l2, t1, t2 in (
+            ("", "gossip", glaunch, glaunch, k1, k2),
+            (":federated", "federated", flaunch, flaunch, k1f, k2f)):
+        kernels.append({"name": "fused_sgd_momentum" + suffix, "path": path,
+                        "route": "cuda", "source": source,
+                        "replaces": "dopt/ops/fused_update.py:57",
+                        "launches": l1["fused_sgd_momentum"], **t1})
+        kernels.append({"name": "fused_mix_sgd" + suffix, "path": path,
+                        "route": "cuda", "source": source,
+                        "replaces": "dopt/ops/fused_update.py:134",
+                        "launches": l2["fused_mix_sgd"], **t2})
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Typed, frozen experiment configuration for the PyTorch port.
 
-The subset of ``dopt.config`` that the gossip D-SGD slice reads, with
-the same field names and defaults, so a preset or a ``--set`` override
+The subset of ``dopt.config`` that the port's slices read, with the
+same field names and defaults, so a preset or a ``--set`` override
 means the same thing in both packages.  Sections of later slices
-(federated, faults, robust, population, comm) exist only as ``None``
-slots: the gossip trainer refuses any that is set.
+(faults, robust, population, comm) exist only as ``None`` slots: the
+trainers refuse any that is set.
 """
 
 from __future__ import annotations
@@ -28,9 +28,12 @@ class DataConfig:
     plan_impl: str = "numpy"  # "native" (C++ planner) arrives in a later slice
     local_holdout: float = 0.0
     # Fraction of each worker's shard held out as local validation (the
-    # reference's train_val_test split); the holdout loop arrives in a
-    # later slice, so the trainer refuses > 0.
+    # reference's train_val_test split: val_size = max(int(L·f), 1));
+    # training runs on the rest, and every local epoch evaluates the
+    # worker's val split into ``trainer.client_history``.
     holdout_mode: str = "deterministic"
+    # deterministic — val = the FIRST val_size indices of the shard (P1);
+    # random        — a seeded per-worker draw without replacement (P2).
 
 
 @dataclass(frozen=True)
@@ -55,9 +58,46 @@ class OptimizerConfig:
     optimizer: str = "sgd"
     lr: float = 0.01
     momentum: float = 0.5
+    weight_decay: float = 0.0
+    # ℓ2 coefficient added to the local loss (λ‖θ‖²/2 as a loss term).
+    rho: float = 0.1   # FedProx proximal weight / FedADMM penalty
+    clip_norm: float = 0.0
+    # Per-worker global-norm gradient clip; arrives with the bf16 slice
+    # (the trainers refuse > 0).
     fused_update: bool = False
     # True sends every step's momentum-SGD update through the
     # hand-written CUDA kernel (dopt_torch.ops.fused_sgd_momentum).
+
+
+@dataclass(frozen=True)
+class FederatedConfig:
+    """Server-coordinated path (reference P1 ``servers.py``)."""
+
+    algorithm: str = "fedavg"   # fedavg | fedprox | fedadmm | scaffold
+    frac: float = 0.1           # fraction of users sampled per round
+    rounds: int = 20
+    local_ep: int = 10
+    local_bs: int = 50
+    compact: bool | None = None
+    # Train only the m sampled lanes ([m, ...] gather → local update →
+    # scatter back) instead of all W lanes with the unsampled results
+    # masked away.  None = auto (on when frac < 1 and the fused epilogue
+    # is off).
+    block_rounds: int = 1       # > 1 arrives with the blocks slice
+    comm_dtype: str | None = None   # arrives with the codecs slice
+    staleness_max: int = 0      # > 0 arrives with the network slice
+    staleness_decay: float = 0.5
+    update_sharding: str = "off"    # "scatter": multi-GPU slice
+    update_bucket_mb: float = 4.0
+    # Per-worker payload bound of one flat bucket of the fused epilogue.
+    fused_update: str = "off"
+    # "off" | "on".  "on" carries theta as the [W, ...] broadcast slab in
+    # a flat bucket store and runs each round's masked mean + theta
+    # update as ONE CUDA kernel pass per bucket,
+    # θ'_b = M(mask)·disp + θ_b (kernel 2 with lr = −1);
+    # fedavg/fedprox, full width only.
+    prefetch: str = "off"       # "on" arrives with the blocks slice
+    diagnostics: str = "off"    # "on" arrives with the telemetry slice
 
 
 @dataclass(frozen=True)
@@ -100,8 +140,8 @@ class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimizerConfig = field(default_factory=OptimizerConfig)
     gossip: GossipConfig | None = None
-    # Sections of later slices; the gossip trainer refuses any that is set.
-    federated: Any = None
+    federated: FederatedConfig | None = None
+    # Sections of later slices; the trainers refuse any that is set.
     faults: Any = None
     robust: Any = None
     population: Any = None

@@ -1,15 +1,19 @@
 from dopt_torch.data.datasets import Dataset, load_dataset, make_synthetic
-from dopt_torch.data.partition import iid_split, noniid_split, partition
-from dopt_torch.data.pipeline import BatchPlan, eval_batches, make_batch_plan
+from dopt_torch.data.partition import (holdout_split, iid_split, noniid_split,
+                                       partition)
+from dopt_torch.data.pipeline import (BatchPlan, eval_batches,
+                                      make_batch_plan, stacked_eval_batches)
 
 __all__ = [
     "Dataset",
     "load_dataset",
     "make_synthetic",
+    "holdout_split",
     "iid_split",
     "noniid_split",
     "partition",
     "BatchPlan",
     "eval_batches",
     "make_batch_plan",
+    "stacked_eval_batches",
 ]

@@ -47,6 +47,39 @@ def noniid_split(labels: np.ndarray, num_users: int, *,
     return out
 
 
+def holdout_split(index_matrix: np.ndarray, *, fraction: float = 0.1,
+                  mode: str = "deterministic",
+                  seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Per-worker local train/val holdout (the reference's
+    ``train_val_test``): ``val_size = max(int(L * fraction), 1)`` of each
+    worker's shard become local validation.  'deterministic' takes the
+    FIRST val_size indices (P1); 'random' draws them without replacement
+    from a stream keyed by (seed, worker) (P2).  Returns
+    ``(train [W, L - val_size], val [W, val_size])``, rows sorted."""
+    if not 0.0 < fraction < 1.0:
+        raise ValueError(f"holdout fraction must be in (0, 1), got {fraction}")
+    if mode not in ("deterministic", "random"):
+        raise ValueError(
+            f"unknown holdout_mode {mode!r}; one of deterministic|random")
+    w, l = index_matrix.shape
+    val_size = max(int(l * fraction), 1)
+    if val_size >= l:
+        raise ValueError(f"holdout of {val_size} samples leaves no training "
+                         f"data (shard length {l})")
+    if mode == "deterministic":
+        return (index_matrix[:, val_size:].copy(),
+                index_matrix[:, :val_size].copy())
+    train = np.empty((w, l - val_size), dtype=index_matrix.dtype)
+    val = np.empty((w, val_size), dtype=index_matrix.dtype)
+    for i in range(w):
+        rng = np.random.default_rng(np.random.SeedSequence([seed, 77_000 + i]))
+        held = np.zeros(l, dtype=bool)
+        held[rng.choice(l, val_size, replace=False)] = True
+        val[i] = np.sort(index_matrix[i][held])
+        train[i] = np.sort(index_matrix[i][~held])
+    return train, val
+
+
 def partition(labels: np.ndarray, num_users: int, *, iid: bool = True,
               shards_per_user: int = 2,
               seed: int = 0) -> tuple[dict[int, np.ndarray], np.ndarray]:

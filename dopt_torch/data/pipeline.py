@@ -28,11 +28,17 @@ class BatchPlan:
 
 
 def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
-                    local_ep: int = 1, seed: int = 0,
-                    round_idx: int = 0) -> BatchPlan:
+                    local_ep: int = 1, seed: int = 0, round_idx: int = 0,
+                    workers: np.ndarray | None = None) -> BatchPlan:
     """Build the shuffled batch plan for one round from the [W, L]
     per-worker index matrix; deterministic in (seed, round_idx, epoch,
-    worker)."""
+    worker).  ``workers`` ([m] worker ids) plans only those rows, keyed
+    by the TRUE worker id, so the [m, S, B] result is bit-identical to
+    those rows of the full plan (the compact federated path)."""
+    ids = (np.arange(index_matrix.shape[0]) if workers is None
+           else np.asarray(workers, dtype=np.int64))
+    if workers is not None:
+        index_matrix = index_matrix[ids]
     w, l = index_matrix.shape
     bs = min(batch_size, l)
     steps_per_epoch = -(-l // bs)
@@ -43,7 +49,7 @@ def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
     for wi in range(w):
         for ep in range(local_ep):
             rng = np.random.default_rng(
-                np.random.SeedSequence([seed, round_idx, ep, wi]))
+                np.random.SeedSequence([seed, round_idx, ep, int(ids[wi])]))
             perm = rng.permutation(l)
             if pad:
                 perms[wi, ep, :l] = perm
@@ -79,3 +85,20 @@ def eval_batches(x: np.ndarray, y: np.ndarray, *, batch_size: int
     return (x[idx].reshape(steps, bs, *x.shape[1:]),
             y[idx].reshape(steps, bs).astype(np.int32),
             mask.reshape(steps, bs))
+
+
+def stacked_eval_batches(index_matrix: np.ndarray, *, batch_size: int
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-worker static-shape eval stacks over index rows: [W, S, B]
+    gather indices + 0/1 wraparound-padding weights (the local-val
+    holdout eval and the per-client train-split eval)."""
+    w, l = index_matrix.shape
+    bs = min(batch_size, l)
+    steps = -(-l // bs)
+    pad = steps * bs - l
+    idx = (index_matrix if pad == 0
+           else np.concatenate([index_matrix, index_matrix[:, :pad]], axis=1))
+    weight = np.concatenate(
+        [np.ones((w, l), np.float32), np.zeros((w, pad), np.float32)], axis=1)
+    return (idx.reshape(w, steps, bs).astype(np.int32),
+            weight.reshape(w, steps, bs))

@@ -3,7 +3,10 @@
 Counterpart of dopt/engine/gossip.py for its dsgd subset: N workers as
 one ``[W, ...]`` stacked state, each round consensus → eval → local
 epochs (the reference's order), with ``matrices[round % len]``
-schedules, the reference's batch plans and History rows.
+schedules, the reference's batch plans and History rows, and its local
+train/val holdout (``data.local_holdout``: per-epoch local-val rows in
+``client_history``).  The data setup, the shared refusals and the init
+here serve the federated engine too.
 
 Two orderings, as in dopt:
 
@@ -31,7 +34,8 @@ from dopt_torch.config import ExperimentConfig
 from dopt_torch.convert import params_from_jax
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition)
-from dopt_torch.engine.local import local_steps, stacked_evaluate
+from dopt_torch.engine.local import (local_steps, prepare_holdout,
+                                     stacked_evaluate)
 from dopt_torch.models.zoo import (StackedCNN, full_f32, init_worker_params,
                                    param_shapes, stacked_cnn_forward)
 from dopt_torch.ops.fused_update import fused_mix_update
@@ -55,56 +59,124 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _later(what: str, slice_name: str) -> ValueError:
+def later(what: str, slice_name: str) -> ValueError:
+    """The refusal of an option a later slice of the port adds."""
     return ValueError(
-        f"{what} is not in the PyTorch port's gossip D-SGD slice; it "
-        f"arrives with the '{slice_name}' slice (ROADMAP.md, queue 1)")
+        f"{what} is not in the PyTorch port yet; it arrives with the "
+        f"'{slice_name}' slice (ROADMAP.md, queue 1)")
 
 
-def validate_slice(cfg: ExperimentConfig) -> None:
-    """Refuse every configuration this slice does not run, naming the
-    later slice that adds it."""
-    g, d, m = cfg.gossip, cfg.data, cfg.model
-    if cfg.federated is not None:
-        raise _later("the federated engine", "federated engine")
-    if g is None:
-        raise ValueError("cfg.gossip must be set for GossipTrainer")
+def validate_common(cfg: ExperimentConfig) -> None:
+    """Refusals shared by both engines, each naming its later slice."""
+    d, m = cfg.data, cfg.model
     for section, slice_name in (("faults", "faults"), ("robust", "robust"),
                                 ("population", "population"),
                                 ("comm", "codecs")):
         if getattr(cfg, section) is not None:
-            raise _later(f"cfg.{section}", slice_name)
-    if g.algorithm != "dsgd":
-        raise _later(f"gossip algorithm {g.algorithm!r}", "gossip algorithms")
-    if g.eval_mode != "full":
-        raise _later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
-    if g.mixing != "sync":
-        raise _later(f"mixing={g.mixing!r}", "async and one-peer mixing")
-    if g.block_rounds > 1:
-        raise _later("block_rounds > 1", "multi-round blocks")
-    if g.update_sharding != "off":
-        raise _later(f"update_sharding={g.update_sharding!r}",
-                     "scatter and multi-GPU")
-    if g.comm_impl == "shift":
-        raise _later("comm_impl='shift'", "scatter and multi-GPU")
-    if g.comm_dtype:
-        raise _later(f"comm_dtype={g.comm_dtype!r}", "codecs")
-    if g.fused_update not in ("off", "on"):
-        raise ValueError(f"unknown fused_update {g.fused_update!r}; "
-                         "one of off|on")
-    if d.local_holdout > 0:
-        raise _later("the local train/val holdout", "holdout")
+            raise later(f"cfg.{section}", slice_name)
     if d.plan_impl != "numpy":
-        raise _later(f"plan_impl={d.plan_impl!r}", "native planner")
+        raise later(f"plan_impl={d.plan_impl!r}", "native planner")
     if m.model.lower() == "transformer":
-        raise _later("the sequence model", "seqlm")
+        raise later("the sequence model", "seqlm")
     if m.model.lower() not in ("model1", "model3"):
-        raise _later(f"model {m.model!r}", "model zoo")
+        raise later(f"model {m.model!r}", "model zoo")
     if m.compute_dtype != "float32" or m.param_dtype != "float32":
-        raise _later("bf16 compute or storage", "bf16 compute with clipping")
+        raise later("bf16 compute or storage", "bf16 compute with clipping")
+    if cfg.optim.clip_norm > 0:
+        raise later("clip_norm > 0", "bf16 compute with clipping")
     if cfg.optim.optimizer.lower() != "sgd":
         raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}: only "
                          "'sgd' exists (the reference's single optimizer)")
+
+
+def validate_slice(cfg: ExperimentConfig) -> None:
+    """Refuse every configuration the gossip engine does not run yet,
+    naming the later slice that adds it."""
+    g = cfg.gossip
+    if cfg.federated is not None:
+        raise ValueError("cfg.federated is set: the federated engine is "
+                         "FederatedTrainer, not GossipTrainer")
+    if g is None:
+        raise ValueError("cfg.gossip must be set for GossipTrainer")
+    validate_common(cfg)
+    if g.algorithm != "dsgd":
+        raise later(f"gossip algorithm {g.algorithm!r}", "gossip algorithms")
+    if g.eval_mode != "full":
+        raise later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
+    if g.mixing != "sync":
+        raise later(f"mixing={g.mixing!r}", "async and one-peer mixing")
+    if g.block_rounds > 1:
+        raise later("block_rounds > 1", "multi-round blocks")
+    if g.update_sharding != "off":
+        raise later(f"update_sharding={g.update_sharding!r}",
+                    "scatter and multi-GPU")
+    if g.comm_impl == "shift":
+        raise later("comm_impl='shift'", "scatter and multi-GPU")
+    if g.comm_dtype:
+        raise later(f"comm_dtype={g.comm_dtype!r}", "codecs")
+    if g.fused_update not in ("off", "on"):
+        raise ValueError(f"unknown fused_update {g.fused_update!r}; "
+                         "one of off|on")
+
+
+def load_device_data(trainer, cfg: ExperimentConfig, dev: torch.device, *,
+                     local_bs: int) -> None:
+    """Both engines' data setup: load, partition, apply the holdout and
+    upload once — the train rows stay flat ``[N, F]`` on the device, the
+    test set as a shared ``[S, B, ...]`` eval stack, the holdout's
+    local-val stacks (if any) per worker."""
+    mc = cfg.model
+    trainer.dataset = ds = load_dataset(
+        cfg.data.dataset, data_dir=cfg.data.data_dir,
+        train_size=cfg.data.synthetic_train_size,
+        test_size=cfg.data.synthetic_test_size, seed=cfg.seed,
+        input_shape=mc.input_shape, num_classes=mc.num_classes)
+    _, trainer.index_matrix = partition(
+        ds.train_y, cfg.data.num_users, iid=cfg.data.iid,
+        shards_per_user=cfg.data.shards, seed=cfg.seed)
+    trainer._train_matrix, val = prepare_holdout(
+        cfg, trainer.index_matrix, batch_size=local_bs)
+    trainer._val = (None if val is None else
+                    tuple(torch.from_numpy(a).to(dev) for a in val))
+    trainer._sample_shape = tuple(ds.train_x.shape[1:])
+    trainer._train_x = torch.from_numpy(
+        ds.train_x.reshape(len(ds.train_x), -1)).to(dev)
+    trainer._train_y = torch.from_numpy(ds.train_y.astype(np.int64)).to(dev)
+    ex, ey, ew = eval_batches(ds.test_x, ds.test_y,
+                              batch_size=max(local_bs, 256))
+    trainer._eval = (torch.from_numpy(ex).to(dev),
+                     torch.from_numpy(ey.astype(np.int64)).to(dev),
+                     torch.from_numpy(ew).to(dev))
+
+
+def initial_params(cfg: ExperimentConfig, init_params=None
+                   ) -> dict[str, torch.Tensor]:
+    """One worker's initial parameters on the CPU: dopt's flax tree
+    converted (``init_params``), or flax's default init drawn from a
+    ``torch.Generator`` seeded with ``cfg.seed``."""
+    mc = cfg.model
+    name = mc.model.lower()
+    if init_params is None:
+        gen = torch.Generator().manual_seed(cfg.seed)
+        return init_worker_params(name, num_classes=mc.num_classes,
+                                  input_shape=mc.input_shape, generator=gen)
+    p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
+          for k, v in params_from_jax(
+              init_params, input_shape=mc.input_shape).items()}
+    want = param_shapes(name, num_classes=mc.num_classes,
+                        input_shape=mc.input_shape)
+    got = {k: tuple(v.shape) for k, v in p0.items()}
+    if got != want:
+        raise ValueError(f"init_params shapes {got} do not match "
+                         f"{name}'s {want}")
+    return p0
+
+
+def steps_per_round(train_matrix: np.ndarray, local_bs: int,
+                    local_ep: int) -> int:
+    """SGD steps in a round's plan (the padded last batch included)."""
+    l_shard = train_matrix.shape[1]
+    return local_ep * -(-l_shard // min(local_bs, l_shard))
 
 
 class GossipTrainer:
@@ -136,44 +208,16 @@ class GossipTrainer:
         w = cfg.data.num_users
         self.num_workers = w
 
-        # Data: load, partition, upload once.
-        self.dataset = ds = load_dataset(
-            cfg.data.dataset, data_dir=cfg.data.data_dir,
-            train_size=cfg.data.synthetic_train_size,
-            test_size=cfg.data.synthetic_test_size, seed=cfg.seed,
-            input_shape=mc.input_shape, num_classes=mc.num_classes)
-        _, self.index_matrix = partition(
-            ds.train_y, w, iid=cfg.data.iid,
-            shards_per_user=cfg.data.shards, seed=cfg.seed)
-        self._sample_shape = tuple(ds.train_x.shape[1:])
-        self._train_x = torch.from_numpy(
-            ds.train_x.reshape(len(ds.train_x), -1)).to(dev)
-        self._train_y = torch.from_numpy(ds.train_y.astype(np.int64)).to(dev)
-        ex, ey, ew = eval_batches(ds.test_x, ds.test_y,
-                                  batch_size=max(g.local_bs, 256))
-        self._eval = (torch.from_numpy(ex).to(dev),
-                      torch.from_numpy(ey.astype(np.int64)).to(dev),
-                      torch.from_numpy(ew).to(dev))
-        l_shard = self.index_matrix.shape[1]
-        self.steps_per_round = g.local_ep * -(-l_shard // min(g.local_bs,
-                                                              l_shard))
+        load_device_data(self, cfg, dev, local_bs=g.local_bs)
+        self.steps_per_round = steps_per_round(self._train_matrix,
+                                               g.local_bs, g.local_ep)
+        # Per-epoch per-worker rows, filled when the holdout is on (P2
+        # Client.history {iter, train_loss, train_acc, val_acc, val_loss}
+        # plus round and worker columns; val_loss is P2's mean flavour).
+        self.client_history = History(cfg.name + "-clients")
 
         # Model + stacked state: every worker starts from the same init.
-        name = mc.model.lower()
-        if init_params is None:
-            gen = torch.Generator().manual_seed(cfg.seed)
-            p0 = init_worker_params(name, num_classes=mc.num_classes,
-                                    input_shape=mc.input_shape, generator=gen)
-        else:
-            p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
-                  for k, v in params_from_jax(
-                      init_params, input_shape=mc.input_shape).items()}
-            want = param_shapes(name, num_classes=mc.num_classes,
-                                input_shape=mc.input_shape)
-            got = {k: tuple(v.shape) for k, v in p0.items()}
-            if got != want:
-                raise ValueError(f"init_params shapes {got} do not match "
-                                 f"{name}'s {want}")
+        p0 = initial_params(cfg, init_params)
         self.param_count = sum(v.numel() for v in p0.values())
         stacked = {k: v.expand(w, *v.shape).contiguous().to(dev)
                    for k, v in p0.items()}
@@ -216,34 +260,53 @@ class GossipTrainer:
             p.copy_(mixed[k])
 
     def _round(self, t: int) -> None:
-        """Round t: consensus → eval → local epochs, one History row."""
+        """Round t: consensus → eval → local epochs, one History row
+        (and, with the holdout, one client row per worker and epoch)."""
         cfg, g, dev = self.cfg, self.cfg.gossip, self.device
         w_t = torch.from_numpy(
             self.mixing.for_round(t).astype(np.float32)).to(dev)
-        plan = make_batch_plan(self.index_matrix, batch_size=g.local_bs,
+        plan = make_batch_plan(self._train_matrix, batch_size=g.local_bs,
                                local_ep=g.local_ep, seed=cfg.seed,
                                round_idx=t)
         idx = torch.from_numpy(plan.idx.astype(np.int64)).to(dev)
         bw = torch.from_numpy(plan.weight).to(dev)
         self._consensus(w_t)
         ev = stacked_evaluate(self.model, self.num_workers, *self._eval)
-        losses, accs = local_steps(
-            self.model, self._params, self.momentum, idx, bw,
-            self._train_x, self._train_y, self._sample_shape,
-            lr=cfg.optim.lr, momentum=cfg.optim.momentum,
-            fused=cfg.optim.fused_update)
+        losses, accs, em = local_steps(
+            self.model, dict(zip(self._names, self._params)),
+            dict(zip(self._names, self.momentum)), idx, bw, self._train_x,
+            self._train_y, self._sample_shape, lr=cfg.optim.lr,
+            momentum=cfg.optim.momentum, fused=cfg.optim.fused_update,
+            l2=cfg.optim.weight_decay, local_ep=g.local_ep, val=self._val)
         if self._fused_on:
             with torch.no_grad():
                 q = flat_views(self._q, self.fused_spec)
                 fb = flat_views(self._fbuf, self.fused_spec)
                 for k, p in zip(self._names, self._params):
                     torch.sub(q[k], p, out=fb[k])
+        # dopt's round accuracy: the epochs' count-weighted accuracies
+        # with the holdout, the steps' mean without.
+        if em:
+            accs = em["train_acc"]
         # ONE device→host fetch per round.
-        vals = torch.stack([losses.mean(), accs.mean(), ev["acc"].mean(),
-                            ev["loss_mean"].mean()]).tolist()
-        self.history.append(round=t, avg_train_loss=vals[0],
-                            avg_train_acc=vals[1], avg_test_acc=vals[2],
-                            avg_test_loss=vals[3])
+        parts = [losses.mean(), accs.mean(), ev["acc"].mean(),
+                 ev["loss_mean"].mean()]
+        if em:
+            parts += [em[k] for k in ("train_loss", "train_acc", "val_acc",
+                                      "val_loss_mean")]
+        vals = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        self.history.append(round=t, avg_train_loss=float(vals[0]),
+                            avg_train_acc=float(vals[1]),
+                            avg_test_acc=float(vals[2]),
+                            avg_test_loss=float(vals[3]))
+        if em:
+            tl, ta, va, vl = vals[4:].reshape(4, self.num_workers, g.local_ep)
+            for i in range(self.num_workers):
+                for e in range(g.local_ep):
+                    self.client_history.append(
+                        round=t, iter=e, worker=i,
+                        train_loss=float(tl[i, e]), train_acc=float(ta[i, e]),
+                        val_acc=float(va[i, e]), val_loss=float(vl[i, e]))
 
     def run(self, rounds: int | None = None) -> History:
         """Train ``rounds`` rounds (default ``cfg.gossip.rounds``);

@@ -28,3 +28,12 @@ def accuracy_stacked(outputs: torch.Tensor, labels: torch.Tensor,
     correct = (outputs.argmax(-1) == labels).float()
     w = weights.float()
     return (correct * w).sum(-1) / w.sum(-1).clamp_min(1.0)
+
+
+def l2_stacked(params: dict[str, torch.Tensor], lam: float) -> torch.Tensor:
+    """Per-worker ℓ2 penalty ½·λ·Σ‖p‖² over a stacked ``[W, ...]`` dict
+    → [W] (``optim.weight_decay`` as a loss term)."""
+    tot = 0.0
+    for p in params.values():
+        tot = tot + (p.float() ** 2).reshape(p.shape[0], -1).sum(1)
+    return 0.5 * lam * tot

@@ -4,7 +4,9 @@ The sources under ``dopt_torch/csrc`` have a plain C interface, so one
 ``nvcc`` call builds them in seconds (no PyTorch headers).  The library
 goes to ``build/dopt_torch/<source hash>/libdopt_torch_kernels.so`` in
 the checkout at first use and is reused while the sources are
-unchanged.  Nothing is built or loaded at import time.
+unchanged; ptxas's register and spill report for every kernel is kept
+beside it (``resource_report``).  Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = (_PKG / "csrc" / "fused_update.cu",)
 BUILD_DIR = _PKG.parent / "build" / "dopt_torch"
 LIB_NAME = "libdopt_torch_kernels.so"
+REPORT_NAME = "ptxas.txt"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -65,11 +68,18 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
                 f"{res.stdout}{res.stderr}")
+        (out.parent / REPORT_NAME).write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def resource_report() -> str:
+    """ptxas's per-kernel report of the built library (registers, stack
+    frame, spill stores and loads), as nvcc printed it."""
+    return (build().parent / REPORT_NAME).read_text()
 
 
 @functools.lru_cache(maxsize=1)

@@ -9,8 +9,9 @@ Design: one launch for all tensors of the step, 16-byte vector
 accesses, in place (``data_ptr`` never changes).
 
 ``fused_mix_sgd`` replaces dopt/ops/fused_update.py ``fused_mix_sgd``
-(+ ``fused_mix_update``): the gossip epilogue ``p ← W@p − lr·buf`` on
-one ``[n, F]`` flat bucket, W ``[n, n]`` in f32.  Bound: bytes — 12 an
+(+ ``fused_mix_update``): ``p ← W@p − lr·buf`` on one ``[n, F]`` flat
+bucket, W ``[n, n]`` in f32 — the gossip epilogue (lr = 1) and the
+federated masked mean + theta update (lr = −1).  Bound: bytes — 12 an
 f32 element (read p, buf; write p).  Design: each thread owns a few
 columns, keeps ``p[:, cols]`` in registers and W in shared memory, and
 writes the n outputs in place.
@@ -147,6 +148,8 @@ def fused_mix_update(flat_p: torch.Tensor, flat_buf: torch.Tensor,
     """The fused epilogue over a whole flat store: ``fused_mix_sgd`` on
     each of ``spec``'s buckets of the ``[W, padded]`` stores ``flat_p``
     (updated in place) and ``flat_buf``.  Gossip calls it with
-    ``lr=1.0``: ``q_t = W·q_{t-1} − fbuf_{t-1}``."""
+    ``lr=1.0``: ``q_t = W·q_{t-1} − fbuf_{t-1}``; the federated epilogue
+    with ``lr=-1.0``: ``θ'_b = M(mask)·disp + θ_b`` (``flat_p`` the
+    displacement store, ``flat_buf`` the theta slab)."""
     for p, b in zip(flat_buckets(flat_p, spec), flat_buckets(flat_buf, spec)):
         fused_mix_sgd(p, b, w, lr=lr)

@@ -1,9 +1,13 @@
-"""Worker-axis consensus on one device, and the flat-bucket layout.
+"""Worker-axis consensus and aggregation on one device, and the
+flat-bucket layout.
 
 ``mix_dense`` is the consensus step x_i ← Σ_j W_ij x_j over a stacked
 ``[W, ...]`` parameter dict: an f32 ``[W, W] × [W, F]`` product per
 tensor (dopt leaves it to XLA outside Pallas; here it is
-``torch.matmul``).
+``torch.matmul``).  The federated aggregation's helpers —
+``where_mask``, ``masked_average``, ``mean_weight_matrix``,
+``broadcast_to_workers`` — take and return dicts of tensors (dopt's
+pytrees), single-device (no mesh, no wire dtype).
 
 ``UpdateShardSpec`` is dopt's flat-bucket plan (collectives.py:349):
 the stacked tensors, in sorted-name order (the order ``jax.tree``
@@ -31,6 +35,45 @@ def mix_dense(stacked: dict[str, torch.Tensor],
         w = w_matrix.to(x.device, x.dtype)
         out[k] = (w @ x.reshape(x.shape[0], -1)).reshape(x.shape)
     return out
+
+
+def _lane(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A [W] mask shaped to broadcast over a ``[W, ...]`` tensor."""
+    return mask.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def where_mask(mask: torch.Tensor, a: dict[str, torch.Tensor],
+               b: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Per-worker select over stacked dicts: mask[i] ? a_i : b_i."""
+    return {k: torch.where(_lane(mask, x).bool(), x, b[k])
+            for k, x in a.items()}
+
+
+def masked_average(stacked: dict[str, torch.Tensor],
+                   mask: torch.Tensor) -> dict[str, torch.Tensor]:
+    """theta ← Σ_i m_i x_i / max(Σ_i m_i, 1), a dict WITHOUT the worker
+    axis (reference ``average_weights`` with client sampling as data)."""
+    m = mask.float()
+    denom = m.sum().clamp_min(1.0)
+    return {k: (x * _lane(m, x).to(x.dtype)).sum(0) / denom.to(x.dtype)
+            for k, x in stacked.items()}
+
+
+def mean_weight_matrix(mask: torch.Tensor) -> torch.Tensor:
+    """The masked mean as a contiguous [W, W] f32 contraction matrix:
+    every row is mask / max(Σ mask, 1), so M @ X is ``masked_average``
+    broadcast back over the worker axis.  An all-dead mask gives the zero
+    matrix.  Feeds the federated fused epilogue (kernel 2, lr = −1)."""
+    m = mask.float().reshape(-1)
+    row = m / m.sum().clamp_min(1.0)
+    return row.expand(m.shape[0], m.shape[0]).contiguous()
+
+
+def broadcast_to_workers(tree: dict[str, torch.Tensor],
+                         num_workers: int) -> dict[str, torch.Tensor]:
+    """theta → stacked ``[W, ...]`` views (the server handing every
+    client a copy of the global model; no copy is made)."""
+    return {k: x.expand(num_workers, *x.shape) for k, x in tree.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,22 +1,28 @@
 """Runnable experiment presets for the port.
 
-``reference-dsgd-*`` replay the reference P2 notebook grid (``Weighted
+``reference-fed*`` and ``reference-scaffold`` replay the reference P1
+notebook setup (100 users, frac 0.1, 20 rounds, local_ep 10, bs 50,
+lr 0.1, rho 0.1, IID, seed 2022, the deterministic 90/10 local
+holdout); ``reference-dsgd-*`` replay the P2 grid (``Weighted
 Average.ipynb`` cell 11: 6 workers, 10 rounds, local_ep 4, bs 128,
-lr 0.01, momentum 0.5, non-IID 2 shards, seed 2028) exactly as
-dopt.presets types them — including the reference's 90/10 local
-holdout, which arrives in a later slice (the trainer refuses it until
-then; ``--set data.local_holdout=0`` runs the rest).
+lr 0.01, momentum 0.5, non-IID 2 shards, seed 2028, the random 90/10
+holdout) — both exactly as dopt.presets types them.  ``baseline3`` is
+dopt's BASELINE.json FedAvg config.
 
 ``headline-dsgd-model1`` is dopt's bench.py headline workload
 (``_config(fast=False)``: f32, numpy planner, faithful Model1, 60,000 /
-10,000 samples) with both ``fused_update`` switches on — the slice's
-main path, on which both CUDA kernels run.
+10,000 samples) with both ``fused_update`` switches on; the gossip main
+path, on which both CUDA kernels run.  ``headline-fedavg-model1`` is
+``baseline3`` with both switches on: the federated main path, where
+kernel 2 runs the masked mean at lr = −1.
 """
 
 from __future__ import annotations
 
-from dopt_torch.config import (DataConfig, ExperimentConfig, GossipConfig,
-                               ModelConfig, OptimizerConfig)
+import dataclasses
+
+from dopt_torch.config import (DataConfig, ExperimentConfig, FederatedConfig,
+                               GossipConfig, ModelConfig, OptimizerConfig)
 
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
 
@@ -26,6 +32,43 @@ def _mnist_data(num_users: int, iid: bool, shards: int = 2,
     return DataConfig(dataset="mnist", num_users=num_users, iid=iid,
                       shards=shards, synthetic_train_size=MNIST_TRAIN,
                       synthetic_test_size=MNIST_TEST, **kw)
+
+
+def reference_federated(algorithm: str = "fedavg") -> ExperimentConfig:
+    """P1 notebook setup (cells 8/10): 100 users, the deterministic
+    90/10 local holdout with per-epoch client history."""
+    return ExperimentConfig(
+        name=f"reference-{algorithm}", seed=2022,
+        data=_mnist_data(100, iid=True, local_holdout=0.1,
+                         holdout_mode="deterministic"),
+        model=ModelConfig(model="model1", faithful=True),
+        optim=OptimizerConfig(lr=0.1, momentum=0.5, rho=0.1),
+        federated=FederatedConfig(algorithm=algorithm, frac=0.1, rounds=20,
+                                  local_ep=10, local_bs=50),
+    )
+
+
+def baseline_3_fedavg_noniid() -> ExperimentConfig:
+    """FedAvg primal decomposition, 16 non-IID clients, MNIST."""
+    return ExperimentConfig(
+        name="baseline3-fedavg16-noniid", seed=2022,
+        data=_mnist_data(16, iid=False),
+        model=ModelConfig(model="model1", faithful=True),
+        optim=OptimizerConfig(lr=0.1, momentum=0.5),
+        federated=FederatedConfig(algorithm="fedavg", frac=0.5, rounds=30,
+                                  local_ep=5, local_bs=50),
+    )
+
+
+def headline_fedavg_model1() -> ExperimentConfig:
+    """``baseline3`` with ``optim.fused_update=True`` and
+    ``federated.fused_update="on"`` (so full width: all 16 lanes train
+    375 steps a round, 8 sampled)."""
+    cfg = baseline_3_fedavg_noniid()
+    return cfg.replace(
+        name="headline-fedavg-model1",
+        optim=dataclasses.replace(cfg.optim, fused_update=True),
+        federated=dataclasses.replace(cfg.federated, fused_update="on"))
 
 
 def reference_gossip(algorithm: str = "dsgd", topology: str = "circle",
@@ -62,6 +105,11 @@ def headline_dsgd_model1() -> ExperimentConfig:
 
 
 PRESETS = {
+    "reference-fedavg": lambda: reference_federated("fedavg"),
+    "reference-fedprox": lambda: reference_federated("fedprox"),
+    "reference-fedadmm": lambda: reference_federated("fedadmm"),
+    "reference-scaffold": lambda: reference_federated("scaffold"),
+    "baseline3": baseline_3_fedavg_noniid,
     "reference-dsgd-star": lambda: reference_gossip("dsgd", "star"),
     "reference-dsgd-circle": lambda: reference_gossip("dsgd", "circle"),
     "reference-dsgd-complete": lambda: reference_gossip("dsgd", "complete"),
@@ -74,6 +122,7 @@ PRESETS = {
     "reference-dsgd-dynamic": lambda: reference_gossip(
         "dsgd", "complete", "ones"),
     "headline-dsgd-model1": headline_dsgd_model1,
+    "headline-fedavg-model1": headline_fedavg_model1,
 }
 
 

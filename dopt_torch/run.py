@@ -1,9 +1,10 @@
 """CLI runner for the port: ``python -m dopt_torch.run --preset P``.
 
 Picks a preset, applies ``--set path.to.field=value`` overrides, trains
-on the GPU (or on the CPU with ``--device cpu``), prints one JSON
-history row per round and optionally writes the History CSV in the
-reference's results layout.
+it with ``FederatedTrainer`` when the preset has a ``federated`` section
+and with ``GossipTrainer`` otherwise, on the GPU (or on the CPU with
+``--device cpu``), prints one JSON history row per round and optionally
+writes the History CSV in the reference's results layout.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--preset", required=True,
                     help="preset name (see dopt_torch.presets) or 'list'")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="override the round count")
+                    help="override the round count (default: the preset's "
+                         "gossip.rounds or federated.rounds)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
     ap.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
@@ -71,7 +73,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--csv", default=None, help="write the history CSV here")
     args = ap.parse_args(argv)
 
-    from dopt_torch.engine import GossipTrainer
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
     from dopt_torch.presets import PRESETS, get_preset
 
     if args.preset == "list":
@@ -81,8 +83,13 @@ def main(argv: list[str] | None = None) -> int:
     cfg = get_preset(args.preset)
     for spec in args.overrides:
         cfg = apply_override(cfg, spec)
-    trainer = GossipTrainer(cfg, device=args.device)
-    rounds = cfg.gossip.rounds if args.rounds is None else args.rounds
+    if cfg.federated is not None:
+        trainer = FederatedTrainer(cfg, device=args.device)
+        default_rounds = cfg.federated.rounds
+    else:
+        trainer = GossipTrainer(cfg, device=args.device)
+        default_rounds = cfg.gossip.rounds
+    rounds = default_rounds if args.rounds is None else args.rounds
     trainer.run(rounds=rounds)
     for row in trainer.history.rows[-rounds:]:
         print(json.dumps(row))

@@ -86,6 +86,39 @@ def test_slice_matches_dopt(shape, fused, devices):
     assert ev["acc"].shape == (4,) and np.isfinite(ev["loss_mean"]).all()
 
 
+def test_holdout_matches_dopt():
+    """The reference's P2 holdout (random 10% val split, local_ep 2): the
+    History and the per-epoch client rows (mean-flavour val loss) match
+    dopt's, as do the final params."""
+    def cfg(mod, **kw):
+        c = _cfg(mod, (8, 8, 1), False, **kw)
+        return c.replace(
+            data=dataclasses.replace(c.data, local_holdout=0.1,
+                                     holdout_mode="random"),
+            gossip=dataclasses.replace(c.gossip, local_ep=2))
+
+    jt = JaxGossipTrainer(cfg(J, mesh_devices=1))
+    init = jax.device_get(jax.tree.map(lambda x: x[0], jt.params))
+    tt = GossipTrainer(cfg(T), device="cpu", init_params=init)
+    jh, th = jt.run(rounds=2), tt.run(rounds=2)
+    for a, b in zip(jh.rows, th.rows, strict=True):
+        assert a.keys() == b.keys() and a["round"] == b["round"]
+        assert abs(a["avg_train_loss"] - b["avg_train_loss"]) <= 1e-3
+        assert abs(a["avg_test_acc"] - b["avg_test_acc"]) <= 1e-4
+    jc, tc = jt.client_history.rows, tt.client_history.rows
+    assert len(jc) == len(tc) == 2 * 4 * 2
+    for a, b in zip(jc, tc):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            assert abs(v - b[k]) <= 1e-3, (k, a, b)
+    want = jax.device_get(jt.worker_params())
+    got = params_to_jax(tt.worker_params(), input_shape=(8, 8, 1))
+    for layer in want:
+        for k in want[layer]:
+            a = np.asarray(want[layer][k])
+            assert np.abs(a - got[layer][k]).max() / np.abs(a).max() <= 1e-4
+
+
 def test_fused_round_zero_equals_default_round_zero():
     """Round 0 of the fused ordering contracts a zero displacement, so
     it trains from exactly the default ordering's mixed state."""
@@ -119,7 +152,8 @@ def _replace(cfg, section, **kw):
     (lambda c: _replace(c, "gossip", comm_impl="shift"), "scatter"),
     (lambda c: _replace(c, "gossip", mixing="async"), "async"),
     (lambda c: _replace(c, "gossip", eval_mode="sharded"), "eval_mode"),
-    (lambda c: _replace(c, "data", local_holdout=0.1), "holdout"),
+    (lambda c: _replace(c, "data", local_holdout=0.1,
+                        holdout_mode="stratified"), "holdout"),
     (lambda c: _replace(c, "data", plan_impl="native"), "native planner"),
     (lambda c: _replace(c, "model", compute_dtype="bfloat16"), "bf16"),
     (lambda c: _replace(c, "model", model="resnet18"), "model zoo"),
@@ -151,9 +185,9 @@ def test_run_cli_on_cpu(tmp_path, capsys):
 
 
 def test_port_imports_nothing_of_jax_or_dopt():
-    """A fresh interpreter imports dopt_torch and runs one CPU round;
-    neither jax, flax nor dopt may be loaded.  The sources must not
-    import them either."""
+    """A fresh interpreter imports dopt_torch and runs one CPU gossip
+    round and one CPU federated round; neither jax, flax nor dopt may be
+    loaded.  The sources must not import them either."""
     code = (
         "import sys\n"
         "import dopt_torch\n"
@@ -164,6 +198,9 @@ def test_port_imports_nothing_of_jax_or_dopt():
         " optim=C.OptimizerConfig(fused_update=True), gossip=C.GossipConfig("
         "local_ep=1, local_bs=16, fused_update='on'))\n"
         "dopt_torch.GossipTrainer(cfg, device='cpu').run(rounds=1)\n"
+        "fed = cfg.replace(gossip=None, federated=C.FederatedConfig("
+        "frac=0.5, local_ep=1, local_bs=16, fused_update='on'))\n"
+        "dopt_torch.FederatedTrainer(fed, device='cpu').run(rounds=1)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dopt'))\n"
         "print('LOADED', bad)\n")

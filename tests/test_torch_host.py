@@ -149,8 +149,86 @@ def test_host_rng_and_metrics_bit_identical(tmp_path):
     assert paths[0].read_bytes() == paths[1].read_bytes()
 
 
+@pytest.mark.parametrize("mode", ["deterministic", "random"])
+def test_holdout_split_bit_identical(mode):
+    from dopt.data.partition import holdout_split as jsplit
+    from dopt_torch.data.partition import holdout_split as tsplit
+
+    index = np.random.default_rng(3).permutation(600).reshape(6, 100)
+    index = np.sort(index, axis=1).astype(np.int32)
+    for frac, seed in ((0.1, 2028), (0.25, 7), (0.001, 0)):
+        want = jsplit(index, fraction=frac, mode=mode, seed=seed)
+        got = tsplit(index, fraction=frac, mode=mode, seed=seed)
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, b)
+            assert a.dtype == b.dtype
+    for bad in (dict(fraction=0.0), dict(fraction=1.0),
+                dict(mode="stratified")):
+        kw = {"fraction": 0.1, "mode": mode, **bad}
+        with pytest.raises(ValueError):
+            jsplit(index, **kw)
+        with pytest.raises(ValueError):
+            tsplit(index, **kw)
+
+
+def test_batch_plan_for_sampled_workers_bit_identical():
+    """``workers=`` plans only the sampled rows, keyed by the true worker
+    id: equal to dopt's, and to those rows of the full plan."""
+    index = np.random.default_rng(4).permutation(800).reshape(8, 100)
+    index = index.astype(np.int32)
+    full = tpipe.make_batch_plan(index, batch_size=30, local_ep=2, seed=5,
+                                 round_idx=3)
+    for sel in (np.array([1, 4, 6]), np.array([7]), np.arange(8)):
+        want = jpipe.make_batch_plan(index, batch_size=30, local_ep=2, seed=5,
+                                     round_idx=3, workers=sel)
+        got = tpipe.make_batch_plan(index, batch_size=30, local_ep=2, seed=5,
+                                    round_idx=3, workers=sel)
+        for f in ("idx", "weight"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+            np.testing.assert_array_equal(getattr(got, f),
+                                          getattr(full, f)[sel])
+
+
+def test_stacked_eval_batches_bit_identical():
+    index = np.random.default_rng(5).integers(0, 1000, (5, 37))
+    index = index.astype(np.int32)
+    for bs in (8, 37, 64, 256):
+        want = jpipe.stacked_eval_batches(index, batch_size=bs)
+        got = tpipe.stacked_eval_batches(index, batch_size=bs)
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, b)
+            assert a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("workers,frac", [(16, 0.5), (100, 0.1)])
+def test_client_sample_sequence_bit_identical(workers, frac):
+    """Five rounds of the port trainer's client sample against dopt's own
+    ``_sample_indices`` on dopt's seeded stream."""
+    import types
+
+    from dopt.engine.federated import FederatedTrainer as JaxFed
+    from dopt_torch.engine import FederatedTrainer
+
+    cfg = tcfg.ExperimentConfig(
+        seed=2022, data=tcfg.DataConfig(
+            dataset="synthetic", num_users=workers, iid=True,
+            synthetic_train_size=2 * workers, synthetic_test_size=8),
+        model=tcfg.ModelConfig(input_shape=(8, 8, 1)),
+        federated=tcfg.FederatedConfig(frac=frac, local_bs=2))
+    port = FederatedTrainer(cfg, device="cpu")
+    ref = types.SimpleNamespace(num_workers=workers,
+                                _sample_rng=jprng.host_rng(2022, 314159))
+    for _ in range(5):
+        want = JaxFed._sample_indices(ref, frac)
+        got = port._sample_indices()
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype and len(got) == max(int(frac *
+                                                               workers), 1)
+
+
 @pytest.mark.parametrize("cls", ["DataConfig", "ModelConfig",
-                                 "OptimizerConfig", "GossipConfig"])
+                                 "OptimizerConfig", "GossipConfig",
+                                 "FederatedConfig"])
 def test_config_fields_mirror_dopt(cls):
     """Every field the port keeps has dopt's name and default."""
     jf = {f.name: f for f in dataclasses.fields(getattr(jcfg, cls))}
@@ -163,14 +241,20 @@ def _shared(port_cfg, jax_cfg):
     """Each section of a port config as a dict, next to the same fields
     of the dopt config."""
     out = []
-    for sec in ("data", "model", "optim", "gossip"):
+    for sec in ("data", "model", "optim", "gossip", "federated"):
+        if getattr(port_cfg, sec) is None:
+            assert getattr(jax_cfg, sec) is None, sec
+            continue
         t = dataclasses.asdict(getattr(port_cfg, sec))
         j = dataclasses.asdict(getattr(jax_cfg, sec))
         out.append((t, {k: j[k] for k in t}))
     return out
 
 
-@pytest.mark.parametrize("name", ["reference-dsgd-star",
+@pytest.mark.parametrize("name", ["reference-fedavg", "reference-fedprox",
+                                  "reference-fedadmm", "reference-scaffold",
+                                  "baseline3",
+                                  "reference-dsgd-star",
                                   "reference-dsgd-circle",
                                   "reference-dsgd-complete",
                                   "reference-dsgd-circle-double",
@@ -207,6 +291,41 @@ def test_headline_preset_is_bench_config_with_both_kernels():
     assert t.seed == bench.seed
     for a, b in _shared(t, bench):
         assert a == b
+
+
+def test_headline_fedavg_preset_is_baseline3_with_both_kernels():
+    """headline-fedavg-model1 = dopt's baseline3 with both fused_update
+    switches on: 16 clients of 3,750 samples, 375 steps a round."""
+    from dopt.presets import get_preset as jget
+    from dopt_torch.presets import get_preset as tget
+
+    b3 = jget("baseline3")
+    want = b3.replace(
+        optim=dataclasses.replace(b3.optim, fused_update=True),
+        federated=dataclasses.replace(b3.federated, fused_update="on"))
+    t = tget("headline-fedavg-model1")
+    assert t.seed == want.seed
+    for a, b in _shared(t, want):
+        assert a == b
+    f = t.federated
+    labels = np.random.default_rng(0).integers(
+        0, 10, t.data.synthetic_train_size)
+    _, index = tpartition(labels, t.data.num_users, iid=t.data.iid,
+                          shards_per_user=t.data.shards, seed=t.seed)
+    plan = tpipe.make_batch_plan(index, batch_size=f.local_bs,
+                                 local_ep=f.local_ep, seed=t.seed)
+    assert index.shape == (16, 3750) and plan.idx.shape == (16, 375, 50)
+    assert max(int(f.frac * t.data.num_users), 1) == 8
+    # Kernel 2 runs once a bucket: Model1 flattens to two 4 MiB buckets.
+    import torch
+
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.parallel.collectives import make_update_shard_spec
+
+    spec = make_update_shard_spec(
+        {k: torch.empty(16, *s) for k, s in param_shapes("model1").items()},
+        bucket_bytes=int(f.update_bucket_mb * (1 << 20)))
+    assert spec.num_buckets == 2
 
 
 def test_cli_override_and_list(capsys):
