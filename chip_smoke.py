@@ -8,14 +8,19 @@ the final line:
 
 1. environment — nvidia-smi name and power limit, torch/CUDA versions;
 2. build — nvcc builds dopt_torch/csrc into build/ (timed) and ptxas
-   reports each kernel's registers, stack frame and spills;
+   reports each kernel's registers, stack frame and spills; the phase
+   fails if any instantiation of kernel 2 (its narrow and ring kernels,
+   f32 and bf16) has a stack frame or spills (the spill guard);
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card at both main paths' shapes (plus odd, strided and bf16 cases),
    with the tolerance stated, and CUDA-event median times (cold L2) of
    the kernel, the plain version and one library call computing the
    same function, beside the bound (bytes over 3.35 TB/s, operations
    over the f32 peak): gossip (6 workers, kernel 2 at lr = 1) and
-   federated (16 lanes, kernel 2 at lr = −1 with M = mask/Σmask);
+   federated (16 lanes, kernel 2 at lr = −1 with M = mask/Σmask), a
+   sweep of kernel 2 at n = 6, 12, 16 and 32 over the federated bucket
+   widths, and kernel 2's two kernels (narrow, ring) timed in turns at
+   n = 6, the A/B behind the wrapper sending n <= 8 to the narrow one;
 4. small-input agreement — tiny runs on the GPU against the same runs
    on the CPU (the kernels' plain versions), same init: gossip with both
    fused switches, federated fedavg with both fused switches, and
@@ -42,8 +47,10 @@ entry per kernel and path; the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +97,7 @@ def main() -> None:
         from dopt_torch.ops import _build
         from dopt_torch.ops.fused_update import (fused_mix_sgd,
                                                  fused_sgd_momentum,
+                                                 launch_mix, mix_plan,
                                                  mix_sgd_reference,
                                                  sgd_momentum_reference)
         from dopt_torch.parallel.collectives import (alloc_flat,
@@ -122,9 +130,31 @@ def main() -> None:
     _build.load_library()
     print(f"build: {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t:.2f} s")
-    for line in _build.resource_report().splitlines():
+    report = _build.resource_report()
+    for line in report.splitlines():
         if line.strip():
             print(f"ptxas: {line.strip()}")
+    # Spill guard: kernel 2 must hold nothing per thread in local memory
+    # (the looped design it replaced spilled its hoisted mixing matrix).
+    # Both of its kernels (narrow, n <= 8; ring, n > 8), f32 and bf16.
+    seen = set()
+    for k, r in _build.parse_ptxas(report).items():
+        m = re.search(r"(mix_sgd_\w*?kernel)I", k)
+        if not m:
+            continue
+        kind = (m.group(1), "bf16" if "bfloat16" in k else "f32")
+        seen.add(kind)
+        print(f"spill guard: {kind[0]} {kind[1]}: {r['registers']} "
+              f"registers, {r['stack_frame']} B stack frame, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
+              "spill loads")
+        if r["stack_frame"] or r["spill_stores"] or r["spill_loads"]:
+            fail(f"{kind[0]} {kind[1]} has a stack frame or spills: {r}")
+    want = {(t, d) for t in ("mix_sgd_narrow_kernel", "mix_sgd_ring_kernel")
+            for d in ("f32", "bf16")}
+    if seen != want:
+        fail(f"ptxas reported kernel 2 instantiations {sorted(seen)}, "
+             f"expected {sorted(want)}")
 
     # -- 3. kernels against their plain versions --------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -239,6 +269,24 @@ def main() -> None:
                   f"ms, plain {pm:.4f} ms, library (addmm) {lm:.4f} ms, "
                   f"bound {bd:.4f} ms")
 
+    def ring_ab(p_, b_, w, lr) -> tuple[float, float]:
+        """Kernel 2's ring kernel on a bucket the wrapper sends to the
+        narrow kernel (n <= 8): its agreement with the plain version, then
+        both kernels timed in turns (narrow, ring, ring, narrow) on a copy
+        of ``p_`` with the same strides, so ``p_`` keeps its values."""
+        tile = mix_plan(p_.shape[0], p_.element_size()).tile_cols
+        out = torch.empty_strided(p_.shape, p_.stride(), dtype=p_.dtype,
+                                  device=dev).copy_(p_)
+        ref = p_.clone()
+        launch_mix(out, b_, w, lr=lr, tile_cols=tile)
+        mix_sgd_reference(ref, b_, w, lr=lr)
+        torch.cuda.synchronize()
+        within(out, ref, 0.0, 1e-5)
+        narrow = functools.partial(launch_mix, out, b_, w, lr=lr, tile_cols=0)
+        ring = functools.partial(launch_mix, out, b_, w, lr=lr, tile_cols=tile)
+        t = [time_ms(fn) for fn in (narrow, ring, ring, narrow)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
     def epilogue(times) -> dict:
         """One round's epilogue: its buckets' times summed."""
         km, pm, lm, nbytes, flops = (sum(t[i] for t in times)
@@ -272,10 +320,16 @@ def main() -> None:
         spec, fp, fb = stores(gw, dtype)
         fp.copy_(randn(*fp.shape))
         fb.copy_(randn(*fb.shape))
+        if dtype == torch.float32:   # before mix_case times in place
+            ab = [ring_ab(pb, bb, w6, 1.0) for pb, bb in
+                  zip(flat_buckets(fp, spec), flat_buckets(fb, spec))]
+            print(f"A/B kernel 2 at n = 6 (gossip buckets, f32, in turns): "
+                  f"narrow kernel {1e3 * sum(a for a, _ in ab):.1f} us, ring "
+                  f"kernel {1e3 * sum(b for _, b in ab):.1f} us")
         for pb, bb in zip(flat_buckets(fp, spec), flat_buckets(fb, spec)):
             mix_case("gossip bucket", pb, bb, w6, 1.0,
                      gossip_times if dtype == torch.float32 else None)
-        for n in (12, 32):
+        for n in (5, 12, 32):
             mix_case(f"{n} workers", randn(n, 65_537, dtype=dtype),
                      randn(n, 65_537, dtype=dtype), stochastic(n), 0.5)
     k2 = epilogue(gossip_times)
@@ -299,6 +353,27 @@ def main() -> None:
             mix_case("federated bucket", db, sb, mean_w, -1.0,
                      fed_times if dtype == torch.float32 else None)
     k2f = epilogue(fed_times)
+    # Sweep: kernel 2 over the federated bucket widths at n = 12 and 32
+    # (n = 6 and 16 are the two call sites above), f32 timed, bf16 checked.
+    sweep = {6: k2, 16: k2f}
+    for n in (12, 32):
+        w_n, n_times = stochastic(n), []
+        for dtype in (torch.float32, torch.bfloat16):
+            spec, sp, sb = stores(n, dtype)
+            sp.copy_(randn(*sp.shape))
+            sb.copy_(randn(*sb.shape))
+            for pb, bb in zip(flat_buckets(sp, spec), flat_buckets(sb, spec)):
+                mix_case(f"sweep n={n} bucket", pb, bb, w_n, 0.5,
+                         n_times if dtype == torch.float32 else None)
+            del spec, sp, sb
+        sweep[n] = epilogue(n_times)
+    for n, t in sorted(sweep.items()):
+        print(f"sweep fused_mix_sgd n={n} [{n}, 1048576] + [{n}, 614794] "
+              f"f32: kernel {1e3 * t['ms']:.1f} us, plain "
+              f"{1e3 * t['plain_ms']:.1f} us, addmm "
+              f"{1e3 * t['library_ms']:.1f} us, bound "
+              f"{1e3 * t['bound_ms']:.1f} us ({t['bound_by']}): "
+              f"{100 * t['bound_ms'] / t['ms']:.0f}% of the bound")
     # Empty work launches nothing, so the counters count real launches.
     before = (fused_sgd_momentum.launches, fused_mix_sgd.launches)
     empty = torch.empty(0, device=dev)

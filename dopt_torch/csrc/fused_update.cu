@@ -17,17 +17,41 @@
 //
 // 2. fused_mix_sgd — replaces dopt/ops/fused_update.py `fused_mix_sgd`
 //    (Pallas body `_make_mix_kernel`).  On one [n, F] flat bucket:
-//    p = W @ p - lr*buf, W [n, n] f32, accumulation f32, in place.
-//    Bound on the H100: bytes.  12 bytes an f32 element (read p, buf;
-//    write p) against 2n+2 FLOPs, so under 6 FLOP/byte for n <= 32.
-//    The TPU ran the [n,n]x[n,BF] product on the MXU; n <= 32 is far
-//    too narrow for tensor cores, so here each thread owns VEC columns:
-//    it loads p[0..n-1, cols] and buf[0..n-1, cols] into registers,
-//    computes all n outputs with FMAs against W held in shared memory,
-//    then writes them back.
-//    In place is race-free because no other thread touches those
-//    columns.  Rows may be strided (a bucket is a column range of the
-//    trainer's [n, padded] flat store), columns are unit-stride.
+//    p = W @ p - lr*buf, W [n, n] f32, n <= 32, accumulation f32, in
+//    place.  Bound on the H100: bytes.  12 bytes an f32 element (read p,
+//    buf; write p) against 2n+2 FLOPs: at most 5.5 FLOP/byte at n = 32,
+//    under the f32 ridge of ~20 FLOP/byte.  The TPU ran the product on
+//    its MXU; tensor cores do not apply here: TF32 would break the f32
+//    contract, and the product is nowhere near compute-bound.  The work
+//    is to keep enough bytes in flight and to add no traffic of its own.
+//    No thread holds W across columns.  The design this replaces ran a
+//    grid-stride column loop with its i/j loops fully unrolled over a
+//    compile-time NMAX: every W read had a constant index, so the
+//    compiler hoisted all NMAX^2 of them out of the loop into per-thread
+//    storage.  At NMAX = 32 that took 255 registers, a 3.5 KB stack frame
+//    and ~3.6 KB of spills reloaded every column, and n = 16 ran at 2% of
+//    its bound.  Two kernels now, by n:
+//    - n <= 8, mix_sgd_narrow_kernel: one thread, one 4-column pack, all
+//      2n row loads in flight at once, W in shared memory.  There is no
+//      column loop, so each W read stays where it is used (85 registers,
+//      no spills, where the looped version took 128 and spilled).
+//    - 9 <= n <= 32, mix_sgd_ring_kernel: persistent blocks walk [n, BF]
+//      column tiles.  Each tile of p and buf arrives in a kMixStages-deep
+//      shared-memory ring by 16-byte cp.async, issued two tiles ahead of
+//      the one being computed.  A thread computes a kMixRows x 4 block of
+//      outputs: its accumulators live in registers, it reads x[j][cols]
+//      from the ring once for all kMixRows rows, and it reads
+//      W^T[j][rows] from shared memory as a warp-wide broadcast inside a
+//      j loop whose trip count is the runtime n.  Registers do not grow
+//      with n.  In place is race-free: a tile's outputs are written after
+//      its loads have landed, and tiles are disjoint column ranges.
+//    The ring kernel also runs n <= 8 correctly, but slower than the
+//    narrow one at n = 6 (chip_smoke.py times the two in turns), so the
+//    wrapper sends n <= 8 to the narrow kernel.
+//    Rows may be strided (a bucket is a column range of the trainer's
+//    [n, padded] flat store), columns are unit-stride.  The ragged tail,
+//    and buckets whose rows are not aligned, take each kernel's scalar
+//    path (the ring kernel: plain loads into the ring, guarded stores).
 //
 // Storage is f32 or bf16 (dtype code 0 / 1); math is always f32.  Each
 // entry point launches exactly one kernel on the caller's stream and
@@ -165,6 +189,12 @@ cudaError_t launch_sgd(int count, void* const* p, void* const* m,
 // 2. Fused mix + update over one flat bucket
 // ---------------------------------------------------------------------
 
+// -- n <= 8: a 4-column pack a thread ---------------------------------
+
+constexpr int kNarrowN = 8;
+constexpr int kNarrowVec = 4;
+constexpr int kNarrowThreads = 256;
+
 template <typename T, int VEC>
 __device__ __forceinline__ void load_cols(const T* row, int64_t col,
                                           int64_t f, bool vec, float* out) {
@@ -194,87 +224,294 @@ __device__ __forceinline__ void store_cols(T* row, int64_t col, int64_t f,
   }
 }
 
-// NMAX bounds n at compile time so the column stacks x and b [NMAX][VEC]
-// live in registers; rows j >= n are skipped by the runtime guards.  All
-// 2n row loads are issued before any FMA, so a thread's whole input is in
-// flight at once.  MINB caps registers so MINB blocks fit on an SM: for
-// n <= 8 two blocks (uncapped it took 142 registers, one block an SM, and
-// ran the main path's epilogue in 90 us instead of 58 us, H100 SXM); the
-// wider stacks keep one, since the cap made them spill kilobytes.
-template <typename T, int NMAX, int VEC, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB)
-    mix_sgd_kernel(T* __restrict__ p, int64_t ldp, const T* __restrict__ buf,
-                   int64_t ldb, const float* __restrict__ w, int n, int64_t f,
-                   float lr, int vec) {
-  __shared__ float ws[NMAX * NMAX];
-  for (int k = threadIdx.x; k < NMAX * NMAX; k += blockDim.x) {
-    const int i = k / NMAX, j = k % NMAX;
+// The column stacks x and b [kNarrowN][kNarrowVec] live in registers;
+// rows j >= n are skipped by the runtime guards.  All 2n row loads are
+// issued before any FMA, so a thread's whole input is in flight at once.
+// The cap of two blocks an SM (128 registers) leaves room to spare: with
+// no column loop to hoist W out of, ptxas gives it 85 registers (f32,
+// sm_90a) and no spills.
+template <typename T>
+__global__ void __launch_bounds__(kNarrowThreads, 2)
+    mix_sgd_narrow_kernel(T* __restrict__ p, int64_t ldp,
+                          const T* __restrict__ buf, int64_t ldb,
+                          const float* __restrict__ w, int n, int64_t f,
+                          float lr, int vec) {
+  __shared__ float ws[kNarrowN * kNarrowN];
+  for (int k = threadIdx.x; k < kNarrowN * kNarrowN; k += blockDim.x) {
+    const int i = k / kNarrowN, j = k % kNarrowN;
     ws[k] = (i < n && j < n) ? w[i * n + j] : 0.0f;
   }
   __syncthreads();
-  const int64_t packs = (f + VEC - 1) / VEC;
-  for (int64_t c = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; c < packs;
-       c += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t col = c * VEC;
-    float x[NMAX][VEC];
-    float b[NMAX][VEC];
+  const int64_t col =
+      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) * kNarrowVec;
+  if (col >= f) return;
+  float x[kNarrowN][kNarrowVec];
+  float b[kNarrowN][kNarrowVec];
 #pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
+  for (int j = 0; j < kNarrowN; ++j) {
+    if (j < n) {
+      load_cols<T, kNarrowVec>(p + j * ldp, col, f, vec, x[j]);
+      load_cols<T, kNarrowVec>(buf + j * ldb, col, f, vec, b[j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kNarrowN; ++i) {
+    if (i >= n) break;
+    float acc[kNarrowVec];
+#pragma unroll
+    for (int k = 0; k < kNarrowVec; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kNarrowN; ++j) {
       if (j < n) {
-        load_cols<T, VEC>(p + j * ldp, col, f, vec, x[j]);
-        load_cols<T, VEC>(buf + j * ldb, col, f, vec, b[j]);
+        const float wij = ws[i * kNarrowN + j];
+#pragma unroll
+        for (int k = 0; k < kNarrowVec; ++k)
+          acc[k] = fmaf(wij, x[j][k], acc[k]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i >= n) break;
-      float acc[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        if (j < n) {
-          const float wij = ws[i * NMAX + j];
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] = fmaf(wij, x[j][k], acc[k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        acc[k] = __fsub_rn(acc[k], __fmul_rn(lr, b[i][k]));
-      store_cols<T, VEC>(p + i * ldp, col, f, vec, acc);
-    }
+    for (int k = 0; k < kNarrowVec; ++k)
+      acc[k] = __fsub_rn(acc[k], __fmul_rn(lr, b[i][k]));
+    store_cols<T, kNarrowVec>(p + i * ldp, col, f, vec, acc);
   }
 }
 
-template <typename T, int NMAX, int VEC, int MINB>
-cudaError_t launch_mix_nv(T* p, int64_t ldp, const T* buf, int64_t ldb,
-                          const float* w, int n, int64_t f, float lr,
-                          cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_mix_narrow(T* p, int64_t ldp, const T* buf, int64_t ldb,
+                              const float* w, int n, int64_t f, float lr,
+                              cudaStream_t stream) {
   const bool vec = ((reinterpret_cast<uintptr_t>(p) |
                      reinterpret_cast<uintptr_t>(buf)) %
-                        (sizeof(T) * VEC) ==
+                        (sizeof(T) * kNarrowVec) ==
                     0) &&
-                   ldp % VEC == 0 && ldb % VEC == 0;
-  const int64_t packs = (f + VEC - 1) / VEC;
-  int64_t blocks = (packs + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  mix_sgd_kernel<T, NMAX, VEC, MINB><<<int(blocks), kThreads, 0, stream>>>(
+                   ldp % kNarrowVec == 0 && ldb % kNarrowVec == 0;
+  const int64_t packs = (f + kNarrowVec - 1) / kNarrowVec;
+  const int64_t blocks = (packs + kNarrowThreads - 1) / kNarrowThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  mix_sgd_narrow_kernel<T><<<int(blocks), kNarrowThreads, 0, stream>>>(
       p, ldp, buf, ldb, w, n, f, lr, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
-// The vector width is fixed per NMAX (registers: 2*NMAX*VEC floats of the
-// column stacks); an unaligned bucket takes the same kernel's scalar path.
-// Two instantiations: n <= 8 (the slice's six workers) and n <= 32.
+// -- 9 <= n <= 32: column tiles through a shared-memory ring ----------
+
+// The tile plan (tile width BF) is chosen by the wrapper
+// (dopt_torch/ops/fused_update.py `mix_plan`), which mirrors these
+// constants; the launch refuses a plan that breaks them.  512 threads
+// and j unrolled by two: the fastest of the thread counts (128-512),
+// unrolls (1, 2), rows a thread (4, 8) and ring depths (2-6) timed on an
+// H100 SXM at n = 6-32.
+constexpr int kMixThreads = 512;
+constexpr int kMixRows = 8;     // output rows a thread (n <= 32: 4 groups)
+constexpr int kMixStages = 3;   // depth of the shared-memory ring
+constexpr int kMixWBytes = kMixMaxN * kMixMaxN * sizeof(float);
+constexpr int kMixMaxSmem = 232448;  // 227 KB, a block's limit on sm_90
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void load4(const T* src, float* out) {
+  const Pack<T, 4> v = *reinterpret_cast<const Pack<T, 4>*>(src);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = Cvt<T>::load(v.v[k]);
+}
+
+// Copy one [n, bf] column tile of p and buf (starting at column col0)
+// into a ring stage, 16 bytes a cp.async; rows are 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void issue_tile(T* xs, T* bs, const T* p,
+                                           int64_t ldp, const T* buf,
+                                           int64_t ldb, int n, int bf,
+                                           int64_t col0) {
+  constexpr int kChunk = 16 / sizeof(T);
+  const int shift = __ffs(bf / kChunk) - 1;  // bf is a power of two
+  for (int c = threadIdx.x; c < n << shift; c += blockDim.x) {
+    const int j = c >> shift, e = (c & ((1 << shift) - 1)) * kChunk;
+    cp_async16(xs + j * bf + e, p + j * ldp + col0 + e);
+    cp_async16(bs + j * bf + e, buf + j * ldb + col0 + e);
+  }
+}
+
+// The synchronous twin of issue_tile for the ragged tail and unaligned
+// rows: plain loads, zeros past column f.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* xs, T* bs, const T* p,
+                                          int64_t ldp, const T* buf,
+                                          int64_t ldb, int n, int bf,
+                                          int64_t col0, int64_t f) {
+  for (int e = threadIdx.x; e < n * bf; e += blockDim.x) {
+    const int j = e / bf;
+    const int64_t col = col0 + (e - j * bf);
+    xs[e] = col < f ? p[j * ldp + col] : Cvt<T>::store(0.0f);
+    bs[e] = col < f ? buf[j * ldb + col] : Cvt<T>::store(0.0f);
+  }
+}
+
+// out = W @ x - lr*b on one staged tile, written to p at column col0.
+// wt is W transposed, zero past n: wt[j*kMixMaxN + i] = W[i][j].  The
+// sum over j runs in order 0..n-1 from 0 by fmaf, then the subtract is
+// rounded on its own, as in the kernel this design replaces.
+template <typename T, bool kVec>
+__device__ __forceinline__ void mix_tile(const float* wt, const T* xs,
+                                         const T* bs, T* p, int64_t ldp,
+                                         int n, int bf, int64_t col0,
+                                         int64_t f, float lr) {
+  const int shift = __ffs(bf / 4) - 1;  // quads a row; bf a power of two
+  const int items = (n + kMixRows - 1) / kMixRows << shift;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int r0 = (it >> shift) * kMixRows;
+    const int c = (it & ((1 << shift) - 1)) * 4;
+    float acc[kMixRows][4] = {};
+    // A runtime trip count: the W reads below stay inside the loop.
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      float x[4];
+      load4(xs + j * bf + c, x);
+      const float* wr = wt + j * kMixMaxN + r0;
+      const float4 w0 = *reinterpret_cast<const float4*>(wr);
+      const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+      const float wj[kMixRows] = {w0.x, w0.y, w0.z, w0.w,
+                                  w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < kMixRows; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(wj[i], x[k], acc[i][k]);
+    }
+#pragma unroll
+    for (int i = 0; i < kMixRows; ++i) {
+      const int row = r0 + i;
+      if (row >= n) break;
+      float b[4];
+      load4(bs + row * bf + c, b);
+      T* dst = p + row * ldp + col0 + c;
+      if (kVec) {
+        Pack<T, 4> v;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v.v[k] = Cvt<T>::store(__fsub_rn(acc[i][k], __fmul_rn(lr, b[k])));
+        *reinterpret_cast<Pack<T, 4>*>(dst) = v;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (col0 + c + k < f)
+            dst[k] = Cvt<T>::store(__fsub_rn(acc[i][k], __fmul_rn(lr, b[k])));
+      }
+    }
+  }
+}
+
+// Tiles [0, ring_tiles) are whole and aligned and go through the
+// cp.async ring; tiles [ring_tiles, ceil(f/bf)) through the synchronous
+// path.  Block b takes tiles b, b + grid, ... across both ranges.
+template <typename T>
+__global__ void __launch_bounds__(kMixThreads)
+    mix_sgd_ring_kernel(T* __restrict__ p, int64_t ldp,
+                        const T* __restrict__ buf, int64_t ldb,
+                        const float* __restrict__ w, int n, int64_t f,
+                        float lr, int bf, int64_t ring_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wt = reinterpret_cast<float*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + kMixWBytes);
+  const int stage_elems = 2 * n * bf;
+  for (int k = threadIdx.x; k < kMixMaxN * kMixMaxN; k += blockDim.x) {
+    const int j = k / kMixMaxN, i = k % kMixMaxN;
+    wt[k] = (i < n && j < n) ? w[i * n + j] : 0.0f;
+  }
+  __syncthreads();
+
+  const int64_t grid = gridDim.x;
+  int64_t next = blockIdx.x;
+  for (int s = 0; s < kMixStages - 1; ++s, next += grid) {
+    if (next < ring_tiles)
+      issue_tile(ring + s * stage_elems, ring + s * stage_elems + n * bf, p,
+                 ldp, buf, ldb, n, bf, next * bf);
+    cp_async_commit();
+  }
+  int stage = 0;
+  for (int64_t t = blockIdx.x; t < ring_tiles; t += grid, next += grid) {
+    // Refill the stage computed last iteration (its readers passed the
+    // barrier at the end of that iteration).
+    const int fill = (stage + kMixStages - 1) % kMixStages;
+    if (next < ring_tiles)
+      issue_tile(ring + fill * stage_elems,
+                 ring + fill * stage_elems + n * bf, p, ldp, buf, ldb, n,
+                 bf, next * bf);
+    cp_async_commit();
+    cp_async_wait<kMixStages - 1>();  // this tile's group has landed
+    __syncthreads();
+    T* xs = ring + stage * stage_elems;
+    mix_tile<T, true>(wt, xs, xs + n * bf, p, ldp, n, bf, t * bf, f, lr);
+    __syncthreads();
+    stage = (stage + 1) % kMixStages;
+  }
+  cp_async_wait<0>();
+
+  const int64_t tiles = (f + bf - 1) / bf;
+  for (int64_t t = ring_tiles + (blockIdx.x - ring_tiles % grid + grid) % grid;
+       t < tiles; t += grid) {
+    load_tile(ring, ring + n * bf, p, ldp, buf, ldb, n, bf, t * bf, f);
+    __syncthreads();
+    mix_tile<T, false>(wt, ring, ring + n * bf, p, ldp, n, bf, t * bf, f, lr);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t launch_mix_ring(T* p, int64_t ldp, const T* buf, int64_t ldb,
+                            const float* w, int n, int64_t f, float lr,
+                            int bf, cudaStream_t stream) {
+  if (bf < 32 || (bf & (bf - 1)) != 0) return cudaErrorInvalidValue;
+  const int64_t smem =
+      kMixWBytes + int64_t(kMixStages) * 2 * n * bf * int64_t(sizeof(T));
+  if (smem > kMixMaxSmem) return cudaErrorInvalidValue;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(p) |
+                         reinterpret_cast<uintptr_t>(buf)) % 16 == 0) &&
+                       (ldp * int64_t(sizeof(T))) % 16 == 0 &&
+                       (ldb * int64_t(sizeof(T))) % 16 == 0;
+  const int64_t tiles = (f + bf - 1) / bf;
+  const int64_t ring_tiles = aligned ? f / bf : 0;
+  auto kernel = mix_sgd_ring_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kMixThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t resident = int64_t(per_sm) * sms;
+  const int blocks = int(tiles < resident ? tiles : resident);
+  mix_sgd_ring_kernel<T><<<blocks, kMixThreads, smem, stream>>>(
+      p, ldp, buf, ldb, w, n, f, lr, bf, ring_tiles);
+  return cudaGetLastError();
+}
+
+// One launch a bucket: bf == 0 takes the narrow kernel (n <= kNarrowN),
+// bf > 0 the ring kernel with tiles of bf columns (any n).
 template <typename T>
 cudaError_t launch_mix(T* p, int64_t ldp, const T* buf, int64_t ldb,
-                       const float* w, int n, int64_t f, float lr,
+                       const float* w, int n, int64_t f, float lr, int bf,
                        cudaStream_t stream) {
-  if (n <= 8)
-    return launch_mix_nv<T, 8, 4, 2>(p, ldp, buf, ldb, w, n, f, lr, stream);
-  return launch_mix_nv<T, 32, 1, 1>(p, ldp, buf, ldb, w, n, f, lr, stream);
+  if (bf == 0) {
+    if (n > kNarrowN) return cudaErrorInvalidValue;
+    return launch_mix_narrow<T>(p, ldp, buf, ldb, w, n, f, lr, stream);
+  }
+  return launch_mix_ring<T>(p, ldp, buf, ldb, w, n, f, lr, bf, stream);
 }
 
 }  // namespace
@@ -295,21 +532,23 @@ int dopt_fused_sgd_momentum(int count, void* const* p, void* const* m,
 }
 
 // p, buf: [n, f] with row strides ldp, ldb (elements) and unit column
-// stride; w: [n, n] row-major float32 on the device.
+// stride; w: [n, n] row-major float32 on the device; bf: 0 for the
+// narrow kernel (n <= 8), else the ring kernel's tile width in columns (a
+// power of two, at least 32, whose ring fits in kMixMaxSmem).
 int dopt_fused_mix_sgd(void* p, int64_t ldp, const void* buf, int64_t ldb,
                        const float* w, int n, int64_t f, int dtype, float lr,
-                       void* stream) {
+                       int bf, void* stream) {
   if (n < 1 || n > kMixMaxN || f < 1 || ldp < f || ldb < f)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_mix<float>(static_cast<float*>(p), ldp,
                              static_cast<const float*>(buf), ldb, w, n, f, lr,
-                             s);
+                             bf, s);
   if (dtype == 1)
     return launch_mix<__nv_bfloat16>(static_cast<__nv_bfloat16*>(p), ldp,
                                      static_cast<const __nv_bfloat16*>(buf),
-                                     ldb, w, n, f, lr, s);
+                                     ldb, w, n, f, lr, bf, s);
   return cudaErrorInvalidValue;
 }
 

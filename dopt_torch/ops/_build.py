@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -82,6 +83,34 @@ def resource_report() -> str:
     return (build().parent / REPORT_NAME).read_text()
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
+    """ptxas's ``-v`` report as ``{function: {registers, stack_frame,
+    spill_stores, spill_loads}}``, keyed by the (mangled) name ptxas
+    prints.  A function without a ``Used N registers`` line (a device
+    function that was not inlined) has ``registers`` -1."""
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        if m := _PTXAS_ENTRY.search(line) or _PTXAS_PROPS.search(line):
+            current = out.setdefault(m.group(1), {
+                "registers": -1, "stack_frame": 0, "spill_stores": 0,
+                "spill_loads": 0})
+        elif current is not None and (m := _PTXAS_FRAME.search(line)):
+            current.update(stack_frame=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif current is not None and (m := _PTXAS_REGS.search(line)):
+            current["registers"] = int(m.group(1))
+    return out
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
@@ -94,7 +123,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(i64), c_int, c_float, c_float, vp]
     lib.dopt_fused_sgd_momentum.restype = c_int
     lib.dopt_fused_mix_sgd.argtypes = [vp, i64, vp, i64, vp, c_int, i64,
-                                       c_int, c_float, vp]
+                                       c_int, c_float, c_int, vp]
     lib.dopt_fused_mix_sgd.restype = c_int
     lib.dopt_error_string.argtypes = [c_int]
     lib.dopt_error_string.restype = ctypes.c_char_p

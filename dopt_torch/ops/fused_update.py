@@ -10,11 +10,21 @@ accesses, in place (``data_ptr`` never changes).
 
 ``fused_mix_sgd`` replaces dopt/ops/fused_update.py ``fused_mix_sgd``
 (+ ``fused_mix_update``): ``p ← W@p − lr·buf`` on one ``[n, F]`` flat
-bucket, W ``[n, n]`` in f32 — the gossip epilogue (lr = 1) and the
-federated masked mean + theta update (lr = −1).  Bound: bytes — 12 an
-f32 element (read p, buf; write p).  Design: each thread owns a few
-columns, keeps ``p[:, cols]`` in registers and W in shared memory, and
-writes the n outputs in place.
+bucket, W ``[n, n]`` in f32, n <= 32 — the gossip epilogue (lr = 1) and
+the federated masked mean + theta update (lr = −1).  Bound: bytes — 12
+an f32 element (read p, buf; write p) against 2n + 2 FLOPs, at most
+5.5 FLOP/byte, so tensor cores (TF32 would also break the f32 contract)
+have nothing to add.  No thread holds W across columns: the design this
+replaces unrolled its loops over a compile-time n inside a column loop,
+so the compiler hoisted every read of W into each thread (255 registers
+and 3.5 KB of spills a thread at n ≤ 32, 2% of the bound at n = 16).
+Two kernels now, one launch a bucket either way.  n <= 8: one thread a
+4-column pack, no column loop, all 2n row loads in flight.  n > 8:
+persistent blocks stream ``[n, BF]`` column tiles of p and buf through
+a 3-stage shared-memory ring (16-byte ``cp.async``); a thread computes
+8 rows × 4 columns of outputs from the staged tile, reading W from
+shared memory inside a loop over the runtime n.  ``mix_plan`` picks BF
+so that a stage holds about 32 KB; the kernel source checks the plan.
 
 The kernels live in ``dopt_torch/csrc/fused_update.cu`` (see its header
 for the design).  Beside each is its plain PyTorch version
@@ -28,6 +38,7 @@ nothing and counts nothing.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +49,14 @@ from dopt_torch.parallel.collectives import flat_buckets
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_TENSORS = 16   # tensors per kernel-1 launch (kMaxTensors in the source)
 MAX_MIX_N = 32     # workers per kernel-2 bucket (kMixMaxN in the source)
+MIX_NARROW_N = 8   # kNarrowN: buckets up to this n take the narrow kernel
+# The ring kernel's shared-memory plan (n > MIX_NARROW_N); each mirrors
+# a constant of the source.
+MIX_STAGES = 3                 # kMixStages: depth of the tile ring
+MIX_W_BYTES = 4 * MAX_MIX_N ** 2   # kMixWBytes: W^T, zero-padded
+MIX_MAX_SMEM = 232_448         # kMixMaxSmem: 227 KB, a block's limit
+MIX_STAGE_BYTES = 32 << 10     # target size of one ring stage (p + buf)
+MIX_MAX_TILE = 1024            # widest tile, in columns
 
 
 # The plain version of kernel 1 is the port's unfused update itself:
@@ -101,6 +120,28 @@ def mix_sgd_reference(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
     p.copy_((mixed - lr * buf.float()).to(p.dtype))
 
 
+class MixPlan(NamedTuple):
+    """The ring kernel's tiling of an ``[n, F]`` bucket: column tiles of
+    ``tile_cols`` (a power of two, at least 32, so every tile of an
+    aligned bucket starts 16-byte aligned) and the dynamic shared memory
+    a block takes for them (W^T plus ``MIX_STAGES`` stages of p and buf)."""
+
+    tile_cols: int
+    smem_bytes: int
+
+
+def mix_plan(n: int, itemsize: int) -> MixPlan:
+    """The widest tile up to ``MIX_MAX_TILE`` whose stage (n rows of p
+    and of buf) fits in ``MIX_STAGE_BYTES``, so that a block keeps about
+    two stages, ~64 KB, in flight at any n.  Whole tiles of an aligned
+    bucket go through the ring; the ragged tail (F mod ``tile_cols``
+    columns) through the kernel's synchronous path."""
+    tile = MIX_MAX_TILE
+    while tile > 32 and 2 * n * tile * itemsize > MIX_STAGE_BYTES:
+        tile //= 2
+    return MixPlan(tile, MIX_W_BYTES + MIX_STAGES * 2 * n * tile * itemsize)
+
+
 def fused_mix_sgd(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor, *,
                   lr: float) -> None:
     """In place ``p ← W@p − lr·buf`` on one ``[n, F]`` bucket.  ``p`` and
@@ -131,16 +172,28 @@ def fused_mix_sgd(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("fused_mix_sgd: w must be contiguous float32")
     if f == 0:
         return
-    lib = load_library()
-    code = lib.dopt_fused_mix_sgd(
-        p.data_ptr(), max(p.stride(0), f), buf.data_ptr(),
-        max(buf.stride(0), f), w.data_ptr(), n, f, _DTYPES[p.dtype], lr,
-        torch.cuda.current_stream(p.device).cuda_stream)
-    check(lib, code, "fused_mix_sgd")
+    launch_mix(p, buf, w, lr=lr, tile_cols=(
+        0 if n <= MIX_NARROW_N else mix_plan(n, p.element_size()).tile_cols))
     fused_mix_sgd.launches += 1
 
 
 fused_mix_sgd.launches = 0
+
+
+def launch_mix(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor, *,
+               lr: float, tile_cols: int) -> None:
+    """One launch of kernel 2 on CUDA tensors that ``fused_mix_sgd`` has
+    checked: ``tile_cols`` 0 takes the narrow kernel (n <= 8), a plan's
+    tile width the ring kernel.  ``fused_mix_sgd`` picks by n; chip_smoke
+    also runs the ring at n <= 8 to time the two against each other.
+    Counts nothing."""
+    n, f = p.shape
+    lib = load_library()
+    code = lib.dopt_fused_mix_sgd(
+        p.data_ptr(), max(p.stride(0), f), buf.data_ptr(),
+        max(buf.stride(0), f), w.data_ptr(), n, f, _DTYPES[p.dtype], lr,
+        tile_cols, torch.cuda.current_stream(p.device).cuda_stream)
+    check(lib, code, "fused_mix_sgd")
 
 
 def fused_mix_update(flat_p: torch.Tensor, flat_buf: torch.Tensor,

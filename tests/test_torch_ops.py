@@ -21,6 +21,8 @@ from dopt.ops import fused_sgd_momentum as jax_fused_sgd_momentum
 from dopt.parallel import collectives as jcoll
 from dopt_torch.ops import (fused_mix_sgd, fused_mix_update,
                             fused_sgd_momentum, mix_sgd_reference)
+from dopt_torch.ops import fused_update as tops
+from dopt_torch.ops._build import parse_ptxas
 from dopt_torch.parallel import collectives as tcoll
 
 
@@ -81,7 +83,8 @@ def test_fused_sgd_momentum_multi_tensor_and_bf16():
                                        rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("n,f", [(6, 137), (5, 1000), (8, 128), (3, 1)])
+@pytest.mark.parametrize("n,f", [(6, 137), (5, 1000), (8, 128), (3, 1),
+                                 (12, 1001), (16, 2053), (32, 333)])
 def test_fused_mix_sgd_matches_pallas(n, f):
     rng = np.random.default_rng(3)
     p = rng.normal(size=(n, f)).astype(np.float32)
@@ -93,6 +96,85 @@ def test_fused_mix_sgd_matches_pallas(n, f):
     fused_mix_sgd(tp, _t(m), _t(w), lr=0.05)
     np.testing.assert_allclose(tp.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("alive", [5, 0])
+def test_fused_mix_sgd_federated_form(alive):
+    """The federated epilogue: lr = −1, p the displacement store with the
+    masked rows zeroed, buf the theta slab (one row repeated), W the
+    masked-mean matrix — θ' = M·disp + θ on every row.  An all-dead mask
+    gives M = 0 and keeps θ exactly."""
+    n, f = 16, 1037
+    rng = np.random.default_rng(8)
+    mask = np.zeros(n, np.float32)
+    mask[rng.permutation(n)[:alive]] = 1.0
+    disp = rng.normal(size=(n, f)).astype(np.float32) * mask[:, None]
+    theta = np.broadcast_to(rng.normal(size=(1, f)).astype(np.float32),
+                            (n, f)).copy()
+    jw = np.asarray(jcoll.mean_weight_matrix(jnp.asarray(mask)))
+    tw = tcoll.mean_weight_matrix(_t(mask))
+    np.testing.assert_array_equal(tw.numpy(), jw)
+    want = jax_fused_mix_sgd(jnp.asarray(disp), jnp.asarray(theta),
+                             jnp.asarray(jw), lr=-1.0, interpret=True)
+    tp = _t(disp)
+    fused_mix_sgd(tp, _t(theta), tw, lr=-1.0)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    mean = disp.sum(0) / max(alive, 1)
+    np.testing.assert_allclose(tp.numpy(), np.broadcast_to(
+        theta[0] + mean, (n, f)), rtol=1e-6, atol=1e-6)
+    if not alive:
+        np.testing.assert_array_equal(tp.numpy(), theta)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_plan_fits_and_covers(dtype):
+    """The ring kernel's tile plan for every n it serves (9..32): the
+    tile is a power of two of at least 32 columns (so an aligned bucket's
+    tiles start 16-byte aligned), a stage (p + buf) stays within its
+    target, the block's shared memory within the 227 KB limit, and the
+    whole tiles plus the ragged tail cover F exactly, for the main path's
+    bucket widths."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for n in range(tops.MIX_NARROW_N + 1, tops.MAX_MIX_N + 1):
+        plan = tops.mix_plan(n, itemsize)
+        bf = plan.tile_cols
+        assert 32 <= bf <= tops.MIX_MAX_TILE and bf & (bf - 1) == 0
+        assert (bf * itemsize) % 16 == 0
+        assert 2 * n * bf * itemsize <= tops.MIX_STAGE_BYTES
+        assert plan.smem_bytes == (tops.MIX_W_BYTES + tops.MIX_STAGES * 2 * n
+                                   * bf * itemsize) <= tops.MIX_MAX_SMEM
+        for f in (1, 31, bf, bf + 1, 65_537, 614_794, 1_048_576):
+            whole, tail = divmod(f, bf)   # ring tiles, then the tail
+            assert whole * bf + tail == f and 0 <= tail < bf
+    # The federated call site (n = 16, f32) stages [16, 256] tiles.
+    assert tops.mix_plan(16, 4) == (256, 4096 + 3 * 2 * 16 * 256 * 4)
+
+
+def test_parse_ptxas_report():
+    """The spill guard's parser on ptxas's ``-v`` text (CUDA 12 format:
+    the entry line, the properties block, the register line), with one
+    kernel that spills and one that does not."""
+    spill = "_ZN12_GLOBAL__N_114mix_sgd_kernelIfLi32ELi1ELi1EEEvPT_lPKS1_lPKfilfi"
+    clean = ("_ZN12_GLOBAL__N_119mix_sgd_ring_kernelI13__nv_bfloat16EEvPT_l"
+             "PKS2_lPKfilfil")
+    text = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{spill}' for 'sm_90a'
+ptxas info    : Function properties for {spill}
+    3472 bytes stack frame, 3564 bytes spill stores, 3668 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 3472 bytes cumulative stack size, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '{clean}' for 'sm_90a'
+ptxas info    : Function properties for {clean}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 416 bytes cmem[0]
+"""
+    got = parse_ptxas(text)
+    assert got == {
+        spill: {"registers": 255, "stack_frame": 3472, "spill_stores": 3564,
+                "spill_loads": 3668},
+        clean: {"registers": 64, "stack_frame": 0, "spill_stores": 0,
+                "spill_loads": 0}}
+    assert parse_ptxas("") == {}
 
 
 def test_fused_mix_sgd_bf16_storage():
