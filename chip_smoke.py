@@ -12,7 +12,8 @@ the final line:
    fails if any instantiation of kernel 2 (its narrow and ring kernels,
    f32 and bf16) has a stack frame or spills (the spill guard);
 3. kernels — each CUDA kernel against its plain PyTorch version on the
-   card at both main paths' shapes (plus odd, strided and bf16 cases),
+   card at both main paths' shapes, in f32 and in bf16 storage (plus
+   odd and strided cases),
    with the tolerance stated, and CUDA-event median times (cold L2) of
    the kernel, the plain version and one library call computing the
    same function, beside the bound (bytes over 3.35 TB/s, operations
@@ -24,7 +25,10 @@ the final line:
 4. small-input agreement — tiny runs on the GPU against the same runs
    on the CPU (the kernels' plain versions), same init: gossip with both
    fused switches, federated fedavg with both fused switches, and
-   federated fedadmm on the compact path with the 10% holdout;
+   federated fedadmm on the compact path with the 10% holdout; then in
+   bf16, each beside the same run's GPU f32 leg: gossip idiomatic bf16
+   (clip 1.0, fused on), and federated fedprox on the compact path with
+   bf16 storage, clip 1.0 and the 10% holdout;
 5. gossip main path — the headline-dsgd-model1 preset (6 workers,
    Model1 at full width, 60,000/10,000 samples, both fused switches on)
    for two rounds through GossipTrainer; checks finite metrics and that
@@ -37,8 +41,14 @@ the final line:
 5c. the federated path users run — baseline3 as typed (compact: only
    the 8 sampled lanes train; plain SGD update, so no kernel of the
    port runs) for two rounds, timed beside 5b;
-6. profile — one more round of each path under torch.profiler: device
-   time by kernel.
+5d/5e. the JAX bench's fast legs — headline-dsgd-model1-bf16 and
+   headline-dsgd-model1-idiomatic-bf16 (bf16 compute, f32 storage) for
+   two rounds each, rounds/s against phase 5's f32 headline;
+5f. bf16 storage — headline-fedavg-model1 and headline-dsgd-model1 with
+   bf16 compute and storage, two rounds each, with the launch counts
+   and the dtype every kernel launch received;
+6. profile — one more round of the gossip, federated and faithful bf16
+   paths under torch.profiler: device time by kernel.
 
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
@@ -207,7 +217,9 @@ def main() -> None:
         torch.cuda.synchronize()
         if [t.data_ptr() for t in pk + mk_] != ptrs:
             fail("fused_sgd_momentum moved its outputs")
-        rtol, atol = (0.0, 1e-6) if dtype == torch.float32 else (2 ** -7, 1e-6)
+        # Bit-identical in both dtypes: the kernel rounds each f32 op as
+        # its plain version does, and stores once.
+        rtol, atol = 0.0, 0.0
         err = max(within(a, b, rtol, atol) for a, b in zip(pk + mk_, pr + mr))
         print(f"kernel fused_sgd_momentum {label}: {len(sizes)} tensors, "
               f"{sum(sizes)} elements, {dtype}: max abs err {err:.3e} "
@@ -233,10 +245,11 @@ def main() -> None:
         else:
             out["library_ms"] = time_ms(opt.step)
         elems = sum(t.numel() for t in p)
-        out["bound_ms"], out["bound_by"] = bound_ms(20 * elems, 4 * elems)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            5 * p[0].element_size() * elems, 4 * elems)
         lib = out["library_ms"]
-        print(f"time fused_sgd_momentum {label} (one step, {elems} f32 "
-              f"elements): kernel {out['ms']:.4f} ms, plain "
+        print(f"time fused_sgd_momentum {label} (one step, {elems} "
+              f"{p[0].dtype} elements): kernel {out['ms']:.4f} ms, plain "
               f"{out['plain_ms']:.4f} ms, library "
               f"{lib if lib is None else round(lib, 4)} ms, bound "
               f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
@@ -261,13 +274,15 @@ def main() -> None:
         if times is not None:
             km = time_ms(lambda: fused_mix_sgd(p_, b_, w, lr=lr))
             pm = time_ms(lambda: mix_sgd_reference(p_, b_, w, lr=lr))
-            lm = time_ms(lambda: torch.addmm(b_, w, p_, beta=-lr))
-            nbytes, flops = 12 * n * f + 4 * n * n, (2 * n + 2) * n * f
+            w_lib = w.to(p_.dtype)   # addmm takes one dtype
+            lm = time_ms(lambda: torch.addmm(b_, w_lib, p_, beta=-lr))
+            nbytes = 3 * p_.element_size() * n * f + 4 * n * n
+            flops = (2 * n + 2) * n * f
             bd, _ = bound_ms(nbytes, flops)
             times.append((km, pm, lm, nbytes, flops, err))
-            print(f"time fused_mix_sgd [{n}, {f}] lr {lr}: kernel {km:.4f} "
-                  f"ms, plain {pm:.4f} ms, library (addmm) {lm:.4f} ms, "
-                  f"bound {bd:.4f} ms")
+            print(f"time fused_mix_sgd [{n}, {f}] {p_.dtype} lr {lr}: kernel "
+                  f"{km:.4f} ms, plain {pm:.4f} ms, library (addmm) "
+                  f"{lm:.4f} ms, bound {bd:.4f} ms")
 
     def ring_ab(p_, b_, w, lr) -> tuple[float, float]:
         """Kernel 2's ring kernel on a bucket the wrapper sends to the
@@ -312,10 +327,12 @@ def main() -> None:
     leaf6 = [gw * math.prod(s) for s in shapes.values()]
     p, m, g, err1 = sgd_case("model1 W=6 leaves", leaf6, torch.float32)
     sgd_case("odd length, unaligned", [1_000_003], torch.float32, offset=1)
-    sgd_case("model1 W=6 leaves", leaf6, torch.bfloat16)
+    sgd_case("odd length, unaligned", [1_000_003], torch.bfloat16, offset=1)
     k1 = {**time_sgd("gossip W=6", p, m, g), "max_abs_err": err1}
+    p, m, g, err1 = sgd_case("model1 W=6 leaves", leaf6, torch.bfloat16)
+    k1b = {**time_sgd("gossip W=6 bf16", p, m, g), "max_abs_err": err1}
     w6 = stochastic(gw)
-    gossip_times = []
+    gossip_times, gossip_times_bf16 = [], []
     for dtype in (torch.float32, torch.bfloat16):
         spec, fp, fb = stores(gw, dtype)
         fp.copy_(randn(*fp.shape))
@@ -328,11 +345,12 @@ def main() -> None:
                   f"kernel {1e3 * sum(b for _, b in ab):.1f} us")
         for pb, bb in zip(flat_buckets(fp, spec), flat_buckets(fb, spec)):
             mix_case("gossip bucket", pb, bb, w6, 1.0,
-                     gossip_times if dtype == torch.float32 else None)
+                     gossip_times if dtype == torch.float32
+                     else gossip_times_bf16)
         for n in (5, 12, 32):
             mix_case(f"{n} workers", randn(n, 65_537, dtype=dtype),
                      randn(n, 65_537, dtype=dtype), stochastic(n), 0.5)
-    k2 = epilogue(gossip_times)
+    k2, k2b = epilogue(gossip_times), epilogue(gossip_times_bf16)
 
     # Federated: 16 lanes; kernel 2 at lr = −1 runs θ'_b = M·disp + θ_b
     # with M = mask/Σmask for an 8-of-16 sample, the displacement store
@@ -341,18 +359,20 @@ def main() -> None:
     leaf16 = [fw * math.prod(s) for s in shapes.values()]
     p, m, g, err1f = sgd_case("model1 W=16 leaves", leaf16, torch.float32)
     k1f = {**time_sgd("federated W=16", p, m, g), "max_abs_err": err1f}
+    p, m, g, err1f = sgd_case("model1 W=16 leaves", leaf16, torch.bfloat16)
+    k1fb = {**time_sgd("federated W=16 bf16", p, m, g), "max_abs_err": err1f}
     mask = torch.zeros(fw, device=dev)
     mask[torch.randperm(fw, device=dev, generator=gen)[:fw // 2]] = 1.0
     mean_w = mean_weight_matrix(mask)
-    fed_times = []
+    fed_times, fed_times_bf16 = [], []
     for dtype in (torch.float32, torch.bfloat16):
         spec, disp, slab = stores(fw, dtype)
         disp.copy_(randn(*disp.shape) * mask[:, None])
         slab.copy_(randn(1, slab.shape[1]).expand_as(slab))
         for db, sb in zip(flat_buckets(disp, spec), flat_buckets(slab, spec)):
             mix_case("federated bucket", db, sb, mean_w, -1.0,
-                     fed_times if dtype == torch.float32 else None)
-    k2f = epilogue(fed_times)
+                     fed_times if dtype == torch.float32 else fed_times_bf16)
+    k2f, k2fb = epilogue(fed_times), epilogue(fed_times_bf16)
     # Sweep: kernel 2 over the federated bucket widths at n = 12 and 32
     # (n = 6 and 16 are the two call sites above), f32 timed, bf16 checked.
     sweep = {6: k2, 16: k2f}
@@ -374,6 +394,17 @@ def main() -> None:
               f"{1e3 * t['library_ms']:.1f} us, bound "
               f"{1e3 * t['bound_ms']:.1f} us ({t['bound_by']}): "
               f"{100 * t['bound_ms'] / t['ms']:.0f}% of the bound")
+    for label, t in (("fused_sgd_momentum gossip W=6", k1b),
+                     ("fused_sgd_momentum federated W=16", k1fb),
+                     ("fused_mix_sgd gossip n=6 lr=1", k2b),
+                     ("fused_mix_sgd federated n=16 lr=-1", k2fb)):
+        lib = (None if t["library_ms"] is None
+               else round(1e3 * t["library_ms"], 1))
+        print(f"bf16 call site {label}: kernel {1e3 * t['ms']:.1f} us, plain "
+              f"{1e3 * t['plain_ms']:.1f} us, library {lib} us, bound "
+              f"{1e3 * t['bound_ms']:.1f} us ({t['bound_by']}): "
+              f"{100 * t['bound_ms'] / t['ms']:.0f}% of the bound, max abs "
+              f"err {t['max_abs_err']:.3e}")
     # Empty work launches nothing, so the counters count real launches.
     before = (fused_sgd_momentum.launches, fused_mix_sgd.launches)
     empty = torch.empty(0, device=dev)
@@ -438,9 +469,74 @@ def main() -> None:
         fail("the fedadmm small-input run did not take the compact path "
              "with per-epoch client rows")
 
+    def rel_l2(want: dict, got: dict) -> float:
+        a = np.concatenate([want[k].ravel() for k in sorted(want)])
+        b = np.concatenate([got[k].ravel() for k in sorted(want)])
+        return float(np.linalg.norm(b - a) / np.linalg.norm(a))
+
+    def agree_bf16(label, cls, cfg, loss_keys, acc_key, states):
+        """The bf16 run on the GPU and on the CPU from one init, beside
+        the same run's GPU f32 leg: the GPU-vs-CPU distance in each
+        metric (max over rounds; params relative L2) is at most the GPU
+        bf16-vs-f32 distance, the losses at most that or LOSS_TOL and
+        the test accuracy at most that or one test sample, whichever is
+        larger (tests/test_torch_bf16.py holds the port to dopt by the
+        same rule on the CPU, where runs repeat bit for bit; the card's
+        do not, PERF.md §7, so one flipped prediction of the 32 may come
+        and go between runs)."""
+        f32 = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype="float32", param_dtype="float32"))
+        runs = {}
+        for leg, c, d in (("gpu16", cfg, "cuda"), ("gpu32", f32, "cuda"),
+                          ("cpu16", cfg, "cpu")):
+            tr = cls(c, device=d)
+            tr.run(rounds=2)
+            runs[leg] = (tr.history.rows, [getattr(tr, s)() for s in states])
+
+        def dist(a, b):
+            (ra, pa), (rb, pb) = runs[a], runs[b]
+            out = {k: max(abs(x[k] - y[k]) for x, y in zip(ra, rb,
+                                                           strict=True))
+                   for k in (*loss_keys, acc_key)}
+            out["params"] = max(rel_l2(x, y) for x, y in zip(pa, pb))
+            return out
+
+        got, ref = dist("cpu16", "gpu16"), dist("gpu16", "gpu32")
+        for k in got:
+            print(f"small-input bf16 {label}: {k} cuda vs cpu {got[k]:.3e}, "
+                  f"cuda bf16 vs f32 {ref[k]:.3e} (ratio "
+                  f"{got[k] / ref[k] if ref[k] else float('nan'):.3f})")
+        one_sample = 1.0 / cfg.data.synthetic_test_size
+        bad = [k for k in loss_keys if got[k] > max(ref[k], LOSS_TOL)]
+        bad += [k for k in (acc_key, "params")
+                if got[k] > max(ref[k], one_sample if k == acc_key else 0.0)]
+        if bad:
+            fail(f"small-input bf16 {label}: {bad} beyond the bound")
+        return runs
+
+    agree_bf16("gossip idiomatic bf16, clip 1.0, fused", GossipTrainer,
+               get_preset("headline-dsgd-model1-idiomatic-bf16").replace(
+                   data=tiny_data, model=dataclasses.replace(
+                       tiny_model, faithful=False, compute_dtype="bfloat16"),
+                   gossip=GossipConfig(local_ep=1, local_bs=16,
+                                       fused_update="on")),
+               ("avg_train_loss",), "avg_test_acc", ("worker_params",))
+    agree_bf16("federated fedprox, compact, bf16 storage, clip 1.0, 10% "
+               "holdout", FederatedTrainer,
+               fed_tiny.replace(
+                   data=dataclasses.replace(tiny_data, local_holdout=0.1),
+                   model=dataclasses.replace(
+                       tiny_model, compute_dtype="bfloat16",
+                       param_dtype="bfloat16"),
+                   optim=dataclasses.replace(fed_tiny.optim, clip_norm=1.0),
+                   federated=FederatedConfig(algorithm="fedprox", frac=0.5,
+                                             local_ep=2, local_bs=16)),
+               ("train_loss", "local_loss"), "test_acc",
+               ("worker_params", "global_params"))
+
     # -- 5. main paths ----------------------------------------------------
-    def main_path(name, cls, rounds, loss_keys, acc_keys, workers):
-        cfg = get_preset(name)
+    def main_path(name, cls, rounds, loss_keys, acc_keys, workers, cfg=None):
+        cfg = get_preset(name) if cfg is None else cfg
         t = time.perf_counter()
         trainer = cls(cfg, device="cuda")
         print(f"main path: {cfg.name}, {trainer.num_workers} workers, "
@@ -520,10 +616,70 @@ def main() -> None:
           f"the time")
     del btr
 
+    # -- 5d/5e. the JAX bench's fast legs: bf16 compute, f32 storage -----
+    fast = {}
+    for name in ("headline-dsgd-model1-bf16",
+                 "headline-dsgd-model1-idiomatic-bf16"):
+        tr, launch, wall = main_path(
+            name, GossipTrainer, rounds, ("avg_train_loss", "avg_test_loss"),
+            ("avg_train_acc", "avg_test_acc"), gw)
+        print(f"{name}: {rounds / wall:.4f} rounds/s against the f32 "
+              f"headline's {rounds / gwall:.4f} in this run: "
+              f"{gwall / wall:.3f}x")
+        fast[name] = tr
+        del tr
+    btr_bf16 = fast.pop("headline-dsgd-model1-bf16")
+    del fast
+
+    # -- 5f. bf16 storage in both engines --------------------------------
+    # The wrappers' C entry points are wrapped for these runs to record
+    # the dtype code (0 f32, 1 bf16) of every launch.
+    lib = _build.load_library()
+    codes = {"dopt_fused_sgd_momentum": (5, set()),
+             "dopt_fused_mix_sgd": (7, set())}
+    originals = {fn: getattr(lib, fn) for fn in codes}
+
+    def recording(fn):
+        idx, seen = codes[fn]
+
+        def call(*args):
+            seen.add(args[idx])
+            return originals[fn](*args)
+        return call
+
+    bf16_launch = {}
+    for label, preset, cls, keys, accs in (
+            ("federated", "headline-fedavg-model1", FederatedTrainer,
+             ("train_loss", "test_loss", "local_loss"),
+             ("train_acc", "test_acc")),
+            ("gossip", "headline-dsgd-model1", GossipTrainer,
+             ("avg_train_loss", "avg_test_loss"),
+             ("avg_train_acc", "avg_test_acc"))):
+        cfg = get_preset(preset)
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16", param_dtype="bfloat16"))
+        for fn, (_, seen) in codes.items():
+            seen.clear()
+            setattr(lib, fn, recording(fn))
+        try:
+            tr, bf16_launch[label], _ = main_path(
+                f"{preset} (bf16 compute and storage)", cls, rounds, keys,
+                accs, fw if label == "federated" else gw, cfg=cfg)
+        finally:
+            for fn, orig in originals.items():
+                setattr(lib, fn, orig)
+        got = {fn: sorted(seen) for fn, (_, seen) in codes.items()}
+        print(f"dtype codes launched on {preset} with bf16 storage: {got}")
+        if any(v != [1] for v in got.values()):
+            fail(f"a kernel received non-bf16 tensors on the bf16 storage "
+                 f"run of {preset}: {got}")
+        del tr
+
     # -- 6. profile one more round of each path ---------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    for label, trainer in (("gossip", gtr), ("federated", ftr)):
+    for label, trainer in (("gossip", gtr), ("federated", ftr),
+                           ("gossip faithful bf16", btr_bf16)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -557,7 +713,12 @@ def main() -> None:
     kernels = []
     for suffix, path, l1, l2, t1, t2 in (
             ("", "gossip", glaunch, glaunch, k1, k2),
-            (":federated", "federated", flaunch, flaunch, k1f, k2f)):
+            (":federated", "federated", flaunch, flaunch, k1f, k2f),
+            (":gossip-bf16", "gossip, bf16 storage", bf16_launch["gossip"],
+             bf16_launch["gossip"], k1b, k2b),
+            (":federated-bf16", "federated, bf16 storage",
+             bf16_launch["federated"], bf16_launch["federated"], k1fb,
+             k2fb)):
         kernels.append({"name": "fused_sgd_momentum" + suffix, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

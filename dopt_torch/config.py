@@ -47,8 +47,8 @@ class ModelConfig:
     # head (and post-conv ReLUs).
     num_classes: int = 10
     input_shape: tuple[int, ...] = (28, 28, 1)   # NHWC, as in dopt
-    param_dtype: str = "float32"
-    compute_dtype: str = "float32"
+    param_dtype: str = "float32"     # storage: float32 | bfloat16
+    compute_dtype: str = "float32"   # forward/backward: float32 | bfloat16
 
 
 @dataclass(frozen=True)
@@ -62,8 +62,8 @@ class OptimizerConfig:
     # ℓ2 coefficient added to the local loss (λ‖θ‖²/2 as a loss term).
     rho: float = 0.1   # FedProx proximal weight / FedADMM penalty
     clip_norm: float = 0.0
-    # Per-worker global-norm gradient clip; arrives with the bf16 slice
-    # (the trainers refuse > 0).
+    # > 0: clip each worker's gradient to this global ℓ2 norm after the
+    # algorithm's edit, before the update (dopt's order).
     fused_update: bool = False
     # True sends every step's momentum-SGD update through the
     # hand-written CUDA kernel (dopt_torch.ops.fused_sgd_momentum).

@@ -10,6 +10,11 @@ Layouts (per worker): flax conv ``[kh, kw, Cin, Cout]`` ↔ torch
 ``[Cout, Cin, kh, kw]``; flax dense ``[in, out]`` ↔ torch ``[out, in]``;
 and fc1's input, which flax flattens in HWC order from the NHWC
 activations while the port flattens CHW from NCHW ones.
+
+numpy has no bf16 of its own, so bf16 crosses in f32, which holds every
+bf16 value exactly: ``params_to_jax`` of bf16 tensors returns f32
+arrays, and ``params_from_jax`` turns dopt's bf16 leaves into f32
+arrays; casting back to bf16 on either side restores the same bits.
 """
 
 from __future__ import annotations
@@ -22,9 +27,17 @@ def _post_pool(input_shape) -> tuple[int, int]:
     return h // 2 // 2, w // 2 // 2
 
 
+def _host(a) -> np.ndarray:
+    """A leaf as a numpy array; a bf16 leaf (a dtype numpy lacks) as f32."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     """dopt flax tree (numpy leaves) → port parameter dict."""
-    lead = np.asarray(tree["conv1"]["kernel"]).ndim - 4   # 0 or 1 (worker)
+    tree = {layer: {k: _host(v) for k, v in leaves.items()}
+            for layer, leaves in tree.items()}
+    lead = tree["conv1"]["kernel"].ndim - 4   # 0 or 1 (worker)
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)
 
@@ -35,7 +48,7 @@ def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
         return np.swapaxes(k, -1, -2)
 
     def fc1(k):
-        c2 = np.asarray(tree["conv2"]["kernel"]).shape[-1]
+        c2 = tree["conv2"]["kernel"].shape[-1]
         k = k.reshape(k.shape[:lead] + (hp, wp, c2, k.shape[-1]))
         k = np.transpose(k, a + tuple(lead + i for i in (3, 2, 0, 1)))
         return k.reshape(k.shape[:lead + 1] + (-1,))
@@ -44,15 +57,15 @@ def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
                      ("fc2", dense)):
         out[f"{layer}.weight"] = np.ascontiguousarray(
-            f(np.asarray(tree[layer]["kernel"])))
+            f(tree[layer]["kernel"]))
         out[f"{layer}.bias"] = np.array(tree[layer]["bias"])
     return out
 
 
 def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
     """Port parameter dict (numpy or tensors) → dopt flax tree."""
-    p = {k: np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
-         for k, v in params.items()}
+    p = {k: (v.detach().float().cpu().numpy() if hasattr(v, "detach")
+             else np.asarray(v)) for k, v in params.items()}
     lead = p["conv1.weight"].ndim - 4
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)

@@ -39,9 +39,9 @@ import torch
 
 from dopt_torch.config import ExperimentConfig
 from dopt_torch.data import make_batch_plan, stacked_eval_batches
-from dopt_torch.engine.gossip import (initial_params, later, load_device_data,
-                                      resolve_device, steps_per_round,
-                                      validate_common)
+from dopt_torch.engine.gossip import (DTYPES, initial_params, later,
+                                      load_device_data, resolve_device,
+                                      steps_per_round, validate_common)
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
 from dopt_torch.models.zoo import full_f32, stacked_cnn_forward
@@ -124,7 +124,10 @@ class FederatedTrainer:
     the ADMM duals (``self.duals``); its server control is
     ``self.c_global``; sampled SCAFFOLD clients start from a fresh zero
     momentum and refresh their control with the step size
-    lr/(1 − momentum).  Runs in full f32, as ``GossipTrainer`` does.
+    lr/(1 − momentum).  Takes ``model.compute_dtype``,
+    ``model.param_dtype`` and ``optim.clip_norm`` as ``GossipTrainer``
+    does; with bf16 storage theta, the slab, the displacement store,
+    momentum, duals and controls are all bf16.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -205,7 +208,9 @@ class FederatedTrainer:
 
     def _forward(self, params: dict[str, torch.Tensor]):
         faithful = self.cfg.model.faithful
-        return lambda x: stacked_cnn_forward(params, x, faithful=faithful)
+        dtype = DTYPES[self.cfg.model.compute_dtype]
+        return lambda x: stacked_cnn_forward(params, x, faithful=faithful,
+                                             dtype=dtype)
 
     # -- one round ------------------------------------------------------
     def _local(self, theta, params, moms, duals, idx, bw, val):
@@ -222,8 +227,8 @@ class FederatedTrainer:
             self._forward(params), params, moms, idx, bw, self._train_x,
             self._train_y, self._sample_shape, lr=cfg.optim.lr,
             momentum=cfg.optim.momentum, fused=cfg.optim.fused_update,
-            edit=edit, l2=cfg.optim.weight_decay, local_ep=f.local_ep,
-            val=val)
+            edit=edit, l2=cfg.optim.weight_decay,
+            clip_norm=cfg.optim.clip_norm, local_ep=f.local_ep, val=val)
         with torch.no_grad():
             if algo == "fedadmm":
                 new = admm_dual_ascent(duals, params, theta, cfg.optim.rho)
@@ -424,10 +429,13 @@ class FederatedTrainer:
         return {k: float(v[0]) for k, v in out.items()}
 
     def global_params(self) -> dict[str, np.ndarray]:
-        """Host copy of theta in the port's layout
+        """Host copy of theta in the port's layout (f32 arrays)
         (``dopt_torch.convert.params_to_jax`` gives dopt's)."""
-        return {k: v.detach().cpu().numpy() for k, v in self._theta().items()}
+        return {k: v.detach().float().cpu().numpy()
+                for k, v in self._theta().items()}
 
     def worker_params(self) -> dict[str, np.ndarray]:
-        """Host copy of every client's parameters ([W, ...] arrays)."""
-        return {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+        """Host copy of every client's parameters ([W, ...] f32 arrays,
+        exact for bf16 storage)."""
+        return {k: v.detach().float().cpu().numpy()
+                for k, v in self.params.items()}

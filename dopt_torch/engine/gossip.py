@@ -21,6 +21,12 @@ Two orderings, as in dopt:
 
 With ``optim.fused_update=True`` every SGD step's update is one launch
 of the fused momentum-SGD kernel.
+
+``model.compute_dtype="bfloat16"`` runs the forward and backward in bf16
+at dopt's cast points; ``model.param_dtype="bfloat16"`` stores the
+params, momentum and the fused carry in bf16 (both kernels then run
+their bf16 instantiations); ``optim.clip_norm > 0`` clips each worker's
+gradient to that global norm after the algorithm's edit.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
 from dopt_torch.topology import build_mixing_matrices
 from dopt_torch.utils.metrics import History
+
+# The dtypes ``model.compute_dtype`` and ``model.param_dtype`` take.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,10 +89,10 @@ def validate_common(cfg: ExperimentConfig) -> None:
         raise later("the sequence model", "seqlm")
     if m.model.lower() not in ("model1", "model3"):
         raise later(f"model {m.model!r}", "model zoo")
-    if m.compute_dtype != "float32" or m.param_dtype != "float32":
-        raise later("bf16 compute or storage", "bf16 compute with clipping")
-    if cfg.optim.clip_norm > 0:
-        raise later("clip_norm > 0", "bf16 compute with clipping")
+    for knob in ("compute_dtype", "param_dtype"):
+        if getattr(m, knob) not in DTYPES:
+            raise ValueError(f"unknown model.{knob} {getattr(m, knob)!r}; "
+                             f"one of {'|'.join(DTYPES)}")
     if cfg.optim.optimizer.lower() != "sgd":
         raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}: only "
                          "'sgd' exists (the reference's single optimizer)")
@@ -151,25 +160,29 @@ def load_device_data(trainer, cfg: ExperimentConfig, dev: torch.device, *,
 
 def initial_params(cfg: ExperimentConfig, init_params=None
                    ) -> dict[str, torch.Tensor]:
-    """One worker's initial parameters on the CPU: dopt's flax tree
-    converted (``init_params``), or flax's default init drawn from a
-    ``torch.Generator`` seeded with ``cfg.seed``."""
+    """One worker's initial parameters on the CPU in
+    ``model.param_dtype``: dopt's flax tree converted (``init_params``),
+    or flax's default init drawn from a ``torch.Generator`` seeded with
+    ``cfg.seed``.  The f32 init is cast to the storage dtype as dopt
+    casts its flax init (exact for a tree that is already bf16)."""
     mc = cfg.model
     name = mc.model.lower()
     if init_params is None:
         gen = torch.Generator().manual_seed(cfg.seed)
-        return init_worker_params(name, num_classes=mc.num_classes,
-                                  input_shape=mc.input_shape, generator=gen)
-    p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
-          for k, v in params_from_jax(
-              init_params, input_shape=mc.input_shape).items()}
-    want = param_shapes(name, num_classes=mc.num_classes,
-                        input_shape=mc.input_shape)
-    got = {k: tuple(v.shape) for k, v in p0.items()}
-    if got != want:
-        raise ValueError(f"init_params shapes {got} do not match "
-                         f"{name}'s {want}")
-    return p0
+        p0 = init_worker_params(name, num_classes=mc.num_classes,
+                                input_shape=mc.input_shape, generator=gen)
+    else:
+        p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
+              for k, v in params_from_jax(
+                  init_params, input_shape=mc.input_shape).items()}
+        want = param_shapes(name, num_classes=mc.num_classes,
+                            input_shape=mc.input_shape)
+        got = {k: tuple(v.shape) for k, v in p0.items()}
+        if got != want:
+            raise ValueError(f"init_params shapes {got} do not match "
+                             f"{name}'s {want}")
+    pdt = DTYPES[mc.param_dtype]
+    return {k: v.to(pdt) for k, v in p0.items()}
 
 
 def steps_per_round(train_matrix: np.ndarray, local_bs: int,
@@ -221,7 +234,8 @@ class GossipTrainer:
         self.param_count = sum(v.numel() for v in p0.values())
         stacked = {k: v.expand(w, *v.shape).contiguous().to(dev)
                    for k, v in p0.items()}
-        self.model = StackedCNN(stacked, faithful=mc.faithful)
+        self.model = StackedCNN(stacked, faithful=mc.faithful,
+                                dtype=DTYPES[mc.compute_dtype])
         self._names = [k for k, _ in self.model.named_parameters()]
         self._params = list(self.model.parameters())
         self.momentum = [torch.zeros_like(p) for p in self._params]
@@ -277,7 +291,8 @@ class GossipTrainer:
             dict(zip(self._names, self.momentum)), idx, bw, self._train_x,
             self._train_y, self._sample_shape, lr=cfg.optim.lr,
             momentum=cfg.optim.momentum, fused=cfg.optim.fused_update,
-            l2=cfg.optim.weight_decay, local_ep=g.local_ep, val=self._val)
+            l2=cfg.optim.weight_decay, clip_norm=cfg.optim.clip_norm,
+            local_ep=g.local_ep, val=self._val)
         if self._fused_on:
             with torch.no_grad():
                 q = flat_views(self._q, self.fused_spec)
@@ -335,14 +350,17 @@ class GossipTrainer:
     def worker_params(self) -> dict[str, np.ndarray]:
         """Host copy of every worker's parameters ([W, ...] arrays in the
         port's layout; ``dopt_torch.convert.params_to_jax`` gives dopt's)."""
-        return {k: v.cpu().numpy() for k, v in self._debiased_params().items()}
+        return {k: v.float().cpu().numpy()
+                for k, v in self._debiased_params().items()}
 
     def evaluate(self) -> dict[str, np.ndarray]:
         """Reference-semantics eval: every worker on the full test set."""
         params = self._debiased_params()
+        mc = self.cfg.model
         with full_f32(self.device):
             out = stacked_evaluate(
                 lambda x: stacked_cnn_forward(
-                    params, x, faithful=self.cfg.model.faithful),
+                    params, x, faithful=mc.faithful,
+                    dtype=DTYPES[mc.compute_dtype]),
                 self.num_workers, *self._eval)
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -6,7 +6,9 @@ local-val eval :796-924 and the evaluators :777, :955).  One step runs
 the fleet's forward on the full ``[W, B, ...]`` slab, differentiates
 the SUM of the workers' losses — workers are independent, so each
 worker's gradient is exactly its own — applies the algorithm's gradient
-edit (FedProx, FedADMM, SCAFFOLD) and momentum SGD to every tensor.  The
+edit (FedProx, FedADMM, SCAFFOLD), then the per-worker global-norm clip,
+then momentum SGD to every tensor (dopt's order, local.py:151-160).
+Gradients come in the storage dtype of the params.  The
 train set stays on the device as flat ``[N, F]`` rows; each step
 gathers its minibatch from the round's ``[W, S, B]`` index plan.
 Nothing syncs with the host inside the phase: per-step losses and
@@ -21,7 +23,7 @@ from dopt_torch.data import holdout_split, stacked_eval_batches
 from dopt_torch.models.losses import (accuracy_stacked, cross_entropy_stacked,
                                       l2_stacked)
 from dopt_torch.ops.fused_update import fused_sgd_momentum
-from dopt_torch.optim import sgd_step
+from dopt_torch.optim import clip_by_global_norm_stacked, sgd_step
 
 
 def prepare_holdout(cfg, index_matrix, *, batch_size: int):
@@ -38,13 +40,14 @@ def prepare_holdout(cfg, index_matrix, *, batch_size: int):
 
 def stacked_step(apply, params: dict, moms: dict, x: torch.Tensor,
                  y: torch.Tensor, w: torch.Tensor, *, lr: float,
-                 momentum: float, fused: bool, edit=None, l2: float = 0.0
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 momentum: float, fused: bool, edit=None, l2: float = 0.0,
+                 clip_norm: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
     """One SGD step of every worker, in place over ``params``/``moms``
     (dicts of leaf tensors; params with ``requires_grad``).
     ``apply(x) → [W, B, C]`` reads ``params``; ``edit(grads, params)``
     is the algorithm's gradient edit (``dopt_torch.optim.grad_edit``);
-    ``l2`` adds ½·λ‖p‖² to each worker's loss.  Returns the detached
+    ``l2`` adds ½·λ‖p‖² to each worker's loss; ``clip_norm`` > 0 clips
+    each worker's edited gradient to that global norm.  Returns the detached
     per-worker [W] loss (ℓ2 term included) and accuracy."""
     names = list(params)
     out = apply(x)
@@ -53,9 +56,13 @@ def stacked_step(apply, params: dict, moms: dict, x: torch.Tensor,
         lw = lw + l2_stacked(params, l2)
     grads = torch.autograd.grad(lw.sum(), [params[k] for k in names])
     with torch.no_grad():
-        if edit is not None:
-            edited = edit(dict(zip(names, grads)), params)
-            grads = [edited[k] for k in names]
+        if edit is not None or clip_norm:
+            gd = dict(zip(names, grads))
+            if edit is not None:
+                gd = edit(gd, params)
+            if clip_norm:
+                gd = clip_by_global_norm_stacked(gd, clip_norm)
+            grads = [gd[k] for k in names]
         ps, ms = [params[k] for k in names], [moms[k] for k in names]
         if fused:
             fused_sgd_momentum(ps, ms, grads, lr=lr, mu=momentum)
@@ -67,8 +74,8 @@ def stacked_step(apply, params: dict, moms: dict, x: torch.Tensor,
 def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
                 train_x: torch.Tensor, train_y: torch.Tensor,
                 sample_shape: tuple[int, ...], *, lr: float, momentum: float,
-                fused: bool, edit=None, l2: float = 0.0, local_ep: int = 1,
-                val=None):
+                fused: bool, edit=None, l2: float = 0.0,
+                clip_norm: float = 0.0, local_ep: int = 1, val=None):
     """All S steps of a round's ``[W, S, B]`` plan over the resident
     train rows; returns per-step ``[W, S]`` losses and accuracies and
     the epoch-history dict.  The dict is empty without ``val``.  With
@@ -87,7 +94,7 @@ def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
         x = train_x[ik].view(w, b, *sample_shape)
         lw, aw = stacked_step(apply, params, moms, x, train_y[ik], bw[:, k],
                               lr=lr, momentum=momentum, fused=fused,
-                              edit=edit, l2=l2)
+                              edit=edit, l2=l2, clip_norm=clip_norm)
         losses[:, k] = lw
         accs[:, k] = aw
         if val is not None and (k + 1) % per_epoch == 0:

@@ -13,6 +13,15 @@ linear ``[W, out, in]``, fc1's input in CHW flatten order);
 ``dopt_torch.convert`` maps them to and from dopt's flax trees.  The
 public input stays dopt's NHWC ``[W, B, H, Wd, C]``.
 
+bf16 compute (``dtype=torch.bfloat16``) casts where dopt's grouped
+forward casts (``_make_stacked_cnn_apply``, ``_head``): the input and
+every weight and bias go to bf16, the convs and dense layers run in
+bf16, and the softmax of the faithful head runs in f32; the corrected
+head computes its logits layer in f32 on an f32 copy of the activation.
+Autograd through the casts hands f32 gradients to f32 parameters, as
+dopt's cast VJP does.  No ``torch.autocast``: its op lists pick their
+own cast points.
+
 Faithful quirks (``faithful=True``): no activation after the convs and
 a softmax head, so the cross-entropy on top is the reference's double
 softmax.  The 2×2 max pool routes tie gradients to the FIRST window
@@ -73,60 +82,73 @@ def init_worker_params(name: str, *, num_classes: int = 10,
 def full_f32(device: torch.device):
     """Run the f32 path in full f32 on ``device``, restoring the backend
     flags on exit.  CUDA: TF32 off for cuDNN convolutions and cuBLAS
-    matmuls (cuDNN's TF32 default keeps about three digits).  CPU:
-    oneDNN off, because its grouped-conv backward lost two digits
-    against f64 on the faithful Model1 (3e-2 relative on conv2's weight
-    gradient; 5e-7 with PyTorch's native kernels)."""
+    matmuls (cuDNN's TF32 default keeps about three digits), and bf16
+    matmuls reduce in f32 as XLA's do (cuBLAS may otherwise reduce
+    split-K partial sums in bf16).  CPU: oneDNN off, because its
+    grouped-conv backward lost two digits against f64 on the faithful
+    Model1 (3e-2 relative on conv2's weight gradient; 5e-7 with
+    PyTorch's native kernels)."""
     if device.type == "cuda":
-        saved = (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32)
+        m = torch.backends.cuda.matmul
+        saved = (torch.backends.cudnn.allow_tf32, m.allow_tf32,
+                 m.allow_bf16_reduced_precision_reduction)
         torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        m.allow_tf32 = False
+        m.allow_bf16_reduced_precision_reduction = False
         try:
             yield
         finally:
-            (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = saved
+            (torch.backends.cudnn.allow_tf32, m.allow_tf32,
+             m.allow_bf16_reduced_precision_reduction) = saved
     else:
         with torch.backends.mkldnn.flags(enabled=False):
             yield
 
 
-def _grouped_conv(z, weight, bias, groups):
+def _grouped_conv(z, weight, bias, groups, dtype):
     """'SAME' conv of worker-major channels with [W, Cout, Cin, k, k]
-    kernels as one grouped conv."""
+    kernels as one grouped conv, in ``dtype``."""
     k = weight.shape[-1]
-    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]),
-                    bias.reshape(-1), padding=k // 2, groups=groups)
+    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]).to(dtype),
+                    bias.reshape(-1).to(dtype), padding=k // 2,
+                    groups=groups)
 
 
-def _stacked_linear(zt, weight, bias):
-    """Feature-major [W, in, B] → [W, out, B]: W @ zt + b.  Kept
-    feature-major so autograd hands back CONTIGUOUS [W, out, in] weight
-    gradients (the fused update kernel takes contiguous tensors)."""
-    return torch.baddbmm(bias.unsqueeze(2), weight, zt)
+def _stacked_linear(zt, weight, bias, dtype):
+    """Feature-major [W, in, B] → [W, out, B]: W @ zt + b, in ``dtype``.
+    Kept feature-major so autograd hands back CONTIGUOUS [W, out, in]
+    weight gradients (the fused update kernel takes contiguous
+    tensors)."""
+    return torch.baddbmm(bias.to(dtype).unsqueeze(2), weight.to(dtype), zt)
 
 
 def stacked_cnn_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
-                        *, faithful: bool) -> torch.Tensor:
+                        *, faithful: bool,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The fleet's forward: NHWC ``[W, B, H, Wd, C]`` inputs and
-    ``[W, ...]`` params → ``[W, B, num_classes]`` (probabilities when
-    faithful, logits otherwise)."""
+    ``[W, ...]`` params → f32 ``[W, B, num_classes]`` (probabilities
+    when faithful, logits otherwise), computed in ``dtype``."""
     w, b, h, wd, c = x.shape
-    z = x.permute(1, 0, 4, 2, 3).reshape(b, w * c, h, wd)
-    z = _grouped_conv(z, params["conv1.weight"], params["conv1.bias"], w)
+    z = x.to(dtype).permute(1, 0, 4, 2, 3).reshape(b, w * c, h, wd)
+    z = _grouped_conv(z, params["conv1.weight"], params["conv1.bias"], w,
+                      dtype)
     if not faithful:
         z = F.relu(z)
     z = F.max_pool2d(z, 2)
-    z = _grouped_conv(z, params["conv2.weight"], params["conv2.bias"], w)
+    z = _grouped_conv(z, params["conv2.weight"], params["conv2.bias"], w,
+                      dtype)
     if not faithful:
         z = F.relu(z)
     z = F.max_pool2d(z, 2)
     # [B, W·C2, H', Wd'] → [W, C2·H'·Wd', B] (each worker's CHW flatten)
     z = z.reshape(b, w, -1).permute(1, 2, 0)
-    z = F.relu(_stacked_linear(z, params["fc1.weight"], params["fc1.bias"]))
-    z = _stacked_linear(z, params["fc2.weight"], params["fc2.bias"])
-    z = z.transpose(1, 2)                     # [W, B, num_classes]
+    z = F.relu(_stacked_linear(z, params["fc1.weight"], params["fc1.bias"],
+                               dtype))
+    # The corrected head's logits layer runs in f32 (dopt zoo.py:136-145).
+    head = dtype if faithful else torch.float32
+    z = _stacked_linear(z.to(head), params["fc2.weight"],
+                        params["fc2.bias"], head)
+    z = z.transpose(1, 2).float()             # [W, B, num_classes]
     return torch.softmax(z, dim=-1) if faithful else z
 
 
@@ -140,15 +162,19 @@ class _Layer(nn.Module):
 class StackedCNN(nn.Module):
     """Model1 (hidden 512, 1,663,370 params a worker on 28×28×1) or
     Model3 (hidden 256) for a fleet of workers, built from a dict of
-    ``[W, ...]`` tensors in ``param_shapes`` layout."""
+    ``[W, ...]`` tensors in ``param_shapes`` layout (stored in their own
+    dtype) and computing in ``dtype``."""
 
-    def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool):
+    def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.faithful = faithful
+        self.compute_dtype = dtype
         for layer in ("conv1", "conv2", "fc1", "fc2"):
             setattr(self, layer, _Layer(params[f"{layer}.weight"],
                                         params[f"{layer}.bias"]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stacked_cnn_forward(dict(self.named_parameters()), x,
-                                   faithful=self.faithful)
+                                   faithful=self.faithful,
+                                   dtype=self.compute_dtype)

@@ -43,7 +43,6 @@ from typing import NamedTuple
 import torch
 
 from dopt_torch.ops._build import check, load_library
-from dopt_torch.optim import sgd_step
 from dopt_torch.parallel.collectives import flat_buckets
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,9 +58,17 @@ MIX_STAGE_BYTES = 32 << 10     # target size of one ring stage (p + buf)
 MIX_MAX_TILE = 1024            # widest tile, in columns
 
 
-# The plain version of kernel 1 is the port's unfused update itself:
-# torch momentum semantics, f32 math, cast back to the storage dtype.
-sgd_momentum_reference = sgd_step
+@torch.no_grad()
+def sgd_momentum_reference(params, moms, grads, *, lr: float,
+                           momentum: float) -> None:
+    """Plain PyTorch version of kernel 1, the Pallas kernel's arithmetic:
+    f32 math with each op rounded alone, one rounding to the storage
+    dtype at the store.  In bf16 this is not dopt's unfused update
+    (``dopt_torch.optim.sgd_step`` rounds every op to bf16)."""
+    for p, m, g in zip(params, moms, grads):
+        buf = m.float() * momentum + g.float()
+        p.copy_(p.float() - lr * buf)
+        m.copy_(buf)
 
 
 def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:

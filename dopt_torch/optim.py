@@ -12,6 +12,13 @@ the port of ``dopt.optim``: ``sgd_step`` updates tensors in place; the
 FedProx / FedADMM / SCAFFOLD edits and refreshes take and return dicts
 of tensors (dopt's pytrees), where a single-model operand (theta, the
 server control) broadcasts against ``[W, ...]`` stacked ones.
+
+Every op here has jnp's arithmetic in the storage dtype: jnp multiplies
+an array by a Python scalar in the array's dtype (weak typing), so in
+bf16 it rounds lr, μ, rho and the SCAFFOLD scale to bf16 first (0.9 is
+0.8984375) and rounds each op's result to bf16.  torch computes such an
+op in f32 with the scalar in f32, so each scalar goes through
+``_scalar`` first; in f32 that changes nothing.
 """
 
 from __future__ import annotations
@@ -19,33 +26,59 @@ from __future__ import annotations
 import torch
 
 
+def _scalar(x: float, like: torch.Tensor) -> float:
+    """``x`` rounded to ``like``'s dtype, as jnp's weak typing rounds a
+    Python scalar before it meets an array."""
+    return torch.tensor(x, dtype=like.dtype).item()
+
+
 @torch.no_grad()
 def sgd_step(params, moms, grads, *, lr: float, momentum: float) -> None:
-    """One momentum-SGD step over lists of tensors, in place.  Each op
-    is rounded on its own, in f32, and the results are cast back to the
-    storage dtype — the same arithmetic as the fused CUDA kernel, whose
-    plain version this is (``dopt_torch.ops.sgd_momentum_reference``)."""
+    """One momentum-SGD step over lists of tensors, in place: dopt's
+    unfused update (``dopt.optim.sgd_step``), every op rounded to the
+    storage dtype.  In bf16 this is not kernel 1's arithmetic (f32 math,
+    one rounding at the store: ``dopt_torch.ops.sgd_momentum_reference``);
+    in f32 the two agree bit for bit."""
     for p, m, g in zip(params, moms, grads):
-        buf = m.float() * momentum + g.float()
-        p.copy_(p.float() - lr * buf)
-        m.copy_(buf)
+        m.mul_(_scalar(momentum, m)).add_(g)
+        p.sub_(m * _scalar(lr, p))
+
+
+@torch.no_grad()
+def clip_by_global_norm_stacked(grads: dict[str, torch.Tensor],
+                                max_norm: float) -> dict[str, torch.Tensor]:
+    """Per-worker global-norm clip of a stacked ``[W, ...]`` gradient
+    dict (``dopt.optim.clip_by_global_norm_stacked``): each worker's
+    squared norm accumulates in f32 over all tensors, in jax's leaf
+    order (sorted names), and its scale
+    min(1, max_norm / max(‖g‖, 1e-12)) is cast to the gradient's dtype
+    before the multiply."""
+    sq = 0.0
+    for k in sorted(grads):
+        g = grads[k]
+        sq = sq + g.float().square().reshape(g.shape[0], -1).sum(1)
+    scale = (max_norm / sq.sqrt().clamp_min(1e-12)).clamp_max(1.0)
+    return {k: g * scale.reshape((-1,) + (1,) * (g.dim() - 1)).to(g.dtype)
+            for k, g in grads.items()}
 
 
 def prox_grad_edit(grads, params, theta, rho: float):
     """FedProx: g + rho·(p − theta)  (reference clients.py:111)."""
-    return {k: g + rho * (params[k] - theta[k]) for k, g in grads.items()}
+    return {k: g + _scalar(rho, g) * (params[k] - theta[k])
+            for k, g in grads.items()}
 
 
 def admm_grad_edit(grads, params, theta, alpha, rho: float):
     """FedADMM: g + alpha + rho·(p − theta)  (reference clients.py:135)."""
-    return {k: g + alpha[k] + rho * (params[k] - theta[k])
+    return {k: g + alpha[k] + _scalar(rho, g) * (params[k] - theta[k])
             for k, g in grads.items()}
 
 
 def admm_dual_ascent(alpha, params, theta, rho: float):
     """After the local epochs: alpha + rho·(p − theta)
     (reference clients.py:141-144)."""
-    return {k: a + rho * (params[k] - theta[k]) for k, a in alpha.items()}
+    return {k: a + _scalar(rho, a) * (params[k] - theta[k])
+            for k, a in alpha.items()}
 
 
 def scaffold_grad_edit(grads, c_global, c_local):
@@ -59,7 +92,8 @@ def scaffold_control_update(c_local, c_global, theta, params, *, lr: float,
     c_i⁺ = c_i − c + (theta − y_i)/(K·lr), ``lr`` the EFFECTIVE step
     size (the engine passes lr/(1 − momentum))."""
     scale = 1.0 / (lr * max(num_steps, 1))
-    return {k: ci - c_global[k] + scale * (theta[k] - params[k])
+    return {k: ci - c_global[k]
+            + _scalar(scale, ci) * (theta[k] - params[k])
             for k, ci in c_local.items()}
 
 

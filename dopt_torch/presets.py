@@ -14,7 +14,9 @@ dopt's BASELINE.json FedAvg config.
 10,000 samples) with both ``fused_update`` switches on; the gossip main
 path, on which both CUDA kernels run.  ``headline-fedavg-model1`` is
 ``baseline3`` with both switches on: the federated main path, where
-kernel 2 runs the masked mean at lr = −1.
+kernel 2 runs the masked mean at lr = −1.  ``headline-dsgd-model1-bf16``
+and ``headline-dsgd-model1-idiomatic-bf16`` are bench.py's fast legs
+(bf16 compute; the idiomatic one with the corrected head and clip 1.0).
 """
 
 from __future__ import annotations
@@ -104,6 +106,26 @@ def headline_dsgd_model1() -> ExperimentConfig:
     )
 
 
+def headline_dsgd_model1_bf16(faithful: bool = True) -> ExperimentConfig:
+    """dopt bench.py ``_config(fast=True, faithful_model=faithful,
+    fused="on")``, the JAX bench's fast leg: the headline at
+    ``compute_dtype="bfloat16"`` (params stay f32), both fused switches
+    on; with ``faithful=False`` the corrected head (post-conv ReLUs, raw
+    logits, the logits layer in f32) and ``clip_norm=1.0``.  One
+    difference: dopt's fast leg plans batches with its C++ planner
+    (``plan_impl="native"``), whose draws are another stream; the port
+    has no native planner yet (ROADMAP queue 1), so this runs the numpy
+    plans."""
+    cfg = headline_dsgd_model1()
+    suffix = "" if faithful else "-idiomatic"
+    return cfg.replace(
+        name=f"headline-dsgd-model1{suffix}-bf16",
+        model=dataclasses.replace(cfg.model, faithful=faithful,
+                                  compute_dtype="bfloat16"),
+        optim=dataclasses.replace(cfg.optim,
+                                  clip_norm=0.0 if faithful else 1.0))
+
+
 PRESETS = {
     "reference-fedavg": lambda: reference_federated("fedavg"),
     "reference-fedprox": lambda: reference_federated("fedprox"),
@@ -123,6 +145,9 @@ PRESETS = {
         "dsgd", "complete", "ones"),
     "headline-dsgd-model1": headline_dsgd_model1,
     "headline-fedavg-model1": headline_fedavg_model1,
+    "headline-dsgd-model1-bf16": headline_dsgd_model1_bf16,
+    "headline-dsgd-model1-idiomatic-bf16": lambda: headline_dsgd_model1_bf16(
+        faithful=False),
 }
 
 

@@ -90,6 +90,10 @@ def main(argv: list[str] | None = None) -> int:
         trainer = GossipTrainer(cfg, device=args.device)
         default_rounds = cfg.gossip.rounds
     rounds = default_rounds if args.rounds is None else args.rounds
+    print(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
+          f"compute {cfg.model.compute_dtype}, storage "
+          f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
+          f"{rounds} rounds", file=sys.stderr)
     trainer.run(rounds=rounds)
     for row in trainer.history.rows[-rounds:]:
         print(json.dumps(row))

@@ -253,9 +253,8 @@ def _opt(cfg, **kw):
     (lambda c: _fed(c, block_rounds=4), "'multi-round blocks'"),
     (lambda c: _fed(c, prefetch="on"), "'multi-round blocks'"),
     (lambda c: _fed(c, diagnostics="on"), "'telemetry'"),
-    (lambda c: _opt(c, clip_norm=1.0), "'bf16 compute with clipping'"),
     (lambda c: c.replace(model=dataclasses.replace(
-        c.model, compute_dtype="bfloat16")), "'bf16 compute with clipping'"),
+        c.model, param_dtype="float16")), "unknown model.param_dtype"),
     (lambda c: c.replace(data=dataclasses.replace(
         c.data, plan_impl="native")), "'native planner'"),
     (lambda c: c.replace(model=dataclasses.replace(

@@ -155,7 +155,8 @@ def _replace(cfg, section, **kw):
     (lambda c: _replace(c, "data", local_holdout=0.1,
                         holdout_mode="stratified"), "holdout"),
     (lambda c: _replace(c, "data", plan_impl="native"), "native planner"),
-    (lambda c: _replace(c, "model", compute_dtype="bfloat16"), "bf16"),
+    (lambda c: _replace(c, "model", compute_dtype="float16"),
+     "unknown model.compute_dtype"),
     (lambda c: _replace(c, "model", model="resnet18"), "model zoo"),
     (lambda c: _replace(c, "model", model="transformer"), "seqlm"),
     (lambda c: c.replace(faults=object()), "faults"),
@@ -184,6 +185,34 @@ def test_run_cli_on_cpu(tmp_path, capsys):
         ",round,avg_test_acc,avg_test_loss,avg_train_loss,avg_train_acc")
 
 
+def test_run_cli_bf16_preset_on_cpu(capsys):
+    """The idiomatic bf16 preset runs from the CLI on the CPU at a shrunk
+    size, the header names its dtypes and clip, and ``--set`` reaches
+    the trainer; without ``--device cpu`` it raises here."""
+    from dopt_torch.presets import get_preset
+    from dopt_torch.run import main
+
+    shrink = ["--set", "data.num_users=2", "--set",
+              "data.synthetic_train_size=40", "--set",
+              "data.synthetic_test_size=8", "--set", "gossip.local_ep=1",
+              "--set", "gossip.local_bs=20"]
+    assert main(["--preset", "headline-dsgd-model1-idiomatic-bf16",
+                 "--device", "cpu", "--rounds", "1", *shrink]) == 0
+    out, err = capsys.readouterr()
+    assert np.isfinite(json.loads(out.strip().splitlines()[-1])[
+        "avg_train_loss"])
+    assert ("compute bfloat16, storage float32, clip_norm 1.0" in err)
+    assert main(["--preset", "headline-dsgd-model1-bf16", "--device", "cpu",
+                 "--rounds", "1", *shrink, "--set",
+                 "model.param_dtype=bfloat16", "--set",
+                 "optim.clip_norm=0.5"]) == 0
+    assert ("compute bfloat16, storage bfloat16, clip_norm 0.5"
+            in capsys.readouterr().err)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GossipTrainer(get_preset("headline-dsgd-model1-idiomatic-bf16"))
+
+
 def test_port_imports_nothing_of_jax_or_dopt():
     """A fresh interpreter imports dopt_torch and runs one CPU gossip
     round and one CPU federated round; neither jax, flax nor dopt may be
@@ -194,8 +223,10 @@ def test_port_imports_nothing_of_jax_or_dopt():
         "from dopt_torch import config as C\n"
         "cfg = C.ExperimentConfig(seed=3, data=C.DataConfig("
         "dataset='synthetic', num_users=2, synthetic_train_size=64, "
-        "synthetic_test_size=16), model=C.ModelConfig(input_shape=(8, 8, 1)),"
-        " optim=C.OptimizerConfig(fused_update=True), gossip=C.GossipConfig("
+        "synthetic_test_size=16), model=C.ModelConfig(input_shape=(8, 8, 1),"
+        " compute_dtype='bfloat16', param_dtype='bfloat16'),"
+        " optim=C.OptimizerConfig(fused_update=True, clip_norm=1.0),"
+        " gossip=C.GossipConfig("
         "local_ep=1, local_bs=16, fused_update='on'))\n"
         "dopt_torch.GossipTrainer(cfg, device='cpu').run(rounds=1)\n"
         "fed = cfg.replace(gossip=None, federated=C.FederatedConfig("

@@ -293,6 +293,38 @@ def test_headline_preset_is_bench_config_with_both_kernels():
         assert a == b
 
 
+@pytest.mark.parametrize("faithful", [True, False])
+def test_bf16_presets_are_bench_fast_legs(faithful):
+    """headline-dsgd-model1[-idiomatic]-bf16 = bench.py
+    _config(fast=True, faithful_model=faithful, fused="on") at MNIST
+    scale with both fused_update switches on, and the numpy planner in
+    place of the native one (the port has none yet)."""
+    import importlib.util
+    import pathlib
+
+    from dopt_torch.presets import get_preset
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "bench.py"
+    spec = importlib.util.spec_from_file_location("dopt_bench", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    want = bench._config(fast=True, train_size=60_000, test_size=10_000,
+                         faithful_model=faithful, fused="on")
+    assert want.data.plan_impl == "native"
+    want = want.replace(
+        data=dataclasses.replace(want.data, plan_impl="numpy"),
+        optim=dataclasses.replace(want.optim, fused_update=True))
+    suffix = "" if faithful else "-idiomatic"
+    t = get_preset(f"headline-dsgd-model1{suffix}-bf16")
+    assert t.name == f"headline-dsgd-model1{suffix}-bf16"
+    assert t.seed == want.seed
+    for a, b in _shared(t, want):
+        assert a == b
+    assert (t.model.compute_dtype, t.model.param_dtype) == ("bfloat16",
+                                                            "float32")
+    assert t.optim.clip_norm == (0.0 if faithful else 1.0)
+
+
 def test_headline_fedavg_preset_is_baseline3_with_both_kernels():
     """headline-fedavg-model1 = dopt's baseline3 with both fused_update
     switches on: 16 clients of 3,750 samples, 375 steps a round."""
