@@ -48,7 +48,26 @@ the final line:
    bf16 compute and storage, two rounds each, with the launch counts
    and the dtype every kernel launch received;
 6. profile — one more round of the gossip, federated and faithful bf16
-   paths under torch.profiler: device time by kernel.
+   paths under torch.profiler: device time by kernel;
+7a. determinism — the trainers run in the deterministic mode on the card
+   (dopt_torch.models.deterministic; the flags are printed):
+   headline-dsgd-model1 runs two rounds again and must equal phase 5's
+   run bit for bit (History, final params, momentum, the fused carry),
+   and a tiny fedadmm run with the 10% holdout runs twice, bit-identical;
+7b. blocks — blocked runs replay a CUDA graph of the round
+   (dopt_torch.engine.graphs) and must equal the per-round runs bit for
+   bit, launch counts included: headline-dsgd-model1, block 2, against
+   phase 5; headline-dsgd-model1-bf16, block 2, against 5d;
+   headline-fedavg-model1, block 2, with prefetch off and on, against
+   5b; then tiny blocked runs (3 rounds in blocks of 2) against their
+   own per-round runs: gossip with both fused switches, gossip with bf16
+   storage and clip 1.0, fedprox compact with bf16 storage, clip and the
+   holdout, fedadmm compact with the holdout, scaffold at full width;
+7c. rates — per-round against blocked (block 4, 4 rounds, after one
+   warm-up block) on headline-dsgd-model1-bf16 and headline-dsgd-model1
+   with eval_every beyond the run (dopt bench's shape): rounds/s, peak
+   memory, each graph's capture and instantiate time and node count,
+   and one blocked round under the profiler (idle share, as phase 6).
 
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
@@ -60,6 +79,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -95,6 +115,46 @@ def max_rel(want: dict, got: dict) -> float:
                for k, v in want.items())
 
 
+def state(tr) -> dict:
+    """Everything a trainer's run leaves behind, as host values: History
+    and client rows, each worker's params, momentum, the fused carry
+    (gossip q and fbuf, the federated theta slab), theta, duals and
+    controls."""
+    def host(tree):
+        items = enumerate(tree) if isinstance(tree, list) else tree.items()
+        return {str(k): v.detach().float().cpu().numpy().copy()
+                for k, v in items}
+
+    out = {"rows": [dict(r) for r in tr.history.rows],
+           "client rows": [dict(r) for r in tr.client_history.rows],
+           "params": {k: v.copy() for k, v in tr.worker_params().items()},
+           "momentum": host(tr.momentum)}
+    for name in ("_q", "_fbuf", "_theta_flat"):
+        if hasattr(tr, name):
+            out[name] = {"": getattr(tr, name).float().cpu().numpy().copy()}
+    for name in ("theta", "duals", "c_global"):
+        if getattr(tr, name, None) is not None:
+            out[name] = host(getattr(tr, name))
+    return out
+
+
+def same_state(label: str, want: dict, got: dict) -> None:
+    """Fail unless two runs left the same state, bit for bit."""
+    import numpy as np
+
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, list):
+            if w != g:
+                fail(f"{label}: {key} differ: {w} vs {g}")
+            continue
+        for k, a in w.items():
+            if not np.array_equal(a, g[k]):
+                fail(f"{label}: {key} {k} differs by up to "
+                     f"{np.abs(a - g[k]).max():.3e}")
+    print(f"{label}: bit-identical ({', '.join(want)})")
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -103,12 +163,12 @@ def main() -> None:
         from dopt_torch.config import (DataConfig, FederatedConfig,
                                        GossipConfig, ModelConfig)
         from dopt_torch.engine import FederatedTrainer, GossipTrainer
-        from dopt_torch.models.zoo import param_shapes
+        from dopt_torch.models.zoo import deterministic, param_shapes
         from dopt_torch.ops import _build
         from dopt_torch.ops.fused_update import (fused_mix_sgd,
                                                  fused_sgd_momentum,
-                                                 launch_mix, mix_plan,
-                                                 mix_sgd_reference,
+                                                 launch_counts, launch_mix,
+                                                 mix_plan, mix_sgd_reference,
                                                  sgd_momentum_reference)
         from dopt_torch.parallel.collectives import (alloc_flat,
                                                      flat_buckets,
@@ -444,11 +504,10 @@ def main() -> None:
               f"(limit {PARAM_REL_TOL})")
         return runs["cuda"][0]
 
-    agree("gossip, both fused switches", GossipTrainer,
-          get_preset("headline-dsgd-model1").replace(
-              data=tiny_data, model=tiny_model,
-              gossip=GossipConfig(local_ep=1, local_bs=16,
-                                  fused_update="on")),
+    gossip_tiny = get_preset("headline-dsgd-model1").replace(
+        data=tiny_data, model=tiny_model,
+        gossip=GossipConfig(local_ep=1, local_bs=16, fused_update="on"))
+    agree("gossip, both fused switches", GossipTrainer, gossip_tiny,
           ("avg_train_loss",), "avg_test_acc", ("worker_params",))
     fed_tiny = get_preset("headline-fedavg-model1").replace(
         data=tiny_data, model=tiny_model,
@@ -457,13 +516,13 @@ def main() -> None:
     agree("federated fedavg, both fused switches", FederatedTrainer,
           fed_tiny, ("train_loss", "local_loss"), "test_acc",
           ("worker_params", "global_params"))
+    admm_tiny = fed_tiny.replace(
+        data=dataclasses.replace(tiny_data, local_holdout=0.1),
+        federated=FederatedConfig(algorithm="fedadmm", frac=0.5, local_ep=2,
+                                  local_bs=16))
     admm = agree(
         "federated fedadmm, compact, 10% holdout", FederatedTrainer,
-        fed_tiny.replace(
-            data=dataclasses.replace(tiny_data, local_holdout=0.1),
-            federated=FederatedConfig(algorithm="fedadmm", frac=0.5,
-                                      local_ep=2, local_bs=16)),
-        ("train_loss", "local_loss"), "test_acc",
+        admm_tiny, ("train_loss", "local_loss"), "test_acc",
         ("worker_params", "global_params"))
     if not admm._use_compact() or len(admm.client_history.rows) != 8:
         fail("the fedadmm small-input run did not take the compact path "
@@ -521,16 +580,15 @@ def main() -> None:
                    gossip=GossipConfig(local_ep=1, local_bs=16,
                                        fused_update="on")),
                ("avg_train_loss",), "avg_test_acc", ("worker_params",))
+    prox_tiny = fed_tiny.replace(
+        data=dataclasses.replace(tiny_data, local_holdout=0.1),
+        model=dataclasses.replace(tiny_model, compute_dtype="bfloat16",
+                                  param_dtype="bfloat16"),
+        optim=dataclasses.replace(fed_tiny.optim, clip_norm=1.0),
+        federated=FederatedConfig(algorithm="fedprox", frac=0.5, local_ep=2,
+                                  local_bs=16))
     agree_bf16("federated fedprox, compact, bf16 storage, clip 1.0, 10% "
-               "holdout", FederatedTrainer,
-               fed_tiny.replace(
-                   data=dataclasses.replace(tiny_data, local_holdout=0.1),
-                   model=dataclasses.replace(
-                       tiny_model, compute_dtype="bfloat16",
-                       param_dtype="bfloat16"),
-                   optim=dataclasses.replace(fed_tiny.optim, clip_norm=1.0),
-                   federated=FederatedConfig(algorithm="fedprox", frac=0.5,
-                                             local_ep=2, local_bs=16)),
+               "holdout", FederatedTrainer, prox_tiny,
                ("train_loss", "local_loss"), "test_acc",
                ("worker_params", "global_params"))
 
@@ -585,6 +643,7 @@ def main() -> None:
         "headline-dsgd-model1", GossipTrainer, rounds,
         ("avg_train_loss", "avg_test_loss"),
         ("avg_train_acc", "avg_test_acc"), gw)
+    g_state = state(gtr)
     share = (k1["ms"] * glaunch["fused_sgd_momentum"]
              + k2["ms"] * rounds) / (1e3 * gwall)
     print(f"kernel share of the gossip main path's wall time (event times "
@@ -595,6 +654,7 @@ def main() -> None:
         ("train_acc", "test_acc"), fw)
     if ftr._use_compact():
         fail("the federated main path must run at full width")
+    f_state = state(ftr)
     theta = ftr.global_params()
     for k, s in shapes.items():
         if theta[k].shape != s or not np.isfinite(theta[k]).all():
@@ -626,9 +686,9 @@ def main() -> None:
         print(f"{name}: {rounds / wall:.4f} rounds/s against the f32 "
               f"headline's {rounds / gwall:.4f} in this run: "
               f"{gwall / wall:.3f}x")
-        fast[name] = tr
+        fast[name] = (tr, launch, state(tr))
         del tr
-    btr_bf16 = fast.pop("headline-dsgd-model1-bf16")
+    btr_bf16, b_launch, b_state = fast.pop("headline-dsgd-model1-bf16")
     del fast
 
     # -- 5f. bf16 storage in both engines --------------------------------
@@ -678,12 +738,13 @@ def main() -> None:
     # -- 6. profile one more round of each path ---------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    for label, trainer in (("gossip", gtr), ("federated", ftr),
-                           ("gossip faithful bf16", btr_bf16)):
+    def profile_round(label, run_round) -> float:
+        """One round under torch.profiler: device time by kernel, busy
+        time and idle share of the profiled wall; returns the share."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            trainer.run(rounds=1)
+            run_round()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         evs = [e for e in prof.key_averages()
@@ -699,15 +760,133 @@ def main() -> None:
         for s, e in spans:
             busy += max(0.0, e - max(s, end))
             end = max(end, e)
+        idle = max(0.0, 1 - busy / (wall * 1e6))
         print(f"profile ({label}, 1 round, {wall * 1e3:.1f} ms wall under "
               f"the profiler): device kernel time {total / 1e3:.1f} ms "
               f"summed over {len(evs)} kernel names, {busy / 1e3:.1f} ms "
               f"busy (union of {len(spans)} device intervals), idle share "
-              f"{100 * max(0.0, 1 - busy / (wall * 1e6)):.1f}% of the "
-              f"profiled wall")
+              f"{100 * idle:.1f}% of the profiled wall")
         for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
             print(f"  {e.device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
                   f"{e.key[:90]}")
+        return idle
+
+    for label, trainer in (("gossip", gtr), ("federated", ftr),
+                           ("gossip faithful bf16", btr_bf16)):
+        profile_round(label, functools.partial(trainer.run, rounds=1))
+    del gtr, ftr, btr_bf16
+    torch.cuda.empty_cache()
+
+    # -- 7a. determinism: the same run twice, bit for bit ------------------
+    cudnn = torch.backends.cudnn
+    with deterministic(dev):
+        import torch.utils.deterministic as det
+        print(f"deterministic mode: cudnn.deterministic "
+              f"{cudnn.deterministic}, cudnn.benchmark {cudnn.benchmark}, "
+              f"use_deterministic_algorithms "
+              f"{torch.are_deterministic_algorithms_enabled()}, "
+              f"fill_uninitialized_memory {det.fill_uninitialized_memory}, "
+              f"CUBLAS_WORKSPACE_CONFIG "
+              f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+
+    def counted_run(cls, cfg, rounds, block, **kw):
+        """A fresh trainer's run on the card, with the launch counts of
+        that run alone."""
+        tr = cls(cfg, device="cuda", **kw)
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        tr.run(rounds=rounds, block=block)
+        torch.cuda.synchronize()
+        return tr, launch_counts()
+
+    tr, _ = counted_run(GossipTrainer, get_preset("headline-dsgd-model1"),
+                        rounds, 1)
+    same_state("7a headline-dsgd-model1, 2 rounds, again", g_state, state(tr))
+    del tr
+    runs = [state(counted_run(FederatedTrainer, admm_tiny, 2, 1)[0])
+            for _ in range(2)]
+    same_state("7a tiny fedadmm, compact, 10% holdout, twice", *runs)
+
+    # -- 7b. blocked (CUDA-graph replays) against per-round ----------------
+    def blocked(label, cls, cfg, want_state, want_launch, n, block, **kw):
+        tr, got = counted_run(cls, cfg, n, block, **kw)
+        caps = tr.graphs.captures
+        if not caps:
+            fail(f"{label}: the blocked run captured no graph")
+        same_state(f"7b {label}, blocks of {block}, against per-round",
+                   want_state, state(tr))
+        print(f"7b {label}: launches {got} (per-round {want_launch}); "
+              f"graphs {caps}")
+        if got != want_launch:
+            fail(f"{label}: blocked launch counts {got} != per-round "
+                 f"{want_launch}")
+
+    blocked("headline-dsgd-model1", GossipTrainer,
+            get_preset("headline-dsgd-model1"), g_state, glaunch, rounds, 2)
+    blocked("headline-dsgd-model1-bf16", GossipTrainer,
+            get_preset("headline-dsgd-model1-bf16"), b_state, b_launch,
+            rounds, 2)
+    fcfg = get_preset("headline-fedavg-model1")
+    for pf in ("off", "on"):
+        blocked(f"headline-fedavg-model1, prefetch {pf}", FederatedTrainer,
+                fcfg.replace(federated=dataclasses.replace(
+                    fcfg.federated, prefetch=pf)),
+                f_state, flaunch, rounds, 2)
+    bf16_store = dataclasses.replace(tiny_model, compute_dtype="bfloat16",
+                                     param_dtype="bfloat16")
+    for label, cls, cfg in (
+            ("tiny gossip, both fused switches", GossipTrainer, gossip_tiny),
+            ("tiny gossip, bf16 storage, clip 1.0", GossipTrainer,
+             gossip_tiny.replace(model=bf16_store, optim=dataclasses.replace(
+                 gossip_tiny.optim, clip_norm=1.0))),
+            ("tiny fedprox, compact, bf16 storage, clip 1.0, 10% holdout",
+             FederatedTrainer, prox_tiny),
+            ("tiny fedadmm, compact, 10% holdout", FederatedTrainer,
+             admm_tiny),
+            ("tiny scaffold, full width", FederatedTrainer, fed_tiny.replace(
+                federated=FederatedConfig(algorithm="scaffold", frac=0.5,
+                                          local_ep=1, local_bs=16,
+                                          compact=False)))):
+        tr, launch = counted_run(cls, cfg, 3, 1)
+        blocked(label, cls, cfg, state(tr), launch, 3, 2)
+        del tr
+
+    # -- 7c. rates: per-round against blocked -----------------------------
+    every = 10 ** 6   # eval_every beyond the run: only round 0 evaluates
+    for name in ("headline-dsgd-model1-bf16", "headline-dsgd-model1"):
+        got = {}
+        for mode, block in (("per-round", 1), ("blocked", 4)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = GossipTrainer(get_preset(name), device="cuda",
+                               eval_every=every)
+            # Warm-up: round 0 (the eval round); blocked, one block of 4,
+            # which captures the eval and the no-eval graph.
+            tr.run(rounds=block, block=block)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.run(rounds=4, block=block)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got[mode] = 4 / wall
+            if not all(math.isfinite(r["avg_train_loss"])
+                       for r in tr.history.rows):
+                fail(f"{name} {mode}: non-finite train loss")
+            caps = {("eval" if k else "no-eval"): v
+                    for k, v in tr.graphs.captures.items()}
+            print(f"7c {name} {mode}: 4 rounds in {wall:.3f} s = "
+                  f"{got[mode]:.4f} rounds/s; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated()} B, "
+                  f"max_memory_reserved {torch.cuda.max_memory_reserved()} "
+                  f"B (from before the trainer's construction); graphs "
+                  f"{caps}")
+            if mode == "blocked":
+                profile_round(f"{name}, one blocked round (graph replay)",
+                              functools.partial(tr.run, rounds=1, block=4))
+            del tr
+        print(f"7c {name}: blocked {got['blocked']:.4f} against per-round "
+              f"{got['per-round']:.4f} rounds/s: "
+              f"{got['blocked'] / got['per-round']:.3f}x")
 
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []

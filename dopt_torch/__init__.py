@@ -8,7 +8,18 @@ at first use.  Ported so far: synchronous gossip D-SGD
 (``GossipTrainer``) and the federated engine — FedAvg, FedProx, FedADMM
 and SCAFFOLD (``FederatedTrainer``) — on the reference CNNs, with the
 reference's local train/val holdout, and both of dopt's Pallas kernels.
+Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph
+replays of the round, with a prefetched host pipeline.
 """
+
+import os
+
+# cuBLAS is deterministic only with a fixed workspace, and it reads this
+# at its first call, so it is set before any: the trainers run under
+# torch.use_deterministic_algorithms on the GPU
+# (dopt_torch.models.zoo.deterministic), which raises for a cuBLAS call
+# without it.  A value the caller set is kept.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from dopt_torch.config import (DataConfig, ExperimentConfig, FederatedConfig,
                                GossipConfig, ModelConfig, OptimizerConfig)

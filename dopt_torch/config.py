@@ -83,7 +83,11 @@ class FederatedConfig:
     # scatter back) instead of all W lanes with the unsampled results
     # masked away.  None = auto (on when frac < 1 and the fused epilogue
     # is off).
-    block_rounds: int = 1       # > 1 arrives with the blocks slice
+    block_rounds: int = 1
+    # > 1 runs that many rounds a block: each round replays a CUDA graph
+    # of the round body, with one device→host fetch a block
+    # (dopt_torch.engine.graphs); on the CPU the same block loop runs
+    # the body eagerly.
     comm_dtype: str | None = None   # arrives with the codecs slice
     staleness_max: int = 0      # > 0 arrives with the network slice
     staleness_decay: float = 0.5
@@ -96,7 +100,10 @@ class FederatedConfig:
     # update as ONE CUDA kernel pass per bucket,
     # θ'_b = M(mask)·disp + θ_b (kernel 2 with lr = −1);
     # fedavg/fedprox, full width only.
-    prefetch: str = "off"       # "on" arrives with the blocks slice
+    prefetch: str = "off"
+    # "off" | "on".  "on" builds the next block's batch plans and stages
+    # them on the device on a background thread while the current block
+    # runs (dopt_torch.data.prefetch); blocked runs only.
     diagnostics: str = "off"    # "on" arrives with the telemetry slice
 
 
@@ -115,6 +122,8 @@ class GossipConfig:
     mixing: str = "sync"
     comm_impl: str = "auto"     # the single-device port always mixes dense
     block_rounds: int = 1
+    # > 1: blocks of that many rounds, as FederatedConfig.block_rounds.
+    prefetch: str = "off"       # "off" | "on", as FederatedConfig.prefetch
     self_weight: bool = False   # reference mixing has a zero diagonal
     hier_groups: int = 2
     hier_period: int = 4

@@ -3,6 +3,7 @@ from dopt_torch.data.partition import (holdout_split, iid_split, noniid_split,
                                        partition)
 from dopt_torch.data.pipeline import (BatchPlan, eval_batches,
                                       make_batch_plan, stacked_eval_batches)
+from dopt_torch.data.prefetch import PrefetchStager, ready, upload
 
 __all__ = [
     "Dataset",
@@ -16,4 +17,7 @@ __all__ = [
     "eval_batches",
     "make_batch_plan",
     "stacked_eval_batches",
+    "PrefetchStager",
+    "ready",
+    "upload",
 ]

@@ -21,13 +21,25 @@ Three execution paths, same math up to float summation order:
   bucket store, and the masked mean plus the theta update are ONE pass
   of CUDA kernel 2 per bucket: θ'_b = M(mask)·disp + θ_b, with the
   displacement store as kernel 2's ``p`` and the slab as its ``buf`` at
-  lr = −1, so the displacement store becomes the new slab and the two
-  stores swap roles each round.
+  lr = −1; the new slab is then copied back into the slab store (one
+  store copy a round, instead of swapping the two stores' roles: a
+  captured round must find every state at the address it was captured
+  with, and one graph then serves every round).
 
 History rows are P1's: round, test_acc, test_loss (the global model on
 the test set, P1's summed loss), train_loss, train_acc (every client's
 own model on its own train split), local_loss (the survivors' mean
 training loss).  Each round makes one device→host fetch.
+
+A round is a host *stage* (the client sample — drawn on the caller's
+thread, in round order — the batch plan, the mask and selection and
+their upload) and a device *body* (local phase, screen, aggregation,
+evals) that writes every carried state in place and its metrics into a
+static slot.  ``federated.block_rounds`` > 1 runs blocks of rounds as
+CUDA-graph replays of the body with one fetch a block
+(``dopt_torch.engine.graphs``; eagerly on the CPU), bit-identical to the
+per-round run, and ``federated.prefetch="on"`` builds the next block
+while the current one runs (``dopt_torch.data.prefetch``).
 """
 
 from __future__ import annotations
@@ -38,16 +50,18 @@ import numpy as np
 import torch
 
 from dopt_torch.config import ExperimentConfig
-from dopt_torch.data import make_batch_plan, stacked_eval_batches
+from dopt_torch.data import make_batch_plan, stacked_eval_batches, upload
 from dopt_torch.engine.gossip import (DTYPES, initial_params, later,
                                       load_device_data, resolve_device,
                                       steps_per_round, validate_common)
+from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
-from dopt_torch.models.zoo import full_f32, stacked_cnn_forward
+from dopt_torch.models.zoo import (deterministic, full_f32,
+                                   stacked_cnn_forward)
 from dopt_torch.ops.fused_update import fused_mix_update
-from dopt_torch.optim import (admm_dual_ascent, grad_edit,
-                              scaffold_control_update)
+from dopt_torch.optim import (admm_dual_ascent, grad_edit, rounded,
+                              scaffold_control_update, scaffold_scale)
 from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              flat_views,
                                              make_update_shard_spec,
@@ -85,10 +99,6 @@ def validate_federated(cfg: ExperimentConfig) -> None:
         raise later("update_sharding='scatter'", "scatter and multi-GPU")
     if f.comm_dtype:
         raise later(f"comm_dtype={f.comm_dtype!r}", "codecs")
-    if f.block_rounds > 1:
-        raise later("block_rounds > 1", "multi-round blocks")
-    if f.prefetch == "on":
-        raise later("prefetch='on'", "multi-round blocks")
     if f.diagnostics == "on":
         raise later("diagnostics='on'", "telemetry")
     if f.fused_update == "on":
@@ -127,7 +137,9 @@ class FederatedTrainer:
     lr/(1 − momentum).  Takes ``model.compute_dtype``,
     ``model.param_dtype`` and ``optim.clip_norm`` as ``GossipTrainer``
     does; with bf16 storage theta, the slab, the displacement store,
-    momentum, duals and controls are all bf16.
+    momentum, duals and controls are all bf16.  On CUDA ``run`` and the
+    evals run in full f32 and in the deterministic mode, as
+    ``GossipTrainer``'s do.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -179,6 +191,21 @@ class FederatedTrainer:
         else:
             self.theta = p0
         self._sample_rng = host_rng(cfg.seed, 314159)
+        # The local phase's scalars, rounded to the storage dtype once
+        # here: lr and μ (the unfused update), rho (the edits) and
+        # SCAFFOLD's refresh factor 1/(K·lr_eff).
+        o = cfg.optim
+        lr_eff = o.lr / max(1.0 - o.momentum, 1e-8)
+        for x in (o.lr, o.momentum, o.rho,
+                  scaffold_scale(lr_eff, self.steps_per_round)):
+            rounded(float(x), DTYPES[cfg.model.param_dtype])
+        # The round's packed metrics: local loss, test acc, test loss,
+        # train loss, train acc, then (holdout) the [4, m, E] epoch rows
+        # of the sampled clients.
+        width = 5 + (4 * self._sampled_count() * f.local_ep
+                     if self._val is not None else 0)
+        self._slot = torch.zeros(width, device=dev)
+        self.graphs = RoundGraphs(self._body, self._slot)
 
     # -- sampling and path choice ---------------------------------------
     def _sampled_count(self) -> int:
@@ -241,13 +268,11 @@ class FederatedTrainer:
                 new = None
         return losses, accs, em, new
 
-    def _full_round(self, sel: np.ndarray, idx, bw):
+    def _full_round(self, inp: dict[str, torch.Tensor]):
         """All W lanes train; the mask keeps what the aggregate sees."""
-        w, dev = self.num_workers, self.device
+        w = self.num_workers
         scaffold = self.cfg.federated.algorithm == "scaffold"
-        mask_np = np.zeros(w, np.float32)
-        mask_np[sel] = 1.0
-        mask = torch.from_numpy(mask_np).to(dev)
+        mask = inp["mask"]
         theta = self._theta()
         theta_b = (flat_views(self._theta_flat, self.fused_spec)
                    if self._fused_on else broadcast_to_workers(theta, w))
@@ -261,18 +286,19 @@ class FederatedTrainer:
         moms = ({k: torch.zeros_like(v) for k, v in prev_m.items()}
                 if scaffold else self.momentum)
         losses, accs, em, sub_new = self._local(theta, self.params, moms,
-                                                self.duals, idx, bw,
-                                                self._val)
+                                                self.duals, inp["idx"],
+                                                inp["bw"], self._val)
         with torch.no_grad():
             p_t = self.params
             agg = mask * finite_lane_mask(p_t)
+            # Every carried state is written in place (RoundGraphs).
             if sub_new is not None:
                 new_duals = where_mask(agg, sub_new, self.duals)
                 if scaffold:
-                    self.c_global = {
-                        k: c + (new_duals[k] - self.duals[k]).sum(0) / w
-                        for k, c in self.c_global.items()}
-                self.duals = new_duals
+                    for k, c in self.c_global.items():
+                        c.copy_(c + (new_duals[k] - self.duals[k]).sum(0) / w)
+                for k, d in self.duals.items():
+                    d.copy_(new_duals[k])
             if self._fused_on:
                 # θ'_b = M(agg)·disp + θ_b in one kernel-2 pass a bucket.
                 # disp is zeroed where the mask is off (a screened lane's
@@ -286,8 +312,7 @@ class FederatedTrainer:
                 fused_mix_update(self._disp_flat, self._theta_flat,
                                  mean_weight_matrix(agg), self.fused_spec,
                                  lr=-1.0)
-                self._theta_flat, self._disp_flat = (self._disp_flat,
-                                                     self._theta_flat)
+                self._theta_flat.copy_(self._disp_flat)
             new_p = where_mask(agg, p_t, prev_p)
             for k, p in p_t.items():
                 p.copy_(new_p[k])
@@ -299,22 +324,21 @@ class FederatedTrainer:
                 # A round with no survivor keeps theta.
                 avg = masked_average(new_p, agg)
                 alive = agg.sum() > 0
-                self.theta = {k: torch.where(alive, avg[k], theta[k])
-                              for k in avg}
+                for k, v in theta.items():
+                    v.copy_(torch.where(alive, avg[k], v))
             lane_loss = losses.mean(1)
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = (lane_loss * agg).sum() / agg.sum().clamp_min(1.0)
             if em:
-                sel_t = torch.from_numpy(sel.astype(np.int64)).to(dev)
-                em = {k: v[sel_t] for k, v in em.items()}
+                em = {k: v[inp["sel"]] for k, v in em.items()}
         return local_loss, em
 
-    def _compact_round(self, sel: np.ndarray, idx, bw):
+    def _compact_round(self, inp: dict[str, torch.Tensor]):
         """Only the m sampled lanes train: gather → local → scatter."""
-        w, dev = self.num_workers, self.device
+        w = self.num_workers
         scaffold = self.cfg.federated.algorithm == "scaffold"
-        sel_t = torch.from_numpy(sel.astype(np.int64)).to(dev)
-        m = len(sel)
+        sel_t = inp["sel"]
+        m = len(sel_t)
         theta = self.theta
         with torch.no_grad():
             lanes = {k: v.requires_grad_(True)
@@ -328,7 +352,7 @@ class FederatedTrainer:
         val = (None if self._val is None
                else tuple(a[sel_t] for a in self._val))
         losses, accs, em, sub_new = self._local(theta, lanes, moms, duals,
-                                                idx, bw, val)
+                                                inp["idx"], inp["bw"], val)
         with torch.no_grad():
             fin = finite_lane_mask(lanes)
             all_fin = fin.min() >= 1.0
@@ -337,9 +361,8 @@ class FederatedTrainer:
                 for k, d in self.duals.items():
                     d.index_copy_(0, sel_t, kept[k])
                 if scaffold:
-                    self.c_global = {
-                        k: c + (kept[k] - duals[k]).sum(0) / w
-                        for k, c in self.c_global.items()}
+                    for k, c in self.c_global.items():
+                        c.copy_(c + (kept[k] - duals[k]).sum(0) / w)
             p_keep = where_mask(fin, lanes, prev_p)
             for k, p in self.params.items():
                 p.index_copy_(0, sel_t, p_keep[k])
@@ -349,11 +372,10 @@ class FederatedTrainer:
                     mo.index_copy_(0, sel_t, m_keep[k])
             masked = masked_mean(p_keep, fin)
             any_fin = fin.sum() > 0
-            self.theta = {
-                k: torch.where(any_fin,
-                               torch.where(all_fin, x.mean(0), masked[k]),
-                               theta[k])
-                for k, x in p_keep.items()}
+            for k, x in p_keep.items():
+                theta[k].copy_(torch.where(
+                    any_fin, torch.where(all_fin, x.mean(0), masked[k]),
+                    theta[k]))
             lane_loss = losses.mean(1)
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = torch.where(
@@ -361,19 +383,27 @@ class FederatedTrainer:
                 (lane_loss * fin).sum() / fin.sum().clamp_min(1.0))
         return local_loss, em
 
-    def _round(self, t: int) -> None:
-        """Round t: sample, train, aggregate, evaluate; one History row
-        and one device→host fetch."""
-        cfg, f, dev = self.cfg, self.cfg.federated, self.device
-        sel = self._sample_indices()
+    def _round_inputs(self, t: int, sel: np.ndarray) -> dict[str, np.ndarray]:
+        """Round t's host inputs for the sample ``sel``: the batch plan
+        (of the sampled lanes on the compact path), the selection and,
+        at full width, the [W] 0/1 mask."""
+        cfg, f = self.cfg, self.cfg.federated
         compact = self._use_compact()
         plan = make_batch_plan(self._train_matrix, batch_size=f.local_bs,
                                local_ep=f.local_ep, seed=cfg.seed,
                                round_idx=t, workers=sel if compact else None)
-        idx = torch.from_numpy(plan.idx.astype(np.int64)).to(dev)
-        bw = torch.from_numpy(plan.weight).to(dev)
-        step = self._compact_round if compact else self._full_round
-        local_loss, em = step(sel, idx, bw)
+        out = {"idx": plan.idx.astype(np.int64), "bw": plan.weight,
+               "sel": sel.astype(np.int64)}
+        if not compact:
+            out["mask"] = np.zeros(self.num_workers, np.float32)
+            out["mask"][sel] = 1.0
+        return out
+
+    def _body(self, inp: dict[str, torch.Tensor], kind=None) -> None:
+        """The round on the device: train, aggregate, evaluate, metrics
+        into the slot (``kind`` is unused: one kind of round)."""
+        step = self._compact_round if self._use_compact() else self._full_round
+        local_loss, em = step(inp)
         ev = self._global_eval()
         parts = [local_loss, ev["acc"], ev["loss_sum"]]
         if self.eval_train:
@@ -382,17 +412,21 @@ class FederatedTrainer:
                                        self._train_y, self._sample_shape)
             parts += [tm["loss_mean"].mean(), tm["acc"].mean()]
         else:
-            parts += [torch.zeros((), device=dev)] * 2
+            parts += [local_loss.new_zeros(())] * 2
         if em:
             parts += [em[k] for k in ("train_loss", "train_acc", "val_acc",
                                       "val_loss_sum")]
-        # ONE device→host fetch per round.
-        vals = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
+        with torch.no_grad():
+            torch.cat([p.reshape(-1).float() for p in parts], out=self._slot)
+
+    def _record(self, t: int, sel: np.ndarray, vals: np.ndarray) -> None:
+        """Round t's History row (and client rows) from its metrics."""
+        f = self.cfg.federated
         ll, acc, loss_sum, t_loss, t_acc = (float(v) for v in vals[:5])
         self.history.append(round=t, test_acc=acc, test_loss=loss_sum,
                             train_loss=t_loss, train_acc=t_acc,
                             local_loss=ll)
-        if em:
+        if self._val is not None:
             tl, ta, va, vl = vals[5:].reshape(4, len(sel), f.local_ep)
             for j, wid in enumerate(sel):
                 for e in range(f.local_ep):
@@ -401,16 +435,52 @@ class FederatedTrainer:
                         train_loss=float(tl[j, e]), train_acc=float(ta[j, e]),
                         val_acc=float(va[j, e]), val_loss=float(vl[j, e]))
 
-    def run(self, rounds: int | None = None) -> History:
+    # -- blocks: the stateful draw, the pure build, the rows -----------
+    def _draw_block(self, ts: list[int]) -> dict:
+        """The block's client samples: the sampling stream advances here,
+        on the caller's thread, in block order.  One kind of round."""
+        return {"ts": ts, "kinds": [None] * len(ts),
+                "sels": [self._sample_indices() for _ in ts]}
+
+    def _build_block(self, meta: dict) -> dict:
+        """The block's batch plans, masks and selections, stacked and
+        uploaded: pure, so the prefetch stager may run it on its
+        background thread."""
+        rounds = [self._round_inputs(t, sel)
+                  for t, sel in zip(meta["ts"], meta["sels"])]
+        meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
+                              for k in rounds[0]}, self.device)
+        return meta
+
+    def _record_block(self, meta: dict, vals: np.ndarray) -> None:
+        for t, sel, v in zip(meta["ts"], meta["sels"], vals):
+            self._record(t, sel, v)
+            self.round += 1
+
+    def run(self, rounds: int | None = None,
+            block: int | None = None) -> History:
         """Train ``rounds`` rounds (default ``cfg.federated.rounds``) at
-        client fraction ``cfg.federated.frac``; ``self.round`` and the
-        sampling stream persist across calls."""
-        rounds = self.cfg.federated.rounds if rounds is None else rounds
+        client fraction ``cfg.federated.frac``, in blocks of ``block``
+        (default ``cfg.federated.block_rounds``; the last block may be
+        shorter); ``self.round`` and the sampling stream persist across
+        calls."""
+        f = self.cfg.federated
+        rounds = f.rounds if rounds is None else rounds
+        block = f.block_rounds if block is None else block
         t0 = time.perf_counter()
-        with full_f32(self.device):
-            for _ in range(rounds):
-                self._round(self.round)
-                self.round += 1
+        with full_f32(self.device), deterministic(self.device):
+            if block > 1:
+                run_blocked(self, rounds, block, prefetch=f.prefetch == "on")
+            else:
+                for _ in range(rounds):
+                    t = self.round
+                    sel = self._sample_indices()
+                    host = self._round_inputs(t, sel)
+                    self._body({k: torch.from_numpy(v).to(self.device)
+                                for k, v in host.items()})
+                    # ONE device→host fetch per round.
+                    self._record(t, sel, self._slot.cpu().numpy())
+                    self.round += 1
         self.total_time = time.perf_counter() - t0
         return self.history
 
@@ -424,7 +494,7 @@ class FederatedTrainer:
     def evaluate_global(self) -> dict[str, float]:
         """The global model on the test set: acc, loss_sum (P1's
         flavour), loss_mean (P2's) and count."""
-        with full_f32(self.device):
+        with full_f32(self.device), deterministic(self.device):
             out = self._global_eval()
         return {k: float(v[0]) for k, v in out.items()}
 

@@ -22,6 +22,19 @@ Two orderings, as in dopt:
 With ``optim.fused_update=True`` every SGD step's update is one launch
 of the fused momentum-SGD kernel.
 
+A round is a host *stage* (the mixing matrix, the batch plan, their
+upload) and a device *body* (consensus → eval on flagged rounds → local
+epochs → fbuf) that writes the round's metrics into a static slot.
+Per-round runs (``block <= 1``) stage, run the body eagerly and fetch
+the slot once a round.  Blocked runs (``gossip.block_rounds`` or
+``run(block=k)``, k > 1) stage k rounds at once, run each round as a
+CUDA-graph replay over static buffers (``dopt_torch.engine.graphs``;
+eagerly on the CPU) and fetch once a block, bit-identical to the
+per-round run; ``gossip.prefetch="on"`` builds the next block while the
+current one runs (``dopt_torch.data.prefetch``).  ``eval_every`` skips
+the test-set eval on rounds t with t % eval_every != 0; their History
+rows lack ``avg_test_acc``/``avg_test_loss``, as in dopt.
+
 ``model.compute_dtype="bfloat16"`` runs the forward and backward in bf16
 at dopt's cast points; ``model.param_dtype="bfloat16"`` stores the
 params, momentum and the fused carry in bf16 (both kernels then run
@@ -39,12 +52,15 @@ import torch
 from dopt_torch.config import ExperimentConfig
 from dopt_torch.convert import params_from_jax
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
-                             partition)
+                             partition, upload)
+from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, prepare_holdout,
                                      stacked_evaluate)
-from dopt_torch.models.zoo import (StackedCNN, full_f32, init_worker_params,
-                                   param_shapes, stacked_cnn_forward)
+from dopt_torch.models.zoo import (StackedCNN, deterministic, full_f32,
+                                   init_worker_params, param_shapes,
+                                   stacked_cnn_forward)
 from dopt_torch.ops.fused_update import fused_mix_update
+from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
 from dopt_torch.topology import build_mixing_matrices
@@ -114,8 +130,8 @@ def validate_slice(cfg: ExperimentConfig) -> None:
         raise later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
     if g.mixing != "sync":
         raise later(f"mixing={g.mixing!r}", "async and one-peer mixing")
-    if g.block_rounds > 1:
-        raise later("block_rounds > 1", "multi-round blocks")
+    if g.prefetch not in ("off", "on"):
+        raise ValueError(f"unknown prefetch {g.prefetch!r}; one of off|on")
     if g.update_sharding != "off":
         raise later(f"update_sharding={g.update_sharding!r}",
                     "scatter and multi-GPU")
@@ -201,6 +217,9 @@ class GossipTrainer:
     ``dopt_torch.convert.params_from_jax``'s input) so a run can start
     at dopt's exact init; otherwise the init is drawn from a
     ``torch.Generator`` seeded with ``cfg.seed``, with flax's defaults.
+    ``eval_every`` evaluates the test set on rounds t with
+    t % eval_every == 0 only (dopt's knob; its bench runs with an
+    ``eval_every`` beyond the run).
 
     The f32 path runs in full f32: on CUDA, ``run`` and ``evaluate`` set
     ``torch.backends.cudnn.allow_tf32 = False`` and
@@ -208,14 +227,19 @@ class GossipTrainer:
     because cuDNN convolutions default to TF32, which keeps about three
     digits; on the CPU they turn oneDNN off
     (``dopt_torch.models.full_f32``, which restores the flags after).
+    On CUDA they also run in the deterministic mode
+    (``dopt_torch.models.deterministic``), so a run repeats bit for bit.
     """
 
-    def __init__(self, cfg: ExperimentConfig, *, device=None,
-                 init_params=None):
+    def __init__(self, cfg: ExperimentConfig, *, eval_every: int = 1,
+                 device=None, init_params=None):
         validate_slice(cfg)
+        if eval_every < 1:
+            raise ValueError(f"eval_every={eval_every} must be >= 1")
         self.device = dev = resolve_device(device)
         g, mc = cfg.gossip, cfg.model
         self.cfg = cfg
+        self.eval_every = eval_every
         self.round = 0
         self.history = History(cfg.name)
         w = cfg.data.num_users
@@ -239,6 +263,9 @@ class GossipTrainer:
         self._names = [k for k, _ in self.model.named_parameters()]
         self._params = list(self.model.parameters())
         self.momentum = [torch.zeros_like(p) for p in self._params]
+        # The update's scalars, rounded to the storage dtype once here.
+        for x in (cfg.optim.lr, cfg.optim.momentum):
+            rounded(float(x), DTYPES[mc.param_dtype])
 
         self.mixing = build_mixing_matrices(
             g.topology, g.mode, w, seed=cfg.seed, self_weight=g.self_weight,
@@ -258,7 +285,22 @@ class GossipTrainer:
             for k, v in flat_views(self._q, self.fused_spec).items():
                 v.copy_(stacked[k])
 
-    # -- one round ------------------------------------------------------
+        # The round's packed metrics: train loss, train acc, test acc,
+        # test loss, then (holdout) the [4, W, E] epoch rows.
+        width = 4 + (4 * w * g.local_ep if self._val is not None else 0)
+        self._slot = torch.zeros(width, device=dev)
+        self.graphs = RoundGraphs(self._body, self._slot)
+
+    # -- one round: host stage, device body -----------------------------
+    def _round_inputs(self, t: int) -> dict[str, np.ndarray]:
+        """Round t's host inputs: the mixing matrix and the batch plan."""
+        g = self.cfg.gossip
+        plan = make_batch_plan(self._train_matrix, batch_size=g.local_bs,
+                               local_ep=g.local_ep, seed=self.cfg.seed,
+                               round_idx=t)
+        return {"w": self.mixing.for_round(t).astype(np.float32),
+                "idx": plan.idx.astype(np.int64), "bw": plan.weight}
+
     @torch.no_grad()
     def _consensus(self, w_t: torch.Tensor) -> None:
         """Leave the round's post-consensus state in the model's params."""
@@ -273,65 +315,103 @@ class GossipTrainer:
         for k, p in zip(self._names, self._params):
             p.copy_(mixed[k])
 
-    def _round(self, t: int) -> None:
-        """Round t: consensus → eval → local epochs, one History row
-        (and, with the holdout, one client row per worker and epoch)."""
-        cfg, g, dev = self.cfg, self.cfg.gossip, self.device
-        w_t = torch.from_numpy(
-            self.mixing.for_round(t).astype(np.float32)).to(dev)
-        plan = make_batch_plan(self._train_matrix, batch_size=g.local_bs,
-                               local_ep=g.local_ep, seed=cfg.seed,
-                               round_idx=t)
-        idx = torch.from_numpy(plan.idx.astype(np.int64)).to(dev)
-        bw = torch.from_numpy(plan.weight).to(dev)
-        self._consensus(w_t)
-        ev = stacked_evaluate(self.model, self.num_workers, *self._eval)
+    def _body(self, inp: dict[str, torch.Tensor], do_eval: bool) -> None:
+        """The round on the device: consensus → eval (flagged rounds) →
+        local epochs → fbuf, metrics into the slot.  Every state is
+        written in place and nothing touches the host, so the body can
+        be captured (``RoundGraphs``)."""
+        cfg, g = self.cfg, self.cfg.gossip
+        self._consensus(inp["w"])
+        ev = (stacked_evaluate(self.model, self.num_workers, *self._eval)
+              if do_eval else None)
         losses, accs, em = local_steps(
             self.model, dict(zip(self._names, self._params)),
-            dict(zip(self._names, self.momentum)), idx, bw, self._train_x,
-            self._train_y, self._sample_shape, lr=cfg.optim.lr,
-            momentum=cfg.optim.momentum, fused=cfg.optim.fused_update,
-            l2=cfg.optim.weight_decay, clip_norm=cfg.optim.clip_norm,
-            local_ep=g.local_ep, val=self._val)
-        if self._fused_on:
-            with torch.no_grad():
+            dict(zip(self._names, self.momentum)), inp["idx"], inp["bw"],
+            self._train_x, self._train_y, self._sample_shape,
+            lr=cfg.optim.lr, momentum=cfg.optim.momentum,
+            fused=cfg.optim.fused_update, l2=cfg.optim.weight_decay,
+            clip_norm=cfg.optim.clip_norm, local_ep=g.local_ep,
+            val=self._val)
+        with torch.no_grad():
+            if self._fused_on:
                 q = flat_views(self._q, self.fused_spec)
                 fb = flat_views(self._fbuf, self.fused_spec)
                 for k, p in zip(self._names, self._params):
                     torch.sub(q[k], p, out=fb[k])
-        # dopt's round accuracy: the epochs' count-weighted accuracies
-        # with the holdout, the steps' mean without.
-        if em:
-            accs = em["train_acc"]
-        # ONE device→host fetch per round.
-        parts = [losses.mean(), accs.mean(), ev["acc"].mean(),
-                 ev["loss_mean"].mean()]
-        if em:
-            parts += [em[k] for k in ("train_loss", "train_acc", "val_acc",
-                                      "val_loss_mean")]
-        vals = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
-        self.history.append(round=t, avg_train_loss=float(vals[0]),
-                            avg_train_acc=float(vals[1]),
-                            avg_test_acc=float(vals[2]),
-                            avg_test_loss=float(vals[3]))
-        if em:
-            tl, ta, va, vl = vals[4:].reshape(4, self.num_workers, g.local_ep)
-            for i in range(self.num_workers):
-                for e in range(g.local_ep):
-                    self.client_history.append(
-                        round=t, iter=e, worker=i,
-                        train_loss=float(tl[i, e]), train_acc=float(ta[i, e]),
-                        val_acc=float(va[i, e]), val_loss=float(vl[i, e]))
+            # dopt's round accuracy: the epochs' count-weighted accuracies
+            # with the holdout, the steps' mean without.
+            if em:
+                accs = em["train_acc"]
+            test = ([ev["acc"].mean(), ev["loss_mean"].mean()] if do_eval
+                    else [losses.new_zeros(())] * 2)
+            parts = [losses.mean(), accs.mean(), *test]
+            if em:
+                parts += [em[k] for k in ("train_loss", "train_acc",
+                                          "val_acc", "val_loss_mean")]
+            torch.cat([p.reshape(-1) for p in parts], out=self._slot)
 
-    def run(self, rounds: int | None = None) -> History:
-        """Train ``rounds`` rounds (default ``cfg.gossip.rounds``);
-        ``self.round`` persists across calls, as in the reference."""
-        rounds = self.cfg.gossip.rounds if rounds is None else rounds
+    def _record(self, t: int, vals: np.ndarray, do_eval: bool) -> None:
+        """Round t's History row (and client rows) from its metrics."""
+        row = {"round": t, "avg_train_loss": float(vals[0]),
+               "avg_train_acc": float(vals[1])}
+        if do_eval:
+            row.update(avg_test_acc=float(vals[2]),
+                       avg_test_loss=float(vals[3]))
+        self.history.append(**row)
+        if self._val is not None:
+            e = self.cfg.gossip.local_ep
+            tl, ta, va, vl = vals[4:].reshape(4, self.num_workers, e)
+            for i in range(self.num_workers):
+                for j in range(e):
+                    self.client_history.append(
+                        round=t, iter=j, worker=i,
+                        train_loss=float(tl[i, j]), train_acc=float(ta[i, j]),
+                        val_acc=float(va[i, j]), val_loss=float(vl[i, j]))
+
+    # -- blocks: the stateful draw, the pure build, the rows -----------
+    def _draw_block(self, ts: list[int]) -> dict:
+        """The block's rounds and which of them evaluate (the graph
+        kinds).  The port's mixing schedules are stateless
+        (``matrices[t % len]``), so nothing else is drawn."""
+        return {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts]}
+
+    def _build_block(self, meta: dict) -> dict:
+        """The block's mixing matrices and batch plans, stacked and
+        uploaded: pure, so the prefetch stager may run it on its
+        background thread."""
+        rounds = [self._round_inputs(t) for t in meta["ts"]]
+        meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
+                              for k in rounds[0]}, self.device)
+        return meta
+
+    def _record_block(self, meta: dict, vals: np.ndarray) -> None:
+        for t, do_eval, v in zip(meta["ts"], meta["kinds"], vals):
+            self._record(t, v, do_eval)
+            self.round += 1
+
+    def run(self, rounds: int | None = None,
+            block: int | None = None) -> History:
+        """Train ``rounds`` rounds (default ``cfg.gossip.rounds``) in
+        blocks of ``block`` (default ``cfg.gossip.block_rounds``; the
+        last block may be shorter); ``self.round`` persists across
+        calls, as in the reference."""
+        g = self.cfg.gossip
+        rounds = g.rounds if rounds is None else rounds
+        block = g.block_rounds if block is None else block
         t0 = time.perf_counter()
-        with full_f32(self.device):
-            for _ in range(rounds):
-                self._round(self.round)
-                self.round += 1
+        with full_f32(self.device), deterministic(self.device):
+            if block > 1:
+                run_blocked(self, rounds, block, prefetch=g.prefetch == "on")
+            else:
+                for _ in range(rounds):
+                    t = self.round
+                    do_eval = t % self.eval_every == 0
+                    self._body({k: torch.from_numpy(v).to(self.device)
+                                for k, v in self._round_inputs(t).items()},
+                               do_eval)
+                    # ONE device→host fetch per round.
+                    self._record(t, self._slot.cpu().numpy(), do_eval)
+                    self.round += 1
         self.total_time = time.perf_counter() - t0
         return self.history
 
@@ -357,7 +437,7 @@ class GossipTrainer:
         """Reference-semantics eval: every worker on the full test set."""
         params = self._debiased_params()
         mc = self.cfg.model
-        with full_f32(self.device):
+        with full_f32(self.device), deterministic(self.device):
             out = stacked_evaluate(
                 lambda x: stacked_cnn_forward(
                     params, x, faithful=mc.faithful,

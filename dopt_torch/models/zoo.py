@@ -105,6 +105,43 @@ def full_f32(device: torch.device):
             yield
 
 
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """Run bit-reproducibly on ``device``, restoring every flag on exit:
+    dopt's runs repeat bit for bit (XLA is deterministic), and its
+    blocked ≡ per-round and resume contracts rest on that.  CUDA: cuDNN
+    takes only deterministic algorithms and does not autotune, and
+    ``torch.use_deterministic_algorithms`` makes every op on the path
+    take its deterministic form (an op without one raises).  cuBLAS also
+    needs ``CUBLAS_WORKSPACE_CONFIG`` before its first call, which
+    ``dopt_torch/__init__.py`` sets.  The mode's NaN fill of every
+    ``torch.empty`` is off: the port writes each tensor it allocates
+    with ``empty`` in full before reading it (the step-metric buffers
+    of ``engine.local.local_steps``, a block's metric buffer in
+    ``engine.graphs``), and torch's own ops write theirs.  The CPU
+    kernels the port runs are deterministic already; nothing changes
+    there."""
+    if device.type != "cuda":
+        yield
+        return
+    import torch.utils.deterministic as det
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        (cudnn.deterministic, cudnn.benchmark, on, warn_only,
+         det.fill_uninitialized_memory) = saved
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
 def _grouped_conv(z, weight, bias, groups, dtype):
     """'SAME' conv of worker-major channels with [W, Cout, Cin, k, k]
     kernels as one grouped conv, in ``dtype``."""

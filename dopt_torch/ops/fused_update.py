@@ -32,7 +32,11 @@ for the design).  Beside each is its plain PyTorch version
 the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises — there is no fallback.  Each wrapper
 counts its kernel launches in ``.launches``; empty work launches
-nothing and counts nothing.
+nothing and counts nothing.  The counters are Python increments, so a
+CUDA-graph capture (which launches nothing) would count once and its
+replays (which run no Python) nothing: ``dopt_torch.engine.graphs``
+moves a capture's increments to the graph and adds them back at every
+replay (``launch_counts``, ``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -213,3 +217,15 @@ def fused_mix_update(flat_p: torch.Tensor, flat_buf: torch.Tensor,
     displacement store, ``flat_buf`` the theta slab)."""
     for p, b in zip(flat_buckets(flat_p, spec), flat_buckets(flat_buf, spec)):
         fused_mix_sgd(p, b, w, lr=lr)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's launch counter, by wrapper name."""
+    return {f.__name__: f.launches for f in (fused_sgd_momentum,
+                                             fused_mix_sgd)}
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (``launch_counts``' keys) to the counters."""
+    for f in (fused_sgd_momentum, fused_mix_sgd):
+        f.launches += delta.get(f.__name__, 0)

@@ -18,18 +18,31 @@ an array by a Python scalar in the array's dtype (weak typing), so in
 bf16 it rounds lr, μ, rho and the SCAFFOLD scale to bf16 first (0.9 is
 0.8984375) and rounds each op's result to bf16.  torch computes such an
 op in f32 with the scalar in f32, so each scalar goes through
-``_scalar`` first; in f32 that changes nothing.
+``_scalar`` first; in f32 that changes nothing.  The rounding is cached
+(``rounded``), and the trainers round their constants at construction,
+so a round body only looks them up: nothing in it builds a host tensor,
+and a CUDA graph captured from it bakes in the same values the eager
+body uses.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
+@functools.lru_cache(maxsize=None)
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (through a CPU tensor, once per value
+    and dtype), as jnp's weak typing rounds a Python scalar before it
+    meets an array."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 def _scalar(x: float, like: torch.Tensor) -> float:
-    """``x`` rounded to ``like``'s dtype, as jnp's weak typing rounds a
-    Python scalar before it meets an array."""
-    return torch.tensor(x, dtype=like.dtype).item()
+    """``x`` rounded to ``like``'s dtype (``rounded``)."""
+    return rounded(float(x), like.dtype)
 
 
 @torch.no_grad()
@@ -91,10 +104,15 @@ def scaffold_control_update(c_local, c_global, theta, params, *, lr: float,
     """Option-II control refresh after K local steps:
     c_i⁺ = c_i − c + (theta − y_i)/(K·lr), ``lr`` the EFFECTIVE step
     size (the engine passes lr/(1 − momentum))."""
-    scale = 1.0 / (lr * max(num_steps, 1))
+    scale = scaffold_scale(lr, num_steps)
     return {k: ci - c_global[k]
             + _scalar(scale, ci) * (theta[k] - params[k])
             for k, ci in c_local.items()}
+
+
+def scaffold_scale(lr: float, num_steps: int) -> float:
+    """1/(K·lr), the factor of SCAFFOLD's option-II control refresh."""
+    return 1.0 / (lr * max(num_steps, 1))
 
 
 def grad_edit(algorithm: str, *, rho: float = 0.0, theta=None, alpha=None):

@@ -3,8 +3,9 @@
 Picks a preset, applies ``--set path.to.field=value`` overrides, trains
 it with ``FederatedTrainer`` when the preset has a ``federated`` section
 and with ``GossipTrainer`` otherwise, on the GPU (or on the CPU with
-``--device cpu``), prints one JSON history row per round and optionally
-writes the History CSV in the reference's results layout.
+``--device cpu``), in blocks of the section's ``block_rounds``, prints
+one JSON history row per round and optionally writes the History CSV in
+the reference's results layout.
 """
 
 from __future__ import annotations
@@ -90,10 +91,12 @@ def main(argv: list[str] | None = None) -> int:
         trainer = GossipTrainer(cfg, device=args.device)
         default_rounds = cfg.gossip.rounds
     rounds = default_rounds if args.rounds is None else args.rounds
+    section = cfg.federated or cfg.gossip
     print(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
           f"compute {cfg.model.compute_dtype}, storage "
           f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
-          f"{rounds} rounds", file=sys.stderr)
+          f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
+          f"prefetch {section.prefetch}", file=sys.stderr)
     trainer.run(rounds=rounds)
     for row in trainer.history.rows[-rounds:]:
         print(json.dumps(row))

@@ -250,8 +250,6 @@ def _opt(cfg, **kw):
     (lambda c: _fed(c, staleness_max=2), "'network' slice"),
     (lambda c: _fed(c, update_sharding="scatter"), "'scatter and multi-GPU'"),
     (lambda c: _fed(c, comm_dtype="bfloat16"), "'codecs'"),
-    (lambda c: _fed(c, block_rounds=4), "'multi-round blocks'"),
-    (lambda c: _fed(c, prefetch="on"), "'multi-round blocks'"),
     (lambda c: _fed(c, diagnostics="on"), "'telemetry'"),
     (lambda c: c.replace(model=dataclasses.replace(
         c.model, param_dtype="float16")), "unknown model.param_dtype"),

@@ -145,7 +145,6 @@ def _replace(cfg, section, **kw):
 
 @pytest.mark.parametrize("edit,match", [
     (lambda c: _replace(c, "gossip", algorithm="fedlcon"), "gossip algorithm"),
-    (lambda c: _replace(c, "gossip", block_rounds=4), "multi-round blocks"),
     (lambda c: _replace(c, "gossip", update_sharding="scatter"),
      "scatter and multi-GPU"),
     (lambda c: _replace(c, "gossip", comm_dtype="bfloat16"), "codecs"),
@@ -214,9 +213,10 @@ def test_run_cli_bf16_preset_on_cpu(capsys):
 
 
 def test_port_imports_nothing_of_jax_or_dopt():
-    """A fresh interpreter imports dopt_torch and runs one CPU gossip
-    round and one CPU federated round; neither jax, flax nor dopt may be
-    loaded.  The sources must not import them either."""
+    """A fresh interpreter imports dopt_torch and runs CPU gossip and
+    federated rounds, per-round and in prefetched blocks (the graphs and
+    prefetch modules); neither jax, flax nor dopt may be loaded.  The
+    sources must not import them either."""
     code = (
         "import sys\n"
         "import dopt_torch\n"
@@ -227,11 +227,14 @@ def test_port_imports_nothing_of_jax_or_dopt():
         " compute_dtype='bfloat16', param_dtype='bfloat16'),"
         " optim=C.OptimizerConfig(fused_update=True, clip_norm=1.0),"
         " gossip=C.GossipConfig("
-        "local_ep=1, local_bs=16, fused_update='on'))\n"
-        "dopt_torch.GossipTrainer(cfg, device='cpu').run(rounds=1)\n"
+        "local_ep=1, local_bs=16, fused_update='on', prefetch='on'))\n"
+        "tr = dopt_torch.GossipTrainer(cfg, device='cpu', eval_every=2)\n"
+        "tr.run(rounds=1); tr.run(rounds=3, block=2)\n"
         "fed = cfg.replace(gossip=None, federated=C.FederatedConfig("
-        "frac=0.5, local_ep=1, local_bs=16, fused_update='on'))\n"
-        "dopt_torch.FederatedTrainer(fed, device='cpu').run(rounds=1)\n"
+        "frac=0.5, local_ep=1, local_bs=16, fused_update='on',"
+        " prefetch='on'))\n"
+        "tr = dopt_torch.FederatedTrainer(fed, device='cpu')\n"
+        "tr.run(rounds=1); tr.run(rounds=3, block=2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dopt'))\n"
         "print('LOADED', bad)\n")
