@@ -67,7 +67,23 @@ the final line:
    warm-up block) on headline-dsgd-model1-bf16 and headline-dsgd-model1
    with eval_every beyond the run (dopt bench's shape): rounds/s, peak
    memory, each graph's capture and instantiate time and node count,
-   and one blocked round under the profiler (idle share, as phase 6).
+   and one blocked round under the profiler (idle share, as phase 6);
+8. checkpoint and resume — 8a/8b/8c: headline-dsgd-model1 (f32),
+   headline-fedavg-model1 and headline-dsgd-model1 with bf16 compute and
+   storage: a trainer runs round 0 with checkpoint_every=1 (the kill), a
+   fresh trainer restores the checkpoint and runs round 1; the pair must
+   equal phase 5's, 5b's and 5f's 2-round runs bit for bit (History,
+   params, momentum, the fused carry, theta, the client sample of round
+   1 and the sampling stream), with the same kernel launches; prints the
+   checkpoint's bytes on disk and the save and restore seconds.  8d:
+   tiny configurations, 5 rounds in blocks of 2 with prefetch and
+   checkpoint_every=2: resumed from the round-2 and the round-4
+   checkpoints, and the round-2 checkpoint restored into a trainer whose
+   graphs were already captured, each equal to the continuous run bit
+   for bit (gossip with both fused switches, fedavg fused, fedadmm
+   compact with the holdout, scaffold at full width); a fused gossip
+   checkpoint restored into an unfused trainer must raise.  The
+   checkpoints go to a temporary directory, removed at the end.
 
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
@@ -118,8 +134,8 @@ def max_rel(want: dict, got: dict) -> float:
 def state(tr) -> dict:
     """Everything a trainer's run leaves behind, as host values: History
     and client rows, each worker's params, momentum, the fused carry
-    (gossip q and fbuf, the federated theta slab), theta, duals and
-    controls."""
+    (gossip q and fbuf, the federated theta slab), theta, duals,
+    controls and the client-sampling stream's state."""
     def host(tree):
         items = enumerate(tree) if isinstance(tree, list) else tree.items()
         return {str(k): v.detach().float().cpu().numpy().copy()
@@ -135,6 +151,8 @@ def state(tr) -> dict:
     for name in ("theta", "duals", "c_global"):
         if getattr(tr, name, None) is not None:
             out[name] = host(getattr(tr, name))
+    if hasattr(tr, "_sample_rng"):
+        out["sampling stream"] = [tr._sample_rng.bit_generator.state]
     return out
 
 
@@ -153,6 +171,134 @@ def same_state(label: str, want: dict, got: dict) -> None:
                 fail(f"{label}: {key} {k} differs by up to "
                      f"{np.abs(a - g[k]).max():.3e}")
     print(f"{label}: bit-identical ({', '.join(want)})")
+
+
+def timed_saves(tr, seconds: list) -> None:
+    """Time every ``tr.save`` (the checkpoints ``run`` writes too) from a
+    synchronized device to the promoted directory."""
+    import torch
+
+    save = tr.save
+
+    def timed(path):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(path)
+        seconds.append(time.perf_counter() - t)
+    tr.save = timed
+
+
+def resume_check(label: str, cls, cfg, want_state: dict, want_launch: dict,
+                 ckdir: Path, dev) -> dict:
+    """Phase 8a-8c: trainer B runs round 0 with checkpoint_every=1 and
+    stops (the kill); a fresh trainer C restores the checkpoint and runs
+    round 1.  C must leave ``want_state`` (the continuous 2-round run's)
+    bit for bit, and B + C must launch the kernels as often as the
+    continuous run did.  On the federated engine C's round-1 client
+    sample must be the second draw of a fresh sampling stream."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.utils import host_rng
+
+    path = ckdir / label.split()[0]
+    saves: list[float] = []
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    b = cls(cfg, device=dev)
+    timed_saves(b, saves)
+    b.run(rounds=1, checkpoint_every=1, checkpoint_path=path)
+    torch.cuda.synchronize()
+    del b
+    c = cls(cfg, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    c.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    drawn = []
+    if hasattr(c, "_sample_indices"):
+        draw = c._sample_indices
+        c._sample_indices = lambda: drawn.append(draw()) or drawn[-1]
+    c.run(rounds=1)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    same_state(f"8 {label}, killed after round 0 and resumed, against the "
+               "continuous run", want_state, state(c))
+    if drawn:
+        rng = host_rng(cfg.seed, 314159)
+        m = c._sampled_count()
+        want = [np.sort(rng.choice(c.num_workers, m, replace=False))
+                for _ in range(2)][1]
+        print(f"8 {label}: round-1 client sample {drawn[0].tolist()} (a "
+              f"fresh stream's second draw {want.tolist()})")
+        if drawn[0].tolist() != want.tolist():
+            fail(f"{label}: the resumed run drew another client sample")
+    files = {f.name: f.stat().st_size for f in sorted(path.iterdir())}
+    nbytes = sum(files.values())
+    print(f"8 {label}: checkpoint {nbytes} B on disk {files}; save "
+          f"{saves[0]:.4f} s, restore {restore_s:.4f} s; launches "
+          f"{launches} (continuous {want_launch})")
+    if len(saves) != 1:
+        fail(f"{label}: {len(saves)} checkpoints written, expected 1")
+    if launches != want_launch:
+        fail(f"{label}: launch counts {launches} != continuous "
+             f"{want_launch}")
+    del c
+    return {"bytes": nbytes, "save_s": saves[0], "restore_s": restore_s,
+            "launches": launches}
+
+
+def resume_tiny(label: str, cls, cfg, ckdir: Path, dev) -> dict:
+    """Phase 8d: 5 rounds in blocks of 2 with checkpoint_every=2 (saves
+    at rounds 2 and 4, each kept); resumed from either, and the round-2
+    checkpoint restored into a trainer that already ran (and captured
+    its graphs), each equal to the continuous run bit for bit.  Returns
+    the kept checkpoints."""
+    import shutil
+
+    import torch
+
+    cont = cls(cfg, device=dev)
+    cont.run(rounds=5, block=2)
+    want = state(cont)
+    del cont
+    slug = label.split()[0]
+    kept: dict[int, Path] = {}
+    v = cls(cfg, device=dev)
+    save = v.save
+
+    def keep(path):
+        save(path)
+        kept[v.round] = Path(shutil.copytree(path, ckdir / f"{slug}-r{v.round}"))
+    v.save = keep
+    v.run(rounds=5, block=2, checkpoint_every=2,
+          checkpoint_path=ckdir / slug)
+    torch.cuda.synchronize()
+    if sorted(kept) != [2, 4]:
+        fail(f"8d {label}: checkpoints at rounds {sorted(kept)}, expected "
+             "[2, 4]")
+    same_state(f"8d {label}, with checkpoints, against without", want,
+               state(v))
+    del v
+    for r in (2, 4):
+        c = cls(cfg, device=dev)
+        c.restore(kept[r])
+        c.run(rounds=5 - r, block=2)
+        same_state(f"8d {label}, resumed from round {r}", want, state(c))
+        del c
+    u = cls(cfg, device=dev)
+    u.run(rounds=4, block=2)
+    if not u.graphs.captures:
+        fail(f"8d {label}: the blocked run captured no graph")
+    u.restore(kept[2])
+    u.run(rounds=3, block=2)
+    same_state(f"8d {label}, round-2 checkpoint restored into a trainer "
+               "with captured graphs", want, state(u))
+    return kept
 
 
 def main() -> None:
@@ -707,7 +853,7 @@ def main() -> None:
             return originals[fn](*args)
         return call
 
-    bf16_launch = {}
+    bf16_launch, bf16_state = {}, {}
     for label, preset, cls, keys, accs in (
             ("federated", "headline-fedavg-model1", FederatedTrainer,
              ("train_loss", "test_loss", "local_loss"),
@@ -733,6 +879,7 @@ def main() -> None:
         if any(v != [1] for v in got.values()):
             fail(f"a kernel received non-bf16 tensors on the bf16 storage "
                  f"run of {preset}: {got}")
+        bf16_state[label] = state(tr)
         del tr
 
     # -- 6. profile one more round of each path ---------------------------
@@ -888,24 +1035,87 @@ def main() -> None:
               f"{got['per-round']:.4f} rounds/s: "
               f"{got['blocked'] / got['per-round']:.3f}x")
 
+    # -- 8. checkpoint and resume on the card -----------------------------
+    import shutil
+    import tempfile
+
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        bf16_gossip = get_preset("headline-dsgd-model1")
+        bf16_gossip = bf16_gossip.replace(model=dataclasses.replace(
+            bf16_gossip.model, compute_dtype="bfloat16",
+            param_dtype="bfloat16"))
+        resume = {
+            "gossip": resume_check(
+                "8a headline-dsgd-model1", GossipTrainer,
+                get_preset("headline-dsgd-model1"), g_state, glaunch, ckdir,
+                dev),
+            "federated": resume_check(
+                "8b headline-fedavg-model1", FederatedTrainer, fcfg, f_state,
+                flaunch, ckdir, dev),
+            "gossip-bf16": resume_check(
+                "8c headline-dsgd-model1 (bf16 compute and storage)",
+                GossipTrainer, bf16_gossip, bf16_state["gossip"],
+                bf16_launch["gossip"], ckdir, dev)}
+        torch.cuda.empty_cache()
+
+        def prefetched(cfg):
+            sec = "gossip" if cfg.gossip is not None else "federated"
+            return cfg.replace(**{sec: dataclasses.replace(
+                getattr(cfg, sec), prefetch="on")})
+
+        kept = resume_tiny("8d-gossip tiny gossip, both fused switches",
+                           GossipTrainer, prefetched(gossip_tiny), ckdir, dev)
+        unfused = prefetched(gossip_tiny.replace(gossip=dataclasses.replace(
+            gossip_tiny.gossip, fused_update="off")))
+        try:
+            GossipTrainer(unfused, device=dev).restore(kept[2])
+        except ValueError as e:
+            if "fused_buf" not in str(e):
+                raise
+            print(f"8d fused gossip checkpoint into an unfused trainer: "
+                  f"refused ({str(e)[:72]}...)")
+        else:
+            fail("a fused gossip checkpoint restored into an unfused trainer")
+        for label, cfg in (
+                ("8d-fedavg tiny fedavg, both fused switches", fed_tiny),
+                ("8d-fedadmm tiny fedadmm, compact, 10% holdout", admm_tiny),
+                ("8d-scaffold tiny scaffold, full width", fed_tiny.replace(
+                    federated=FederatedConfig(algorithm="scaffold", frac=0.5,
+                                              local_ep=1, local_bs=16,
+                                              compact=False)))):
+            resume_tiny(label, FederatedTrainer, prefetched(cfg), ckdir, dev)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for key, r in resume.items():
+        print(f"8 checkpoint {key}: {r['bytes']} B, save {r['save_s']:.4f} s "
+              f"({r['bytes'] / r['save_s'] / 1e9:.3f} GB/s), restore "
+              f"{r['restore_s']:.4f} s ({r['bytes'] / r['restore_s'] / 1e9:.3f}"
+              f" GB/s); {smi}")
+
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
-    for suffix, path, l1, l2, t1, t2 in (
-            ("", "gossip", glaunch, glaunch, k1, k2),
-            (":federated", "federated", flaunch, flaunch, k1f, k2f),
+    for suffix, path, launched, t1, t2 in (
+            ("", "gossip", glaunch, k1, k2),
+            (":federated", "federated", flaunch, k1f, k2f),
             (":gossip-bf16", "gossip, bf16 storage", bf16_launch["gossip"],
-             bf16_launch["gossip"], k1b, k2b),
+             k1b, k2b),
             (":federated-bf16", "federated, bf16 storage",
-             bf16_launch["federated"], bf16_launch["federated"], k1fb,
-             k2fb)):
+             bf16_launch["federated"], k1fb, k2fb),
+            (":gossip-resume", "gossip, killed and resumed",
+             resume["gossip"]["launches"], k1, k2),
+            (":federated-resume", "federated, killed and resumed",
+             resume["federated"]["launches"], k1f, k2f),
+            (":gossip-bf16-resume", "gossip, bf16 storage, killed and "
+             "resumed", resume["gossip-bf16"]["launches"], k1b, k2b)):
         kernels.append({"name": "fused_sgd_momentum" + suffix, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",
-                        "launches": l1["fused_sgd_momentum"], **t1})
+                        "launches": launched["fused_sgd_momentum"], **t1})
         kernels.append({"name": "fused_mix_sgd" + suffix, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:134",
-                        "launches": l2["fused_mix_sgd"], **t2})
+                        "launches": launched["fused_mix_sgd"], **t2})
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

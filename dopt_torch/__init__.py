@@ -9,7 +9,10 @@ at first use.  Ported so far: synchronous gossip D-SGD
 and SCAFFOLD (``FederatedTrainer``) — on the reference CNNs, with the
 reference's local train/val holdout, and both of dopt's Pallas kernels.
 Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph
-replays of the round, with a prefetched host pipeline.
+replays of the round, with a prefetched host pipeline, and save and
+restore their whole state (``save``/``restore``,
+``run(checkpoint_every=K, checkpoint_path=P)``): a killed run resumes
+bit for bit.
 """
 
 import os

@@ -1,10 +1,13 @@
 """Typed, frozen experiment configuration for the PyTorch port.
 
-The subset of ``dopt.config`` that the port's slices read, with the
-same field names and defaults, so a preset or a ``--set`` override
-means the same thing in both packages.  Sections of later slices
-(faults, robust, population, comm) exist only as ``None`` slots: the
-trainers refuse any that is set.
+Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
+``OptimizerConfig``, ``FederatedConfig``, ``GossipConfig`` and
+``ExperimentConfig``, with the same names and defaults, so a preset, a
+dopt config or a ``--set`` override means the same thing in both
+packages.  Fields and sections of later slices (faults, robust,
+population, comm, seqlm, the codecs' and the gossip algorithms' knobs,
+the mesh) exist with dopt's defaults: the trainers refuse any other
+value, naming the slice that adds it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class ModelConfig:
     """Model zoo selection (reference ``args.model`` string dispatch)."""
 
     model: str = "model1"    # model1 | model3
+    stage_sizes: tuple[int, ...] | None = None   # ResNet-18 slice
     faithful: bool = True
     # faithful=True reproduces the reference's Softmax-head +
     # CrossEntropyLoss double-softmax; False uses the corrected logits
@@ -49,6 +53,9 @@ class ModelConfig:
     input_shape: tuple[int, ...] = (28, 28, 1)   # NHWC, as in dopt
     param_dtype: str = "float32"     # storage: float32 | bfloat16
     compute_dtype: str = "float32"   # forward/backward: float32 | bfloat16
+    stacked_impl: str = "auto"
+    # "auto": the worker-stacked grouped-conv forward, the port's only
+    # one.  dopt's "vmap" (its oracle-parity mode) is refused.
 
 
 @dataclass(frozen=True)
@@ -118,16 +125,24 @@ class GossipConfig:
     rounds: int = 10
     local_ep: int = 4
     local_bs: int = 128
+    eps: int = 1                # fedlcon's sweeps: gossip algorithms slice
     eval_mode: str = "full"     # every worker evaluates the whole test split
     mixing: str = "sync"
     comm_impl: str = "auto"     # the single-device port always mixes dense
     block_rounds: int = 1
     # > 1: blocks of that many rounds, as FederatedConfig.block_rounds.
     prefetch: str = "off"       # "off" | "on", as FederatedConfig.prefetch
+    faithful_bugs: bool = False   # gossip algorithms slice
     self_weight: bool = False   # reference mixing has a zero diagonal
     hier_groups: int = 2
     hier_period: int = 4
+    # choco and its compressors: the codecs slice.
+    choco_gamma: float = 1.0
+    compression: str = "topk"
+    compression_ratio: float = 1.0
+    qsgd_levels: int = 0
     comm_dtype: str | None = None
+    correction: str = "none"    # "push_sum": the faults slice
     update_sharding: str = "off"
     update_bucket_mb: float = 4.0
     # Per-worker payload bound of one flat bucket of the fused epilogue
@@ -137,6 +152,8 @@ class GossipConfig:
     # fbuf) and runs the round epilogue q_t = W·q_{t-1} − fbuf_{t-1} as
     # one CUDA kernel pass per flat bucket — the D-PSGD ordering of
     # dopt's GossipConfig.fused_update.
+    diagnostics: str = "off"    # "on" arrives with the telemetry slice
+    dropout: float = 0.0        # dopt's alias of faults.crash: faults slice
 
 
 @dataclass(frozen=True)
@@ -151,10 +168,16 @@ class ExperimentConfig:
     gossip: GossipConfig | None = None
     federated: FederatedConfig | None = None
     # Sections of later slices; the trainers refuse any that is set.
+    seqlm: Any = None
     faults: Any = None
     robust: Any = None
     population: Any = None
     comm: Any = None
+    backend: str = "jax"
+    # dopt's engine switch: "jax" is dopt's engine, which the port takes
+    # to mean its own; "torch" (dopt's sequential CPU oracle) is refused.
+    mesh_devices: int | None = None   # > 1: scatter and multi-GPU slice
+    mesh_hosts: int | None = None
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

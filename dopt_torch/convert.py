@@ -86,3 +86,13 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
                     "bias": p[f"{layer}.bias"].copy()}
             for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
                              ("fc2", dense))}
+
+
+def port_layout(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
+    """A params-shaped checkpoint tree in either package's layout → the
+    port's: dopt's flax tree (``{layer: {kernel, bias}}``, from a dopt
+    npz checkpoint) goes through ``params_from_jax``; the port's own
+    (``{"conv1.weight": ...}``) passes as it is."""
+    if any(isinstance(v, dict) for v in tree.values()):
+        return params_from_jax(tree, input_shape=input_shape)
+    return dict(tree)

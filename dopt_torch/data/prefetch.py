@@ -18,8 +18,11 @@ prefetch-off (History, client rows, the sampling stream):
   consumes them at — so stateful streams advance identically.  Only the
   pure build runs on the background thread.
 * **no staging across a commit point.**  Nothing is staged past the end
-  of a ``run`` call: what a trainer holds between calls reflects exactly
-  the committed rounds (the checkpoint slice adds its boundaries here).
+  of a ``run`` call or past a scheduled checkpoint round
+  (``run_blocked``'s ``checkpoint_every``, as dopt's ``_blocked_loop``):
+  what a trainer holds between calls, and what a checkpoint writes,
+  reflects exactly the committed rounds — the block after a checkpoint
+  is drawn and built inline from the committed state.
 
 The queue is bounded at depth 2: the block being consumed plus at most
 one staged successor.  ``take()`` of an unstaged key returns None and

@@ -40,6 +40,9 @@ CUDA-graph replays of the body with one fetch a block
 (``dopt_torch.engine.graphs``; eagerly on the CPU), bit-identical to the
 per-round run, and ``federated.prefetch="on"`` builds the next block
 while the current one runs (``dopt_torch.data.prefetch``).
+``save``/``restore`` and ``run(checkpoint_every=, checkpoint_path=)``
+checkpoint the whole state, the client-sampling stream included, as
+``GossipTrainer``'s do.
 """
 
 from __future__ import annotations
@@ -51,9 +54,12 @@ import torch
 
 from dopt_torch.config import ExperimentConfig
 from dopt_torch.data import make_batch_plan, stacked_eval_batches, upload
-from dopt_torch.engine.gossip import (DTYPES, initial_params, later,
+from dopt_torch.convert import port_layout
+from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
+                                      checkpoint_meta, initial_params, later,
                                       load_device_data, resolve_device,
-                                      steps_per_round, validate_common)
+                                      restore_meta, steps_per_round,
+                                      validate_common)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
@@ -68,6 +74,8 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              masked_average,
                                              mean_weight_matrix, where_mask)
 from dopt_torch.robust import finite_lane_mask, masked_mean
+from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
+                                         save_checkpoint)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import host_rng
 
@@ -457,20 +465,25 @@ class FederatedTrainer:
             self._record(t, sel, v)
             self.round += 1
 
-    def run(self, rounds: int | None = None,
-            block: int | None = None) -> History:
+    def run(self, rounds: int | None = None, block: int | None = None,
+            checkpoint_every: int = 0, checkpoint_path=None) -> History:
         """Train ``rounds`` rounds (default ``cfg.federated.rounds``) at
         client fraction ``cfg.federated.frac``, in blocks of ``block``
         (default ``cfg.federated.block_rounds``; the last block may be
         shorter); ``self.round`` and the sampling stream persist across
-        calls."""
+        calls.  ``checkpoint_every``/``checkpoint_path`` as
+        ``GossipTrainer.run``: a killed run resumes bit for bit, the
+        client sample included."""
         f = self.cfg.federated
         rounds = f.rounds if rounds is None else rounds
         block = f.block_rounds if block is None else block
+        check_checkpoint_args(checkpoint_every, checkpoint_path)
         t0 = time.perf_counter()
         with full_f32(self.device), deterministic(self.device):
             if block > 1:
-                run_blocked(self, rounds, block, prefetch=f.prefetch == "on")
+                run_blocked(self, rounds, block, prefetch=f.prefetch == "on",
+                            checkpoint_every=checkpoint_every,
+                            checkpoint_path=checkpoint_path)
             else:
                 for _ in range(rounds):
                     t = self.round
@@ -481,8 +494,73 @@ class FederatedTrainer:
                     # ONE device→host fetch per round.
                     self._record(t, sel, self._slot.cpu().numpy())
                     self.round += 1
+                    if checkpoint_every and self.round % checkpoint_every == 0:
+                        self.save(checkpoint_path)
         self.total_time = time.perf_counter() - t0
         return self.history
+
+    # -- checkpoint -----------------------------------------------------
+    def save(self, path) -> None:
+        """Checkpoint theta, the stacked params, momentum (not for
+        SCAFFOLD, whose momentum is round-local), the duals or controls
+        and SCAFFOLD's server control, with dopt's meta keys and the
+        client-sampling stream's state — without it a resumed run would
+        replay round 0's sample.  The fused slab's rows are one model,
+        so theta is written as row 0: fused and unfused checkpoints are
+        interchangeable, as in dopt."""
+        algo = self.cfg.federated.algorithm
+        arrays = {"theta": self._theta(), "params": self.params,
+                  "duals": self.duals, "c_global": self.c_global}
+        if algo != "scaffold":
+            arrays["momentum"] = self.momentum
+        meta = checkpoint_meta(self, algo)
+        w = self.num_workers
+        meta.update(stale_admit_round=[0] * w, stale_weight=[0.0] * w,
+                    stale_origin=[0] * w,
+                    sample_rng_state=self._sample_rng.bit_generator.state)
+        save_checkpoint(path, arrays=arrays, meta=meta)
+
+    def restore(self, path) -> None:
+        """Resume from a checkpoint written by ``save`` (same config), or
+        by dopt's ``FederatedTrainer.save`` in its npz layout.  Every
+        carried tensor is written in place (the fused slab's every row
+        from the saved theta), so captured graphs stay valid."""
+        arrays, meta = load_checkpoint(path)
+        algo = self.cfg.federated.algorithm
+        if meta.get("algorithm") != algo:
+            raise ValueError(
+                f"checkpoint is for algorithm {meta.get('algorithm')!r}, "
+                f"trainer runs {algo!r}")
+        if self.duals is not None and "duals" not in arrays:
+            raise ValueError(
+                f"{algo} trainer requires its worker-stacked companion "
+                "state ('duals') in the checkpoint")
+        if self.c_global is not None and "c_global" not in arrays:
+            raise ValueError(
+                "scaffold trainer requires the server control variate "
+                "('c_global') in the checkpoint")
+        shape = self.cfg.model.input_shape
+        tree = {k: port_layout(v, input_shape=shape)
+                for k, v in arrays.items()}
+        if self._fused_on:
+            rows = flat_views(self._theta_flat, self.fused_spec)
+            copy_into({k: v[0] for k, v in rows.items()}, tree["theta"],
+                      what="theta")
+            with torch.no_grad():
+                self._theta_flat[1:].copy_(
+                    self._theta_flat[:1].expand_as(self._theta_flat[1:]))
+        else:
+            copy_into(self.theta, tree["theta"], what="theta")
+        copy_into(self.params, tree["params"], what="params")
+        if "momentum" in tree:
+            copy_into(self.momentum, tree["momentum"], what="momentum")
+        if self.duals is not None:
+            copy_into(self.duals, tree["duals"], what="duals")
+        if self.c_global is not None:
+            copy_into(self.c_global, tree["c_global"], what="c_global")
+        restore_meta(self, meta)
+        if meta.get("sample_rng_state"):
+            self._sample_rng.bit_generator.state = meta["sample_rng_state"]
 
     # -- state ----------------------------------------------------------
     def _global_eval(self) -> dict[str, torch.Tensor]:

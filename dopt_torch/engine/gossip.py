@@ -35,6 +35,12 @@ current one runs (``dopt_torch.data.prefetch``).  ``eval_every`` skips
 the test-set eval on rounds t with t % eval_every != 0; their History
 rows lack ``avg_test_acc``/``avg_test_loss``, as in dopt.
 
+``save``/``restore`` and ``run(checkpoint_every=K, checkpoint_path=P)``
+checkpoint the whole state in dopt's npz layout
+(``dopt_torch.utils.checkpoint``; blocked runs at block boundaries): a
+run killed at any point and resumed from its latest checkpoint is the
+continuous run bit for bit, and a dopt npz checkpoint restores too.
+
 ``model.compute_dtype="bfloat16"`` runs the forward and backward in bf16
 at dopt's cast points; ``model.param_dtype="bfloat16"`` stores the
 params, momentum and the fused carry in bf16 (both kernels then run
@@ -50,7 +56,7 @@ import numpy as np
 import torch
 
 from dopt_torch.config import ExperimentConfig
-from dopt_torch.convert import params_from_jax
+from dopt_torch.convert import params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, upload)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
@@ -64,6 +70,8 @@ from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
 from dopt_torch.topology import build_mixing_matrices
+from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
+                                         save_checkpoint)
 from dopt_torch.utils.metrics import History
 
 # The dtypes ``model.compute_dtype`` and ``model.param_dtype`` take.
@@ -96,9 +104,30 @@ def validate_common(cfg: ExperimentConfig) -> None:
     d, m = cfg.data, cfg.model
     for section, slice_name in (("faults", "faults"), ("robust", "robust"),
                                 ("population", "population"),
-                                ("comm", "codecs")):
+                                ("comm", "codecs"), ("seqlm", "seqlm")):
         if getattr(cfg, section) is not None:
             raise later(f"cfg.{section}", slice_name)
+    if cfg.backend == "torch":
+        raise ValueError(
+            "backend='torch' is dopt's sequential CPU oracle, which the port "
+            "does not copy: the port is itself a torch engine — run it with "
+            "device='cpu' for the CPU")
+    if cfg.backend != "jax":
+        raise ValueError(f"unknown backend {cfg.backend!r}; dopt's default "
+                         "'jax' selects the engine, here the port's own")
+    for knob in ("mesh_devices", "mesh_hosts"):
+        if getattr(cfg, knob) not in (None, 1):
+            raise later(f"{knob}={getattr(cfg, knob)}", "scatter and multi-GPU")
+    if m.stage_sizes is not None:
+        raise later(f"model.stage_sizes={m.stage_sizes}", "ResNet-18")
+    if m.stacked_impl == "vmap":
+        raise ValueError(
+            "stacked_impl='vmap' is dopt's oracle-parity mode (a vmapped "
+            "per-worker forward); the port runs the worker-stacked grouped "
+            "convs only and will not add it — use 'auto'")
+    if m.stacked_impl != "auto":
+        raise ValueError(f"unknown stacked_impl {m.stacked_impl!r}; one of "
+                         "auto|vmap")
     if d.plan_impl != "numpy":
         raise later(f"plan_impl={d.plan_impl!r}", "native planner")
     if m.model.lower() == "transformer":
@@ -126,6 +155,19 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     validate_common(cfg)
     if g.algorithm != "dsgd":
         raise later(f"gossip algorithm {g.algorithm!r}", "gossip algorithms")
+    for knob, default, slice_name in (
+            ("eps", 1, "gossip algorithms"),
+            ("faithful_bugs", False, "gossip algorithms"),
+            ("choco_gamma", 1.0, "codecs"), ("compression", "topk", "codecs"),
+            ("compression_ratio", 1.0, "codecs"), ("qsgd_levels", 0, "codecs"),
+            ("correction", "none", "faults"), ("dropout", 0.0, "faults")):
+        if getattr(g, knob) != default:
+            raise later(f"gossip.{knob}={getattr(g, knob)!r}", slice_name)
+    if g.diagnostics not in ("off", "on"):
+        raise ValueError(f"unknown diagnostics {g.diagnostics!r}; one of "
+                         "off|on")
+    if g.diagnostics == "on":
+        raise later("diagnostics='on'", "telemetry")
     if g.eval_mode != "full":
         raise later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
     if g.mixing != "sync":
@@ -199,6 +241,32 @@ def initial_params(cfg: ExperimentConfig, init_params=None
                              f"{name}'s {want}")
     pdt = DTYPES[mc.param_dtype]
     return {k: v.to(pdt) for k, v in p0.items()}
+
+
+def check_checkpoint_args(checkpoint_every: int, checkpoint_path) -> None:
+    if checkpoint_every and checkpoint_path is None:
+        raise ValueError("checkpoint_every requires checkpoint_path")
+    if checkpoint_every < 0:
+        raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
+
+
+def checkpoint_meta(trainer, algorithm: str) -> dict:
+    """Both engines' checkpoint meta, under dopt's keys: the round, the
+    History and client rows, and the fault ledger and the screen's host
+    mirrors (empty and zero until the faults slice fills them)."""
+    w = trainer.num_workers
+    return {"round": trainer.round, "name": trainer.cfg.name,
+            "algorithm": algorithm, "history": trainer.history.rows,
+            "client_history": trainer.client_history.rows,
+            "fault_ledger": [], "screen_streak": [0] * w,
+            "quarantine_until": [0] * w}
+
+
+def restore_meta(trainer, meta: dict) -> None:
+    """The host side of a restore: the round and the rows."""
+    trainer.round = int(meta["round"])
+    trainer.history.rows = list(meta.get("history", []))
+    trainer.client_history.rows = list(meta.get("client_history", []))
 
 
 def steps_per_round(train_matrix: np.ndarray, local_bs: int,
@@ -389,19 +457,29 @@ class GossipTrainer:
             self._record(t, v, do_eval)
             self.round += 1
 
-    def run(self, rounds: int | None = None,
-            block: int | None = None) -> History:
+    def run(self, rounds: int | None = None, block: int | None = None,
+            checkpoint_every: int = 0, checkpoint_path=None) -> History:
         """Train ``rounds`` rounds (default ``cfg.gossip.rounds``) in
         blocks of ``block`` (default ``cfg.gossip.block_rounds``; the
         last block may be shorter); ``self.round`` persists across
-        calls, as in the reference."""
+        calls, as in the reference.
+
+        ``checkpoint_every=K`` (with ``checkpoint_path``) saves the whole
+        state every K rounds — per-round runs after each round t with
+        (t + 1) % K == 0, blocked runs at the first block boundary at or
+        past each multiple of K — and a run killed at any point and
+        resumed from the latest checkpoint (``restore``) is the
+        continuous run bit for bit."""
         g = self.cfg.gossip
         rounds = g.rounds if rounds is None else rounds
         block = g.block_rounds if block is None else block
+        check_checkpoint_args(checkpoint_every, checkpoint_path)
         t0 = time.perf_counter()
         with full_f32(self.device), deterministic(self.device):
             if block > 1:
-                run_blocked(self, rounds, block, prefetch=g.prefetch == "on")
+                run_blocked(self, rounds, block, prefetch=g.prefetch == "on",
+                            checkpoint_every=checkpoint_every,
+                            checkpoint_path=checkpoint_path)
             else:
                 for _ in range(rounds):
                     t = self.round
@@ -412,8 +490,71 @@ class GossipTrainer:
                     # ONE device→host fetch per round.
                     self._record(t, self._slot.cpu().numpy(), do_eval)
                     self.round += 1
+                    if checkpoint_every and self.round % checkpoint_every == 0:
+                        self.save(checkpoint_path)
         self.total_time = time.perf_counter() - t0
         return self.history
+
+    # -- checkpoint -----------------------------------------------------
+    def save(self, path) -> None:
+        """Checkpoint the whole training state in dopt's npz layout
+        (``dopt_torch.utils.checkpoint``): params and momentum as
+        ``[W, ...]`` trees in the port's layout, and with
+        ``fused_update="on"`` the displacement ``fused_buf`` — the
+        carried params are then the post-mix q, as in dopt — plus
+        dopt's meta keys (round, History and client rows; the fault
+        ledger and the screen's host mirrors, empty until the faults
+        slice)."""
+        arrays = {"momentum": dict(zip(self._names, self.momentum))}
+        if self._fused_on:
+            arrays["params"] = flat_views(self._q, self.fused_spec)
+            arrays["fused_buf"] = flat_views(self._fbuf, self.fused_spec)
+        else:
+            arrays["params"] = dict(zip(self._names, self._params))
+        save_checkpoint(path, arrays=arrays,
+                        meta=checkpoint_meta(self, self.cfg.gossip.algorithm))
+
+    def restore(self, path) -> None:
+        """Resume from a checkpoint written by ``save`` (same config), or
+        by dopt's ``GossipTrainer.save`` in its npz layout (its flax
+        trees convert through ``params_from_jax``).  Every carried
+        tensor is written in place, so graphs this trainer already
+        captured replay the restored state."""
+        arrays, meta = load_checkpoint(path)
+        if meta.get("algorithm") != self.cfg.gossip.algorithm:
+            raise ValueError(
+                f"checkpoint is for algorithm {meta.get('algorithm')!r}, "
+                f"trainer runs {self.cfg.gossip.algorithm!r}")
+        if self._fused_on and "fused_buf" not in arrays:
+            raise ValueError(
+                "fused_update='on' trainer requires its displacement "
+                "buffer ('fused_buf') in the checkpoint — this "
+                "checkpoint is from a fused_update='off' run, whose "
+                "carried params are the post-local endpoint, not "
+                "the (post-mix, displacement) pair")
+        if not self._fused_on and "fused_buf" in arrays:
+            raise ValueError(
+                "checkpoint carries a fused displacement buffer "
+                "('fused_buf') but this trainer runs fused_update='off' "
+                "— the checkpoint's 'params' are the post-mix state q, "
+                "not the post-local endpoint; restore with "
+                "fused_update='on'")
+        shape = self.cfg.model.input_shape
+        tree = {k: port_layout(arrays[k], input_shape=shape)
+                for k in ("params", "momentum", "fused_buf") if k in arrays}
+        copy_into(dict(zip(self._names, self.momentum)), tree["momentum"],
+                  what="momentum")
+        if self._fused_on:
+            copy_into(flat_views(self._q, self.fused_spec), tree["params"],
+                      what="params")
+            # The model's params are not carried: the next round's
+            # consensus writes them before anything reads them.
+            copy_into(flat_views(self._fbuf, self.fused_spec),
+                      tree["fused_buf"], what="fused_buf")
+        else:
+            copy_into(dict(zip(self._names, self._params)), tree["params"],
+                      what="params")
+        restore_meta(self, meta)
 
     # -- state ----------------------------------------------------------
     @torch.no_grad()

@@ -38,8 +38,10 @@ packing even though nothing is captured there.  On CUDA a capture error
 is an error: there is no eager fallback.
 
 ``run_blocked`` is both engines' block loop (after dopt's
-``_blocked_loop``, dopt/engine/gossip.py:1755-1870 and
-dopt/engine/federated.py:2158-2247).
+``_blocked_loop``, dopt/engine/gossip.py:1755-1874 and
+dopt/engine/federated.py:2158-2247), with its checkpoints at block
+boundaries.  A restore writes every carried tensor in place, so a
+trainer's captured graphs replay correctly after it.
 """
 
 from __future__ import annotations
@@ -156,7 +158,8 @@ class RoundGraphs:
                                "nodes": graph_nodes(graph)}
 
 
-def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool) -> None:
+def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
+                checkpoint_every: int = 0, checkpoint_path=None) -> None:
     """Run ``rounds`` rounds of ``trainer`` in blocks of up to ``block``:
     stage a block (``trainer._draw_block(ts)`` on this thread, in block
     order; ``trainer._build_block(meta)``, pure, which uploads
@@ -166,7 +169,16 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool) -> None:
     writes the rows in round order and advances ``trainer.round``.  With
     ``prefetch`` the loop runs dispatch → stage-next → fetch: the next
     block is drawn here and built on the stager's thread while this
-    block's rounds run; nothing is staged past the end of the call."""
+    block's rounds run.
+
+    ``checkpoint_every=K`` saves (``trainer.save(checkpoint_path)``) at
+    the first block boundary at or past each multiple of K, as dopt's
+    ``_blocked_loop`` does.  Nothing is staged past the end of the call
+    or across a scheduled save: the federated draw advances the
+    client-sampling stream, and a draw made ahead of a save would write
+    a stream one block ahead of the committed rounds."""
+    next_ckpt = ((trainer.round // checkpoint_every + 1) * checkpoint_every
+                 if checkpoint_every else None)
     stager = PrefetchStager() if prefetch else None
     try:
         done = 0
@@ -179,12 +191,18 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool) -> None:
             out = trainer.graphs.run_block(ready(*meta["dev"]),
                                            meta["kinds"])
             left = rounds - done - k
-            if stager is not None and left:
-                nts = [ts[-1] + 1 + j for j in range(min(block, left))]
+            end = ts[-1] + 1
+            if (stager is not None and left
+                    and (next_ckpt is None or end < next_ckpt)):
+                nts = [end + j for j in range(min(block, left))]
                 stager.stage(nts[0], trainer._build_block,
                              trainer._draw_block(nts))
             trainer._record_block(meta, out.cpu().numpy())
             done += k
+            if next_ckpt is not None and trainer.round >= next_ckpt:
+                trainer.save(checkpoint_path)
+                next_ckpt = ((trainer.round // checkpoint_every + 1)
+                             * checkpoint_every)
     finally:
         if stager is not None:
             stager.discard()

@@ -5,7 +5,10 @@ it with ``FederatedTrainer`` when the preset has a ``federated`` section
 and with ``GossipTrainer`` otherwise, on the GPU (or on the CPU with
 ``--device cpu``), in blocks of the section's ``block_rounds``, prints
 one JSON history row per round and optionally writes the History CSV in
-the reference's results layout.
+the reference's results layout.  ``--checkpoint``, ``--checkpoint-every``
+and ``--resume`` save and restore the whole training state (dopt's
+flags): a run killed at any point and restarted with ``--resume`` is the
+continuous run bit for bit.
 """
 
 from __future__ import annotations
@@ -72,6 +75,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="override a config field by dotted path, e.g. "
                          "--set optim.lr=0.05")
     ap.add_argument("--csv", default=None, help="write the history CSV here")
+    ap.add_argument("--checkpoint", default=None,
+                    help="save a checkpoint here after the run")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="auto-checkpoint to --checkpoint every K rounds "
+                         "during the run (crash-exact: a run killed at any "
+                         "point and restarted with --resume is bit-identical "
+                         "to a continuous run)")
+    ap.add_argument("--resume", default=None,
+                    help="restore this checkpoint before running (pair with "
+                         "--checkpoint-every for kill-and-resume workflows)")
     args = ap.parse_args(argv)
 
     from dopt_torch.engine import FederatedTrainer, GossipTrainer
@@ -81,6 +94,8 @@ def main(argv: list[str] | None = None) -> int:
         for name in sorted(PRESETS):
             print(name)
         return 0
+    if args.checkpoint_every and not args.checkpoint:
+        raise SystemExit("--checkpoint-every requires --checkpoint PATH")
     cfg = get_preset(args.preset)
     for spec in args.overrides:
         cfg = apply_override(cfg, spec)
@@ -97,7 +112,11 @@ def main(argv: list[str] | None = None) -> int:
           f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
           f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
           f"prefetch {section.prefetch}", file=sys.stderr)
-    trainer.run(rounds=rounds)
+    if args.resume:
+        trainer.restore(args.resume)
+        print(f"resumed at round {trainer.round}", file=sys.stderr)
+    trainer.run(rounds=rounds, checkpoint_every=args.checkpoint_every,
+                checkpoint_path=args.checkpoint)
     for row in trainer.history.rows[-rounds:]:
         print(json.dumps(row))
     print(f"device={trainer.device} total_time_s={trainer.total_time:.2f}",
@@ -105,6 +124,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.csv:
         trainer.history.to_csv(args.csv)
         print(f"wrote {args.csv}", file=sys.stderr)
+    if args.checkpoint:
+        trainer.save(args.checkpoint)
+        print(f"checkpointed to {args.checkpoint}", file=sys.stderr)
     return 0
 
 

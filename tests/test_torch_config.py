@@ -1,0 +1,135 @@
+"""The port's config against dopt's: every field, every default, and a
+refusal naming its slice for every value the port does not run.
+
+The North star's promise: the port takes dopt's configs with dopt's
+field names and defaults, and refuses an option it has not ported by
+name, with the ROADMAP queue 1 slice that adds it — never with a
+``TypeError`` at construction or "not a field" at the CLI.
+"""
+
+import dataclasses
+
+import pytest
+
+import dopt.config as J
+import dopt_torch.config as T
+from dopt_torch.engine import FederatedTrainer, GossipTrainer
+
+CLASSES = ["DataConfig", "ModelConfig", "OptimizerConfig", "GossipConfig",
+           "FederatedConfig", "ExperimentConfig"]
+
+
+def _default(f):
+    if f.default_factory is not dataclasses.MISSING:
+        return f.default_factory()
+    return f.default
+
+
+@pytest.mark.parametrize("cls", CLASSES)
+def test_field_sets_and_defaults_equal_dopt(cls):
+    """Both directions: no dopt field is missing from the port, and each
+    default is dopt's (sections compare as dopt-default sections)."""
+    jf = {f.name: f for f in dataclasses.fields(getattr(J, cls))}
+    tf = {f.name: f for f in dataclasses.fields(getattr(T, cls))}
+    assert sorted(tf) == sorted(jf), cls
+    for name, f in tf.items():
+        want, got = _default(jf[name]), _default(f)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        else:
+            assert got == want, f"{cls}.{name}"
+
+
+def _gossip(**kw):
+    return T.ExperimentConfig(
+        data=T.DataConfig(dataset="synthetic", num_users=2,
+                          synthetic_train_size=32, synthetic_test_size=8),
+        model=T.ModelConfig(input_shape=(8, 8, 1)),
+        gossip=T.GossipConfig(local_ep=1, local_bs=16), **kw)
+
+
+def _fed(**kw):
+    return _gossip(**kw).replace(gossip=None, federated=T.FederatedConfig(
+        frac=0.5, local_ep=1, local_bs=16))
+
+
+def _set(cfg, section, **kw):
+    return cfg.replace(**{section: dataclasses.replace(
+        getattr(cfg, section), **kw)})
+
+
+# (section or None for the top level, field, a non-default value, slice)
+GOSSIP_ONLY = [
+    ("gossip", "eps", 2, "gossip algorithms"),
+    ("gossip", "faithful_bugs", True, "gossip algorithms"),
+    ("gossip", "choco_gamma", 0.5, "codecs"),
+    ("gossip", "compression", "qsgd", "codecs"),
+    ("gossip", "compression_ratio", 0.25, "codecs"),
+    ("gossip", "qsgd_levels", 16, "codecs"),
+    ("gossip", "correction", "push_sum", "faults"),
+    ("gossip", "dropout", 0.1, "faults"),
+    ("gossip", "diagnostics", "on", "telemetry"),
+]
+BOTH = [
+    ("model", "stage_sizes", (1, 1, 1, 1), "ResNet-18"),
+    (None, "seqlm", J.SeqLMConfig(), "seqlm"),
+    (None, "mesh_devices", 4, "scatter and multi-GPU"),
+    (None, "mesh_hosts", 2, "scatter and multi-GPU"),
+]
+
+
+def _with(base, section, field, value):
+    if section is None:
+        return base.replace(**{field: value})
+    return _set(base, section, **{field: value})
+
+
+@pytest.mark.parametrize("section,field,value,slice_name", GOSSIP_ONLY + [
+    ("both", *row[1:]) for row in BOTH],
+    ids=[f"{r[0]}.{r[1]}" for r in GOSSIP_ONLY] + [r[1] for r in BOTH])
+def test_unported_values_refused_naming_their_slice(section, field, value,
+                                                    slice_name):
+    engines = [(GossipTrainer, _gossip())]
+    sec = section
+    if section == "both":
+        engines.append((FederatedTrainer, _fed()))
+        sec = next(r[0] for r in BOTH if r[1] == field)
+    for cls, base in engines:
+        with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
+            cls(_with(base, sec, field, value), device="cpu")
+
+
+@pytest.mark.parametrize("section,field,value,why", [
+    ("model", "stacked_impl", "vmap", "oracle-parity"),
+    (None, "backend", "torch", "CPU oracle"),
+])
+def test_dopt_oracle_modes_refused_for_good(section, field, value, why):
+    for cls, base in ((GossipTrainer, _gossip()), (FederatedTrainer, _fed())):
+        with pytest.raises(ValueError, match=why) as err:
+            cls(_with(base, section, field, value), device="cpu")
+        assert "slice" not in str(err.value)
+
+
+def test_defaults_and_one_device_mesh_run():
+    """dopt's defaults, ``backend='jax'`` (dopt's engine, here the
+    port's own) and a one-device mesh construct."""
+    GossipTrainer(_gossip(backend="jax", mesh_devices=1, mesh_hosts=1),
+                  device="cpu")
+    FederatedTrainer(_fed(mesh_devices=1), device="cpu")
+
+
+def test_cli_set_of_an_unported_field_names_its_slice():
+    """``--set gossip.diagnostics=on`` is a field of the preset now; the
+    trainer refuses it with the telemetry slice, not "not a field"."""
+    from dopt_torch.run import apply_override, main
+    from dopt_torch.presets import get_preset
+
+    cfg = apply_override(get_preset("headline-dsgd-model1"),
+                         "gossip.diagnostics=on")
+    assert cfg.gossip.diagnostics == "on"
+    with pytest.raises(ValueError, match="'telemetry' slice"):
+        main(["--preset", "headline-dsgd-model1", "--device", "cpu",
+              "--set", "gossip.diagnostics=on"])
+    with pytest.raises(ValueError, match="'faults' slice"):
+        main(["--preset", "headline-dsgd-model1", "--device", "cpu",
+              "--set", "gossip.dropout=0.2"])

@@ -212,13 +212,15 @@ def test_run_cli_bf16_preset_on_cpu(capsys):
             GossipTrainer(get_preset("headline-dsgd-model1-idiomatic-bf16"))
 
 
-def test_port_imports_nothing_of_jax_or_dopt():
+def test_port_imports_nothing_of_jax_or_dopt(tmp_path):
     """A fresh interpreter imports dopt_torch and runs CPU gossip and
     federated rounds, per-round and in prefetched blocks (the graphs and
-    prefetch modules); neither jax, flax nor dopt may be loaded.  The
+    prefetch modules), and saves and restores a checkpoint in both
+    engines; neither jax, flax, orbax nor dopt may be loaded.  The
     sources must not import them either."""
     code = (
         "import sys\n"
+        f"ck = {str(tmp_path)!r}\n"
         "import dopt_torch\n"
         "from dopt_torch import config as C\n"
         "cfg = C.ExperimentConfig(seed=3, data=C.DataConfig("
@@ -229,14 +231,18 @@ def test_port_imports_nothing_of_jax_or_dopt():
         " gossip=C.GossipConfig("
         "local_ep=1, local_bs=16, fused_update='on', prefetch='on'))\n"
         "tr = dopt_torch.GossipTrainer(cfg, device='cpu', eval_every=2)\n"
-        "tr.run(rounds=1); tr.run(rounds=3, block=2)\n"
+        "tr.run(rounds=1); tr.run(rounds=3, block=2, checkpoint_every=2,"
+        " checkpoint_path=ck + '/g')\n"
+        "dopt_torch.GossipTrainer(cfg, device='cpu').restore(ck + '/g')\n"
         "fed = cfg.replace(gossip=None, federated=C.FederatedConfig("
         "frac=0.5, local_ep=1, local_bs=16, fused_update='on',"
         " prefetch='on'))\n"
         "tr = dopt_torch.FederatedTrainer(fed, device='cpu')\n"
         "tr.run(rounds=1); tr.run(rounds=3, block=2)\n"
+        "tr.save(ck + '/f')\n"
+        "dopt_torch.FederatedTrainer(fed, device='cpu').restore(ck + '/f')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'dopt'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'dopt'))\n"
         "print('LOADED', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
@@ -244,7 +250,8 @@ def test_port_imports_nothing_of_jax_or_dopt():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout, res.stdout
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|dopt)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|dopt)\b",
+                     re.M)
     for path in [*sorted((REPO / "dopt_torch").rglob("*.py")),
                  REPO / "chip_smoke.py"]:
         assert not pat.search(path.read_text()), path
