@@ -83,7 +83,33 @@ the final line:
    for bit (gossip with both fused switches, fedavg fused, fedadmm
    compact with the holdout, scaffold at full width); a fused gossip
    checkpoint restored into an unfused trainer must raise.  The
-   checkpoints go to a temporary directory, removed at the end.
+   checkpoints go to a temporary directory, removed at the end;
+9. the paths of the dense models and the gossip algorithms at full width
+   (dopt's presets, 2 rounds each, finite metrics, launch counts as the
+   round structure implies, rounds/s and peak memory): 9a
+   reference-gossip with both fused switches (Model1, 6 workers, a
+   matching drawn each round into kernel 2); 9b baseline2 with both
+   switches (Model3 on CIFAR-10-shaped data, 50,000/10,000, 16 workers,
+   kernel 2's ring kernel at lr +1); 9c baseline1 with both switches
+   (MLP, 4 workers); 9d baseline4 with optim.fused_update (logistic
+   fedadmm on a9a-shaped data, 16 lanes); 9e reference-fedlcon (5
+   sweeps), reference-nocons-noniid and reference-centralized (one
+   round) with optim.fused_update.  9f: the matching path at
+   6,000/1,000 samples and one local epoch, 3 rounds, twice, blocked
+   (blocks of 2, prefetch on) and killed after round 1 and resumed, each
+   bit for bit the per-round run (the matching stream included); and
+   9c's baseline1 blocked against per-round.  One round each of 9b, 9c
+   and reference-centralized runs under the profiler (as phase 6), and
+   9g times baseline1 per-round against blocked (as 7c).
+
+Phase 3 also holds both kernels at this slice's call sites (3b): kernel
+1 over the MLP (4 workers), Model3 (16 lanes, 32×32×3), logistic (16
+lanes) and single-worker Model1 steps; kernel 2 over the MLP store at
+n = 4 (the metropolis ring), Model3's at n = 16 with a dense doubly
+stochastic W at lr +1 and Model1's at n = 6 with a matching, plus
+baseline2's ring schedule and a matching at n = 5 (an identity row).
+Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
+(eps 3) and the sharded eval small on the GPU against the CPU.
 
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
@@ -93,6 +119,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -135,7 +162,7 @@ def state(tr) -> dict:
     """Everything a trainer's run leaves behind, as host values: History
     and client rows, each worker's params, momentum, the fused carry
     (gossip q and fbuf, the federated theta slab), theta, duals,
-    controls and the client-sampling stream's state."""
+    controls, and the client-sampling and matching streams' states."""
     def host(tree):
         items = enumerate(tree) if isinstance(tree, list) else tree.items()
         return {str(k): v.detach().float().cpu().numpy().copy()
@@ -153,6 +180,8 @@ def state(tr) -> dict:
             out[name] = host(getattr(tr, name))
     if hasattr(tr, "_sample_rng"):
         out["sampling stream"] = [tr._sample_rng.bit_generator.state]
+    if hasattr(tr, "_matching_rng"):
+        out["matching stream"] = [tr._matching_rng.bit_generator.state]
     return out
 
 
@@ -321,6 +350,8 @@ def main() -> None:
                                                      make_update_shard_spec,
                                                      mean_weight_matrix)
         from dopt_torch.presets import get_preset
+        from dopt_torch.topology import (build_mixing_matrices,
+                                         random_matching_matrix)
         from dopt_torch.utils.metrics import trimmed_stats
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
@@ -520,11 +551,13 @@ def main() -> None:
         w = torch.rand(n, n, device=dev, generator=gen)
         return (w / w.sum(1, keepdim=True)).contiguous()
 
-    def stores(workers, dtype):
-        """The trainers' flat [W, padded] stores, as they build them."""
+    def stores(workers, dtype, model_shapes=None):
+        """The trainers' flat [W, padded] stores, as they build them
+        (Model1's unless ``model_shapes`` names another model's)."""
         spec = make_update_shard_spec(
             {k: torch.empty(workers, *s, dtype=dtype)
-             for k, s in shapes.items()}, bucket_bytes=4 << 20)
+             for k, s in (model_shapes or shapes).items()},
+            bucket_bytes=4 << 20)
         return spec, alloc_flat(workers, spec, dev), alloc_flat(workers,
                                                                 spec, dev)
 
@@ -621,6 +654,80 @@ def main() -> None:
     if (fused_sgd_momentum.launches, fused_mix_sgd.launches) != before:
         fail("an empty call counted a kernel launch")
     print("empty work: no launch counted")
+
+    # -- 3b. the call sites of the dense models and the gossip algorithms -
+    # Each kernel at the shapes phase 9's paths give it, f32, against its
+    # plain version (kernel 1 bit-identical, kernel 2 within the f32
+    # tolerance above), timed beside its bound and the library call.
+    mlp_s = param_shapes("mlp")
+    model3_s = param_shapes("model3", input_shape=(32, 32, 3))
+    logistic_s = param_shapes("logistic", num_classes=2, input_shape=(123,))
+
+    def k1_site(label, leaf_shapes, workers) -> dict:
+        sizes = [workers * math.prod(s) for s in leaf_shapes.values()]
+        p_, m_, g_, err = sgd_case(label, sizes, torch.float32)
+        return {**time_sgd(label, p_, m_, g_), "max_abs_err": err}
+
+    def k2_site(label, leaf_shapes, w, lr) -> dict:
+        spec, sp, sb = stores(w.shape[0], torch.float32, leaf_shapes)
+        sp.copy_(randn(*sp.shape))
+        sb.copy_(randn(*sb.shape))
+        times = []
+        for pb, bb in zip(flat_buckets(sp, spec), flat_buckets(sb, spec)):
+            mix_case(label, pb, bb, w, lr, times)
+        out = epilogue(times)
+        print(f"call site fused_mix_sgd {label}: "
+              f"{' + '.join(str(list(b.shape)) for b in flat_buckets(sp, spec))}"
+              f" f32: kernel {1e3 * out['ms']:.1f} us, plain "
+              f"{1e3 * out['plain_ms']:.1f} us, addmm "
+              f"{1e3 * out['library_ms']:.1f} us, bound "
+              f"{1e3 * out['bound_ms']:.1f} us ({out['bound_by']})")
+        return out
+
+    def as_w(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def doubly_stochastic(n) -> torch.Tensor:
+        """A dense doubly-stochastic matrix (Sinkhorn on uniform draws)."""
+        w = torch.rand(n, n, device=dev, generator=gen, dtype=torch.float64)
+        for _ in range(500):
+            w = w / w.sum(1, keepdim=True)
+            w = w / w.sum(0, keepdim=True)
+        return w.float().contiguous()
+
+    site = {
+        "k1 baseline1": k1_site("baseline1 mlp W=4", mlp_s, 4),
+        "k1 baseline2": k1_site("baseline2 model3 W=16", model3_s, 16),
+        "k1 baseline4": k1_site("baseline4 logistic W=16", logistic_s, 16),
+        "k1 centralized": k1_site("reference-centralized model1 W=1",
+                                  shapes, 1),
+        "k2 baseline1": k2_site(
+            "baseline1 mlp n=4, metropolis ring, lr 1", mlp_s,
+            as_w(build_mixing_matrices("circle", "metropolis", 4,
+                                       seed=2028).for_round(0)), 1.0),
+        "k2 baseline2": k2_site(
+            "baseline2 model3 n=16, dense doubly-stochastic, lr +1",
+            model3_s, doubly_stochastic(16), 1.0),
+        "k2 gossip": k2_site(
+            "reference-gossip model1 n=6, a matching, lr 1", shapes,
+            as_w(random_matching_matrix(6, np.random.default_rng(0))),
+            1.0)}
+    # The schedules the paths run: baseline2's ring matrix (n = 16, three
+    # nonzeros a row) and a matching at odd n, whose unmatched worker's
+    # row is the identity's.
+    mix_case("baseline2's ring schedule n=16", randn(16, 65_537),
+             randn(16, 65_537), as_w(build_mixing_matrices(
+                 "circle", "double_stochastic", 16, seed=1).for_round(0)),
+             1.0)
+    w5 = random_matching_matrix(5, np.random.default_rng(3))
+    if sorted(np.diag(w5).tolist()) != [0.5] * 4 + [1.0]:
+        fail(f"a matching at n = 5 has no identity row: {w5}")
+    mix_case("matching n=5, identity row", randn(5, 65_537),
+             randn(5, 65_537), as_w(w5), 1.0)
+    print(f"call site fused_sgd_momentum baseline4: "
+          f"{1e3 * site['k1 baseline4']['ms']:.1f} us against a "
+          f"{1e3 * site['k1 baseline4']['bound_ms']:.3f} us bound: "
+          "launch-bound")
     del flush, p, m, g
 
     # -- 4. small-input agreement: GPU runs vs CPU runs --------------------
@@ -644,8 +751,9 @@ def main() -> None:
         if not rel <= PARAM_REL_TOL:
             fail(f"small-input {label}: final params differ by {rel:.3e} "
                  "(max-relative)")
-        print(f"small-input check {label} (8x8 Model1, 4 workers, 2 rounds): "
-              f"cuda vs cpu {'/'.join(loss_keys)} within {LOSS_TOL}, "
+        print(f"small-input check {label} ({cfg.model.model} at "
+              f"{cfg.model.input_shape}, {cfg.data.num_users} workers, 2 "
+              f"rounds): cuda vs cpu {'/'.join(loss_keys)} within {LOSS_TOL}, "
               f"{acc_key} within {ACC_TOL}, params max-rel {rel:.3e} "
               f"(limit {PARAM_REL_TOL})")
         return runs["cuda"][0]
@@ -673,6 +781,37 @@ def main() -> None:
     if not admm._use_compact() or len(admm.client_history.rows) != 8:
         fail("the fedadmm small-input run did not take the compact path "
              "with per-epoch client rows")
+    # This slice's paths, small: the MLP (baseline1's shape), the
+    # logistic model on the a9a fallback (baseline4's), and the gossip
+    # algorithms.
+    gkeys = (("avg_train_loss",), "avg_test_acc", ("worker_params",))
+    b1 = get_preset("baseline1")
+    agree("baseline1-shaped MLP dsgd, metropolis, both fused switches",
+          GossipTrainer, b1.replace(
+              data=tiny_data, model=dataclasses.replace(
+                  b1.model, input_shape=(8, 8, 1)),
+              optim=dataclasses.replace(b1.optim, fused_update=True),
+              gossip=dataclasses.replace(b1.gossip, local_ep=2, local_bs=16,
+                                         fused_update="on")), *gkeys)
+    b4 = get_preset("baseline4")
+    agree("logistic fedadmm on the a9a fallback, kernel 1", FederatedTrainer,
+          b4.replace(data=dataclasses.replace(
+              b4.data, num_users=4, synthetic_train_size=128,
+              synthetic_test_size=32),
+              optim=dataclasses.replace(b4.optim, fused_update=True),
+              federated=dataclasses.replace(b4.federated, local_bs=16)),
+          ("train_loss", "local_loss"), "test_acc",
+          ("worker_params", "global_params"))
+    for label, g in (
+            ("gossip matching, both fused switches",
+             GossipConfig(algorithm="gossip", local_ep=1, local_bs=16,
+                          fused_update="on")),
+            ("fedlcon, eps 3", GossipConfig(algorithm="fedlcon", eps=3,
+                                            local_ep=1, local_bs=16)),
+            ("dsgd, sharded eval, both fused switches",
+             GossipConfig(local_ep=1, local_bs=16, eval_mode="sharded",
+                          fused_update="on"))):
+        agree(label, GossipTrainer, gossip_tiny.replace(gossip=g), *gkeys)
 
     def rel_l2(want: dict, got: dict) -> float:
         a = np.concatenate([want[k].ravel() for k in sorted(want)])
@@ -741,6 +880,7 @@ def main() -> None:
     # -- 5. main paths ----------------------------------------------------
     def main_path(name, cls, rounds, loss_keys, acc_keys, workers, cfg=None):
         cfg = get_preset(name) if cfg is None else cfg
+        base = torch.cuda.memory_allocated()
         t = time.perf_counter()
         trainer = cls(cfg, device="cuda")
         print(f"main path: {cfg.name}, {trainer.num_workers} workers, "
@@ -761,7 +901,8 @@ def main() -> None:
             print(f"history {json.dumps(row)}")
         print(f"main path {name}: {rounds} rounds in {wall:.3f} s = "
               f"{rounds / wall:.4f} rounds/s; max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated()} B")
+              f"{torch.cuda.max_memory_allocated()} B ({base} B of it "
+              "allocated before the trainer was built)")
         spec = trainer.fused_spec
         want = {"fused_sgd_momentum": (rounds * trainer.steps_per_round
                                        if cfg.optim.fused_update else 0),
@@ -777,7 +918,15 @@ def main() -> None:
                 if not 0.0 <= row[k] <= 1.0:
                     fail(f"{k} out of range in {row}")
         final = trainer.worker_params()
-        for k, s in shapes.items():
+        mc = cfg.model
+        want_shapes = param_shapes(mc.model.lower(),
+                                   num_classes=mc.num_classes,
+                                   input_shape=mc.input_shape)
+        if trainer.num_workers != workers or final.keys() != want_shapes.keys():
+            fail(f"{name}: {trainer.num_workers} workers with params "
+                 f"{sorted(final)}, expected {workers} with "
+                 f"{sorted(want_shapes)}")
+        for k, s in want_shapes.items():
             if final[k].shape != (workers, *s) or not np.isfinite(
                     final[k]).all():
                 fail(f"final params {k}: shape {final[k].shape} or "
@@ -921,7 +1070,7 @@ def main() -> None:
     for label, trainer in (("gossip", gtr), ("federated", ftr),
                            ("gossip faithful bf16", btr_bf16)):
         profile_round(label, functools.partial(trainer.run, rounds=1))
-    del gtr, ftr, btr_bf16
+    del gtr, ftr, btr_bf16, trainer
     torch.cuda.empty_cache()
 
     # -- 7a. determinism: the same run twice, bit for bit ------------------
@@ -955,14 +1104,15 @@ def main() -> None:
     same_state("7a tiny fedadmm, compact, 10% holdout, twice", *runs)
 
     # -- 7b. blocked (CUDA-graph replays) against per-round ----------------
-    def blocked(label, cls, cfg, want_state, want_launch, n, block, **kw):
+    def blocked(label, cls, cfg, want_state, want_launch, n, block,
+                phase="7b", **kw):
         tr, got = counted_run(cls, cfg, n, block, **kw)
         caps = tr.graphs.captures
         if not caps:
             fail(f"{label}: the blocked run captured no graph")
-        same_state(f"7b {label}, blocks of {block}, against per-round",
+        same_state(f"{phase} {label}, blocks of {block}, against per-round",
                    want_state, state(tr))
-        print(f"7b {label}: launches {got} (per-round {want_launch}); "
+        print(f"{phase} {label}: launches {got} (per-round {want_launch}); "
               f"graphs {caps}")
         if got != want_launch:
             fail(f"{label}: blocked launch counts {got} != per-round "
@@ -1093,6 +1243,124 @@ def main() -> None:
               f"{r['restore_s']:.4f} s ({r['bytes'] / r['restore_s'] / 1e9:.3f}"
               f" GB/s); {smi}")
 
+    # -- 9. this slice's paths at full width -------------------------------
+    t9 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    print(f"9: {held} B allocated on the card after phase 8, "
+          f"{torch.cuda.memory_allocated()} B after a garbage collection")
+
+    def switched(cfg, both=True):
+        """``cfg`` with ``optim.fused_update`` and (``both``) its gossip
+        section's ``fused_update`` on."""
+        out = cfg.replace(optim=dataclasses.replace(cfg.optim,
+                                                    fused_update=True))
+        if both:
+            out = out.replace(gossip=dataclasses.replace(
+                cfg.gossip, fused_update="on"))
+        return out
+
+    gossip_keys = (("avg_train_loss", "avg_test_loss"),
+                   ("avg_train_acc", "avg_test_acc"))
+    fed_keys = (("train_loss", "test_loss", "local_loss"),
+                ("train_acc", "test_acc"))
+    slice_launch, slice_rate = {}, {}
+    for key, preset, cls, both, keys, workers, n_rounds in (
+            ("9a", "reference-gossip", GossipTrainer, True, gossip_keys, 6,
+             rounds),
+            ("9b", "baseline2", GossipTrainer, True, gossip_keys, 16, rounds),
+            ("9c", "baseline1", GossipTrainer, True, gossip_keys, 4, rounds),
+            ("9d", "baseline4", FederatedTrainer, False, fed_keys, 16,
+             rounds),
+            ("9e", "reference-fedlcon", GossipTrainer, False, gossip_keys, 6,
+             rounds),
+            ("9e", "reference-nocons-noniid", GossipTrainer, False,
+             gossip_keys, 6, rounds),
+            ("9e", "reference-centralized", GossipTrainer, False,
+             gossip_keys, 1, 1)):
+        cfg = switched(get_preset(preset), both)
+        switches = "both fused switches" if both else "optim.fused_update"
+        base = torch.cuda.memory_allocated()
+        tr, slice_launch[preset], wall = main_path(
+            f"{key} {preset} ({switches})", cls, n_rounds, *keys, workers,
+            cfg=cfg)
+        slice_rate[preset] = (n_rounds / wall,
+                              torch.cuda.max_memory_allocated() - base)
+        if preset == "baseline1":
+            b1_cfg, b1_state = cfg, state(tr)
+        if preset in ("baseline2", "baseline1", "reference-centralized"):
+            profile_round(f"9 {preset}", functools.partial(tr.run, rounds=1))
+        del tr
+        torch.cuda.empty_cache()
+    for preset, (rate, peak) in slice_rate.items():
+        print(f"9 {preset}: {rate:.4f} rounds/s, peak allocated {peak} B "
+              f"over what was allocated before the trainer, launches "
+              f"{slice_launch[preset]}; {smi}")
+
+    # -- 9f. the matching path, bit for bit ------------------------------
+    gossip9 = switched(get_preset("reference-gossip"))
+    small9 = gossip9.replace(
+        data=dataclasses.replace(gossip9.data, synthetic_train_size=6_000,
+                                 synthetic_test_size=1_000),
+        gossip=dataclasses.replace(gossip9.gossip, local_ep=1))
+    ref_tr, ref_launch = counted_run(GossipTrainer, small9, 3, 1)
+    ref9 = state(ref_tr)
+    del ref_tr
+    if ref_launch["fused_mix_sgd"] == 0:
+        fail("9f: the matching path launched no kernel 2")
+    again, again_launch = counted_run(GossipTrainer, small9, 3, 1)
+    same_state("9f reference-gossip (6,000/1,000, local_ep 1), two runs",
+               ref9, state(again))
+    if again_launch != ref_launch:
+        fail(f"9f: launches {again_launch} != {ref_launch}")
+    del again
+    blocked("reference-gossip (6,000/1,000, local_ep 1), prefetch on",
+            GossipTrainer, prefetched(small9), ref9, ref_launch, 3, 2,
+            phase="9f")
+    ckdir9 = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        victim = GossipTrainer(small9, device=dev)
+        victim.run(rounds=2, checkpoint_every=1,
+                   checkpoint_path=ckdir9 / "g")
+        del victim
+        resumed = GossipTrainer(small9, device=dev)
+        resumed.restore(ckdir9 / "g")
+        if resumed.round != 2:
+            fail(f"9f: restored at round {resumed.round}, expected 2")
+        resumed.run(rounds=1)
+        torch.cuda.synchronize()
+        same_state("9f reference-gossip, killed after round 1 and resumed, "
+                   "against the continuous run", ref9, state(resumed))
+        if launch_counts() != ref_launch:
+            fail(f"9f resume: launches {launch_counts()} != {ref_launch}")
+        del resumed
+    finally:
+        shutil.rmtree(ckdir9, ignore_errors=True)
+    blocked("baseline1 (both fused switches)", GossipTrainer, b1_cfg,
+            b1_state, slice_launch["baseline1"], rounds, 2, phase="9f")
+    # 9g: baseline1's per-round round is host-bound (470 eager steps of a
+    # small MLP); its rate per-round against blocked, as 7c (eval only in
+    # round 0, one warm-up block, 4 timed rounds).
+    b1_rate = {}
+    for mode, block in (("per-round", 1), ("blocked", 2)):
+        tr = GossipTrainer(b1_cfg, device=dev, eval_every=10 ** 6)
+        tr.run(rounds=block, block=block)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=4, block=block)
+        torch.cuda.synchronize()
+        b1_rate[mode] = 4 / (time.perf_counter() - t)
+        if not all(math.isfinite(r["avg_train_loss"])
+                   for r in tr.history.rows):
+            fail(f"9g baseline1 {mode}: non-finite train loss")
+        del tr
+    print(f"9g baseline1: blocked {b1_rate['blocked']:.4f} against per-round "
+          f"{b1_rate['per-round']:.4f} rounds/s: "
+          f"{b1_rate['blocked'] / b1_rate['per-round']:.3f}x; {smi}")
+    print(f"9: phases 9a-9f in {time.perf_counter() - t9:.1f} s")
+
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
     for suffix, path, launched, t1, t2 in (
@@ -1116,6 +1384,32 @@ def main() -> None:
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:134",
                         "launches": launched["fused_mix_sgd"], **t2})
+    for preset, path, t1, t2 in (
+            ("reference-gossip", "reference-gossip: Model1, 6 workers, a "
+             "matching a round", k1, site["k2 gossip"]),
+            ("baseline2", "baseline2: Model3 on CIFAR-10 shapes, 16 workers, "
+             "kernel 2's ring at lr +1", site["k1 baseline2"],
+             site["k2 baseline2"]),
+            ("baseline1", "baseline1: MLP, 4 workers", site["k1 baseline1"],
+             site["k2 baseline1"]),
+            ("baseline4", "baseline4: logistic fedadmm, 16 lanes",
+             site["k1 baseline4"], None),
+            ("reference-fedlcon", "reference-fedlcon: Model1, 6 workers, 5 "
+             "sweeps", k1, None),
+            ("reference-nocons-noniid", "reference-nocons-noniid: Model1, 6 "
+             "workers", k1, None),
+            ("reference-centralized", "reference-centralized: Model1, one "
+             "worker", site["k1 centralized"], None)):
+        launched = slice_launch[preset]
+        kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
+                        "route": "cuda", "source": source,
+                        "replaces": "dopt/ops/fused_update.py:57",
+                        "launches": launched["fused_sgd_momentum"], **t1})
+        if t2 is not None:
+            kernels.append({"name": "fused_mix_sgd:" + preset, "path": path,
+                            "route": "cuda", "source": source,
+                            "replaces": "dopt/ops/fused_update.py:134",
+                            "launches": launched["fused_mix_sgd"], **t2})
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,13 @@ A package of its own beside the JAX reference ``dopt``: it imports
 ``torch`` and numpy and nothing of ``dopt`` or JAX.  Its entry points
 run on the GPU unless the caller passes ``device="cpu"``; the update
 kernels are hand-written CUDA (``dopt_torch/csrc``), built with ``nvcc``
-at first use.  Ported so far: synchronous gossip D-SGD
-(``GossipTrainer``) and the federated engine — FedAvg, FedProx, FedADMM
-and SCAFFOLD (``FederatedTrainer``) — on the reference CNNs, with the
-reference's local train/val holdout, and both of dopt's Pallas kernels.
+at first use.  Ported so far: the gossip engine — D-SGD, no consensus,
+centralized, FedLCon and pairwise matching (``GossipTrainer``) — and the
+federated engine — FedAvg, FedProx, FedADMM and SCAFFOLD
+(``FederatedTrainer``) — on the reference CNNs, the MLP and the logistic
+model, over MNIST, FMNIST, CIFAR-10/100 and a9a (raw files or the
+synthetic fallback), with the reference's local train/val holdout, and
+both of dopt's Pallas kernels.
 Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph
 replays of the round, with a prefetched host pipeline, and save and
 restore their whole state (``save``/``restore``,

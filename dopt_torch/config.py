@@ -5,8 +5,7 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
 packages.  Fields and sections of later slices (faults, robust,
-population, comm, seqlm, the codecs' and the gossip algorithms' knobs,
-the mesh) exist with dopt's defaults: the trainers refuse any other
+population, comm, seqlm, the codecs' knobs, the mesh) exist with dopt's defaults: the trainers refuse any other
 value, naming the slice that adds it.
 """
 
@@ -21,11 +20,11 @@ from typing import Any
 class DataConfig:
     """Dataset selection + partitioning (reference ``get_dataset`` args)."""
 
-    dataset: str = "mnist"   # mnist | synthetic
+    dataset: str = "mnist"   # mnist | fmnist | cifar10 | cifar100 | a9a | synthetic
     iid: bool = True
     shards: int = 2          # non-IID shards per user
     num_users: int = 8
-    data_dir: str | None = None   # directory with raw IDX files; None -> synthetic
+    data_dir: str | None = None   # directory with raw files; None -> synthetic
     synthetic_train_size: int = 2048
     synthetic_test_size: int = 512
     plan_impl: str = "numpy"  # "native" (C++ planner) arrives in a later slice
@@ -43,7 +42,7 @@ class DataConfig:
 class ModelConfig:
     """Model zoo selection (reference ``args.model`` string dispatch)."""
 
-    model: str = "model1"    # model1 | model3
+    model: str = "model1"    # model1 | model3 | mlp | logistic
     stage_sizes: tuple[int, ...] | None = None   # ResNet-18 slice
     faithful: bool = True
     # faithful=True reproduces the reference's Softmax-head +
@@ -118,21 +117,23 @@ class FederatedConfig:
 class GossipConfig:
     """Serverless gossip/consensus path (reference P2 ``simulators.py``)."""
 
-    algorithm: str = "dsgd"
+    algorithm: str = "dsgd"     # dsgd | nocons | centralized | fedlcon | gossip
     topology: str = "circle"    # circle | star | complete | dynamic | random
     #                           # | torus | hierarchical | one_peer_exp
     mode: str = "stochastic"    # stochastic | double_stochastic | metropolis | uniform | ones
     rounds: int = 10
     local_ep: int = 4
     local_bs: int = 128
-    eps: int = 1                # fedlcon's sweeps: gossip algorithms slice
-    eval_mode: str = "full"     # every worker evaluates the whole test split
+    eps: int = 1                # fedlcon's consensus sweeps a round
+    eval_mode: str = "full"
+    # full — every worker evaluates the whole test split; sharded — each
+    # evaluates its round-robin 1/W shard (the in-training metric only).
     mixing: str = "sync"
     comm_impl: str = "auto"     # the single-device port always mixes dense
     block_rounds: int = 1
     # > 1: blocks of that many rounds, as FederatedConfig.block_rounds.
     prefetch: str = "off"       # "off" | "on", as FederatedConfig.prefetch
-    faithful_bugs: bool = False   # gossip algorithms slice
+    faithful_bugs: bool = False   # fedlcon: one sweep, the reference's bug
     self_weight: bool = False   # reference mixing has a zero diagonal
     hier_groups: int = 2
     hier_period: int = 4

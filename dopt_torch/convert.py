@@ -1,15 +1,20 @@
 """Weight carry-over between dopt's flax trees and the port's layout.
 
-``params_from_jax`` takes a dopt Model1/Model3 params tree as numpy
-arrays — one worker's (``conv1.kernel`` rank 4) or the ``[W, ...]``
-stacked fleet (rank 5) — and returns the port's parameter dict with the
-same leading axes; ``params_to_jax`` is its exact inverse.  Only
-transposes and reshapes: the round trip is bit-exact.
+``params_from_jax`` takes a dopt params tree as numpy arrays — one
+worker's or the ``[W, ...]`` stacked fleet's — and returns the port's
+parameter dict with the same leading axes; ``params_to_jax`` is its
+exact inverse.  Only transposes and reshapes: the round trip is
+bit-exact.  Both dispatch on the tree's layers: ``conv1`` marks
+Model1/Model3 (the worker axis is there when ``conv1``'s kernel has
+rank 5); any other tree is dense — the MLP's ``{fc1, fc2, head}`` or the
+logistic model's ``{linear}`` (the worker axis is there when a kernel
+has rank 3).
 
 Layouts (per worker): flax conv ``[kh, kw, Cin, Cout]`` ↔ torch
 ``[Cout, Cin, kh, kw]``; flax dense ``[in, out]`` ↔ torch ``[out, in]``;
-and fc1's input, which flax flattens in HWC order from the NHWC
-activations while the port flattens CHW from NCHW ones.
+and the CNN's fc1 input, which flax flattens in HWC order from the NHWC
+activations while the port flattens CHW from NCHW ones.  The dense
+models flatten their input in HWC order in both packages.
 
 numpy has no bf16 of its own, so bf16 crosses in f32, which holds every
 bf16 value exactly: ``params_to_jax`` of bf16 tensors returns f32
@@ -33,19 +38,28 @@ def _host(a) -> np.ndarray:
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
+def _dense(k: np.ndarray) -> np.ndarray:
+    """A dense kernel between flax's ``[..., in, out]`` and torch's
+    ``[..., out, in]`` (the map is its own inverse), as a fresh array."""
+    return np.array(np.swapaxes(k, -1, -2), order="C")
+
+
 def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     """dopt flax tree (numpy leaves) → port parameter dict."""
     tree = {layer: {k: _host(v) for k, v in leaves.items()}
             for layer, leaves in tree.items()}
+    if "conv1" not in tree:
+        out = {}
+        for layer, leaves in tree.items():
+            out[f"{layer}.weight"] = _dense(leaves["kernel"])
+            out[f"{layer}.bias"] = np.array(leaves["bias"])
+        return out
     lead = tree["conv1"]["kernel"].ndim - 4   # 0 or 1 (worker)
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)
 
     def conv(k):
         return np.transpose(k, a + tuple(lead + i for i in (3, 2, 0, 1)))
-
-    def dense(k):
-        return np.swapaxes(k, -1, -2)
 
     def fc1(k):
         c2 = tree["conv2"]["kernel"].shape[-1]
@@ -55,7 +69,7 @@ def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
 
     out = {}
     for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
-                     ("fc2", dense)):
+                     ("fc2", _dense)):
         out[f"{layer}.weight"] = np.ascontiguousarray(
             f(tree[layer]["kernel"]))
         out[f"{layer}.bias"] = np.array(tree[layer]["bias"])
@@ -66,15 +80,17 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
     """Port parameter dict (numpy or tensors) → dopt flax tree."""
     p = {k: (v.detach().float().cpu().numpy() if hasattr(v, "detach")
              else np.asarray(v)) for k, v in params.items()}
+    if "conv1.weight" not in p:
+        layers = dict.fromkeys(k.rsplit(".", 1)[0] for k in p)
+        return {layer: {"kernel": _dense(p[f"{layer}.weight"]),
+                        "bias": p[f"{layer}.bias"].copy()}
+                for layer in layers}
     lead = p["conv1.weight"].ndim - 4
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)
 
     def conv(w):
         return np.transpose(w, a + tuple(lead + i for i in (2, 3, 1, 0)))
-
-    def dense(w):
-        return np.swapaxes(w, -1, -2)
 
     def fc1(w):
         c2 = p["conv2.weight"].shape[lead]
@@ -85,7 +101,7 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
     return {layer: {"kernel": np.ascontiguousarray(f(p[f"{layer}.weight"])),
                     "bias": p[f"{layer}.bias"].copy()}
             for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
-                             ("fc2", dense))}
+                             ("fc2", _dense))}
 
 
 def port_layout(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:

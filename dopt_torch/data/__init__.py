@@ -2,7 +2,8 @@ from dopt_torch.data.datasets import Dataset, load_dataset, make_synthetic
 from dopt_torch.data.partition import (holdout_split, iid_split, noniid_split,
                                        partition)
 from dopt_torch.data.pipeline import (BatchPlan, eval_batches,
-                                      make_batch_plan, stacked_eval_batches)
+                                      make_batch_plan, sharded_eval_batches,
+                                      stacked_eval_batches)
 from dopt_torch.data.prefetch import PrefetchStager, ready, upload
 
 __all__ = [
@@ -16,6 +17,7 @@ __all__ = [
     "BatchPlan",
     "eval_batches",
     "make_batch_plan",
+    "sharded_eval_batches",
     "stacked_eval_batches",
     "PrefetchStager",
     "ready",

@@ -87,6 +87,39 @@ def eval_batches(x: np.ndarray, y: np.ndarray, *, batch_size: int
             mask.reshape(steps, bs))
 
 
+def sharded_eval_batches(n: int, workers: int, *, batch_size: int
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Round-robin 1/W shard of an n-sample eval set per worker: [W, S, B]
+    gather indices + 0/1 padding weights (``eval_mode="sharded"``: the
+    fleet-mean metric from n sample-forwards instead of W·n).  Bit for
+    bit dopt's plan.  Raises a ``ValueError`` when ``workers > n``: a
+    worker without a row would report accuracy 0 and bias the fleet
+    mean, where dopt pads it with zero-weight rows."""
+    if workers > n:
+        raise ValueError(
+            f"eval_mode='sharded' needs at least one eval sample a worker: "
+            f"{workers} workers over an eval set of {n}; use "
+            "eval_mode='full' or a larger eval set")
+    l = -(-n // workers)
+    idx = np.zeros((workers, l), np.int64)
+    wt = np.zeros((workers, l), np.float32)
+    for i in range(workers):
+        r = np.arange(i, n, workers)
+        idx[i, :len(r)] = r
+        wt[i, :len(r)] = 1.0
+        if len(r) < l:
+            idx[i, len(r):] = r[:l - len(r)]
+    bs = min(batch_size, l)
+    steps = -(-l // bs)
+    pad = steps * bs - l
+    if pad:
+        idx = np.concatenate([idx, idx[:, :pad]], axis=1)
+        wt = np.concatenate([wt, np.zeros((workers, pad), np.float32)],
+                            axis=1)
+    return (idx.reshape(workers, steps, bs).astype(np.int32),
+            wt.reshape(workers, steps, bs))
+
+
 def stacked_eval_batches(index_matrix: np.ndarray, *, batch_size: int
                          ) -> tuple[np.ndarray, np.ndarray]:
     """Per-worker static-shape eval stacks over index rows: [W, S, B]

@@ -63,8 +63,7 @@ from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
-from dopt_torch.models.zoo import (deterministic, full_f32,
-                                   stacked_cnn_forward)
+from dopt_torch.models.zoo import deterministic, full_f32, stacked_forward
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import (admm_dual_ascent, grad_edit, rounded,
                               scaffold_control_update, scaffold_scale)
@@ -242,10 +241,11 @@ class FederatedTrainer:
         return self.theta
 
     def _forward(self, params: dict[str, torch.Tensor]):
-        faithful = self.cfg.model.faithful
-        dtype = DTYPES[self.cfg.model.compute_dtype]
-        return lambda x: stacked_cnn_forward(params, x, faithful=faithful,
-                                             dtype=dtype)
+        mc = self.cfg.model
+        name, faithful = mc.model.lower(), mc.faithful
+        dtype = DTYPES[mc.compute_dtype]
+        return lambda x: stacked_forward(name, params, x, faithful=faithful,
+                                         dtype=dtype)
 
     # -- one round ------------------------------------------------------
     def _local(self, theta, params, moms, duals, idx, bw, val):

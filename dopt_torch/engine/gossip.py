@@ -1,12 +1,33 @@
-"""Synchronous gossip D-SGD on one GPU: the port's ``GossipTrainer``.
+"""Synchronous gossip on one GPU: the port's ``GossipTrainer``.
 
-Counterpart of dopt/engine/gossip.py for its dsgd subset: N workers as
-one ``[W, ...]`` stacked state, each round consensus → eval → local
-epochs (the reference's order), with ``matrices[round % len]``
-schedules, the reference's batch plans and History rows, and its local
-train/val holdout (``data.local_holdout``: per-epoch local-val rows in
-``client_history``).  The data setup, the shared refusals and the init
-here serve the federated engine too.
+Counterpart of dopt/engine/gossip.py: N workers as one ``[W, ...]``
+stacked state, each round consensus → eval → local epochs (the
+reference's order), with the reference's batch plans and History rows,
+and its local train/val holdout (``data.local_holdout``: per-epoch
+local-val rows in ``client_history``).  The data setup, the shared
+refusals and the init here serve the federated engine too.
+
+The reference study's algorithms (``gossip.algorithm``), as dopt runs
+them:
+
+* ``dsgd`` — one consensus sweep with the schedule's
+  ``matrices[round % len]``, then the local epochs;
+* ``nocons`` — the local epochs only, no mixing;
+* ``centralized`` — one worker on the whole IID training set, one local
+  epoch a round: the config is rewritten to ``num_users=1``,
+  ``iid=True``, ``local_ep=1``, ``algorithm="nocons"`` (``self.cfg``
+  holds the rewritten config, as dopt's does);
+* ``fedlcon`` — ``gossip.eps`` consensus sweeps a round, each reading
+  the previous sweep's output (``faithful_bugs=True`` runs one sweep,
+  the reference's effective behaviour);
+* ``gossip`` — pairwise gossip: each round's matrix is a random perfect
+  matching drawn from a stateful host stream
+  (``host_rng(seed, 60551)``), on the main thread in round order, and
+  carried through checkpoints.
+
+``gossip.eval_mode="sharded"`` evaluates each worker on its round-robin
+1/W shard of the test set during training (``evaluate`` stays the full
+test set, as dopt's).
 
 Two orderings, as in dopt:
 
@@ -50,6 +71,7 @@ gradient to that global norm after the algorithm's edit.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -58,24 +80,29 @@ import torch
 from dopt_torch.config import ExperimentConfig
 from dopt_torch.convert import params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
-                             partition, upload)
+                             partition, sharded_eval_batches, upload)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, prepare_holdout,
-                                     stacked_evaluate)
-from dopt_torch.models.zoo import (StackedCNN, deterministic, full_f32,
-                                   init_worker_params, param_shapes,
-                                   stacked_cnn_forward)
+                                     stacked_eval_gathered, stacked_evaluate)
+from dopt_torch.models.zoo import (LAYERS, StackedModel, deterministic,
+                                   full_f32, init_worker_params,
+                                   param_shapes, stacked_forward)
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
-from dopt_torch.topology import build_mixing_matrices
+from dopt_torch.topology import build_mixing_matrices, random_matching_matrix
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
+from dopt_torch.utils.prng import host_rng
 
 # The dtypes ``model.compute_dtype`` and ``model.param_dtype`` take.
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ALGORITHMS = ("dsgd", "nocons", "centralized", "fedlcon", "gossip", "choco")
+# The algorithms that mix with a topology's schedule (gossip draws a
+# matching each round; nocons does not mix).
+SCHEDULED = ("dsgd", "fedlcon")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -132,8 +159,11 @@ def validate_common(cfg: ExperimentConfig) -> None:
         raise later(f"plan_impl={d.plan_impl!r}", "native planner")
     if m.model.lower() == "transformer":
         raise later("the sequence model", "seqlm")
-    if m.model.lower() not in ("model1", "model3"):
-        raise later(f"model {m.model!r}", "model zoo")
+    if m.model.lower() == "resnet18":
+        raise later("model 'resnet18'", "ResNet-18")
+    if m.model.lower() not in LAYERS:
+        raise ValueError(f"unknown model {m.model!r}; one of "
+                         f"{sorted([*LAYERS, 'resnet18', 'transformer'])}")
     for knob in ("compute_dtype", "param_dtype"):
         if getattr(m, knob) not in DTYPES:
             raise ValueError(f"unknown model.{knob} {getattr(m, knob)!r}; "
@@ -153,11 +183,15 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g is None:
         raise ValueError("cfg.gossip must be set for GossipTrainer")
     validate_common(cfg)
-    if g.algorithm != "dsgd":
-        raise later(f"gossip algorithm {g.algorithm!r}", "gossip algorithms")
+    if g.algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown gossip algorithm {g.algorithm!r}; one of "
+                         f"{'|'.join(ALGORITHMS)}")
+    if g.algorithm == "choco":
+        raise later("gossip algorithm 'choco'", "codecs")
+    if g.eval_mode not in ("full", "sharded"):
+        raise ValueError(f"unknown eval_mode {g.eval_mode!r}; one of "
+                         "full|sharded")
     for knob, default, slice_name in (
-            ("eps", 1, "gossip algorithms"),
-            ("faithful_bugs", False, "gossip algorithms"),
             ("choco_gamma", 1.0, "codecs"), ("compression", "topk", "codecs"),
             ("compression_ratio", 1.0, "codecs"), ("qsgd_levels", 0, "codecs"),
             ("correction", "none", "faults"), ("dropout", 0.0, "faults")):
@@ -168,8 +202,6 @@ def validate_slice(cfg: ExperimentConfig) -> None:
                          "off|on")
     if g.diagnostics == "on":
         raise later("diagnostics='on'", "telemetry")
-    if g.eval_mode != "full":
-        raise later(f"eval_mode={g.eval_mode!r}", "gossip algorithms")
     if g.mixing != "sync":
         raise later(f"mixing={g.mixing!r}", "async and one-peer mixing")
     if g.prefetch not in ("off", "on"):
@@ -184,6 +216,22 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g.fused_update not in ("off", "on"):
         raise ValueError(f"unknown fused_update {g.fused_update!r}; "
                          "one of off|on")
+    if g.fused_update == "on" and g.algorithm not in ("dsgd", "gossip"):
+        raise ValueError(
+            "fused_update='on' fuses the single dense consensus sweep with "
+            f"the update; algorithm {g.algorithm!r} has no such sweep to "
+            "fuse (dsgd|gossip: fedlcon's eps sweeps re-enter the matrix, "
+            "nocons/centralized never mix)")
+
+
+def centralized_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """dopt's rewrite of ``algorithm="centralized"``: one worker on the
+    whole IID training set, one local epoch a round, run as ``nocons``
+    (a new frozen config; the caller's is untouched)."""
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, num_users=1, iid=True),
+        gossip=dataclasses.replace(cfg.gossip, local_ep=1,
+                                   algorithm="nocons"))
 
 
 def load_device_data(trainer, cfg: ExperimentConfig, dev: torch.device, *,
@@ -277,7 +325,8 @@ def steps_per_round(train_matrix: np.ndarray, local_bs: int,
 
 
 class GossipTrainer:
-    """Synchronous D-SGD over ``cfg.data.num_users`` workers on one device.
+    """Synchronous gossip over ``cfg.data.num_users`` workers on one
+    device: dsgd, nocons, centralized, fedlcon or pairwise gossip.
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
@@ -305,6 +354,8 @@ class GossipTrainer:
         if eval_every < 1:
             raise ValueError(f"eval_every={eval_every} must be >= 1")
         self.device = dev = resolve_device(device)
+        if cfg.gossip.algorithm == "centralized":
+            cfg = centralized_config(cfg)
         g, mc = cfg.gossip, cfg.model
         self.cfg = cfg
         self.eval_every = eval_every
@@ -316,6 +367,15 @@ class GossipTrainer:
         load_device_data(self, cfg, dev, local_bs=g.local_bs)
         self.steps_per_round = steps_per_round(self._train_matrix,
                                                g.local_bs, g.local_ep)
+        # Sharded eval: each worker's round-robin shard of the test rows,
+        # gathered from the uploaded eval stack (its first n rows are the
+        # test set in order).
+        self._eval_shards = None
+        if g.eval_mode == "sharded":
+            si, sw = sharded_eval_batches(len(self.dataset.test_y), w,
+                                          batch_size=max(g.local_bs, 256))
+            self._eval_shards = (torch.from_numpy(si.astype(np.int64)).to(dev),
+                                 torch.from_numpy(sw).to(dev))
         # Per-epoch per-worker rows, filled when the holdout is on (P2
         # Client.history {iter, train_loss, train_acc, val_acc, val_loss}
         # plus round and worker columns; val_loss is P2's mean flavour).
@@ -326,8 +386,9 @@ class GossipTrainer:
         self.param_count = sum(v.numel() for v in p0.values())
         stacked = {k: v.expand(w, *v.shape).contiguous().to(dev)
                    for k, v in p0.items()}
-        self.model = StackedCNN(stacked, faithful=mc.faithful,
-                                dtype=DTYPES[mc.compute_dtype])
+        self.model = StackedModel(mc.model.lower(), stacked,
+                                  faithful=mc.faithful,
+                                  dtype=DTYPES[mc.compute_dtype])
         self._names = [k for k, _ in self.model.named_parameters()]
         self._params = list(self.model.parameters())
         self.momentum = [torch.zeros_like(p) for p in self._params]
@@ -335,9 +396,17 @@ class GossipTrainer:
         for x in (cfg.optim.lr, cfg.optim.momentum):
             rounded(float(x), DTYPES[mc.param_dtype])
 
-        self.mixing = build_mixing_matrices(
+        # Mixing: a topology's schedule (dsgd, fedlcon), or a matching
+        # drawn each round from a stateful stream (gossip); nocons does
+        # not mix.  fedlcon runs eps sweeps a round, each on the previous
+        # sweep's output (one with faithful_bugs).
+        self.mixing = (build_mixing_matrices(
             g.topology, g.mode, w, seed=cfg.seed, self_weight=g.self_weight,
             groups=g.hier_groups, period=g.hier_period)
+            if g.algorithm in SCHEDULED else None)
+        self._matching_rng = host_rng(cfg.seed, 60551)
+        self._sweeps = (g.eps if g.algorithm == "fedlcon"
+                        and not g.faithful_bugs else 1)
 
         # Fused epilogue carry: q (post-mix state) and fbuf (displacement
         # to the post-local endpoint) as flat bucket stores; round −1's
@@ -360,14 +429,29 @@ class GossipTrainer:
         self.graphs = RoundGraphs(self._body, self._slot)
 
     # -- one round: host stage, device body -----------------------------
-    def _round_inputs(self, t: int) -> dict[str, np.ndarray]:
-        """Round t's host inputs: the mixing matrix and the batch plan."""
+    def _matrix_for_round(self, t: int) -> np.ndarray | None:
+        """Round t's mixing matrix, or None where the algorithm does not
+        mix.  The matching draw advances its stream: call once a round,
+        in round order, on the caller's thread."""
+        if self.cfg.gossip.algorithm == "gossip":
+            return random_matching_matrix(self.num_workers,
+                                          self._matching_rng)
+        if self.mixing is not None:
+            return self.mixing.for_round(t)
+        return None
+
+    def _round_inputs(self, t: int, w_t: np.ndarray | None
+                      ) -> dict[str, np.ndarray]:
+        """Round t's host inputs: the drawn mixing matrix ``w_t`` (if
+        any) and the batch plan."""
         g = self.cfg.gossip
         plan = make_batch_plan(self._train_matrix, batch_size=g.local_bs,
                                local_ep=g.local_ep, seed=self.cfg.seed,
                                round_idx=t)
-        return {"w": self.mixing.for_round(t).astype(np.float32),
-                "idx": plan.idx.astype(np.int64), "bw": plan.weight}
+        out = {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
+        if w_t is not None:
+            out["w"] = w_t.astype(np.float32)
+        return out
 
     @torch.no_grad()
     def _consensus(self, w_t: torch.Tensor) -> None:
@@ -379,9 +463,22 @@ class GossipTrainer:
             for k, p in zip(self._names, self._params):
                 p.copy_(q[k])
             return
-        mixed = mix_dense(dict(zip(self._names, self._params)), w_t)
+        mixed = dict(zip(self._names, self._params))
+        for _ in range(self._sweeps):
+            mixed = mix_dense(mixed, w_t)
         for k, p in zip(self._names, self._params):
             p.copy_(mixed[k])
+
+    def _evaluate_round(self) -> dict[str, torch.Tensor]:
+        """The in-training test eval: every worker on the whole test
+        stack, or (sharded) each on its own shard of it."""
+        if self._eval_shards is None:
+            return stacked_evaluate(self.model, self.num_workers, *self._eval)
+        ex, ey, _ = self._eval
+        return stacked_eval_gathered(
+            self.model, *self._eval_shards,
+            ex.reshape(-1, *self._sample_shape), ey.reshape(-1),
+            self._sample_shape)
 
     def _body(self, inp: dict[str, torch.Tensor], do_eval: bool) -> None:
         """The round on the device: consensus → eval (flagged rounds) →
@@ -389,9 +486,9 @@ class GossipTrainer:
         written in place and nothing touches the host, so the body can
         be captured (``RoundGraphs``)."""
         cfg, g = self.cfg, self.cfg.gossip
-        self._consensus(inp["w"])
-        ev = (stacked_evaluate(self.model, self.num_workers, *self._eval)
-              if do_eval else None)
+        if "w" in inp:
+            self._consensus(inp["w"])
+        ev = self._evaluate_round() if do_eval else None
         losses, accs, em = local_steps(
             self.model, dict(zip(self._names, self._params)),
             dict(zip(self._names, self.momentum)), inp["idx"], inp["bw"],
@@ -438,16 +535,18 @@ class GossipTrainer:
 
     # -- blocks: the stateful draw, the pure build, the rows -----------
     def _draw_block(self, ts: list[int]) -> dict:
-        """The block's rounds and which of them evaluate (the graph
-        kinds).  The port's mixing schedules are stateless
-        (``matrices[t % len]``), so nothing else is drawn."""
-        return {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts]}
+        """The block's rounds, which of them evaluate (the graph kinds)
+        and their mixing matrices: the matching stream advances here,
+        on the caller's thread, in round order."""
+        return {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts],
+                "ws": [self._matrix_for_round(t) for t in ts]}
 
     def _build_block(self, meta: dict) -> dict:
-        """The block's mixing matrices and batch plans, stacked and
+        """The block's batch plans beside its drawn matrices, stacked and
         uploaded: pure, so the prefetch stager may run it on its
         background thread."""
-        rounds = [self._round_inputs(t) for t in meta["ts"]]
+        rounds = [self._round_inputs(t, w_t)
+                  for t, w_t in zip(meta["ts"], meta["ws"])]
         meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
                               for k in rounds[0]}, self.device)
         return meta
@@ -457,12 +556,15 @@ class GossipTrainer:
             self._record(t, v, do_eval)
             self.round += 1
 
-    def run(self, rounds: int | None = None, block: int | None = None,
-            checkpoint_every: int = 0, checkpoint_path=None) -> History:
+    def run(self, rounds: int | None = None, eps: int | None = None,
+            block: int | None = None, checkpoint_every: int = 0,
+            checkpoint_path=None) -> History:
         """Train ``rounds`` rounds (default ``cfg.gossip.rounds``) in
         blocks of ``block`` (default ``cfg.gossip.block_rounds``; the
         last block may be shorter); ``self.round`` persists across
-        calls, as in the reference.
+        calls, as in the reference.  ``eps`` is dopt's (the reference
+        FedLCon's ``run(rounds, eps)``): fedlcon takes its sweeps from
+        ``gossip.eps`` and refuses another value here.
 
         ``checkpoint_every=K`` (with ``checkpoint_path``) saves the whole
         state every K rounds — per-round runs after each round t with
@@ -472,6 +574,10 @@ class GossipTrainer:
         continuous run bit for bit."""
         g = self.cfg.gossip
         rounds = g.rounds if rounds is None else rounds
+        if eps is not None and eps != g.eps and g.algorithm == "fedlcon":
+            raise ValueError("set eps in GossipConfig (a trainer's sweep "
+                             "count is fixed at construction, as dopt's "
+                             "is fixed at compilation)")
         block = g.block_rounds if block is None else block
         check_checkpoint_args(checkpoint_every, checkpoint_path)
         t0 = time.perf_counter()
@@ -484,9 +590,9 @@ class GossipTrainer:
                 for _ in range(rounds):
                     t = self.round
                     do_eval = t % self.eval_every == 0
+                    inp = self._round_inputs(t, self._matrix_for_round(t))
                     self._body({k: torch.from_numpy(v).to(self.device)
-                                for k, v in self._round_inputs(t).items()},
-                               do_eval)
+                                for k, v in inp.items()}, do_eval)
                     # ONE device→host fetch per round.
                     self._record(t, self._slot.cpu().numpy(), do_eval)
                     self.round += 1
@@ -502,17 +608,18 @@ class GossipTrainer:
         ``[W, ...]`` trees in the port's layout, and with
         ``fused_update="on"`` the displacement ``fused_buf`` — the
         carried params are then the post-mix q, as in dopt — plus
-        dopt's meta keys (round, History and client rows; the fault
-        ledger and the screen's host mirrors, empty until the faults
-        slice)."""
+        dopt's meta keys (round, History and client rows, the matching
+        stream's state; the fault ledger and the screen's host mirrors,
+        empty until the faults slice)."""
         arrays = {"momentum": dict(zip(self._names, self.momentum))}
         if self._fused_on:
             arrays["params"] = flat_views(self._q, self.fused_spec)
             arrays["fused_buf"] = flat_views(self._fbuf, self.fused_spec)
         else:
             arrays["params"] = dict(zip(self._names, self._params))
-        save_checkpoint(path, arrays=arrays,
-                        meta=checkpoint_meta(self, self.cfg.gossip.algorithm))
+        meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
+        meta["matching_rng_state"] = self._matching_rng.bit_generator.state
+        save_checkpoint(path, arrays=arrays, meta=meta)
 
     def restore(self, path) -> None:
         """Resume from a checkpoint written by ``save`` (same config), or
@@ -555,6 +662,9 @@ class GossipTrainer:
             copy_into(dict(zip(self._names, self._params)), tree["params"],
                       what="params")
         restore_meta(self, meta)
+        if meta.get("matching_rng_state"):
+            self._matching_rng.bit_generator.state = meta[
+                "matching_rng_state"]
 
     # -- state ----------------------------------------------------------
     @torch.no_grad()
@@ -575,13 +685,14 @@ class GossipTrainer:
                 for k, v in self._debiased_params().items()}
 
     def evaluate(self) -> dict[str, np.ndarray]:
-        """Reference-semantics eval: every worker on the full test set."""
+        """Reference-semantics eval: every worker on the full test set,
+        whatever ``eval_mode`` (which sets the in-training metric only)."""
         params = self._debiased_params()
         mc = self.cfg.model
         with full_f32(self.device), deterministic(self.device):
             out = stacked_evaluate(
-                lambda x: stacked_cnn_forward(
-                    params, x, faithful=mc.faithful,
+                lambda x: stacked_forward(
+                    mc.model.lower(), params, x, faithful=mc.faithful,
                     dtype=DTYPES[mc.compute_dtype]),
                 self.num_workers, *self._eval)
         return {k: v.cpu().numpy() for k, v in out.items()}

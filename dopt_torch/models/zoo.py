@@ -1,26 +1,31 @@
-"""The reference CNNs as worker-stacked PyTorch modules.
+"""The reference CNNs and the dense models as worker-stacked PyTorch
+modules.
 
-Counterpart of dopt's Model1/Model3 (``dopt/models/zoo.py``) in the
-form its engines actually run them: ``_make_stacked_cnn_apply``, the
-whole fleet's forward as one program.  Every parameter carries a
-leading worker axis ``[W, ...]`` and each conv is ONE grouped
+Counterpart of dopt's Model1/Model3, MLP and LogisticRegression
+(``dopt/models/zoo.py``) in the form its engines run them: the whole
+fleet's forward as one program.  Every parameter carries a leading
+worker axis ``[W, ...]``.  Each conv is ONE grouped
 ``F.conv2d(..., groups=W)`` over worker-major channels, so worker w's
-channels meet only worker w's kernel.  The two dense layers are batched
-``torch.baddbmm`` products over the worker axis.
+channels meet only worker w's kernel (dopt's
+``_make_stacked_cnn_apply``); each dense layer is a batched
+``torch.baddbmm`` over the worker axis.
 
 Parameters use PyTorch's own layouts (conv ``[W, Cout, Cin, kh, kw]``,
-linear ``[W, out, in]``, fc1's input in CHW flatten order);
+linear ``[W, out, in]``, the CNN's fc1 input in CHW flatten order);
 ``dopt_torch.convert`` maps them to and from dopt's flax trees.  The
-public input stays dopt's NHWC ``[W, B, H, Wd, C]``.
+public input stays dopt's NHWC ``[W, B, H, Wd, C]`` (``[W, B, D]`` for
+tabular rows); the MLP and the logistic model flatten it in HWC order,
+as flax's ``reshape`` does, so their first layer needs no reordering.
 
-bf16 compute (``dtype=torch.bfloat16``) casts where dopt's grouped
-forward casts (``_make_stacked_cnn_apply``, ``_head``): the input and
-every weight and bias go to bf16, the convs and dense layers run in
-bf16, and the softmax of the faithful head runs in f32; the corrected
-head computes its logits layer in f32 on an f32 copy of the activation.
-Autograd through the casts hands f32 gradients to f32 parameters, as
-dopt's cast VJP does.  No ``torch.autocast``: its op lists pick their
-own cast points.
+bf16 compute (``dtype=torch.bfloat16``) casts where dopt's forwards
+cast: the input and every weight and bias go to bf16, the convs and
+dense layers run in bf16, and a faithful head's softmax runs in f32
+(``_head``).  The CNN's corrected head computes its logits layer in f32
+on an f32 copy of the activation (zoo.py:136-145); the MLP and the
+logistic model compute every layer, head included, in the compute
+dtype.  Autograd through the casts hands f32 gradients to f32
+parameters, as dopt's cast VJP does.  No ``torch.autocast``: its op
+lists pick their own cast points.
 
 Faithful quirks (``faithful=True``): no activation after the convs and
 a softmax head, so the cross-entropy on top is the reference's double
@@ -40,14 +45,27 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 _HIDDEN = {"model1": 512, "model3": 256}
+MLP_HIDDEN = (200, 200)
+# Each model's layers, in the order its parameters are registered.
+LAYERS = {"model1": ("conv1", "conv2", "fc1", "fc2"),
+          "model3": ("conv1", "conv2", "fc1", "fc2"),
+          "mlp": ("fc1", "fc2", "head"), "logistic": ("linear",)}
 
 
 def param_shapes(name: str, *, num_classes: int = 10,
                  input_shape: tuple[int, ...] = (28, 28, 1)
                  ) -> dict[str, tuple[int, ...]]:
-    """Per-worker parameter shapes of Model1/Model3, in PyTorch layout."""
-    if name not in _HIDDEN:
-        raise ValueError(f"unknown model {name!r}; one of {sorted(_HIDDEN)}")
+    """Per-worker parameter shapes of a zoo model, in PyTorch layout."""
+    if name not in LAYERS:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(LAYERS)}")
+    if name == "mlp":
+        a, b = MLP_HIDDEN
+        return {"fc1.weight": (a, math.prod(input_shape)), "fc1.bias": (a,),
+                "fc2.weight": (b, a), "fc2.bias": (b,),
+                "head.weight": (num_classes, b), "head.bias": (num_classes,)}
+    if name == "logistic":
+        return {"linear.weight": (num_classes, math.prod(input_shape)),
+                "linear.bias": (num_classes,)}
     h, w, c = input_shape
     hidden = _HIDDEN[name]
     flat = 64 * (h // 2 // 2) * (w // 2 // 2)
@@ -63,9 +81,10 @@ def init_worker_params(name: str, *, num_classes: int = 10,
                        input_shape: tuple[int, ...] = (28, 28, 1),
                        generator: torch.Generator | None = None
                        ) -> dict[str, torch.Tensor]:
-    """One worker's init with flax's defaults: LeCun-normal weights
-    (normal truncated at ±2σ, σ = √(1/fan_in)/0.8796…) and zero biases.
-    Drawn on the CPU, so a seed gives the same init on every device."""
+    """One worker's init of a zoo model with flax's defaults: LeCun-normal
+    weights (normal truncated at ±2σ, σ = √(1/fan_in)/0.8796…) and zero
+    biases.  Drawn on the CPU, so a seed gives the same init on every
+    device."""
     out = {}
     for key, shape in param_shapes(name, num_classes=num_classes,
                                    input_shape=input_shape).items():
@@ -189,6 +208,36 @@ def stacked_cnn_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
     return torch.softmax(z, dim=-1) if faithful else z
 
 
+def stacked_dense_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
+                          *, layers: tuple[str, ...], faithful: bool,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The MLP's or the logistic model's fleet forward: ``[W, B, ...]``
+    inputs, flattened per sample in HWC order, through ``layers`` (a
+    ReLU after each but the last), every layer in ``dtype`` → f32
+    ``[W, B, num_classes]`` (probabilities when faithful)."""
+    w, b = x.shape[:2]
+    z = x.to(dtype).reshape(w, b, -1).transpose(1, 2)    # [W, D, B]
+    for i, layer in enumerate(layers):
+        z = _stacked_linear(z, params[f"{layer}.weight"],
+                            params[f"{layer}.bias"], dtype)
+        if i < len(layers) - 1:
+            z = F.relu(z)
+    z = z.transpose(1, 2).float()             # [W, B, num_classes]
+    return torch.softmax(z, dim=-1) if faithful else z
+
+
+def stacked_forward(name: str, params: dict[str, torch.Tensor],
+                    x: torch.Tensor, *, faithful: bool,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fleet's forward of zoo model ``name`` (``LAYERS``' keys)."""
+    if name not in LAYERS:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(LAYERS)}")
+    if name in _HIDDEN:
+        return stacked_cnn_forward(params, x, faithful=faithful, dtype=dtype)
+    return stacked_dense_forward(params, x, layers=LAYERS[name],
+                                 faithful=faithful, dtype=dtype)
+
+
 class _Layer(nn.Module):
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
         super().__init__()
@@ -196,22 +245,34 @@ class _Layer(nn.Module):
         self.bias = nn.Parameter(bias)
 
 
-class StackedCNN(nn.Module):
-    """Model1 (hidden 512, 1,663,370 params a worker on 28×28×1) or
-    Model3 (hidden 256) for a fleet of workers, built from a dict of
+class StackedModel(nn.Module):
+    """Zoo model ``name`` for a fleet of workers, built from a dict of
     ``[W, ...]`` tensors in ``param_shapes`` layout (stored in their own
-    dtype) and computing in ``dtype``."""
+    dtype) and computing in ``dtype``; its parameters are registered in
+    ``LAYERS[name]`` order.  Model1 has 1,663,370 params a worker on
+    28×28×1, Model3 1,105,098 on 32×32×3, the MLP 199,210 on 28×28×1 and
+    the logistic model 248 on a9a's 123 features."""
 
-    def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, name: str, params: dict[str, torch.Tensor], *,
+                 faithful: bool, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.model_name = name
         self.faithful = faithful
         self.compute_dtype = dtype
-        for layer in ("conv1", "conv2", "fc1", "fc2"):
+        for layer in LAYERS[name]:
             setattr(self, layer, _Layer(params[f"{layer}.weight"],
                                         params[f"{layer}.bias"]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return stacked_cnn_forward(dict(self.named_parameters()), x,
-                                   faithful=self.faithful,
-                                   dtype=self.compute_dtype)
+        return stacked_forward(self.model_name, dict(self.named_parameters()),
+                               x, faithful=self.faithful,
+                               dtype=self.compute_dtype)
+
+
+class StackedCNN(StackedModel):
+    """Model1 or Model3 (they differ only in fc1's width, which the
+    params carry)."""
+
+    def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__("model1", params, faithful=faithful, dtype=dtype)

@@ -6,8 +6,16 @@ lr 0.1, rho 0.1, IID, seed 2022, the deterministic 90/10 local
 holdout); ``reference-dsgd-*`` replay the P2 grid (``Weighted
 Average.ipynb`` cell 11: 6 workers, 10 rounds, local_ep 4, bs 128,
 lr 0.01, momentum 0.5, non-IID 2 shards, seed 2028, the random 90/10
-holdout) — both exactly as dopt.presets types them.  ``baseline3`` is
-dopt's BASELINE.json FedAvg config.
+holdout) — both exactly as dopt.presets types them, and so do
+``reference-nocons-{iid,noniid}``, ``reference-centralized``,
+``reference-fedlcon`` (eps 5) and ``reference-gossip`` (pairwise
+matching), the P2 study's other algorithms.  ``baseline1`` (4-worker
+MNIST MLP, metropolis ring), ``baseline2`` (16-worker Model3 on
+CIFAR-10, doubly-stochastic ring), ``baseline3`` (16-client FedAvg) and
+``baseline4`` (16-worker FedADMM logistic regression on a9a) are dopt's
+BASELINE.json configs.  Dataset sizes are the real datasets'; without
+raw files on disk the loaders fall back to the shape-compatible
+synthetic set.
 
 ``headline-dsgd-model1`` is dopt's bench.py headline workload
 (``_config(fast=False)``: f32, numpy planner, faithful Model1, 60,000 /
@@ -27,6 +35,7 @@ from dopt_torch.config import (DataConfig, ExperimentConfig, FederatedConfig,
                                GossipConfig, ModelConfig, OptimizerConfig)
 
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
+CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
 
 
 def _mnist_data(num_users: int, iid: bool, shards: int = 2,
@@ -34,6 +43,12 @@ def _mnist_data(num_users: int, iid: bool, shards: int = 2,
     return DataConfig(dataset="mnist", num_users=num_users, iid=iid,
                       shards=shards, synthetic_train_size=MNIST_TRAIN,
                       synthetic_test_size=MNIST_TEST, **kw)
+
+
+def _cifar_data(num_users: int, iid: bool, shards: int = 2) -> DataConfig:
+    return DataConfig(dataset="cifar10", num_users=num_users, iid=iid,
+                      shards=shards, synthetic_train_size=CIFAR_TRAIN,
+                      synthetic_test_size=CIFAR_TEST)
 
 
 def reference_federated(algorithm: str = "fedavg") -> ExperimentConfig:
@@ -74,8 +89,8 @@ def headline_fedavg_model1() -> ExperimentConfig:
 
 
 def reference_gossip(algorithm: str = "dsgd", topology: str = "circle",
-                     mode: str = "stochastic",
-                     iid: bool = False) -> ExperimentConfig:
+                     mode: str = "stochastic", iid: bool = False,
+                     eps: int = 1) -> ExperimentConfig:
     """P2 notebook setup (cell 11): 6 workers, the topology/mode grid."""
     return ExperimentConfig(
         name=f"reference-{algorithm}-{topology}-{mode}", seed=2028,
@@ -84,7 +99,52 @@ def reference_gossip(algorithm: str = "dsgd", topology: str = "circle",
         model=ModelConfig(model="model1", faithful=True),
         optim=OptimizerConfig(lr=0.01, momentum=0.5),
         gossip=GossipConfig(algorithm=algorithm, topology=topology, mode=mode,
-                            rounds=10, local_ep=4, local_bs=128),
+                            rounds=10, local_ep=4, local_bs=128, eps=eps),
+    )
+
+
+def baseline_1_ring_mnist_mlp() -> ExperimentConfig:
+    """4-worker weighted-average consensus, ring mixing, MNIST MLP."""
+    return ExperimentConfig(
+        name="baseline1-ring-mnist-mlp", seed=2028,
+        data=_mnist_data(4, iid=False),
+        model=ModelConfig(model="mlp", faithful=False),
+        optim=OptimizerConfig(lr=0.05, momentum=0.5),
+        gossip=GossipConfig(algorithm="dsgd", topology="circle",
+                            mode="metropolis", rounds=20, local_ep=2,
+                            local_bs=64),
+    )
+
+
+def baseline_2_dsgd_cifar_cnn() -> ExperimentConfig:
+    """16-worker D-SGD, doubly-stochastic mixing, CIFAR-10 small CNN
+    (dopt's lr/momentum choice, 0.01/0.5)."""
+    return ExperimentConfig(
+        name="baseline2-dsgd16-cifar-cnn", seed=1,
+        data=_cifar_data(16, iid=False),
+        model=ModelConfig(model="model3", faithful=False,
+                          input_shape=(32, 32, 3)),
+        optim=OptimizerConfig(lr=0.01, momentum=0.5),
+        gossip=GossipConfig(algorithm="dsgd", topology="circle",
+                            mode="double_stochastic", rounds=100, local_ep=1,
+                            local_bs=64),
+    )
+
+
+def baseline_4_admm_a9a() -> ExperimentConfig:
+    """ADMM dual decomposition, 16 workers, ℓ2-regularised logistic
+    regression on a9a (λ = 1e-4 as ``optim.weight_decay``, a loss term)."""
+    return ExperimentConfig(
+        name="baseline4-admm16-a9a", seed=0,
+        data=DataConfig(dataset="a9a", num_users=16, iid=True,
+                        synthetic_train_size=32_561,
+                        synthetic_test_size=16_281),
+        model=ModelConfig(model="logistic", num_classes=2,
+                          input_shape=(123,), faithful=False),
+        optim=OptimizerConfig(lr=0.05, momentum=0.0, rho=1.0,
+                              weight_decay=1e-4),
+        federated=FederatedConfig(algorithm="fedadmm", frac=1.0, rounds=50,
+                                  local_ep=2, local_bs=128),
     )
 
 
@@ -131,7 +191,15 @@ PRESETS = {
     "reference-fedprox": lambda: reference_federated("fedprox"),
     "reference-fedadmm": lambda: reference_federated("fedadmm"),
     "reference-scaffold": lambda: reference_federated("scaffold"),
+    "reference-centralized": lambda: reference_gossip("centralized"),
+    "reference-nocons-iid": lambda: reference_gossip("nocons", iid=True),
+    "reference-nocons-noniid": lambda: reference_gossip("nocons"),
+    "reference-fedlcon": lambda: reference_gossip("fedlcon", eps=5),
+    "reference-gossip": lambda: reference_gossip("gossip"),
+    "baseline1": baseline_1_ring_mnist_mlp,
+    "baseline2": baseline_2_dsgd_cifar_cnn,
     "baseline3": baseline_3_fedavg_noniid,
+    "baseline4": baseline_4_admm_a9a,
     "reference-dsgd-star": lambda: reference_gossip("dsgd", "star"),
     "reference-dsgd-circle": lambda: reference_gossip("dsgd", "circle"),
     "reference-dsgd-complete": lambda: reference_gossip("dsgd", "complete"),

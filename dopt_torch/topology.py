@@ -283,3 +283,20 @@ def build_mixing_matrices(
         mats = [(m + np.eye(n)) / 2.0 for m in mats]
 
     return MixingMatrices(topology=topology, mode=mode_l, matrices=tuple(mats))
+
+
+def random_matching_matrix(n: int, rng: np.random.Generator) -> np.ndarray:
+    """One round of pairwise gossip (``algorithm="gossip"``): a random
+    perfect matching drawn from ``rng``, each matched pair averaging
+    (w = 1/2 each), the unmatched worker of an odd n keeping its own
+    params.  dopt's draw (dopt/engine/gossip.py:81-97), bit for bit."""
+    w = np.zeros((n, n))
+    perm = rng.permutation(n)
+    for k in range(0, n - 1, 2):
+        i, j = perm[k], perm[k + 1]
+        w[i, i] = w[j, j] = 0.5
+        w[i, j] = w[j, i] = 0.5
+    if n % 2:
+        i = perm[-1]
+        w[i, i] = 1.0
+    return w

@@ -60,8 +60,6 @@ def _set(cfg, section, **kw):
 
 # (section or None for the top level, field, a non-default value, slice)
 GOSSIP_ONLY = [
-    ("gossip", "eps", 2, "gossip algorithms"),
-    ("gossip", "faithful_bugs", True, "gossip algorithms"),
     ("gossip", "choco_gamma", 0.5, "codecs"),
     ("gossip", "compression", "qsgd", "codecs"),
     ("gossip", "compression_ratio", 0.25, "codecs"),
@@ -97,6 +95,18 @@ def test_unported_values_refused_naming_their_slice(section, field, value,
     for cls, base in engines:
         with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
             cls(_with(base, sec, field, value), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("eps", 2), ("faithful_bugs", True)])
+def test_gossip_algorithm_knobs_accepted(field, value):
+    """fedlcon's knobs, refused until the gossip algorithms slice, are
+    accepted on every algorithm, as dopt accepts them (dsgd ignores
+    them), and a fedlcon trainer takes them."""
+    for algorithm in ("dsgd", "fedlcon"):
+        cfg = _set(_gossip(), "gossip", algorithm=algorithm,
+                   **{field: value})
+        tr = GossipTrainer(cfg, device="cpu")
+        assert getattr(tr.cfg.gossip, field) == value
 
 
 @pytest.mark.parametrize("section,field,value,why", [

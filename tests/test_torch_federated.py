@@ -256,7 +256,7 @@ def _opt(cfg, **kw):
     (lambda c: c.replace(data=dataclasses.replace(
         c.data, plan_impl="native")), "'native planner'"),
     (lambda c: c.replace(model=dataclasses.replace(
-        c.model, model="resnet18")), "'model zoo'"),
+        c.model, model="resnet18")), "'ResNet-18'"),
     (lambda c: c.replace(faults=object()), "'faults'"),
     (lambda c: c.replace(robust=object()), "'robust'"),
     (lambda c: c.replace(population=object()), "'population'"),

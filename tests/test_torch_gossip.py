@@ -144,19 +144,20 @@ def _replace(cfg, section, **kw):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda c: _replace(c, "gossip", algorithm="fedlcon"), "gossip algorithm"),
+    (lambda c: _replace(c, "gossip", algorithm="choco"), "codecs"),
     (lambda c: _replace(c, "gossip", update_sharding="scatter"),
      "scatter and multi-GPU"),
     (lambda c: _replace(c, "gossip", comm_dtype="bfloat16"), "codecs"),
     (lambda c: _replace(c, "gossip", comm_impl="shift"), "scatter"),
     (lambda c: _replace(c, "gossip", mixing="async"), "async"),
-    (lambda c: _replace(c, "gossip", eval_mode="sharded"), "eval_mode"),
+    (lambda c: _replace(c, "gossip", eval_mode="stratified"),
+     "unknown eval_mode 'stratified'; one of full|sharded"),
     (lambda c: _replace(c, "data", local_holdout=0.1,
                         holdout_mode="stratified"), "holdout"),
     (lambda c: _replace(c, "data", plan_impl="native"), "native planner"),
     (lambda c: _replace(c, "model", compute_dtype="float16"),
      "unknown model.compute_dtype"),
-    (lambda c: _replace(c, "model", model="resnet18"), "model zoo"),
+    (lambda c: _replace(c, "model", model="resnet18"), "ResNet-18"),
     (lambda c: _replace(c, "model", model="transformer"), "seqlm"),
     (lambda c: c.replace(faults=object()), "faults"),
     (lambda c: c.replace(robust=object()), "robust"),
@@ -216,7 +217,10 @@ def test_port_imports_nothing_of_jax_or_dopt(tmp_path):
     """A fresh interpreter imports dopt_torch and runs CPU gossip and
     federated rounds, per-round and in prefetched blocks (the graphs and
     prefetch modules), and saves and restores a checkpoint in both
-    engines; neither jax, flax, orbax nor dopt may be loaded.  The
+    engines; runs the MLP through matching, fedlcon and centralized with
+    the sharded eval and checkpoints, the logistic model through
+    ``baseline4`` and loads the FMNIST and CIFAR fallbacks; neither jax,
+    flax, orbax nor dopt may be loaded.  The
     sources must not import them either."""
     code = (
         "import sys\n"
@@ -241,6 +245,25 @@ def test_port_imports_nothing_of_jax_or_dopt(tmp_path):
         "tr.run(rounds=1); tr.run(rounds=3, block=2)\n"
         "tr.save(ck + '/f')\n"
         "dopt_torch.FederatedTrainer(fed, device='cpu').restore(ck + '/f')\n"
+        "for algo in ('gossip', 'fedlcon', 'centralized'):\n"
+        "    mlp = cfg.replace(model=C.ModelConfig(model='mlp',"
+        " input_shape=(8, 8, 1)), gossip=C.GossipConfig(algorithm=algo,"
+        " eps=2, local_ep=1, local_bs=16, eval_mode='sharded',"
+        " prefetch='on'))\n"
+        "    tr = dopt_torch.GossipTrainer(mlp, device='cpu')\n"
+        "    tr.run(rounds=3, block=2, checkpoint_every=2,"
+        " checkpoint_path=ck + '/' + algo)\n"
+        "    dopt_torch.GossipTrainer(mlp, device='cpu').restore("
+        "ck + '/' + algo)\n"
+        "from dopt_torch.presets import get_preset\n"
+        "from dopt_torch.run import apply_override\n"
+        "b4 = get_preset('baseline4')\n"
+        "for s in ('data.num_users=2', 'data.synthetic_train_size=64',"
+        " 'data.synthetic_test_size=16', 'federated.local_bs=16'):\n"
+        "    b4 = apply_override(b4, s)\n"
+        "dopt_torch.FederatedTrainer(b4, device='cpu').run(rounds=1)\n"
+        "for name in ('fmnist', 'cifar100'):\n"
+        "    dopt_torch.data.load_dataset(name, train_size=4, test_size=2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'dopt'))\n"
         "print('LOADED', bad)\n")

@@ -98,8 +98,10 @@ def test_datasets_bit_identical():
     for a, b in zip(tpipe.eval_batches(x, y, batch_size=32),
                     jpipe.eval_batches(x, y, batch_size=32), strict=True):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="not in the PyTorch port"):
-        tds.load_dataset("cifar10")
+    for load in (jds.load_dataset, tds.load_dataset):
+        with pytest.raises(FileNotFoundError,
+                           match="no raw files for 'imagenet'"):
+            load("imagenet")
 
 
 def test_idx_reader_and_raw_mnist_dir(tmp_path):
