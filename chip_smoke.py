@@ -111,6 +111,28 @@ baseline2's ring schedule and a matching at n = 5 (an identity row).
 Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
 (eps 3) and the sharded eval small on the GPU against the CPU.
 
+10. the gossip fault model at full width (MNIST-sized synthetic sets):
+   10a bench-chaos-baseline1-lossy as typed (bench.py's chaos cocktail:
+   4-worker MLP, bf16 compute, native plans, lossy links, stragglers,
+   scale lies, quarantine armed), 4 rounds per-round and then in blocks
+   of 2 (CUDA-graph replays): History, ledger (content and order) and
+   final state bit-identical, the ledger equal to the one the host
+   stage computes with no device run, rounds/s, peak memory and the
+   idle share of a profiled blocked round; 10b the same with
+   optim.fused_update (kernel 1 gated by the straggler budget, one
+   launch a step); 10c baseline1-faulty with both fused switches
+   (kernel 2 on crash- and partition-repaired matrices),
+   baseline1-byzantine for 9 rounds in blocks of 3 (the quarantine
+   fires at round 2 and readmits at round 8) and baseline1-lossy
+   (push-sum: node mass plus in-flight mass is 4); 10d
+   headline-dsgd-model1-faulty (Model1, 6 workers, both kernels),
+   killed after round 0 and resumed, bit-identical to the continuous
+   run; 10e the new call sites timed as 3b times the others: kernel 1
+   gated (bit-identical to torch.where over the plain step) at the MLP
+   and Model1 widths, kernel 2 on repaired matrices at n = 4 and n = 6.
+Phase 2 builds the native planner (g++) beside the kernels, and phase 4
+also runs two small faulty configurations on the GPU against the CPU.
+
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
 """
@@ -196,7 +218,7 @@ def same_state(label: str, want: dict, got: dict) -> None:
                 fail(f"{label}: {key} differ: {w} vs {g}")
             continue
         for k, a in w.items():
-            if not np.array_equal(a, g[k]):
+            if not np.array_equal(a, g[k], equal_nan=True):
                 fail(f"{label}: {key} {k} differs by up to "
                      f"{np.abs(a - g[k]).max():.3e}")
     print(f"{label}: bit-identical ({', '.join(want)})")
@@ -372,11 +394,34 @@ def main() -> None:
           f"count {torch.cuda.device_count()}")
 
     # -- 2. build ---------------------------------------------------------
+    # The kernels (nvcc) and the native planner (g++) build at once, one
+    # compiler process each.
+    import threading
+
+    from dopt_torch import native
+
     t = time.perf_counter()
+    planner: dict = {}
+
+    def build_planner():
+        try:
+            planner["path"] = native.build()
+            planner["s"] = time.perf_counter() - t
+        except Exception as e:   # reported, and the phase fails, below
+            planner["error"] = e
+
+    side = threading.Thread(target=build_planner)
+    side.start()
     lib_path = _build.build()
     _build.load_library()
     print(f"build: {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t:.2f} s")
+    side.join()
+    if "error" in planner:
+        fail(f"the native planner did not build: {planner['error']}")
+    native.load_native()
+    print(f"build: {planner['path'].relative_to(ROOT)} (g++, the native "
+          f"planner) in {planner['s']:.2f} s")
     report = _build.resource_report()
     for line in report.splitlines():
         if line.strip():
@@ -812,6 +857,27 @@ def main() -> None:
              GossipConfig(local_ep=1, local_bs=16, eval_mode="sharded",
                           fused_update="on"))):
         agree(label, GossipTrainer, gossip_tiny.replace(gossip=g), *gkeys)
+
+    # The fault model, small: crash, straggle and partition with both
+    # fused switches (kernel 1 gated, kernel 2 on repaired matrices), and
+    # the chaos cocktail's link path with corrupt sends and quarantine.
+    from dopt_torch.config import FaultConfig, RobustConfig
+
+    agree("faults: crash, straggle, partition, both fused switches",
+          GossipTrainer, gossip_tiny.replace(
+              gossip=GossipConfig(local_ep=2, local_bs=16,
+                                  fused_update="on"),
+              faults=FaultConfig(crash=0.3, straggle=0.5, straggle_frac=0.5,
+                                 partition=0.3)), *gkeys)
+    agree("faults: lossy links, push-sum, scale lies, quarantine, kernel 1",
+          GossipTrainer, gossip_tiny.replace(
+              gossip=GossipConfig(topology="circle", mode="metropolis",
+                                  local_ep=1, local_bs=16,
+                                  correction="push_sum"),
+              faults=FaultConfig(msg_drop=0.2, msg_delay=0.3, straggle=0.4,
+                                 corrupt=0.3, corrupt_mode="scale",
+                                 corrupt_scale=2.0),
+              robust=RobustConfig(quarantine_after=2)), *gkeys)
 
     def rel_l2(want: dict, got: dict) -> float:
         a = np.concatenate([want[k].ravel() for k in sorted(want)])
@@ -1361,6 +1427,279 @@ def main() -> None:
           f"{b1_rate['blocked'] / b1_rate['per-round']:.3f}x; {smi}")
     print(f"9: phases 9a-9f in {time.perf_counter() - t9:.1f} s")
 
+    # -- 10. the gossip fault model ----------------------------------------
+    t10 = time.perf_counter()
+    from dopt_torch.faults import FaultPlan
+
+    def fault_state(tr) -> dict:
+        """``state`` plus the fault model's carried state: the ledger,
+        the quarantine's host mirrors, push-sum's mass and the staleness
+        buffers."""
+        out = state(tr)
+        # Rows as JSON text, so NaN (an undefended lie's loss) compares
+        # equal to NaN.
+        out["rows"] = [json.dumps(r) for r in out["rows"]]
+        out["ledger"] = [dict(r) for r in tr.history.faults]
+        out["mirrors"] = [tr._screen_streak.tolist(),
+                          tr._quarantine_until.tolist()]
+        for name in ("_mass", "_link_buf_mass"):
+            if getattr(tr, name, None) is not None:
+                out[name] = {"": getattr(tr, name).cpu().numpy().copy()}
+        if getattr(tr, "_link_buf", None) is not None:
+            out["_link_buf"] = {k: v.float().cpu().numpy().copy()
+                                for k, v in tr._link_buf.items()}
+        return out
+
+    def host_ledger(cfg, n_rounds) -> list:
+        """The ledger dopt_torch.faults and the engine's host stage write
+        for ``cfg`` with no device run (on a config whose screen never
+        fires: the link path screens nothing)."""
+        tr = GossipTrainer(cfg, device="cpu")
+        rows = []
+        for t in range(n_rounds):
+            out = tr._round_inputs(t, tr._matrix_for_round(t))
+            rows += out[4]
+        del tr
+        return rows
+
+    def fault_run(label, cfg, n_rounds, block, want=None, want_launch=None,
+                  prof=False, finite=True):
+        """A fresh trainer on the card: n rounds in blocks of ``block``,
+        finite train losses (unless ``finite`` is off), rounds/s and peak
+        memory; against ``want``/``want_launch`` bit for bit when
+        given."""
+        base = torch.cuda.memory_allocated()
+        tr = GossipTrainer(cfg, device="cuda")
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=n_rounds, block=block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = launch_counts()
+        st = fault_state(tr)
+        peak = torch.cuda.max_memory_allocated() - base
+        if finite and not all(math.isfinite(r["avg_train_loss"])
+                              for r in tr.history.rows):
+            fail(f"10 {label}: non-finite train loss {st['rows']}")
+        print(f"10 {label}: {n_rounds} rounds, block {block}: "
+              f"{n_rounds / wall:.4f} rounds/s, peak {peak} B over what was "
+              f"allocated before, launches {got}, {len(st['ledger'])} ledger "
+              f"rows; {smi}")
+        if want is not None:
+            same_state(f"10 {label}, against per-round", want, st)
+            if got != want_launch:
+                fail(f"10 {label}: launches {got} != {want_launch}")
+        idle = (profile_round(f"10 {label}", functools.partial(
+            tr.run, rounds=1, block=block)) if prof else None)
+        return tr, st, got, n_rounds / wall, peak, idle
+
+    # 10a/10b: the chaos cocktail as typed, then with kernel 1 (gated).
+    chaos = get_preset("bench-chaos-baseline1-lossy")
+    chaos_rows = host_ledger(chaos, 4)
+    fault_rate, fault_launch = {}, {}
+    # The cocktail's scale lies reach the receivers undefended (the link
+    # path screens nothing, in dopt as here), so its losses may grow past
+    # the finite range within a few rounds; what holds it is the ledger
+    # and the bit-identity of its per-round and blocked runs.
+    for key, cfg in (("10a", chaos),
+                     ("10b", chaos.replace(optim=dataclasses.replace(
+                         chaos.optim, fused_update=True)))):
+        tr, ref, got, rate, peak, _ = fault_run(
+            f"{key} {cfg.name} per-round", cfg, 4, 1, finite=False)
+        steps_chaos = 4 * tr.steps_per_round
+        del tr
+        if ref["ledger"] != chaos_rows:
+            fail(f"{key}: the card's ledger differs from the host's: "
+                 f"{ref['ledger']} vs {chaos_rows}")
+        kinds = sorted({r["kind"] for r in ref["ledger"]})
+        print(f"{key} ledger: {len(chaos_rows)} rows ({kinds}) equal to "
+              "the host's dopt_torch.faults ledger")
+        tr, _, _, brate, bpeak, idle = fault_run(
+            f"{key} {cfg.name} blocked", cfg, 4, 2, ref, got, prof=True,
+            finite=False)
+        # The timed blocked run above includes round 0's eager warm-up
+        # and the capture; the steady rate is that of 4 replayed rounds.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=4, block=2)
+        torch.cuda.synchronize()
+        steady = 4 / (time.perf_counter() - t)
+        print(f"{key} {cfg.name}: steady blocked rate {steady:.4f} "
+              f"rounds/s (4 replayed rounds of blocks of 2, eval each "
+              f"round); graphs {tr.graphs.captures}")
+        losses = [r["avg_train_loss"] for r in tr.history.rows]
+        print(f"{key} train losses {losses}")
+        del tr
+        fault_rate[key] = (rate, brate, peak, bpeak, idle, steady)
+        fault_launch[{"10a": "bench-chaos-baseline1-lossy",
+                      "10b": "bench-chaos-baseline1-lossy-gated"}[key]] = got
+        print(f"{key} {cfg.name}: per-round {rate:.4f}, blocked {brate:.4f} "
+              f"(steady {steady:.4f}) rounds/s ({steady / rate:.3f}x); peak {peak} / {bpeak} B; "
+              f"idle share of a profiled blocked round {100 * idle:.1f}%; "
+              f"{smi}")
+        torch.cuda.empty_cache()
+    if fault_launch["bench-chaos-baseline1-lossy"]["fused_sgd_momentum"]:
+        fail("10a: kernel 1 launched on a run with optim.fused_update off")
+    got = fault_launch["bench-chaos-baseline1-lossy-gated"]
+    if got["fused_sgd_momentum"] != steps_chaos:
+        fail(f"10b: {got} launches of kernel 1, expected {steps_chaos} (one "
+             "a step)")
+
+    # 10c: dopt's three gossip fault presets at full width.
+    b1f = switched(get_preset("baseline1-faulty"))
+    tr, _, got, rate, peak, _ = fault_run("10c baseline1-faulty (both fused "
+                                          "switches)", b1f, rounds, 1)
+    fault_launch["baseline1-faulty"] = got
+    fault_rate["10c baseline1-faulty"] = (rate, None, peak, None, None, None)
+    if got["fused_mix_sgd"] != rounds or not got["fused_sgd_momentum"]:
+        fail(f"10c baseline1-faulty: launches {got}")
+    del tr
+    byz = get_preset("baseline1-byzantine")
+    tr, st, got, rate, peak, _ = fault_run("10c baseline1-byzantine", byz, 9,
+                                           3)
+    fault_rate["10c baseline1-byzantine"] = (None, rate, None, peak, None,
+                                             None)
+    # The schedule (quarantine_after 3, quarantine_rounds 5): the pinned
+    # liar (worker 0) is screened in rounds 0-2 and benched at round 2
+    # until round 8; every sentence passed at round r runs to r + 6,
+    # the benched worker is neither screened nor a liar meanwhile, and
+    # it is readmitted at its sentence's end.
+    quar = [(r["round"], r["worker"], r["action"]) for r in st["ledger"]
+            if r["kind"] == "quarantine"]
+    print(f"10c baseline1-byzantine quarantine rows: {quar}")
+    if (2, 0, "quarantined_until_8") not in quar:
+        fail(f"10c: the liar was not benched at round 2 until 8: {quar}")
+    for r, w, action in quar:
+        if not action.startswith("quarantined_until_"):
+            continue
+        until = int(action.rsplit("_", 1)[1])
+        if until != r + 6:
+            fail(f"10c: sentence {action} at round {r}")
+        if until <= 8 and (until, w, "readmitted") not in quar:
+            fail(f"10c: worker {w} not readmitted at round {until}: {quar}")
+        if any(x["worker"] == w and r < x["round"] < until
+               and x["kind"] == "corrupt" for x in st["ledger"]):
+            fail(f"10c: worker {w} lied or was screened while benched")
+    del tr
+    lossy = get_preset("baseline1-lossy")
+    tr, st, got, rate, peak, _ = fault_run("10c baseline1-lossy", lossy,
+                                           rounds, 1)
+    fault_rate["10c baseline1-lossy"] = (rate, None, peak, None, None, None)
+    total = float(tr._mass.double().sum()
+                  + tr._link_buf_mass.double().sum())
+    print(f"10c baseline1-lossy: mass {tr._mass.tolist()} + in flight "
+          f"{tr._link_buf_mass.sum().item():.6f} = {total:.6f} (n = 4)")
+    if abs(total - 4.0) > 1e-4:
+        fail(f"10c: push-sum lost mass: {total}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # 10d: the faulty headline, killed after round 1 and resumed.
+    fhead = get_preset("headline-dsgd-model1-faulty")
+    tr, fh_state, fh_launch, rate, peak, idle = fault_run(
+        "10d headline-dsgd-model1-faulty", fhead, rounds, 1, prof=False)
+    fault_rate["10d"] = (rate, None, peak, None, None, None)
+    fault_launch["headline-dsgd-model1-faulty"] = fh_launch
+    straggles = [r for r in fh_state["ledger"] if r["kind"] == "straggler"]
+    print(f"10d ledger {fh_state['ledger']}; stragglers {len(straggles)}")
+    if fh_launch["fused_mix_sgd"] != rounds * tr.fused_spec.num_buckets:
+        fail(f"10d: kernel 2 launches {fh_launch}")
+    del tr
+    ckdir10 = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        victim = GossipTrainer(fhead, device=dev)
+        victim.run(rounds=1, checkpoint_every=1,
+                   checkpoint_path=ckdir10 / "h")
+        del victim
+        resumed = GossipTrainer(fhead, device=dev)
+        resumed.restore(ckdir10 / "h")
+        resumed.run(rounds=rounds - 1)
+        torch.cuda.synchronize()
+        same_state("10d headline-dsgd-model1-faulty, killed after round 0 "
+                   "and resumed, against the continuous run", fh_state,
+                   fault_state(resumed))
+        if launch_counts() != fh_launch:
+            fail(f"10d resume: launches {launch_counts()} != {fh_launch}")
+        del resumed
+    finally:
+        shutil.rmtree(ckdir10, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 10e: the new kernel sites against their plain versions, timed.
+    from dopt_torch.ops.fused_update import gated_sgd_momentum_reference
+    from dopt_torch.topology import repair_for_dropout, repair_for_partition
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def gated_site(label, leaf_shapes, workers, on) -> dict:
+        """Kernel 1 gated: lanes ``on`` update (step 0 < limit), the
+        rest skip; bit-identical to torch.where over the ungated plain
+        step; its bound moves only the lanes that update."""
+        limit = torch.tensor([1 if w in on else 0 for w in range(workers)],
+                             dtype=torch.int32, device=dev)
+        sizes = [workers * math.prod(s) for s in leaf_shapes.values()]
+        p_, m_, g_ = ([randn(workers, *s) for s in leaf_shapes.values()]
+                      for _ in range(3))
+        pk, mk_ = [t.clone() for t in p_], [t.clone() for t in m_]
+        pr, mr = [t.clone() for t in p_], [t.clone() for t in m_]
+        fused_sgd_momentum(pk, mk_, g_, lr=lr1, mu=mu1, limit=limit, step=0)
+        gated_sgd_momentum_reference(pr, mr, g_, lr=lr1, momentum=mu1,
+                                     limit=limit, step=0)
+        torch.cuda.synchronize()
+        err = max(within(a, b, 0.0, 0.0) for a, b in zip(pk + mk_, pr + mr))
+        off = [w for w in range(workers) if w not in on]
+        for a, b in zip(pk + mk_, p_ + m_):
+            if off and not torch.equal(a[off], b[off]):
+                fail(f"gated kernel 1 {label}: a gated-off lane changed")
+        out = {"ms": time_ms(lambda: fused_sgd_momentum(
+                   pk, mk_, g_, lr=lr1, mu=mu1, limit=limit, step=0)),
+               "plain_ms": time_ms(lambda: gated_sgd_momentum_reference(
+                   pr, mr, g_, lr=lr1, momentum=mu1, limit=limit, step=0)),
+               "library_ms": None, "max_abs_err": err}
+        lp = [t.clone().requires_grad_() for t in p_]
+        for t_, gr in zip(lp, g_):
+            t_.grad = gr.clone()
+        ungated = time_ms(torch.optim.SGD(lp, lr=lr1, momentum=mu1,
+                                          fused=True).step)
+        elems = sum(sizes) * len(on) // workers
+        out["bound_ms"], out["bound_by"] = bound_ms(20 * elems + 4 * workers,
+                                                    4 * elems)
+        print(f"kernel fused_sgd_momentum gated {label}: {len(on)} of "
+              f"{workers} lanes on, {sum(sizes)} f32 elements, max abs err "
+              f"{err:.3e} (bit-identical required); kernel {out['ms']:.4f} "
+              f"ms, plain {out['plain_ms']:.4f} ms, SGD(fused=True) "
+              f"ungated {ungated:.4f} ms, bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']})")
+        return out
+
+    site["k1 chaos gated"] = gated_site("chaos mlp W=4", mlp_s, 4, {0, 1, 2})
+    site["k1 headline gated"] = gated_site("faulty headline model1 W=6",
+                                           shapes, 6, {0, 1, 2, 3, 5})
+    w4 = build_mixing_matrices("circle", "metropolis", 4,
+                               seed=2028).for_round(0)
+    w4 = repair_for_dropout(w4, np.array([1, 0, 1, 1], np.float32))
+    site["k2 baseline1-faulty"] = k2_site(
+        "baseline1-faulty mlp n=4, crash-repaired metropolis ring, lr 1",
+        mlp_s, as_w(w4), 1.0)
+    w6 = build_mixing_matrices("circle", "stochastic", 6,
+                               seed=2028).for_round(0)
+    w6 = repair_for_partition(w6, np.array([0, 0, 1, 1, 1, 0]))
+    w6 = repair_for_dropout(w6, np.array([1, 1, 1, 0, 1, 1], np.float32))
+    site["k2 headline-faulty"] = k2_site(
+        "faulty headline model1 n=6, partition- and crash-repaired, lr 1",
+        shapes, as_w(w6), 1.0)
+    del flush
+    for key, (rate, brate, peak, bpeak, idle, steady) in fault_rate.items():
+        print(f"10 rates {key}: per-round {rate}, blocked {brate} (steady "
+              f"{steady}) rounds/s; peaks {peak} / {bpeak} B; idle {idle}; "
+              f"{smi}")
+    print(f"10: phase 10 in {time.perf_counter() - t10:.1f} s")
+
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
     for suffix, path, launched, t1, t2 in (
@@ -1399,8 +1738,17 @@ def main() -> None:
             ("reference-nocons-noniid", "reference-nocons-noniid: Model1, 6 "
              "workers", k1, None),
             ("reference-centralized", "reference-centralized: Model1, one "
-             "worker", site["k1 centralized"], None)):
-        launched = slice_launch[preset]
+             "worker", site["k1 centralized"], None),
+            ("bench-chaos-baseline1-lossy-gated", "bench-chaos-baseline1-"
+             "lossy with optim.fused_update: MLP, 4 workers, kernel 1 gated "
+             "by the straggler budget", site["k1 chaos gated"], None),
+            ("baseline1-faulty", "baseline1-faulty: MLP, 4 workers, kernel "
+             "1 gated, kernel 2 on the crash/partition-repaired W",
+             site["k1 chaos gated"], site["k2 baseline1-faulty"]),
+            ("headline-dsgd-model1-faulty", "headline-dsgd-model1-faulty: "
+             "Model1, 6 workers, kernel 1 gated, kernel 2 on the repaired W",
+             site["k1 headline gated"], site["k2 headline-faulty"])):
+        launched = {**slice_launch, **fault_launch}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

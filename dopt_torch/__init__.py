@@ -15,7 +15,11 @@ Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph
 replays of the round, with a prefetched host pipeline, and save and
 restore their whole state (``save``/``restore``,
 ``run(checkpoint_every=K, checkpoint_path=P)``): a killed run resumes
-bit for bit.
+bit for bit.  The gossip engine runs dopt's fault model
+(``FaultConfig``, ``RobustConfig``: crash, straggle, partition, churn,
+Byzantine sends, clipped gossip, quarantine, lossy links, push-sum),
+and ``plan_impl="native"`` plans batches with dopt's C++ planner, built
+with ``g++`` at first use.
 """
 
 import os
@@ -27,18 +31,21 @@ import os
 # without it.  A value the caller set is kept.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from dopt_torch.config import (DataConfig, ExperimentConfig, FederatedConfig,
-                               GossipConfig, ModelConfig, OptimizerConfig)
+from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
+                               FederatedConfig, GossipConfig, ModelConfig,
+                               OptimizerConfig, RobustConfig)
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 from dopt_torch.presets import PRESETS, get_preset
 
 __all__ = [
     "DataConfig",
     "ExperimentConfig",
+    "FaultConfig",
     "FederatedConfig",
     "GossipConfig",
     "ModelConfig",
     "OptimizerConfig",
+    "RobustConfig",
     "FederatedTrainer",
     "GossipTrainer",
     "PRESETS",

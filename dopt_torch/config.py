@@ -4,8 +4,8 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``OptimizerConfig``, ``FederatedConfig``, ``GossipConfig`` and
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
-packages.  Fields and sections of later slices (faults, robust,
-population, comm, seqlm, the codecs' knobs, the mesh) exist with dopt's defaults: the trainers refuse any other
+packages.  Fields and sections of later slices (population, comm,
+seqlm, the codecs' knobs, the mesh) exist with dopt's defaults: the trainers refuse any other
 value, naming the slice that adds it.
 """
 
@@ -27,7 +27,7 @@ class DataConfig:
     data_dir: str | None = None   # directory with raw files; None -> synthetic
     synthetic_train_size: int = 2048
     synthetic_test_size: int = 512
-    plan_impl: str = "numpy"  # "native" (C++ planner) arrives in a later slice
+    plan_impl: str = "numpy"  # "native": the C++ planner (dopt_torch.native)
     local_holdout: float = 0.0
     # Fraction of each worker's shard held out as local validation (the
     # reference's train_val_test split: val_size = max(int(L·f), 1));
@@ -143,7 +143,7 @@ class GossipConfig:
     compression_ratio: float = 1.0
     qsgd_levels: int = 0
     comm_dtype: str | None = None
-    correction: str = "none"    # "push_sum": the faults slice
+    correction: str = "none"    # "push_sum": ratio consensus (link path)
     update_sharding: str = "off"
     update_bucket_mb: float = 4.0
     # Per-worker payload bound of one flat bucket of the fused epilogue
@@ -154,7 +154,151 @@ class GossipConfig:
     # one CUDA kernel pass per flat bucket — the D-PSGD ordering of
     # dopt's GossipConfig.fused_update.
     diagnostics: str = "off"    # "on" arrives with the telemetry slice
-    dropout: float = 0.0        # dopt's alias of faults.crash: faults slice
+    dropout: float = 0.0        # dopt's deprecated alias of faults.crash
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Deterministic fault injection (``dopt_torch.faults.FaultPlan``).
+
+    The reference assumes every simulated worker is alive and instant
+    (SURVEY §5); real decentralized systems treat crashes, stragglers
+    and partitions as the steady state.  All draws are keyed by
+    (seed, round) — stateless — so the same config replays the same
+    fault trace, per-round and blocked execution inject identical
+    faults, and a killed-and-resumed run sees exactly the faults a
+    continuous run would.  Every injected fault lands in the run's
+    fault ledger (``History.faults``)."""
+
+    crash: float = 0.0
+    # Per-round per-worker crash probability.  A crashed worker is down
+    # for the round: it skips consensus and local training (gossip) or
+    # contributes nothing to the server aggregate (federated) and
+    # rejoins next round with stale-but-valid state.
+    straggle: float = 0.0
+    # Per-round per-worker straggler probability (crashes win ties).
+    straggle_frac: float = 0.5
+    # Fraction of its local work a straggler finishes before the round
+    # deadline: epochs under the holdout's epoch loop, SGD steps on the
+    # flat path (ceil(frac * total), so frac > 0 always does some work).
+    straggler_policy: str = "partial"
+    # Federated only: 'partial' aggregates the straggler's truncated
+    # update; 'drop' removes it from the round (FedAvg-paper server
+    # deadline) — combine with over_select so the aggregate still
+    # averages ~m clients.  Gossip has no server deadline and always
+    # applies 'partial'.
+    over_select: float = 0.0
+    # Federated: sample ceil(m·(1+over_select)) clients, keep the first
+    # m survivors after crashes/deadline drops (surplus is released and
+    # ledgered) — the FedAvg-paper over-selection pattern.
+    partition: float = 0.0
+    # Per-round probability a network partition STARTS; while active,
+    # the fleet is split into partition_groups random groups.  Gossip:
+    # cross-group mixing edges are cut (matrix repaired as data,
+    # ``repair_for_partition``).  Federated: only group 0 can reach the
+    # server; other groups are unreachable for the span.
+    partition_span: int = 2     # rounds a partition lasts once started
+    partition_groups: int = 2   # number of sides of the cut
+    corrupt: float = 0.0
+    # Per-round per-worker probability the worker LIES: its contributed
+    # update (federated) / the state it broadcasts to neighbors (gossip)
+    # is replaced by a corrupted value before aggregation — the
+    # Byzantine threat model, vs. crash's fail-stop model.  Crashes win
+    # ties (a down worker sends nothing).  Injection happens INSIDE the
+    # jitted round functions (``dopt_torch.faults.corrupt_update``) from the
+    # same stateless per-round streams, so corrupted runs stay
+    # bit-reproducible, blocked-execution-exact and resume-exact.
+    corrupt_mode: str = "nan"
+    # What the lie looks like: 'nan' | 'inf' (non-finite poison),
+    # 'scale' (norm blow-up by corrupt_scale), 'signflip' (update
+    # negated through the reference point), 'stale' (replay of the
+    # worker's previous update; federated engine only — gossip carries
+    # no per-worker previous-send state).
+    corrupt_scale: float = 100.0   # blow-up factor for mode='scale'
+    corrupt_max: int = 0
+    # Cap on corrupted workers per round (0 = no cap).  The cap keeps
+    # the LOWEST-INDEXED workers among the round's draws, so
+    # ``corrupt=1.0, corrupt_max=f`` pins workers 0..f-1 as PERSISTENT
+    # adversaries — the classic fixed-f Byzantine setting robust
+    # aggregators state their breakdown points against.
+    msg_drop: float = 0.0
+    # Per-round per-DIRECTED-EDGE message-loss probability (the lossy-
+    # link model).  Each direction of each link draws independently, so
+    # loss is asymmetric in general — which is exactly what makes the
+    # row-renormalised effective mixing matrix non-doubly-stochastic
+    # and plain gossip converge to a biased average (the push-sum
+    # correction, ``GossipConfig.correction="push_sum"``, recovers the
+    # true mean).  Gossip: the edge is cut for the round and the
+    # surviving weights repaired as data.  Federated: the probability a
+    # sampled client's UPLINK to the server loses the round's update
+    # (the client keeps its local state; the server sees a failure).
+    msg_delay: float = 0.0
+    # Per-round per-directed-edge message-DELAY probability.  A delayed
+    # gossip edge delivers the sender's state d rounds late (d drawn
+    # uniformly in 1..msg_delay_max), so the receiver mixes against a
+    # stale value — the bounded-staleness asynchronous-gossip model.
+    # The staleness buffer is engine state, carried through blocked
+    # execution and checkpoints.  Federated: a sampled client's uplink
+    # update arrives d rounds late; with
+    # ``FederatedConfig.staleness_max`` > 0 it is buffered and admitted
+    # with decay weighting, otherwise it is lost like a drop.
+    msg_delay_max: int = 2
+    # Maximum delay D in rounds (the staleness bound; buffer depth is
+    # compiled from it, so keep it small).
+    churn: float = 0.0
+    # Per-round per-worker probability an elastic-membership LEAVE event
+    # starts: the worker departs the fleet for ``churn_span`` rounds and
+    # then rejoins (the join event) with its stale state.  While away
+    # the mixing matrix is repaired around it (identity row — same
+    # healing as a crash) / it is excluded from federated sampling, and
+    # its data shard is deterministically reassigned to the next alive
+    # worker (``dopt_torch.data.partition.reassign_shards``) so the departed
+    # data keeps being trained on.  Draws are stateless per round like
+    # every other fault kind.
+    churn_span: int = 4         # rounds a departed worker stays away
+    seed: int | None = None     # fault-stream seed; None = experiment seed
+
+
+@dataclass(frozen=True)
+class RobustConfig:
+    """Byzantine-robust aggregation & quarantine (``dopt_torch.robust``; the gossip half).
+
+    The defense side of the threat model: ``FaultConfig.corrupt``
+    injects lies, this config decides what the aggregation layer does
+    about them.  ``None`` (or all defaults) keeps the exact masked-mean
+    programs — clean runs stay bit-identical."""
+
+    aggregator: str = "mean"
+    # Federated server aggregation over the round's surviving updates:
+    # 'mean' (the reference masked average, breakdown point 0),
+    # 'trimmed_mean' (coordinate-wise, tolerates < trim_frac·n liars),
+    # 'median' (coordinate-wise, breakdown 1/2), 'krum' / 'multi_krum'
+    # (distance-based selection, tolerates f with n > 2f + 2).
+    # All are jittable pure functions of (stacked updates, mask).
+    trim_frac: float = 0.1
+    # trimmed_mean: fraction trimmed from EACH end per coordinate
+    # (k = floor(trim_frac · n_alive), clamped so >= 1 value survives).
+    krum_f: int = 1
+    # krum/multi_krum: assumed number of Byzantine workers f; each
+    # worker is scored by its n_alive − f − 2 closest neighbors.
+    multi_krum_m: int = 0
+    # multi_krum: average the m best-scored workers (0 = auto:
+    # n_alive − krum_f).  krum is multi_krum with m = 1.
+    clip_radius: float = 0.0
+    # Norm clip (0 = off).  Federated: worker updates are clipped to an
+    # L2 ball of this radius around theta before aggregation.  Gossip:
+    # the clipped-gossip rule — each worker clips every neighbor
+    # DEVIATION ``x_j − x_i`` to this radius before applying the mixing
+    # weights, so one liar moves any honest worker at most
+    # W_ij·clip_radius per round (composes with partition/crash repair,
+    # which act on the matrix itself).
+    quarantine_after: int = 0
+    # Detection/quarantine layer (0 = off): a worker whose update is
+    # screened (non-finite, or majority-clipped in gossip) this many
+    # rounds IN A ROW is quarantined — masked out via the engines'
+    # existing alive/participation machinery and recorded in the fault
+    # ledger — then readmitted after ``quarantine_rounds``.
+    quarantine_rounds: int = 8  # backoff length before readmission
 
 
 @dataclass(frozen=True)
@@ -168,10 +312,15 @@ class ExperimentConfig:
     optim: OptimizerConfig = field(default_factory=OptimizerConfig)
     gossip: GossipConfig | None = None
     federated: FederatedConfig | None = None
+    faults: FaultConfig | None = None
+    # Fault injection (crash, straggle, partition, corrupt, link faults,
+    # churn); the gossip engine runs it, the federated engine refuses it
+    # until its slice.
+    robust: RobustConfig | None = None
+    # Clipped gossip and quarantine (gossip); the federated aggregators
+    # arrive with the federated faults slice.
     # Sections of later slices; the trainers refuse any that is set.
     seqlm: Any = None
-    faults: Any = None
-    robust: Any = None
     population: Any = None
     comm: Any = None
     backend: str = "jax"

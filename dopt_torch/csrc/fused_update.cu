@@ -14,6 +14,11 @@
 //    pointers allow, and a scalar guard on each tensor's ragged tail.
 //    The TPU kernel launched once per leaf on [rows, 128] tiles; on
 //    Hopper the per-launch cost matters more, so the leaves share one.
+//    The gated instantiation (dopt_fused_sgd_momentum_gated) takes the
+//    straggler budget: lane w of every [lanes, ...] tensor updates only
+//    while step < limit[w]; a gated-off lane skips its loads and stores
+//    (dopt computes the update and then selects the old value; that
+//    select costs this kernel no traffic).
 //
 // 2. fused_mix_sgd — replaces dopt/ops/fused_update.py `fused_mix_sgd`
 //    (Pallas body `_make_mix_kernel`).  On one [n, F] flat bucket:
@@ -101,6 +106,7 @@ struct SgdList {
   void* m[kMaxTensors];
   const void* g[kMaxTensors];
   int64_t size[kMaxTensors];
+  int64_t lane_elems[kMaxTensors];      // elements a lane (the gate)
   int64_t tile_start[kMaxTensors + 1];  // prefix sums of per-tensor tiles
   int vec_ok[kMaxTensors];
   int count;
@@ -116,9 +122,19 @@ __device__ __forceinline__ void sgd_math(float& p, float& m, float g,
   p = __fsub_rn(p, __fmul_rn(lr, buf));
 }
 
-template <typename T, int VEC>
+// The straggler gate (GATED): every tensor of the list is [lanes, ...]
+// with lane_elems elements a lane, and lane w updates only while
+// step < limit[w] (dopt freezes a straggler's params and momentum from
+// step limit[w] on, selecting the old value after the update).  A
+// gated-off lane skips its loads and stores, so its p and m keep their
+// bits.  A 16-byte pack inside one lane takes one decision; a pack that
+// straddles two lanes (lane_elems not a multiple of VEC) takes the
+// scalar path, which decides per element.  GATED = false is the ungated
+// instantiation, unchanged.
+template <typename T, int VEC, bool GATED>
 __global__ void __launch_bounds__(kThreads)
-    sgd_momentum_kernel(const SgdList list, float lr, float mu) {
+    sgd_momentum_kernel(const SgdList list, float lr, float mu,
+                        const int* __restrict__ limit, int64_t step) {
   constexpr int64_t kTile = int64_t(kThreads) * VEC;
   const int64_t total = list.tile_start[list.count];
   for (int64_t tile = blockIdx.x; tile < total; tile += gridDim.x) {
@@ -130,7 +146,16 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t size = list.size[t];
     const int64_t i =
         (tile - list.tile_start[t]) * kTile + int64_t(threadIdx.x) * VEC;
-    if (list.vec_ok[t] && i + VEC <= size) {
+    bool whole = list.vec_ok[t] && i + VEC <= size;
+    if (GATED && whole) {
+      const int64_t lane0 = i / list.lane_elems[t];
+      if (lane0 == (i + VEC - 1) / list.lane_elems[t]) {
+        if (step >= limit[lane0]) continue;
+      } else {
+        whole = false;
+      }
+    }
+    if (whole) {
       Pack<T, VEC> pv = *reinterpret_cast<const Pack<T, VEC>*>(p + i);
       Pack<T, VEC> mv = *reinterpret_cast<const Pack<T, VEC>*>(m + i);
       const Pack<T, VEC> gv = *reinterpret_cast<const Pack<T, VEC>*>(g + i);
@@ -148,6 +173,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < VEC; ++k) {
         const int64_t j = i + k;
         if (j >= size) break;
+        if (GATED && step >= limit[j / list.lane_elems[t]]) continue;
         float pf = Cvt<T>::load(p[j]);
         float mf = Cvt<T>::load(m[j]);
         sgd_math(pf, mf, Cvt<T>::load(g[j]), lr, mu);
@@ -158,21 +184,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// limit == nullptr launches the ungated kernel; otherwise every tensor
+// is [lanes, ...] and lane w updates while step < limit[w].
 template <typename T>
 cudaError_t launch_sgd(int count, void* const* p, void* const* m,
                        const void* const* g, const int64_t* sizes, float lr,
-                       float mu, cudaStream_t stream) {
+                       float mu, const int* limit, int64_t lanes,
+                       int64_t step, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int64_t kTile = int64_t(kThreads) * VEC;
   SgdList list;
   list.count = count;
   list.tile_start[0] = 0;
+  if (limit != nullptr && lanes < 1) return cudaErrorInvalidValue;
   for (int t = 0; t < count; ++t) {
     if (sizes[t] < 0) return cudaErrorInvalidValue;
+    if (limit != nullptr && (sizes[t] % lanes) != 0)
+      return cudaErrorInvalidValue;
     list.p[t] = p[t];
     list.m[t] = m[t];
     list.g[t] = g[t];
     list.size[t] = sizes[t];
+    list.lane_elems[t] = limit != nullptr ? sizes[t] / lanes : 1;
+    if (list.lane_elems[t] < 1) list.lane_elems[t] = 1;
     list.vec_ok[t] = ((reinterpret_cast<uintptr_t>(p[t]) |
                        reinterpret_cast<uintptr_t>(m[t]) |
                        reinterpret_cast<uintptr_t>(g[t])) % 16) == 0;
@@ -181,7 +215,12 @@ cudaError_t launch_sgd(int count, void* const* p, void* const* m,
   const int64_t tiles = list.tile_start[count];
   if (tiles == 0) return cudaErrorInvalidValue;  // nothing to launch
   const int blocks = int(tiles < kMaxBlocks ? tiles : kMaxBlocks);
-  sgd_momentum_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(list, lr, mu);
+  if (limit == nullptr)
+    sgd_momentum_kernel<T, VEC, false>
+        <<<blocks, kThreads, 0, stream>>>(list, lr, mu, nullptr, 0);
+  else
+    sgd_momentum_kernel<T, VEC, true>
+        <<<blocks, kThreads, 0, stream>>>(list, lr, mu, limit, step);
   return cudaGetLastError();
 }
 
@@ -525,9 +564,31 @@ int dopt_fused_sgd_momentum(int count, void* const* p, void* const* m,
                             int dtype, float lr, float mu, void* stream) {
   if (count < 1 || count > kMaxTensors) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_sgd<float>(count, p, m, g, sizes, lr, mu, s);
+  if (dtype == 0)
+    return launch_sgd<float>(count, p, m, g, sizes, lr, mu, nullptr, 0, 0, s);
   if (dtype == 1)
-    return launch_sgd<__nv_bfloat16>(count, p, m, g, sizes, lr, mu, s);
+    return launch_sgd<__nv_bfloat16>(count, p, m, g, sizes, lr, mu, nullptr,
+                                     0, 0, s);
+  return cudaErrorInvalidValue;
+}
+
+// The straggler-gated step: as dopt_fused_sgd_momentum, with every
+// tensor [lanes, ...] and limit a device array of `lanes` int32 step
+// budgets; lane w updates only while step < limit[w].
+int dopt_fused_sgd_momentum_gated(int count, void* const* p, void* const* m,
+                                  const void* const* g, const int64_t* sizes,
+                                  int dtype, float lr, float mu,
+                                  const int* limit, int64_t lanes,
+                                  int64_t step, void* stream) {
+  if (count < 1 || count > kMaxTensors || limit == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_sgd<float>(count, p, m, g, sizes, lr, mu, limit, lanes,
+                             step, s);
+  if (dtype == 1)
+    return launch_sgd<__nv_bfloat16>(count, p, m, g, sizes, lr, mu, limit,
+                                     lanes, step, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 from dopt_torch.data.datasets import Dataset, load_dataset, make_synthetic
 from dopt_torch.data.partition import (holdout_split, iid_split, noniid_split,
-                                       partition)
+                                       partition, reassign_shards)
 from dopt_torch.data.pipeline import (BatchPlan, eval_batches,
                                       make_batch_plan, sharded_eval_batches,
                                       stacked_eval_batches)
@@ -14,6 +14,7 @@ __all__ = [
     "iid_split",
     "noniid_split",
     "partition",
+    "reassign_shards",
     "BatchPlan",
     "eval_batches",
     "make_batch_plan",

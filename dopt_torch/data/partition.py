@@ -92,3 +92,31 @@ def partition(labels: np.ndarray, num_users: int, *, iid: bool = True,
     matrix = np.stack([groups[i][:lmin]
                        for i in range(num_users)]).astype(np.int32)
     return groups, matrix
+
+
+def reassign_shards(index_matrix: np.ndarray,
+                    adopters: dict[int, int]) -> np.ndarray:
+    """Deterministic shard reassignment for elastic membership
+    (``FaultConfig.churn``): while a worker is away, its data shard is
+    trained by its adopter so departed data keeps contributing.
+
+    ``adopters`` maps departed worker -> alive adopter
+    (``FaultPlan.adopters_for``).  The adopter's row for the round
+    becomes the round-robin interleave of its own shard and every shard
+    it adopted, truncated to the row length L — a shape-preserving
+    deterministic subsample that covers all the merged shards evenly
+    (L/(k+1) samples each for k adoptions).  Departed workers' own rows
+    are left untouched (their lanes are frozen and never gather).
+    Returns a new matrix; the input is never mutated."""
+    if not adopters:
+        return index_matrix
+    out = index_matrix.copy()
+    by_adopter: dict[int, list[int]] = {}
+    for departed, adopter in sorted(adopters.items()):
+        by_adopter.setdefault(adopter, []).append(departed)
+    L = index_matrix.shape[1]
+    for adopter, departed in by_adopter.items():
+        rows = np.stack([index_matrix[adopter]]
+                        + [index_matrix[i] for i in departed], axis=1)
+        out[adopter] = rows.reshape(-1)[:L]
+    return out

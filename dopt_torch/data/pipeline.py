@@ -1,7 +1,9 @@
 """Host-side batch planning for the worker-stacked trainer.
 
-The port's copy of the numpy path of ``dopt.data.pipeline``.  Batching
-is data: a per-(seed, round, epoch, worker) shuffled index plan, bit
+The port's copy of ``dopt.data.pipeline``'s planners: the numpy path
+and (``impl="native"``) dopt's C++ planner (``dopt_torch.native``),
+whose xoshiro stream differs from numpy's.  Batching is data: a
+per-(seed, round, epoch, worker) shuffled index plan, bit
 for bit the one dopt builds, which the trainer uploads once a round and
 gathers from the device-resident train set.  The last partial batch is
 padded by wraparound with a 0/1 sample weight, so padding never changes
@@ -29,12 +31,28 @@ class BatchPlan:
 
 def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
                     local_ep: int = 1, seed: int = 0, round_idx: int = 0,
-                    workers: np.ndarray | None = None) -> BatchPlan:
+                    workers: np.ndarray | None = None,
+                    impl: str = "numpy") -> BatchPlan:
     """Build the shuffled batch plan for one round from the [W, L]
     per-worker index matrix; deterministic in (seed, round_idx, epoch,
     worker).  ``workers`` ([m] worker ids) plans only those rows, keyed
     by the TRUE worker id, so the [m, S, B] result is bit-identical to
-    those rows of the full plan (the compact federated path)."""
+    those rows of the full plan (the compact federated path).
+    ``impl="native"`` fills the plan with the C++ planner (dopt's
+    native plan bit for bit) and raises where it cannot be built: dopt
+    falls back to numpy there, a different draw stream."""
+    if impl not in ("numpy", "native"):
+        raise ValueError(f"unknown plan_impl {impl!r}; one of numpy|native "
+                         "(the native planner is the C++ one)")
+    if impl == "native":
+        from dopt_torch.native import fill_batch_plan_native
+
+        rows = (index_matrix if workers is None
+                else index_matrix[np.asarray(workers, dtype=np.int64)])
+        idx, weight = fill_batch_plan_native(
+            rows, batch_size=batch_size, local_ep=local_ep, seed=seed,
+            round_idx=round_idx, worker_ids=workers)
+        return BatchPlan(idx=idx, weight=weight)
     ids = (np.arange(index_matrix.shape[0]) if workers is None
            else np.asarray(workers, dtype=np.int64))
     if workers is not None:

@@ -90,6 +90,10 @@ def validate_federated(cfg: ExperimentConfig) -> None:
     if f is None:
         raise ValueError("cfg.federated must be set for FederatedTrainer")
     validate_common(cfg)
+    for section in ("faults", "robust"):
+        if getattr(cfg, section) is not None:
+            raise later(f"cfg.{section} on the federated engine",
+                        "federated faults")
     if f.algorithm not in _LOCAL_ALGORITHM:
         raise ValueError(f"unknown federated algorithm {f.algorithm!r}")
     if f.update_sharding not in ("off", "scatter"):
@@ -399,7 +403,8 @@ class FederatedTrainer:
         compact = self._use_compact()
         plan = make_batch_plan(self._train_matrix, batch_size=f.local_bs,
                                local_ep=f.local_ep, seed=cfg.seed,
-                               round_idx=t, workers=sel if compact else None)
+                               round_idx=t, workers=sel if compact else None,
+                               impl=cfg.data.plan_impl)
         out = {"idx": plan.idx.astype(np.int64), "bw": plan.weight,
                "sel": sel.astype(np.int64)}
         if not compact:

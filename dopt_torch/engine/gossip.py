@@ -62,6 +62,38 @@ checkpoint the whole state in dopt's npz layout
 run killed at any point and resumed from its latest checkpoint is the
 continuous run bit for bit, and a dopt npz checkpoint restores too.
 
+The fault model (dopt/engine/gossip.py:268-489, :1167-1645, :2010-2212),
+from ``cfg.faults`` (``dopt_torch.faults.FaultPlan``; ``gossip.dropout``
+is dopt's deprecated alias of ``faults.crash``) and ``cfg.robust``:
+
+* crash and churn — a down worker's mixing row is repaired to identity
+  (``repair_for_dropout``), its lane trains and is discarded (its
+  params and momentum keep their values), the round's train metric
+  averages the alive workers only; churn also hands a departed
+  worker's shard to its adopter (``reassign_shards``);
+* straggle — a ``[W]`` step budget on the device gates the local steps
+  (kernel 1's gated launch on the fused path);
+* partition — cross-group edges cut from the matrix;
+* corrupt — Byzantine sends (``corrupt_update``: nan, inf, scale,
+  signflip) mixed undefended (``byzantine_mix``) or through clipped
+  gossip (``robust.clip_radius``, ``clipped_gossip_mix``), whose
+  screened flags feed the quarantine (``robust.quarantine_after``);
+  on the dense path the quarantine's streak and sentence counters live
+  on the device and the host replays the same integer rule for the
+  ledger (dopt's fused quarantine);
+* lossy links — ``msg_drop``/``msg_delay`` and ``correction="push_sum"``
+  route consensus through the ``[D+1, n, n]`` per-staleness stack
+  (``split_by_delay``) against the buffered history (``_link_buf``)
+  or, under push-sum, the in-flight packets and their mass
+  (``_link_buf_mass``), with each worker's mass in ``_mass``: the
+  carried params are then the numerators and ``worker_params`` the
+  de-biased estimates.
+
+Every draw is host numpy, stateless per (seed, kind, round), so the
+fault ledger (``history.faults``: one row per round, worker, kind and
+action, in dopt's order) is dopt's bit for bit, and per-round, blocked
+and resumed runs write the same rows.
+
 ``model.compute_dtype="bfloat16"`` runs the forward and backward in bf16
 at dopt's cast points; ``model.param_dtype="bfloat16"`` stores the
 params, momentum and the fused carry in bf16 (both kernels then run
@@ -77,13 +109,15 @@ import time
 import numpy as np
 import torch
 
-from dopt_torch.config import ExperimentConfig
+from dopt_torch.config import ExperimentConfig, FaultConfig, RobustConfig
 from dopt_torch.convert import params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, sharded_eval_batches, upload)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, prepare_holdout,
                                      stacked_eval_gathered, stacked_evaluate)
+from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
+                               validate_fault_config)
 from dopt_torch.models.zoo import (LAYERS, StackedModel, deterministic,
                                    full_f32, init_worker_params,
                                    param_shapes, stacked_forward)
@@ -91,7 +125,13 @@ from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
-from dopt_torch.topology import build_mixing_matrices, random_matching_matrix
+from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
+                               finite_lane_mask, validate_robust_config)
+from dopt_torch.topology import (build_mixing_matrices, push_sum_link_matrix,
+                                 random_matching_matrix, repair_for_dropout,
+                                 repair_for_dropout_torch,
+                                 repair_for_link_drop, repair_for_partition,
+                                 split_by_delay)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
@@ -129,8 +169,12 @@ def later(what: str, slice_name: str) -> ValueError:
 def validate_common(cfg: ExperimentConfig) -> None:
     """Refusals shared by both engines, each naming its later slice."""
     d, m = cfg.data, cfg.model
-    for section, slice_name in (("faults", "faults"), ("robust", "robust"),
-                                ("population", "population"),
+    for section, cls in (("faults", FaultConfig), ("robust", RobustConfig)):
+        sec = getattr(cfg, section)
+        if sec is not None and not isinstance(sec, cls):
+            raise ValueError(f"cfg.{section} must be a dopt_torch.config."
+                             f"{cls.__name__}, got {type(sec).__name__}")
+    for section, slice_name in (("population", "population"),
                                 ("comm", "codecs"), ("seqlm", "seqlm")):
         if getattr(cfg, section) is not None:
             raise later(f"cfg.{section}", slice_name)
@@ -155,8 +199,9 @@ def validate_common(cfg: ExperimentConfig) -> None:
     if m.stacked_impl != "auto":
         raise ValueError(f"unknown stacked_impl {m.stacked_impl!r}; one of "
                          "auto|vmap")
-    if d.plan_impl != "numpy":
-        raise later(f"plan_impl={d.plan_impl!r}", "native planner")
+    if d.plan_impl not in ("numpy", "native"):
+        raise ValueError(f"unknown plan_impl {d.plan_impl!r}; one of "
+                         "numpy|native (the C++ native planner)")
     if m.model.lower() == "transformer":
         raise later("the sequence model", "seqlm")
     if m.model.lower() == "resnet18":
@@ -193,8 +238,8 @@ def validate_slice(cfg: ExperimentConfig) -> None:
                          "full|sharded")
     for knob, default, slice_name in (
             ("choco_gamma", 1.0, "codecs"), ("compression", "topk", "codecs"),
-            ("compression_ratio", 1.0, "codecs"), ("qsgd_levels", 0, "codecs"),
-            ("correction", "none", "faults"), ("dropout", 0.0, "faults")):
+            ("compression_ratio", 1.0, "codecs"),
+            ("qsgd_levels", 0, "codecs")):
         if getattr(g, knob) != default:
             raise later(f"gossip.{knob}={getattr(g, knob)!r}", slice_name)
     if g.diagnostics not in ("off", "on"):
@@ -209,6 +254,7 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g.update_sharding != "off":
         raise later(f"update_sharding={g.update_sharding!r}",
                     "scatter and multi-GPU")
+    validate_fault_model(cfg)
     if g.comm_impl == "shift":
         raise later("comm_impl='shift'", "scatter and multi-GPU")
     if g.comm_dtype:
@@ -216,12 +262,109 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g.fused_update not in ("off", "on"):
         raise ValueError(f"unknown fused_update {g.fused_update!r}; "
                          "one of off|on")
+    if g.correction not in ("none", "push_sum"):
+        raise ValueError(f"unknown gossip correction {g.correction!r}; "
+                         "one of none|push_sum")
     if g.fused_update == "on" and g.algorithm not in ("dsgd", "gossip"):
         raise ValueError(
             "fused_update='on' fuses the single dense consensus sweep with "
             f"the update; algorithm {g.algorithm!r} has no such sweep to "
             "fuse (dsgd|gossip: fedlcon's eps sweeps re-enter the matrix, "
             "nocons/centralized never mix)")
+
+
+def validate_fault_model(cfg: ExperimentConfig) -> None:
+    """dopt's refusals of the gossip fault model (its gossip.py:377-489,
+    :662-672 and :877-890), in dopt's words: the robust layer (corrupt
+    faults, clipped gossip, quarantine) and the lossy-link path
+    (``msg_drop``/``msg_delay``, ``correction="push_sum"``) each need a
+    mixing algorithm and the dense pairwise path, and neither composes
+    with the fused epilogue."""
+    g, fc, rc = cfg.gossip, cfg.faults, cfg.robust
+    if fc is not None:
+        validate_fault_config(fc)
+    if rc is not None:
+        validate_robust_config(rc)
+        if rc.aggregator != "mean":
+            raise ValueError(
+                "server-side robust aggregators are a federated-engine "
+                "knob; the gossip defense is clipped mixing "
+                "(RobustConfig.clip_radius)")
+    has_corrupt = fc is not None and fc.corrupt > 0
+    clip_tau = rc.clip_radius if rc is not None else 0.0
+    quarantine = rc is not None and rc.quarantine_after > 0
+    robust_active = has_corrupt or clip_tau > 0 or quarantine
+    if has_corrupt:
+        if fc.corrupt_mode == "stale":
+            raise ValueError(
+                "corrupt_mode='stale' needs the worker's previous update, "
+                "which only the federated engine carries; use "
+                "nan|inf|scale|signflip for gossip")
+        if g.algorithm not in ("dsgd", "fedlcon", "gossip"):
+            raise ValueError(
+                "corrupt faults need a mixing algorithm to lie through "
+                f"(dsgd|fedlcon|gossip), not {g.algorithm!r}")
+    if robust_active and g.algorithm == "choco":
+        raise ValueError("the robust layer does not cover choco's "
+                         "compressed exchange; use dsgd|fedlcon|gossip")
+    if robust_active and g.comm_dtype:
+        raise ValueError(
+            "comm_dtype wire compression only applies to the plain "
+            "consensus collectives; the robust layer (corrupt faults / "
+            "clip_radius / quarantine) runs full-precision pairwise "
+            "mixing — drop one of the two")
+    if (clip_tau > 0 or quarantine) and g.algorithm == "nocons":
+        raise ValueError(
+            "RobustConfig clip_radius/quarantine need a mixing algorithm "
+            f"to act on (dsgd|fedlcon|gossip); {g.algorithm!r} never "
+            "communicates")
+    has_link = fc is not None and (fc.msg_drop > 0 or fc.msg_delay > 0)
+    link_mode = has_link or g.correction == "push_sum"
+    if link_mode:
+        if g.algorithm not in ("dsgd", "gossip"):
+            raise ValueError(
+                "link faults (msg_drop/msg_delay) and "
+                "correction='push_sum' need a single-sweep mixing "
+                f"algorithm (dsgd|gossip), not {g.algorithm!r}")
+        if g.comm_dtype:
+            raise ValueError(
+                "comm_dtype wire compression only applies to the plain "
+                "consensus collectives; the link-fault / push-sum path "
+                "runs its own per-staleness contractions — drop one of "
+                "the two")
+        if clip_tau > 0:
+            raise ValueError(
+                "clipped gossip does not compose with the lossy-link "
+                "consensus path yet — run clip_radius and link faults in "
+                "separate experiments")
+        if has_corrupt and fc.corrupt_mode in ("nan", "inf"):
+            raise ValueError(
+                "corrupt_mode='nan'/'inf' under link faults would need "
+                "byzantine_mix's poison routing, which the per-staleness "
+                "link path does not implement; use the finite lies "
+                "(scale|signflip)")
+    if g.comm_impl == "shift" and robust_active:
+        raise ValueError(
+            "comm_impl='shift' is incompatible with the robust layer: "
+            "clipped mixing / corrupt sends need the dense pairwise path "
+            "(the 'auto' default picks it)")
+    if g.comm_impl == "shift" and link_mode:
+        raise ValueError(
+            "comm_impl='shift' is incompatible with link faults / "
+            "push-sum: drop-repaired matrices leave the compiled shift set "
+            "and the per-staleness stack needs the dense path (the 'auto' "
+            "default picks it)")
+    if g.fused_update == "on" and robust_active:
+        raise ValueError(
+            "fused_update='on' does not compose with the robust layer "
+            "(corrupt faults / clip_radius / quarantine screen the wire "
+            "BEFORE mixing; the fused epilogue contracts the carried state "
+            "directly) — drop one of the two")
+    if g.fused_update == "on" and link_mode:
+        raise ValueError(
+            "fused_update='on' does not compose with link faults / "
+            "push-sum (the per-staleness [D+1, n, n] contraction carries "
+            "its own mass/staleness buffers) — drop one of the two")
 
 
 def centralized_config(cfg: ExperimentConfig) -> ExperimentConfig:
@@ -300,20 +443,26 @@ def check_checkpoint_args(checkpoint_every: int, checkpoint_path) -> None:
 
 def checkpoint_meta(trainer, algorithm: str) -> dict:
     """Both engines' checkpoint meta, under dopt's keys: the round, the
-    History and client rows, and the fault ledger and the screen's host
-    mirrors (empty and zero until the faults slice fills them)."""
+    History and client rows, the fault ledger and the screen's host
+    mirrors (zero on an engine without the robust layer)."""
     w = trainer.num_workers
+    zeros = np.zeros(w, np.int64)
     return {"round": trainer.round, "name": trainer.cfg.name,
             "algorithm": algorithm, "history": trainer.history.rows,
             "client_history": trainer.client_history.rows,
-            "fault_ledger": [], "screen_streak": [0] * w,
-            "quarantine_until": [0] * w}
+            "fault_ledger": trainer.history.faults,
+            "screen_streak": getattr(trainer, "_screen_streak",
+                                     zeros).tolist(),
+            "quarantine_until": getattr(trainer, "_quarantine_until",
+                                        zeros).tolist()}
 
 
 def restore_meta(trainer, meta: dict) -> None:
-    """The host side of a restore: the round and the rows."""
+    """The host side of a restore: the round, the rows and the fault
+    ledger."""
     trainer.round = int(meta["round"])
     trainer.history.rows = list(meta.get("history", []))
+    trainer.history.faults = list(meta.get("fault_ledger", []))
     trainer.client_history.rows = list(meta.get("client_history", []))
 
 
@@ -407,6 +556,8 @@ class GossipTrainer:
         self._matching_rng = host_rng(cfg.seed, 60551)
         self._sweeps = (g.eps if g.algorithm == "fedlcon"
                         and not g.faithful_bugs else 1)
+        self._do_mix = g.algorithm in ("dsgd", "fedlcon", "gossip")
+        self._setup_faults(stacked)
 
         # Fused epilogue carry: q (post-mix state) and fbuf (displacement
         # to the post-local endpoint) as flat bucket stores; round −1's
@@ -423,51 +574,345 @@ class GossipTrainer:
                 v.copy_(stacked[k])
 
         # The round's packed metrics: train loss, train acc, test acc,
-        # test loss, then (holdout) the [4, W, E] epoch rows.
-        width = 4 + (4 * w * g.local_ep if self._val is not None else 0)
+        # test loss, then the [W] screened flags (robust runs), the
+        # [4, W, E] epoch rows (holdout) and the device quarantine's [W]
+        # streak and until (fused quarantine), as dopt packs them.
+        width = (4 + (w if self._robust_active else 0)
+                 + (4 * w * g.local_ep if self._val is not None else 0)
+                 + (2 * w if self._fused_quar else 0))
         self._slot = torch.zeros(width, device=dev)
         self.graphs = RoundGraphs(self._body, self._slot)
 
+    def _setup_faults(self, stacked: dict[str, torch.Tensor]) -> None:
+        """The fault plan, the robust layer's switches and host mirrors,
+        and the device state of the fault model: the fused quarantine's
+        streak and until counters, and the link path's push-sum mass and
+        staleness buffers (at dopt's initial values: mass one, the
+        history buffer at the common init, the in-flight buffer zero)."""
+        cfg, w, dev = self.cfg, self.num_workers, self.device
+        self.faults = f = FaultPlan(w, cfg.faults, seed=cfg.seed,
+                                    dropout=cfg.gossip.dropout)
+        self._has_faults = f.active
+        self._may_straggle = f.may_straggle
+        self._has_corrupt = f.has_corrupt
+        rc = cfg.robust
+        self._clip_tau = rc.clip_radius if rc is not None else 0.0
+        self._quarantine_on = bool(rc is not None and rc.quarantine_after > 0)
+        self._quarantine_after = rc.quarantine_after if rc else 0
+        self._quarantine_rounds = rc.quarantine_rounds if rc else 0
+        self._screen_streak = np.zeros(w, np.int64)
+        self._quarantine_until = np.zeros(w, np.int64)
+        self._robust_active = (self._has_corrupt or self._clip_tau > 0
+                               or self._quarantine_on)
+        self._push_sum = cfg.gossip.correction == "push_sum"
+        self._has_link = f.has_link
+        self._link_mode = self._has_link or self._push_sum
+        self._delay_max = f.delay_max
+        self._fused_quar = self._quarantine_on and not self._link_mode
+        # Lanes that can be down for a round (crash, churn, quarantine):
+        # their local work is discarded (dopt does so under faults only).
+        self._may_die = f.active and (f.cfg.crash > 0 or f.cfg.churn > 0
+                                      or self._quarantine_on)
+        self._steps_per_epoch = self.steps_per_round // cfg.gossip.local_ep
+        self._straggle_units = (cfg.gossip.local_ep if self._val is not None
+                                else self.steps_per_round)
+        if self._fused_quar:
+            self._dev_streak = torch.zeros(w, dtype=torch.int32, device=dev)
+            self._dev_until = torch.zeros(w, dtype=torch.int32, device=dev)
+        self._mass = self._link_buf = self._link_buf_mass = None
+        if self._link_mode:
+            d = self._delay_max
+            if self._push_sum:
+                self._mass = torch.ones(w, device=dev)
+                if d > 0:
+                    self._link_buf = {k: torch.zeros(d, *v.shape,
+                                                     dtype=v.dtype, device=dev)
+                                      for k, v in stacked.items()}
+                    self._link_buf_mass = torch.zeros(d, w, device=dev)
+            elif d > 0:
+                self._link_buf = {k: v.expand(d, *v.shape).contiguous()
+                                  for k, v in stacked.items()}
+
     # -- one round: host stage, device body -----------------------------
-    def _matrix_for_round(self, t: int) -> np.ndarray | None:
-        """Round t's mixing matrix, or None where the algorithm does not
-        mix.  The matching draw advances its stream: call once a round,
-        in round order, on the caller's thread."""
+    def _matrix_for_round(self, t: int) -> np.ndarray:
+        """Round t's mixing matrix (the identity where the algorithm
+        does not mix, as dopt's).  The matching draw advances its
+        stream: call once a round, in round order, on the caller's
+        thread."""
         if self.cfg.gossip.algorithm == "gossip":
             return random_matching_matrix(self.num_workers,
                                           self._matching_rng)
         if self.mixing is not None:
             return self.mixing.for_round(t)
-        return None
+        return np.eye(self.num_workers)
 
-    def _round_inputs(self, t: int, w_t: np.ndarray | None
-                      ) -> dict[str, np.ndarray]:
-        """Round t's host inputs: the drawn mixing matrix ``w_t`` (if
-        any) and the batch plan."""
-        g = self.cfg.gossip
-        plan = make_batch_plan(self._train_matrix, batch_size=g.local_bs,
-                               local_ep=g.local_ep, seed=self.cfg.seed,
-                               round_idx=t)
-        out = {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
-        if w_t is not None:
-            out["w"] = w_t.astype(np.float32)
+    def _round_inputs_static(self, t: int, w_raw: np.ndarray):
+        """The fused quarantine's per-round inputs that do not depend on
+        the quarantine state (dopt :2010): the partition-cut matrix, the
+        crash/churn ``alive`` mask, the straggler limits and the corrupt
+        mask.  No state is touched and no row is written: a blocked run
+        draws these at staging and replays ``_round_inputs`` after the
+        block's fetch for the rows and the host mirrors."""
+        rf = self.faults.for_round(t)
+        alive = (~rf.crashed).astype(np.float32)
+        if self.faults.has_churn:
+            away = self.faults.away_for_round(t)
+            alive = alive * (~away).astype(np.float32)
+        limits = FaultPlan.limits_for(rf, self._straggle_units)
+        w_t = w_raw
+        if rf.partition is not None:
+            w_t = repair_for_partition(w_t, rf.partition)
+        cmask = np.zeros(self.num_workers, np.float32)
+        if self._has_corrupt and rf.corrupt is not None:
+            cmask = (rf.corrupt & (alive > 0)).astype(np.float32)
+        return w_t.astype(np.float32), alive, limits, cmask
+
+    def _round_inputs(self, t: int, w_raw: np.ndarray):
+        """dopt's ``_round_inputs`` (:2034): (mixing argument, alive,
+        straggler limits, corrupt mask, ledger rows, quarantine mask)
+        for round t from the drawn matrix ``w_raw``.  The argument is
+        the repaired ``[n, n]`` matrix, or on the link path the
+        ``[D+1, n, n]`` per-staleness stack.  The rows are returned in
+        dopt's order (churn, readmissions, partition, crash, straggler,
+        corrupt, link drops and delays) for the caller to log after the
+        round's screened rows.  Under the fused quarantine the matrix
+        is not dropout-repaired and ``alive`` is crash/churn only: the
+        device folds the quarantine in and repairs."""
+        rows: list[dict] = []
+        w_t = w_raw
+        n = self.num_workers
+        rf = self.faults.for_round(t)
+        alive = (~rf.crashed).astype(np.float32)
+        away = self.faults.away_for_round(t)
+        if self.faults.has_churn:
+            rows.extend(churn_ledger_rows(self.faults, t, away))
+            alive = alive * (~away).astype(np.float32)
+        quar = np.zeros(n, np.float32)
+        if self._quarantine_on:
+            expired = ((self._quarantine_until != 0)
+                       & (t >= self._quarantine_until))
+            for i in np.nonzero(expired)[0]:
+                rows.append({"round": int(t), "worker": int(i),
+                             "kind": "quarantine", "action": "readmitted"})
+                self._quarantine_until[i] = 0
+                self._screen_streak[i] = 0
+            quarantined = self._quarantine_until > t
+            quar = quarantined.astype(np.float32)
+            if quarantined.any() and not self._fused_quar:
+                alive = alive * (~quarantined).astype(np.float32)
+        units = self._straggle_units
+        limits = FaultPlan.limits_for(rf, units)
+        if rf.partition is not None:
+            w_t = repair_for_partition(w_t, rf.partition)
+            for i, gid in enumerate(rf.partition):
+                rows.append({"round": int(t), "worker": int(i),
+                             "kind": "partition",
+                             "action": f"cut_to_group_{int(gid)}"})
+        if alive.min() < 1.0 and not self._fused_quar:
+            w_t = repair_for_dropout(w_t, alive)
+        for i in np.nonzero(rf.crashed)[0]:
+            rows.append({"round": int(t), "worker": int(i), "kind": "crash",
+                         "action": "skipped_round"})
+        for i in np.nonzero(rf.straggler)[0]:
+            rows.append({"round": int(t), "worker": int(i),
+                         "kind": "straggler", "action":
+                         f"truncated_to_{int(limits[i])}_of_{units}"})
+        cmask = np.zeros(n, np.float32)
+        if self._has_corrupt and rf.corrupt is not None:
+            # A down (or quarantined) worker sends nothing to corrupt; on
+            # the fused path the device mutes quarantined liars and the
+            # ledger leaves them out.
+            liars = rf.corrupt & (alive > 0)
+            cmask = liars.astype(np.float32)
+            row_liars = liars & (quar <= 0) if self._fused_quar else liars
+            mode = self.cfg.faults.corrupt_mode
+            for i in np.nonzero(row_liars)[0]:
+                rows.append({"round": int(t), "worker": int(i),
+                             "kind": "corrupt",
+                             "action": f"injected_{mode}"})
+        if self._link_mode:
+            keep, delay = self.faults.link_for_round(t)
+            if self._has_link:
+                edges = (w_t * (1.0 - np.eye(n))) > 0.0
+                for i, j in zip(*np.nonzero(edges & ~keep)):
+                    rows.append({"round": int(t), "worker": int(i),
+                                 "kind": "msg_drop",
+                                 "action": f"dropped_from_{int(j)}"})
+                for i, j in zip(*np.nonzero(edges & keep & (delay > 0))):
+                    rows.append({
+                        "round": int(t), "worker": int(i),
+                        "kind": "msg_delay",
+                        "action": f"delayed_from_{int(j)}_by_"
+                                  f"{int(delay[i, j])}"})
+            m_eff = (push_sum_link_matrix(w_t, keep) if self._push_sum
+                     else repair_for_link_drop(w_t, keep))
+            mats = split_by_delay(m_eff, delay, self._delay_max)
+            return mats, alive, limits, cmask, rows, quar
+        return w_t.astype(np.float32), alive, limits, cmask, rows, quar
+
+    def _device_inputs(self, t: int, arg: np.ndarray, alive: np.ndarray,
+                       limits: np.ndarray, cmask: np.ndarray
+                       ) -> dict[str, np.ndarray]:
+        """The round's fault inputs as the body reads them: ``w`` (or the
+        link path's ``mats``), ``alive``, the straggler ``limit`` in SGD
+        steps (the holdout's epoch budgets times the steps an epoch),
+        ``cmask`` and, for the device quarantine, the round ``t``; each
+        only where the configuration uses it."""
+        out = {}
+        if self._link_mode:
+            out["mats"] = arg.astype(np.float32)
+        elif self._do_mix:
+            out["w"] = arg.astype(np.float32)
+        if self._has_faults or self._fused_quar:
+            out["alive"] = alive.astype(np.float32)
+        if self._may_straggle:
+            per = self._steps_per_epoch if self._val is not None else 1
+            out["limit"] = (limits.astype(np.int64) * per).astype(np.int32)
+        if self._has_corrupt:
+            out["cmask"] = cmask.astype(np.float32)
+        if self._fused_quar:
+            out["t"] = np.array([t], np.int32)
         return out
 
+    def _plan_inputs(self, t: int) -> dict[str, np.ndarray]:
+        """Round t's batch plan (pure): under churn a departed worker's
+        shard goes to its adopter for the round."""
+        g = self.cfg.gossip
+        plan = make_batch_plan(
+            self.faults.plan_matrix_for(t, self._train_matrix),
+            batch_size=g.local_bs, local_ep=g.local_ep, seed=self.cfg.seed,
+            round_idx=t, impl=self.cfg.data.plan_impl)
+        return {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
+
+    def _param_dict(self) -> dict[str, torch.Tensor]:
+        return dict(zip(self._names, self._params))
+
+    def _write_params(self, new: dict[str, torch.Tensor]) -> None:
+        for k, p in zip(self._names, self._params):
+            p.copy_(new[k])
+
     @torch.no_grad()
-    def _consensus(self, w_t: torch.Tensor) -> None:
-        """Leave the round's post-consensus state in the model's params."""
+    def _consensus(self, w_t: torch.Tensor,
+                   cmask: torch.Tensor | None) -> torch.Tensor | None:
+        """Leave the round's post-consensus state in the model's params;
+        returns the robust layer's [W] screened flags (None off it)."""
         if self._fused_on:
             fused_mix_update(self._q, self._fbuf, w_t, self.fused_spec,
                              lr=1.0)
-            q = flat_views(self._q, self.fused_spec)
-            for k, p in zip(self._names, self._params):
-                p.copy_(q[k])
-            return
-        mixed = dict(zip(self._names, self._params))
-        for _ in range(self._sweeps):
-            mixed = mix_dense(mixed, w_t)
-        for k, p in zip(self._names, self._params):
-            p.copy_(mixed[k])
+            self._write_params(flat_views(self._q, self.fused_spec))
+            return None
+        params = self._param_dict()
+        if not self._robust_active:
+            mixed = params
+            for _ in range(self._sweeps):
+                mixed = mix_dense(mixed, w_t)
+            self._write_params(mixed)
+            return None
+        # A liar corrupts only what it broadcasts; its own state trains
+        # honestly.  The extra fedlcon sweeps re-mix honest states.
+        x_send = (corrupt_update(params, cmask, self.cfg.faults.corrupt_mode,
+                                 self.cfg.faults.corrupt_scale)
+                  if self._has_corrupt else params)
+        if self._clip_tau > 0:
+            mixed, screened = clipped_gossip_mix(params, x_send, w_t,
+                                                 self._clip_tau)
+            for _ in range(self._sweeps - 1):
+                mixed, _ = clipped_gossip_mix(mixed, mixed, w_t,
+                                              self._clip_tau)
+        else:
+            screened = 1.0 - finite_lane_mask(x_send)
+            mixed = byzantine_mix(params, x_send, w_t)
+            for _ in range(self._sweeps - 1):
+                mixed = mix_dense(mixed, w_t)
+        self._write_params(mixed)
+        return screened
+
+    @torch.no_grad()
+    def _link_consensus(self, mats: torch.Tensor,
+                        cmask: torch.Tensor | None) -> None:
+        """The lossy-link sweep (dopt's ``link_round_core``): ``mats`` is
+        the round's ``[D+1, n, n]`` per-staleness stack.  Plain gossip
+        mixes the sends against the last D sends (the history buffer);
+        push-sum contracts values and mass alike, adds the packets that
+        arrive now, queues the delayed ones, and leaves the de-biased
+        estimate x/mass in the params.  Every buffer is written in
+        place."""
+        params = self._param_dict()
+        x_send = (corrupt_update(params, cmask, self.cfg.faults.corrupt_mode,
+                                 self.cfg.faults.corrupt_scale)
+                  if self._has_corrupt else params)
+        d_max, buf = self._delay_max, self._link_buf
+        if self._push_sum:
+            now_x = mix_dense(x_send, mats[0])
+            now_m = mats[0] @ self._mass
+            if d_max > 0:
+                now_x = {k: v + buf[k][0] for k, v in now_x.items()}
+                now_m = now_m + self._link_buf_mass[0]
+                sends = [mix_dense(x_send, mats[d])
+                         for d in range(1, d_max + 1)]
+                sends_m = torch.stack([mats[d] @ self._mass
+                                       for d in range(1, d_max + 1)])
+                new_buf = {k: torch.cat([b[1:], torch.zeros_like(b[:1])])
+                           + torch.stack([s[k] for s in sends])
+                           for k, b in buf.items()}
+                bm = self._link_buf_mass
+                new_bm = (torch.cat([bm[1:], torch.zeros_like(bm[:1])])
+                          + sends_m)
+                for k, b in buf.items():
+                    b.copy_(new_buf[k])
+                bm.copy_(new_bm)
+            safe = torch.clamp_min(now_m, 1e-12)
+            mixed = {k: (v.float() / safe.reshape((-1,) + (1,) * (v.dim() - 1))
+                         ).to(v.dtype) for k, v in now_x.items()}
+            self._mass.copy_(now_m)
+        else:
+            mixed = mix_dense(x_send, mats[0])
+            for d in range(1, d_max + 1):
+                snap = mix_dense({k: b[d - 1] for k, b in buf.items()},
+                                 mats[d])
+                mixed = {k: v + snap[k] for k, v in mixed.items()}
+            if d_max > 0:
+                new_buf = {k: torch.cat([x_send[k][None], b[:-1]])
+                           for k, b in buf.items()}
+                for k, b in buf.items():
+                    b.copy_(new_buf[k])
+        self._write_params(mixed)
+
+    def _effective_inputs(self, inp: dict[str, torch.Tensor]):
+        """The fused quarantine on the device (dopt's round-start
+        readmission and ``effective_inputs``): an expired sentence clears
+        the bench and the streak, the quarantined lanes fold into
+        ``alive`` and out of ``cmask``, and the matrix is repaired for the
+        combined dead set (not on all-alive rounds).  Returns ``(w,
+        alive, cmask)``."""
+        t, unt, stk = inp["t"], self._dev_until, self._dev_streak
+        expired = (unt != 0) & (t >= unt)
+        unt.copy_(torch.where(expired, torch.zeros_like(unt), unt))
+        stk.copy_(torch.where(expired, torch.zeros_like(stk), stk))
+        quar = (unt > t).float()
+        alive = inp["alive"] * (1.0 - quar)
+        cmask = inp.get("cmask")
+        if cmask is not None:
+            cmask = cmask * (1.0 - quar)
+        w_t = inp.get("w")
+        if w_t is not None:
+            w_t = torch.where(alive.min() >= 1.0, w_t,
+                              repair_for_dropout_torch(w_t, alive))
+        return w_t, alive, cmask
+
+    def _quarantine_update(self, screened: torch.Tensor, alive: torch.Tensor,
+                           t: torch.Tensor) -> None:
+        """Post-round screen feedback on the device's int32 counters,
+        the integer rule of ``_apply_screen_feedback``."""
+        stk, unt = self._dev_streak, self._dev_until
+        flagged = screened > 0.5
+        streak2 = torch.where(flagged, stk + 1,
+                              torch.where(alive > 0, torch.zeros_like(stk),
+                                          stk))
+        trigger = flagged & (streak2 >= self._quarantine_after)
+        unt.copy_(torch.where(trigger, (t + 1 + self._quarantine_rounds
+                                        ).to(unt.dtype), unt))
+        stk.copy_(torch.where(trigger, torch.zeros_like(streak2), streak2))
 
     def _evaluate_round(self) -> dict[str, torch.Tensor]:
         """The in-training test eval: every worker on the whole test
@@ -481,39 +926,75 @@ class GossipTrainer:
             self._sample_shape)
 
     def _body(self, inp: dict[str, torch.Tensor], do_eval: bool) -> None:
-        """The round on the device: consensus → eval (flagged rounds) →
-        local epochs → fbuf, metrics into the slot.  Every state is
-        written in place and nothing touches the host, so the body can
-        be captured (``RoundGraphs``)."""
+        """The round on the device: (fault inputs) → consensus → eval
+        (flagged rounds) → local epochs → dead lanes restored → fbuf,
+        metrics into the slot.  Every state is written in place and
+        nothing touches the host, so the body can be captured
+        (``RoundGraphs``)."""
         cfg, g = self.cfg, self.cfg.gossip
-        if "w" in inp:
-            self._consensus(inp["w"])
+        alive, cmask, w_t = inp.get("alive"), inp.get("cmask"), inp.get("w")
+        if self._fused_quar:
+            w_t, alive, cmask = self._effective_inputs(inp)
+        screened = None
+        if self._link_mode:
+            self._link_consensus(inp["mats"], cmask)
+        elif w_t is not None:
+            screened = self._consensus(w_t, cmask)
+        if self._robust_active and screened is None:
+            screened = torch.zeros(self.num_workers, device=self.device)
+        if self._may_die:
+            with torch.no_grad():
+                p_pre = [p.clone() for p in self._params]
+                m_pre = [m.clone() for m in self.momentum]
         ev = self._evaluate_round() if do_eval else None
         losses, accs, em = local_steps(
-            self.model, dict(zip(self._names, self._params)),
+            self.model, self._param_dict(),
             dict(zip(self._names, self.momentum)), inp["idx"], inp["bw"],
             self._train_x, self._train_y, self._sample_shape,
             lr=cfg.optim.lr, momentum=cfg.optim.momentum,
             fused=cfg.optim.fused_update, l2=cfg.optim.weight_decay,
             clip_norm=cfg.optim.clip_norm, local_ep=g.local_ep,
-            val=self._val)
+            val=self._val, limit=inp.get("limit"))
         with torch.no_grad():
+            if self._may_die:
+                # A down lane's local work is discarded: its params and
+                # momentum keep their post-consensus values.
+                for cur, old in zip(self._params + self.momentum,
+                                    p_pre + m_pre):
+                    up = alive.reshape((-1,) + (1,) * (cur.dim() - 1)) > 0
+                    cur.copy_(torch.where(up, cur, old))
+            if self._push_sum:
+                # The carried state is the numerator: z · mass.
+                for p in self._params:
+                    mm = self._mass.reshape((-1,) + (1,) * (p.dim() - 1))
+                    p.copy_((p.float() * mm).to(p.dtype))
             if self._fused_on:
                 q = flat_views(self._q, self.fused_spec)
                 fb = flat_views(self._fbuf, self.fused_spec)
                 for k, p in zip(self._names, self._params):
                     torch.sub(q[k], p, out=fb[k])
-            # dopt's round accuracy: the epochs' count-weighted accuracies
-            # with the holdout, the steps' mean without.
+            # dopt's round metrics: the epochs' rows with the holdout,
+            # the steps' without; the alive workers' mean under faults.
             if em:
-                accs = em["train_acc"]
+                losses, accs = em["train_loss"], em["train_acc"]
+            if self._has_faults:
+                denom = torch.clamp_min(alive.sum(), 1.0)
+                tl = (losses.mean(1) * alive).sum() / denom
+                ta = (accs.mean(1) * alive).sum() / denom
+            else:
+                tl, ta = losses.mean(), accs.mean()
             test = ([ev["acc"].mean(), ev["loss_mean"].mean()] if do_eval
-                    else [losses.new_zeros(())] * 2)
-            parts = [losses.mean(), accs.mean(), *test]
+                    else [tl.new_zeros(())] * 2)
+            parts = [tl, ta, *test]
+            if self._robust_active:
+                parts.append(screened)
             if em:
                 parts += [em[k] for k in ("train_loss", "train_acc",
                                           "val_acc", "val_loss_mean")]
-            torch.cat([p.reshape(-1) for p in parts], out=self._slot)
+            if self._fused_quar:
+                self._quarantine_update(screened, alive, inp["t"])
+                parts += [self._dev_streak, self._dev_until]
+            torch.cat([p.reshape(-1).float() for p in parts], out=self._slot)
 
     def _record(self, t: int, vals: np.ndarray, do_eval: bool) -> None:
         """Round t's History row (and client rows) from its metrics."""
@@ -524,36 +1005,96 @@ class GossipTrainer:
                        avg_test_loss=float(vals[3]))
         self.history.append(**row)
         if self._val is not None:
-            e = self.cfg.gossip.local_ep
-            tl, ta, va, vl = vals[4:].reshape(4, self.num_workers, e)
-            for i in range(self.num_workers):
+            w, e = self.num_workers, self.cfg.gossip.local_ep
+            off = 4 + (w if self._robust_active else 0)
+            tl, ta, va, vl = vals[off:off + 4 * w * e].reshape(4, w, e)
+            for i in range(w):
                 for j in range(e):
                     self.client_history.append(
                         round=t, iter=j, worker=i,
                         train_loss=float(tl[i, j]), train_acc=float(ta[i, j]),
                         val_acc=float(va[i, j]), val_loss=float(vl[i, j]))
 
+    def _finish_round(self, t: int, vals: np.ndarray, do_eval: bool,
+                      rows: list, alive) -> None:
+        """After round t's fetch, in dopt's order: the screened flags
+        into the ledger rows and the quarantine mirrors, the rows into
+        ``history.faults``, then the History row.  On the fused
+        quarantine the device's counters must equal the host's."""
+        w = self.num_workers
+        if self._robust_active:
+            self._apply_screen_feedback(t, alive, vals[4:4 + w], rows)
+        self.history.faults.extend(rows)
+        self._record(t, vals, do_eval)
+        if self._fused_quar:
+            dev = vals[-2 * w:].astype(np.int64)
+            if not (np.array_equal(dev[:w], self._screen_streak)
+                    and np.array_equal(dev[w:], self._quarantine_until)):
+                raise RuntimeError("fused-quarantine host replay diverged "
+                                   "from the device counters")
+
+    def _apply_screen_feedback(self, t: int, alive, flags,
+                               rows: list) -> None:
+        """dopt's screen feedback (:2191): K consecutive screened rounds
+        quarantine the worker for ``quarantine_rounds``; one clean alive
+        round resets the streak; every screened send is a ledger row."""
+        for i in range(self.num_workers):
+            if float(flags[i]) > 0.5:
+                self._screen_streak[i] += 1
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "corrupt", "action": "screened"})
+                if (self._quarantine_on and self._screen_streak[i]
+                        >= self._quarantine_after):
+                    until = int(t) + 1 + self._quarantine_rounds
+                    self._quarantine_until[i] = until
+                    self._screen_streak[i] = 0
+                    rows.append({"round": int(t), "worker": i,
+                                 "kind": "quarantine",
+                                 "action": f"quarantined_until_{until}"})
+            elif float(alive[i]) > 0:
+                self._screen_streak[i] = 0
+
     # -- blocks: the stateful draw, the pure build, the rows -----------
     def _draw_block(self, ts: list[int]) -> dict:
-        """The block's rounds, which of them evaluate (the graph kinds)
-        and their mixing matrices: the matching stream advances here,
-        on the caller's thread, in round order."""
-        return {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts],
-                "ws": [self._matrix_for_round(t) for t in ts]}
+        """The block's stateful host draws, on the caller's thread in
+        round order: the matrices (the matching stream), and each
+        round's fault inputs — on the fused quarantine the
+        state-independent ones only (the rows are replayed after the
+        fetch), otherwise ``_round_inputs``' whole output."""
+        ws = [self._matrix_for_round(t) for t in ts]
+        meta = {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts],
+                "ws": ws}
+        if self._fused_quar:
+            meta["faults"] = [self._device_inputs(
+                t, *self._round_inputs_static(t, w_t))
+                for t, w_t in zip(ts, ws)]
+            return meta
+        outs = [self._round_inputs(t, w_t) for t, w_t in zip(ts, ws)]
+        meta["faults"] = [self._device_inputs(t, *o[:4])
+                          for t, o in zip(ts, outs)]
+        meta["rows"] = [o[4] for o in outs]
+        meta["alive"] = [o[1] for o in outs]
+        return meta
 
     def _build_block(self, meta: dict) -> dict:
-        """The block's batch plans beside its drawn matrices, stacked and
+        """The block's batch plans beside its drawn inputs, stacked and
         uploaded: pure, so the prefetch stager may run it on its
         background thread."""
-        rounds = [self._round_inputs(t, w_t)
-                  for t, w_t in zip(meta["ts"], meta["ws"])]
+        rounds = [{**self._plan_inputs(t), **f}
+                  for t, f in zip(meta["ts"], meta["faults"])]
         meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
                               for k in rounds[0]}, self.device)
         return meta
 
     def _record_block(self, meta: dict, vals: np.ndarray) -> None:
-        for t, do_eval, v in zip(meta["ts"], meta["kinds"], vals):
-            self._record(t, v, do_eval)
+        for j, (t, do_eval) in enumerate(zip(meta["ts"], meta["kinds"])):
+            if self._fused_quar:
+                _, alive, _, _, rows, quar = self._round_inputs(
+                    t, meta["ws"][j])
+                alive = alive * (1.0 - quar)
+            else:
+                rows, alive = meta["rows"][j], meta["alive"][j]
+            self._finish_round(t, vals[j], do_eval, rows, alive)
             self.round += 1
 
     def run(self, rounds: int | None = None, eps: int | None = None,
@@ -590,11 +1131,18 @@ class GossipTrainer:
                 for _ in range(rounds):
                     t = self.round
                     do_eval = t % self.eval_every == 0
-                    inp = self._round_inputs(t, self._matrix_for_round(t))
+                    arg, alive, limits, cmask, rows, quar = \
+                        self._round_inputs(t, self._matrix_for_round(t))
+                    inp = {**self._plan_inputs(t),
+                           **self._device_inputs(t, arg, alive, limits,
+                                                 cmask)}
                     self._body({k: torch.from_numpy(v).to(self.device)
                                 for k, v in inp.items()}, do_eval)
                     # ONE device→host fetch per round.
-                    self._record(t, self._slot.cpu().numpy(), do_eval)
+                    vals = self._slot.cpu().numpy()
+                    if self._fused_quar:
+                        alive = alive * (1.0 - quar)
+                    self._finish_round(t, vals, do_eval, rows, alive)
                     self.round += 1
                     if checkpoint_every and self.round % checkpoint_every == 0:
                         self.save(checkpoint_path)
@@ -609,14 +1157,24 @@ class GossipTrainer:
         ``fused_update="on"`` the displacement ``fused_buf`` — the
         carried params are then the post-mix q, as in dopt — plus
         dopt's meta keys (round, History and client rows, the matching
-        stream's state; the fault ledger and the screen's host mirrors,
-        empty until the faults slice)."""
+        stream's state, the fault ledger and the screen's host mirrors)
+        and on the link path push-sum's ``push_mass``, the staleness
+        buffer ``link_buf`` and the in-flight mass ``link_buf_mass``."""
         arrays = {"momentum": dict(zip(self._names, self.momentum))}
         if self._fused_on:
             arrays["params"] = flat_views(self._q, self.fused_spec)
             arrays["fused_buf"] = flat_views(self._fbuf, self.fused_spec)
         else:
             arrays["params"] = dict(zip(self._names, self._params))
+        if self._link_mode:
+            # The carried params are push-sum's numerators; the mass and
+            # the staleness buffers are carried state too.
+            if self._push_sum:
+                arrays["push_mass"] = {"mass": self._mass}
+            if self._delay_max > 0:
+                arrays["link_buf"] = self._link_buf
+                if self._push_sum:
+                    arrays["link_buf_mass"] = {"mass": self._link_buf_mass}
         meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
         meta["matching_rng_state"] = self._matching_rng.bit_generator.state
         save_checkpoint(path, arrays=arrays, meta=meta)
@@ -661,7 +1219,40 @@ class GossipTrainer:
         else:
             copy_into(dict(zip(self._names, self._params)), tree["params"],
                       what="params")
+        if self._link_mode:
+            if self._push_sum:
+                if "push_mass" not in arrays:
+                    raise ValueError(
+                        "push-sum trainer requires its mass vector "
+                        "('push_mass') in the checkpoint")
+                self._mass.copy_(torch.as_tensor(
+                    np.asarray(arrays["push_mass"]["mass"], np.float32)))
+            if self._delay_max > 0:
+                if "link_buf" not in arrays:
+                    raise ValueError(
+                        "link-delay trainer requires its staleness buffer "
+                        "('link_buf') in the checkpoint")
+                copy_into(self._link_buf, port_layout(
+                    arrays["link_buf"], input_shape=shape), what="link_buf")
+                if self._push_sum:
+                    if "link_buf_mass" not in arrays:
+                        raise ValueError(
+                            "push-sum + delay trainer requires the "
+                            "in-flight mass buffer ('link_buf_mass') in "
+                            "the checkpoint")
+                    self._link_buf_mass.copy_(torch.as_tensor(np.asarray(
+                        arrays["link_buf_mass"]["mass"], np.float32)))
         restore_meta(self, meta)
+        w = self.num_workers
+        self._screen_streak = np.asarray(meta.get("screen_streak", [0] * w),
+                                         np.int64)
+        self._quarantine_until = np.asarray(
+            meta.get("quarantine_until", [0] * w), np.int64)
+        if self._fused_quar:
+            self._dev_streak.copy_(torch.from_numpy(
+                self._screen_streak.astype(np.int32)))
+            self._dev_until.copy_(torch.from_numpy(
+                self._quarantine_until.astype(np.int32)))
         if meta.get("matching_rng_state"):
             self._matching_rng.bit_generator.state = meta[
                 "matching_rng_state"]
@@ -669,12 +1260,17 @@ class GossipTrainer:
     # -- state ----------------------------------------------------------
     @torch.no_grad()
     def _debiased_params(self) -> dict[str, torch.Tensor]:
-        """Each worker's current endpoint: the params, or q − fbuf on the
-        fused carry."""
+        """Each worker's current endpoint: the params, q − fbuf on the
+        fused carry, or push-sum's de-biased estimate params/mass."""
         if self._fused_on:
             q = flat_views(self._q, self.fused_spec)
             fb = flat_views(self._fbuf, self.fused_spec)
             return {k: q[k] - fb[k] for k in self._names}
+        if self._push_sum:
+            mm = torch.clamp_min(self._mass, 1e-12)
+            return {k: (p.float() / mm.reshape((-1,) + (1,) * (p.dim() - 1))
+                        ).to(p.dtype)
+                    for k, p in zip(self._names, self._params)}
         return {k: p.detach().clone()
                 for k, p in zip(self._names, self._params)}
 

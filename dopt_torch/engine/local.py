@@ -13,6 +13,15 @@ train set stays on the device as flat ``[N, F]`` rows; each step
 gathers its minibatch from the round's ``[W, S, B]`` index plan.
 Nothing syncs with the host inside the phase: per-step losses and
 accuracies stay on the device.
+
+The straggler deadline (dopt local.py:215-230, :275-290, :388-410): a
+``[W]`` int32 ``limit`` on the device freezes worker w's params and
+momentum from step ``limit[w]`` on.  The gate is a device comparison of
+the step index against the limit, so a captured round replays it with
+new limits: the fused kernel skips the gated-off lanes, the plain
+update selects the old values after the step (dopt's
+update-then-select).  Rows past a worker's limit are computed on its
+frozen params, as dopt's.
 """
 
 from __future__ import annotations
@@ -41,14 +50,16 @@ def prepare_holdout(cfg, index_matrix, *, batch_size: int):
 def stacked_step(apply, params: dict, moms: dict, x: torch.Tensor,
                  y: torch.Tensor, w: torch.Tensor, *, lr: float,
                  momentum: float, fused: bool, edit=None, l2: float = 0.0,
-                 clip_norm: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                 clip_norm: float = 0.0, limit: torch.Tensor | None = None,
+                 step: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """One SGD step of every worker, in place over ``params``/``moms``
     (dicts of leaf tensors; params with ``requires_grad``).
     ``apply(x) → [W, B, C]`` reads ``params``; ``edit(grads, params)``
     is the algorithm's gradient edit (``dopt_torch.optim.grad_edit``);
     ``l2`` adds ½·λ‖p‖² to each worker's loss; ``clip_norm`` > 0 clips
-    each worker's edited gradient to that global norm.  Returns the detached
-    per-worker [W] loss (ℓ2 term included) and accuracy."""
+    each worker's edited gradient to that global norm; ``limit`` ([W]
+    int32) updates worker w only while ``step < limit[w]``.  Returns the
+    detached per-worker [W] loss (ℓ2 term included) and accuracy."""
     names = list(params)
     out = apply(x)
     lw = cross_entropy_stacked(out, y, w)
@@ -65,9 +76,17 @@ def stacked_step(apply, params: dict, moms: dict, x: torch.Tensor,
             grads = [gd[k] for k in names]
         ps, ms = [params[k] for k in names], [moms[k] for k in names]
         if fused:
-            fused_sgd_momentum(ps, ms, grads, lr=lr, mu=momentum)
-        else:
+            fused_sgd_momentum(ps, ms, grads, lr=lr, mu=momentum,
+                               limit=limit, step=step)
+        elif limit is None:
             sgd_step(ps, ms, grads, lr=lr, momentum=momentum)
+        else:
+            old = [t.clone() for t in ps + ms]
+            sgd_step(ps, ms, grads, lr=lr, momentum=momentum)
+            gate = step < limit
+            for t, o in zip(ps + ms, old):
+                t.copy_(torch.where(
+                    gate.reshape((-1,) + (1,) * (t.dim() - 1)), t, o))
         return lw.detach(), accuracy_stacked(out.detach(), y, w)
 
 
@@ -75,7 +94,8 @@ def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
                 train_x: torch.Tensor, train_y: torch.Tensor,
                 sample_shape: tuple[int, ...], *, lr: float, momentum: float,
                 fused: bool, edit=None, l2: float = 0.0,
-                clip_norm: float = 0.0, local_ep: int = 1, val=None):
+                clip_norm: float = 0.0, local_ep: int = 1, val=None,
+                limit: torch.Tensor | None = None):
     """All S steps of a round's ``[W, S, B]`` plan over the resident
     train rows; returns per-step ``[W, S]`` losses and accuracies and
     the epoch-history dict.  The dict is empty without ``val``.  With
@@ -83,7 +103,11 @@ def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
     the loop is the reference's epoch loop: after each of the
     ``local_ep`` epochs every worker evaluates its local val split, and
     the dict holds per-epoch ``[W, E]`` train_loss, train_acc (count
-    weighted), val_acc, val_loss_sum and val_loss_mean."""
+    weighted), val_acc, val_loss_sum and val_loss_mean.  ``limit`` ([W]
+    int32 step budgets, a whole number of epochs with ``val``) is the
+    straggler gate; with ``val`` an epoch at or past a worker's limit
+    reports train_loss and train_acc 0 (dopt's epoch-gated rows: the
+    worker did no work) and its val metrics on the frozen params."""
     w, s, b = idx.shape
     losses = torch.empty(w, s, device=idx.device)
     accs = torch.empty(w, s, device=idx.device)
@@ -94,7 +118,8 @@ def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
         x = train_x[ik].view(w, b, *sample_shape)
         lw, aw = stacked_step(apply, params, moms, x, train_y[ik], bw[:, k],
                               lr=lr, momentum=momentum, fused=fused,
-                              edit=edit, l2=l2, clip_norm=clip_norm)
+                              edit=edit, l2=l2, clip_norm=clip_norm,
+                              limit=limit, step=k)
         losses[:, k] = lw
         accs[:, k] = aw
         if val is not None and (k + 1) % per_epoch == 0:
@@ -107,6 +132,11 @@ def local_steps(apply, params, moms, idx: torch.Tensor, bw: torch.Tensor,
     em = {"train_loss": losses.view(shape).mean(2),
           "train_acc": ((accs.view(shape) * counts).sum(2)
                         / counts.sum(2).clamp_min(1.0))}
+    if limit is not None:
+        starts = torch.arange(local_ep, device=idx.device) * per_epoch
+        on = starts[None, :] < limit[:, None]
+        em = {k: torch.where(on, v, torch.zeros_like(v))
+              for k, v in em.items()}
     for key, name in (("val_acc", "acc"), ("val_loss_sum", "loss_sum"),
                       ("val_loss_mean", "loss_mean")):
         em[key] = torch.stack([v[name] for v in vals], 1)

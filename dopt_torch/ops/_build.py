@@ -43,38 +43,56 @@ def _nvcc() -> str:
         "port's CUDA kernels are built from dopt_torch/csrc at first use")
 
 
-def library_path() -> Path:
+def hashed_path(sources, flags, build_dir: Path, name: str) -> Path:
+    """``build_dir/<hash>/name``, the hash over the sources' bytes and
+    the compiler flags: a changed source or flag builds anew."""
     digest = hashlib.sha256()
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    digest.update(" ".join(flags).encode())
+    return build_dir / digest.hexdigest()[:16] / name
 
 
-def build() -> Path:
-    """Compile the kernels unless this source hash is already built;
-    returns the library path.  The write is atomic (temp file, then
-    rename), so a concurrent or interrupted build never leaves a
-    truncated library behind."""
-    out = library_path()
+def build_cached(cmd_prefix, sources, flags, out: Path,
+                 report: str | None = None) -> Path:
+    """Compile ``sources`` with ``cmd_prefix + flags`` into ``out``
+    unless it exists (the hash-keyed cache of ``hashed_path``); keeps
+    the compiler's stderr as ``report`` beside the library when named.
+    The write is atomic (temp file, then rename), so a concurrent or
+    interrupted build never leaves a truncated library behind."""
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
+        cmd = [*cmd_prefix, *flags, "-o", tmp, *map(str, sources)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{cmd[0]} failed ({res.returncode}): {' '.join(cmd)}\n"
                 f"{res.stdout}{res.stderr}")
-        (out.parent / REPORT_NAME).write_text(res.stderr)
+        if report is not None:
+            (out.parent / report).write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def library_path() -> Path:
+    return hashed_path(_SOURCES, NVCC_FLAGS, BUILD_DIR, LIB_NAME)
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built;
+    returns the library path."""
+    out = library_path()
+    if out.is_file():
+        return out
+    return build_cached([_nvcc()], _SOURCES, NVCC_FLAGS, out,
+                        report=REPORT_NAME)
 
 
 def resource_report() -> str:
@@ -122,6 +140,10 @@ def load_library() -> ctypes.CDLL:
         c_int, ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),
         ctypes.POINTER(i64), c_int, c_float, c_float, vp]
     lib.dopt_fused_sgd_momentum.restype = c_int
+    lib.dopt_fused_sgd_momentum_gated.argtypes = [
+        c_int, ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),
+        ctypes.POINTER(i64), c_int, c_float, c_float, vp, i64, i64, vp]
+    lib.dopt_fused_sgd_momentum_gated.restype = c_int
     lib.dopt_fused_mix_sgd.argtypes = [vp, i64, vp, i64, vp, c_int, i64,
                                        c_int, c_float, c_int, vp]
     lib.dopt_fused_mix_sgd.restype = c_int

@@ -6,7 +6,11 @@ every SGD step's ``buf ← μ·buf + g;  p ← p − lr·buf`` over all of the
 step's tensors.  Bound on the H100: bytes — 20 an f32 element (read p,
 m, g; write p, m), ~60 µs a Model1 step of six workers at 3.35 TB/s.
 Design: one launch for all tensors of the step, 16-byte vector
-accesses, in place (``data_ptr`` never changes).
+accesses, in place (``data_ptr`` never changes).  With ``limit`` (a
+``[W]`` int32 device tensor) and ``step`` it takes the straggler gate:
+worker w's lane updates only while ``step < limit[w]``, and a gated-off
+lane skips its loads and stores (its plain version is ``torch.where``
+over the ungated plain step, dopt's update-then-select).
 
 ``fused_mix_sgd`` replaces dopt/ops/fused_update.py ``fused_mix_sgd``
 (+ ``fused_mix_update``): ``p ← W@p − lr·buf`` on one ``[n, F]`` flat
@@ -75,6 +79,23 @@ def sgd_momentum_reference(params, moms, grads, *, lr: float,
         m.copy_(buf)
 
 
+@torch.no_grad()
+def gated_sgd_momentum_reference(params, moms, grads, *, lr: float,
+                                 momentum: float, limit: torch.Tensor,
+                                 step: int) -> None:
+    """Plain PyTorch version of the gated kernel 1: the ungated plain
+    step on copies, then ``torch.where(step < limit, new, old)`` per
+    lane of every ``[W, ...]`` tensor."""
+    gate = step < limit
+    new_p = [p.clone() for p in params]
+    new_m = [m.clone() for m in moms]
+    sgd_momentum_reference(new_p, new_m, grads, lr=lr, momentum=momentum)
+    for olds, news in ((params, new_p), (moms, new_m)):
+        for old, new in zip(olds, news):
+            g = gate.reshape((-1,) + (1,) * (old.dim() - 1))
+            old.copy_(torch.where(g, new, old))
+
+
 def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
     """True for CUDA, False for CPU; raises for any other device."""
     if t.device.type not in ("cuda", "cpu"):
@@ -82,10 +103,14 @@ def _cuda_or_cpu(t: torch.Tensor, what: str) -> bool:
     return t.device.type == "cuda"
 
 
-def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float) -> None:
+def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float,
+                       limit: torch.Tensor | None = None,
+                       step: int = 0) -> None:
     """In-place momentum SGD over lists of equally shaped tensors:
     ``m ← μ·m + g;  p ← p − lr·m``, math in f32, storage f32 or bf16.
-    All tensors contiguous, of one dtype, on one device."""
+    All tensors contiguous, of one dtype, on one device.  With
+    ``limit`` ([W] int32 on the tensors' device; every tensor
+    ``[W, ...]``) lane w updates only while ``step < limit[w]``."""
     params, moms, grads = list(params), list(moms), list(grads)
     if not (len(params) == len(moms) == len(grads)) or not params:
         raise ValueError("fused_sgd_momentum: params/moms/grads must be "
@@ -102,8 +127,21 @@ def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float) -> None:
         if not (p.shape == m.shape == g.shape):
             raise ValueError(f"fused_sgd_momentum: shapes {p.shape}, "
                              f"{m.shape}, {g.shape} differ")
+    if limit is not None:
+        lanes = limit.shape[0]
+        if (limit.dim() != 1 or limit.dtype != torch.int32
+                or limit.device != device or not limit.is_contiguous()):
+            raise ValueError("fused_sgd_momentum: limit must be a contiguous "
+                             "[W] int32 tensor on the tensors' device")
+        if any(p.dim() < 1 or p.shape[0] != lanes for p in params):
+            raise ValueError(f"fused_sgd_momentum: limit has {lanes} lanes "
+                             "but a tensor's leading dim differs")
     if not _cuda_or_cpu(params[0], "fused_sgd_momentum"):
-        sgd_momentum_reference(params, moms, grads, lr=lr, momentum=mu)
+        if limit is None:
+            sgd_momentum_reference(params, moms, grads, lr=lr, momentum=mu)
+        else:
+            gated_sgd_momentum_reference(params, moms, grads, lr=lr,
+                                         momentum=mu, limit=limit, step=step)
         return
     lib = load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -114,8 +152,13 @@ def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float) -> None:
         ptrs = [(ctypes.c_void_p * n)(*[ts[i].data_ptr() for i in chunk])
                 for ts in (params, moms, grads)]
         sizes = (ctypes.c_int64 * n)(*[params[i].numel() for i in chunk])
-        code = lib.dopt_fused_sgd_momentum(n, *ptrs, sizes, _DTYPES[dtype],
-                                           lr, mu, stream)
+        if limit is None:
+            code = lib.dopt_fused_sgd_momentum(n, *ptrs, sizes,
+                                               _DTYPES[dtype], lr, mu, stream)
+        else:
+            code = lib.dopt_fused_sgd_momentum_gated(
+                n, *ptrs, sizes, _DTYPES[dtype], lr, mu, limit.data_ptr(),
+                limit.shape[0], step, stream)
         check(lib, code, "fused_sgd_momentum")
         fused_sgd_momentum.launches += 1
 

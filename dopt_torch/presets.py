@@ -24,15 +24,24 @@ path, on which both CUDA kernels run.  ``headline-fedavg-model1`` is
 ``baseline3`` with both switches on: the federated main path, where
 kernel 2 runs the masked mean at lr = −1.  ``headline-dsgd-model1-bf16``
 and ``headline-dsgd-model1-idiomatic-bf16`` are bench.py's fast legs
-(bf16 compute; the idiomatic one with the corrected head and clip 1.0).
+(bf16 compute, the native planner; the idiomatic one with the corrected
+head and clip 1.0).
+
+The fault presets are dopt's: ``baseline1-faulty`` (crash, straggle,
+partition), ``baseline1-byzantine`` (a scale-mode liar, clipped gossip,
+quarantine) and ``baseline1-lossy`` (message drop and delay, churn,
+crash, push-sum); ``bench-chaos-baseline1-lossy`` is bench.py's chaos
+cocktail at MNIST's sizes, and ``headline-dsgd-model1-faulty`` the
+headline under ``baseline1-faulty``'s faults.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from dopt_torch.config import (DataConfig, ExperimentConfig, FederatedConfig,
-                               GossipConfig, ModelConfig, OptimizerConfig)
+from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
+                               FederatedConfig, GossipConfig, ModelConfig,
+                               OptimizerConfig, RobustConfig)
 
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
 CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
@@ -168,22 +177,86 @@ def headline_dsgd_model1() -> ExperimentConfig:
 
 def headline_dsgd_model1_bf16(faithful: bool = True) -> ExperimentConfig:
     """dopt bench.py ``_config(fast=True, faithful_model=faithful,
-    fused="on")``, the JAX bench's fast leg: the headline at
-    ``compute_dtype="bfloat16"`` (params stay f32), both fused switches
-    on; with ``faithful=False`` the corrected head (post-conv ReLUs, raw
-    logits, the logits layer in f32) and ``clip_norm=1.0``.  One
-    difference: dopt's fast leg plans batches with its C++ planner
-    (``plan_impl="native"``), whose draws are another stream; the port
-    has no native planner yet (ROADMAP queue 1), so this runs the numpy
-    plans."""
+    fused="on")``, the JAX bench's fast leg exactly: the headline at
+    ``compute_dtype="bfloat16"`` (params stay f32) with batches planned
+    by the C++ native planner (``plan_impl="native"``, dopt's xoshiro
+    stream), both fused switches on; with ``faithful=False`` the
+    corrected head (post-conv ReLUs, raw logits, the logits layer in
+    f32) and ``clip_norm=1.0``."""
     cfg = headline_dsgd_model1()
     suffix = "" if faithful else "-idiomatic"
     return cfg.replace(
         name=f"headline-dsgd-model1{suffix}-bf16",
+        data=dataclasses.replace(cfg.data, plan_impl="native"),
         model=dataclasses.replace(cfg.model, faithful=faithful,
                                   compute_dtype="bfloat16"),
         optim=dataclasses.replace(cfg.optim,
                                   clip_norm=0.0 if faithful else 1.0))
+
+
+# dopt's gossip fault presets (dopt/presets.py:244-293): baseline1 under
+# a production-shaped failure regime (crashes, a straggler deadline at
+# half the local work, occasional 2-way partitions), under one
+# persistent scale-mode liar against clipped gossip and a 3-strike
+# quarantine, and over lossy, delayed links with churn and push-sum.
+BASELINE1_FAULTS = FaultConfig(crash=0.1, straggle=0.2, straggle_frac=0.5,
+                               partition=0.05, partition_span=2)
+
+
+def baseline_1_faulty() -> ExperimentConfig:
+    return dataclasses.replace(baseline_1_ring_mnist_mlp(),
+                               name="baseline1-ring-mnist-mlp-faulty",
+                               faults=BASELINE1_FAULTS)
+
+
+def baseline_1_byzantine() -> ExperimentConfig:
+    return dataclasses.replace(
+        baseline_1_ring_mnist_mlp(),
+        name="baseline1-ring-mnist-mlp-byzantine",
+        faults=FaultConfig(corrupt=1.0, corrupt_max=1, corrupt_mode="scale",
+                           corrupt_scale=50.0),
+        robust=RobustConfig(clip_radius=1.0, quarantine_after=3,
+                            quarantine_rounds=5))
+
+
+def baseline_1_lossy() -> ExperimentConfig:
+    cfg = baseline_1_ring_mnist_mlp()
+    return dataclasses.replace(
+        cfg, name="baseline1-ring-mnist-mlp-lossy",
+        gossip=dataclasses.replace(cfg.gossip, correction="push_sum"),
+        faults=FaultConfig(msg_drop=0.15, msg_delay=0.2, msg_delay_max=2,
+                           churn=0.02, churn_span=3, crash=0.05))
+
+
+def bench_chaos_baseline1_lossy() -> ExperimentConfig:
+    """dopt bench.py ``_chaos_config`` at MNIST's sizes: the degraded-
+    network cocktail on baseline1's workload (4-worker MLP, metropolis
+    ring, bf16 compute, native plans) — lossy links, stragglers,
+    Byzantine scale-lies and an armed quarantine."""
+    return ExperimentConfig(
+        name="bench-chaos-baseline1-lossy", seed=2028,
+        data=DataConfig(dataset="mnist", num_users=4, iid=False, shards=2,
+                        synthetic_train_size=MNIST_TRAIN,
+                        synthetic_test_size=MNIST_TEST, plan_impl="native"),
+        model=ModelConfig(model="mlp", faithful=False,
+                          compute_dtype="bfloat16"),
+        optim=OptimizerConfig(lr=0.05, momentum=0.5),
+        gossip=GossipConfig(algorithm="dsgd", topology="circle",
+                            mode="metropolis", rounds=20, local_ep=2,
+                            local_bs=64),
+        faults=FaultConfig(msg_drop=0.15, straggle=0.25, straggle_frac=0.5,
+                           corrupt=0.15, corrupt_mode="scale",
+                           corrupt_scale=10.0),
+        robust=RobustConfig(quarantine_after=3, quarantine_rounds=5))
+
+
+def headline_dsgd_model1_faulty() -> ExperimentConfig:
+    """``headline-dsgd-model1`` (both fused switches on) under
+    ``baseline1-faulty``'s fault config: kernel 1 gated by the straggler
+    budget, kernel 2 on the crash- and partition-repaired matrix."""
+    return dataclasses.replace(headline_dsgd_model1(),
+                               name="headline-dsgd-model1-faulty",
+                               faults=BASELINE1_FAULTS)
 
 
 PRESETS = {
@@ -216,6 +289,11 @@ PRESETS = {
     "headline-dsgd-model1-bf16": headline_dsgd_model1_bf16,
     "headline-dsgd-model1-idiomatic-bf16": lambda: headline_dsgd_model1_bf16(
         faithful=False),
+    "headline-dsgd-model1-faulty": headline_dsgd_model1_faulty,
+    "baseline1-faulty": baseline_1_faulty,
+    "baseline1-byzantine": baseline_1_byzantine,
+    "baseline1-lossy": baseline_1_lossy,
+    "bench-chaos-baseline1-lossy": bench_chaos_baseline1_lossy,
 }
 
 

@@ -1,17 +1,58 @@
-"""The federated aggregation's always-on guard: the non-finite screen.
+"""Byzantine robustness for the port: the screens, clipped gossip and
+quarantine.
 
-The port's copy of the two pieces of ``dopt.robust`` the federated
-engine runs on every round.  The Byzantine aggregators, clipping and
-quarantine arrive with the robust slice.
+The port's copy of ``dopt.robust``'s gossip half (the federated
+aggregators and ``clip_to_ball`` arrive with the federated faults
+slice), over stacked ``[W, ...]`` tensor dicts:
+
+* ``finite_lane_mask`` — the non-finite screen (a lane with any NaN/Inf
+  is flagged); the federated mean runs it on every round;
+* ``lane_sq_norms`` — each lane's squared L2 norm, f32-accumulated;
+* ``byzantine_mix`` — one UNDEFENDED consensus sweep under Byzantine
+  sends: receivers absorb what neighbours broadcast, each self-term
+  reads the worker's true state, non-finite poison reaches exactly the
+  senders' out-edges;
+* ``clipped_gossip_mix`` — the decentralized defense (He et al.,
+  ClippedGossip): every neighbour deviation clipped to ``tau`` before
+  the weights apply; returns the per-sender screened flags;
+* ``quarantine_step`` — the host streak/sentence rule.
+
+All device functions take data (masks, matrices) as tensors, so a
+captured round replays them with new values.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # dopt.robust.masked_mean is collectives.masked_average without the mesh
 # and wire knobs, which the port's single-device average never has.
 from dopt_torch.parallel.collectives import masked_average as masked_mean
+
+AGGREGATORS = ("mean", "trimmed_mean", "median", "krum", "multi_krum")
+
+
+def validate_robust_config(cfg) -> None:
+    """Range/enum checks for ``RobustConfig`` — fail at trainer
+    construction with a clean message, not deep inside a trace."""
+    if cfg.aggregator not in AGGREGATORS:
+        raise ValueError(f"unknown aggregator {cfg.aggregator!r}; one of "
+                         f"{AGGREGATORS}")
+    if not 0.0 <= cfg.trim_frac < 0.5:
+        raise ValueError(
+            f"RobustConfig.trim_frac={cfg.trim_frac} must be in [0, 0.5) "
+            "(trimming half from each end leaves nothing)")
+    if cfg.krum_f < 0:
+        raise ValueError("RobustConfig.krum_f must be >= 0")
+    if cfg.multi_krum_m < 0:
+        raise ValueError("RobustConfig.multi_krum_m must be >= 0")
+    if cfg.clip_radius < 0:
+        raise ValueError("RobustConfig.clip_radius must be >= 0")
+    if cfg.quarantine_after < 0:
+        raise ValueError("RobustConfig.quarantine_after must be >= 0")
+    if cfg.quarantine_rounds < 1:
+        raise ValueError("RobustConfig.quarantine_rounds must be >= 1")
 
 
 def finite_lane_mask(stacked: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -24,4 +65,124 @@ def finite_lane_mask(stacked: dict[str, torch.Tensor]) -> torch.Tensor:
     return flags.float()
 
 
-__all__ = ["finite_lane_mask", "masked_mean"]
+def lane_sq_norms(stacked: dict[str, torch.Tensor]) -> torch.Tensor:
+    """[W] float32 squared L2 norm of each lane across all tensors."""
+    out = None
+    for k in sorted(stacked):
+        x = stacked[k]
+        s = (x.float() ** 2).reshape(x.shape[0], -1).sum(1)
+        out = s if out is None else out + s
+    return out
+
+
+def _lane(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def _contract(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``tensordot(w, x, [[1], [0]])``: ``[n, n]`` by ``[n, ...]``."""
+    return (w @ x.reshape(x.shape[0], -1)).reshape(x.shape)
+
+
+def byzantine_mix(x: dict[str, torch.Tensor], x_send: dict[str, torch.Tensor],
+                  w_matrix: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One undefended consensus sweep under Byzantine sends:
+
+        x_i ← W_ii · x_i + Σ_{j≠i} W_ij · x_send_j
+
+    in f32, cast back to each tensor's dtype.  A liar lies on the wire
+    and keeps its own state honest; a non-finite sender's column is
+    zeroed before the product (0·NaN would poison every row) and the
+    receivers with a weighted edge from it become NaN.  With honest
+    sends this is the dense consensus step."""
+    wm = w_matrix.float()
+    n = wm.shape[0]
+    eye = torch.eye(n, device=wm.device)
+    off = wm * (1.0 - eye)
+    diag = torch.diagonal(wm)
+    fin = finite_lane_mask(x_send)
+    poisoned = (off @ (1.0 - fin)) > 0.0
+    out = {}
+    for k, xr in x.items():
+        xs = x_send[k]
+        zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
+        xs_z = torch.where(_lane(fin, xs).bool(), xs, zero)
+        y = _lane(diag, xr) * xr.float() + _contract(off, xs_z.float())
+        y = torch.where(_lane(poisoned, xr), torch.full_like(y, float("nan")),
+                        y)
+        out[k] = y.to(xr.dtype)
+    return out
+
+
+def clipped_gossip_mix(x: dict[str, torch.Tensor],
+                       x_send: dict[str, torch.Tensor],
+                       w_matrix: torch.Tensor, tau: float
+                       ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """One clipped-gossip sweep (He et al., ClippedGossip):
+
+        x_i ← x_i + Σ_{j≠i} W_ij · s_ij · (x_send_j − x_i),
+        s_ij = min(1, τ / ‖x_send_j − x_i‖)   (0 for non-finite sends)
+
+    ``x`` is each worker's true state, ``x_send`` its broadcast.  The
+    distances come from the Gram identity over the lanes flattened in
+    sorted-name order (dopt's tree order), all in f32.  Returns
+    ``(mixed, screened)``: ``screened`` [W] is 1.0 for a sender that was
+    non-finite or clipped by a majority of its neighbours."""
+    names = sorted(x)
+    fin = finite_lane_mask(x_send)
+    x_send_z = {k: torch.where(_lane(fin, s).bool(), s,
+                               torch.zeros((), dtype=s.dtype, device=s.device))
+                for k, s in x_send.items()}
+    flat_r = torch.cat([x[k].reshape(x[k].shape[0], -1).float()
+                        for k in names], 1)
+    flat_s = torch.cat([x_send_z[k].reshape(x_send_z[k].shape[0], -1).float()
+                        for k in names], 1)
+    n = flat_r.shape[0]
+    d2 = ((flat_r ** 2).sum(1)[:, None] + (flat_s ** 2).sum(1)[None, :]
+          - 2.0 * flat_r @ flat_s.T)
+    dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+    s = torch.clamp_max(tau / torch.clamp_min(dist, 1e-12), 1.0)
+    s = torch.where(torch.isfinite(s), s, torch.zeros_like(s))
+    eye = torch.eye(n, device=flat_r.device)
+    s = s * (1.0 - eye) * fin[None, :]
+    wm = w_matrix.float()
+    c = wm * s
+    rowsum = c.sum(1)
+    mixed = {}
+    for k, xr in x.items():
+        y = (_lane(1.0 - rowsum, xr) * xr.float()
+             + _contract(c, x_send_z[k].float()))
+        mixed[k] = y.to(xr.dtype)
+    edges = (wm * (1.0 - eye)) > 0.0
+    clipped = edges & (s < 1.0)
+    frac = clipped.sum(0).float() / torch.clamp_min(edges.sum(0), 1).float()
+    screened = torch.maximum((frac > 0.5).float(), 1.0 - fin)
+    return mixed, screened
+
+
+def quarantine_step(streak: np.ndarray, until: np.ndarray,
+                    ids: np.ndarray, flags: np.ndarray, t: int, *,
+                    after: int, rounds: int) -> list[tuple[int, int]]:
+    """One host-side detection/quarantine update over identity arrays:
+    K consecutive screened participations → benched for ``rounds``; one
+    clean participation resets the streak.  The rule the gossip engine
+    applies lane by lane (``GossipTrainer._apply_screen_feedback``, and
+    its device twin in the fused-quarantine round).
+
+    ``streak``/``until`` are the identity-indexed int arrays (mutated
+    in place); ``ids`` the identities that PARTICIPATED this round with
+    their 0/1 ``flags``.  ``after`` <= 0 disables sentencing (streaks
+    still track).  Returns [(id, until)] for the identities quarantined
+    THIS call, so the caller can ledger them."""
+    sentenced: list[tuple[int, int]] = []
+    for j, wid in enumerate(np.asarray(ids).reshape(-1)):
+        wid = int(wid)
+        if float(flags[j]) > 0.5:
+            streak[wid] += 1
+            if after > 0 and streak[wid] >= after:
+                until[wid] = int(t) + 1 + int(rounds)
+                streak[wid] = 0
+                sentenced.append((wid, int(until[wid])))
+        else:
+            streak[wid] = 0
+    return sentenced

@@ -8,7 +8,10 @@ one JSON history row per round and optionally writes the History CSV in
 the reference's results layout.  ``--checkpoint``, ``--checkpoint-every``
 and ``--resume`` save and restore the whole training state (dopt's
 flags): a run killed at any point and restarted with ``--resume`` is the
-continuous run bit for bit.
+continuous run bit for bit.  ``--faults`` and ``--corrupt`` install a
+fault config (dopt's spec syntax, ``dopt_torch.faults.parse_fault_spec``
+and ``parse_corrupt_spec``) and ``--faults-json`` writes the run's fault
+ledger.
 """
 
 from __future__ import annotations
@@ -85,6 +88,21 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--resume", default=None,
                     help="restore this checkpoint before running (pair with "
                          "--checkpoint-every for kill-and-resume workflows)")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="inject deterministic faults: comma-separated "
+                         "FaultConfig fields, e.g. 'crash=0.1,straggle=0.2,"
+                         "straggle_frac=0.5,partition=0.05' or the lossy-"
+                         "link/elastic knobs 'msg_drop=0.1,msg_delay=0.2,"
+                         "msg_delay_max=2,churn=0.02,churn_span=4'; pair "
+                         "asymmetric msg_drop with --set "
+                         "gossip.correction=push_sum")
+    ap.add_argument("--corrupt", default=None, metavar="SPEC",
+                    help="inject Byzantine corruption (workers that lie): "
+                         "'p=0.25,mode=signflip,scale=50,max=2' or a bare "
+                         "probability; merges onto --faults.  Gossip modes: "
+                         "nan|inf|scale|signflip")
+    ap.add_argument("--faults-json", default=None, metavar="PATH",
+                    help="write the run's fault ledger here as JSON")
     args = ap.parse_args(argv)
 
     from dopt_torch.engine import FederatedTrainer, GossipTrainer
@@ -99,6 +117,21 @@ def main(argv: list[str] | None = None) -> int:
     cfg = get_preset(args.preset)
     for spec in args.overrides:
         cfg = apply_override(cfg, spec)
+    if args.faults:
+        from dopt_torch.faults import parse_fault_spec
+
+        try:
+            cfg = cfg.replace(faults=parse_fault_spec(args.faults))
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.corrupt:
+        from dopt_torch.faults import parse_corrupt_spec
+
+        try:
+            cfg = cfg.replace(
+                faults=parse_corrupt_spec(args.corrupt, base=cfg.faults))
+        except ValueError as e:
+            raise SystemExit(str(e))
     if cfg.federated is not None:
         trainer = FederatedTrainer(cfg, device=args.device)
         default_rounds = cfg.federated.rounds
@@ -124,6 +157,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.csv:
         trainer.history.to_csv(args.csv)
         print(f"wrote {args.csv}", file=sys.stderr)
+    if args.faults_json:
+        trainer.history.faults_to_json(args.faults_json)
+        print(f"wrote {len(trainer.history.faults)} fault-ledger rows to "
+              f"{args.faults_json}", file=sys.stderr)
     if args.checkpoint:
         trainer.save(args.checkpoint)
         print(f"checkpointed to {args.checkpoint}", file=sys.stderr)

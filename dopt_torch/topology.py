@@ -5,6 +5,11 @@ topologies, the same weight modes and the same numpy draws, so every
 matrix is bit-identical to dopt's for the same arguments.  Matrices are
 plain numpy data; the trainer moves each round's matrix to the device.
 
+The repairs (``repair_for_dropout`` and its device twin,
+``repair_for_partition``, ``repair_for_link_drop``,
+``push_sum_link_matrix``, ``split_by_delay``) are dopt's too: the fault
+model heals the mixing matrix as data each round.
+
 Faithful-mode invariants (as in dopt): zero diagonal unless
 ``self_weight``; ``stochastic`` normalises columns then transposes;
 ``double_stochastic`` is Sinkhorn with the reference's star special case
@@ -17,6 +22,7 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
+import torch
 
 # The reference spells it "compelete"; accept both.
 _TOPOLOGIES = ("circle", "ring", "star", "complete", "compelete", "dynamic",
@@ -300,3 +306,144 @@ def random_matching_matrix(n: int, rng: np.random.Generator) -> np.ndarray:
         i = perm[-1]
         w[i, i] = 1.0
     return w
+
+
+def repair_for_dropout(w: np.ndarray, alive: np.ndarray) -> np.ndarray:
+    """Rebuild a mixing matrix after worker failures (fault injection /
+    elastic recovery — the subsystem SURVEY §5 notes the reference lacks
+    entirely; here failures are a per-round participation mask and the
+    communication layer heals itself as data).
+
+    ``alive`` is a 0/1 vector.  Edges to dead workers are removed and
+    surviving rows renormalised to keep row-stochasticity; a live worker
+    whose neighbors all died keeps its own weights for the round
+    (identity row), and a dead worker is frozen (identity row) so it
+    rejoins with stale-but-valid parameters when it comes back.
+    """
+    n = w.shape[0]
+    a = np.asarray(alive, dtype=w.dtype).reshape(1, n)
+    return _repair_edges(w, a, force_identity=np.asarray(alive) <= 0)
+
+
+def repair_for_dropout_torch(w: torch.Tensor,
+                             alive: torch.Tensor) -> torch.Tensor:
+    """``repair_for_dropout`` on the device, in the matrix dtype (f32),
+    the twin of dopt's ``repair_for_dropout_jnp``: the fused-quarantine
+    round folds the quarantine mask into ``alive`` on the device and
+    repairs there, so per-round and blocked runs (a graph replay) run
+    the same arithmetic.  Dead edges dropped, surviving rows
+    renormalised, isolated or dead rows exact identity rows."""
+    n = w.shape[0]
+    a = alive.to(w.dtype).reshape(1, n)
+    masked = w * a
+    rowsum = masked.sum(1, keepdim=True)
+    safe = torch.where(rowsum > 0, rowsum, torch.ones_like(rowsum))
+    repaired = masked / safe
+    iso = (rowsum[:, 0] <= 0) | (a[0] <= 0)
+    eye = torch.eye(n, dtype=w.dtype, device=w.device)
+    return torch.where(iso[:, None], eye, repaired)
+
+
+def _repair_edges(w: np.ndarray, edge_mask: np.ndarray,
+                  force_identity: np.ndarray | None = None) -> np.ndarray:
+    """Shared healing core for dropout/partition repair: drop the
+    masked-out edges, renormalise surviving rows to stay stochastic,
+    and give isolated rows (no surviving out-edges, or explicitly
+    forced — dead workers) an exact identity row."""
+    masked = w * edge_mask
+    rowsum = masked.sum(axis=1, keepdims=True)
+    safe = np.where(rowsum > 0, rowsum, 1.0)
+    repaired = masked / safe
+    iso = rowsum[:, 0] <= 0
+    if force_identity is not None:
+        iso = iso | force_identity
+    isolated = np.nonzero(iso)[0]
+    repaired[isolated, :] = 0.0
+    repaired[isolated, isolated] = 1.0
+    return repaired
+
+
+def repair_for_link_drop(w: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """Rebuild a mixing matrix under per-DIRECTED-EDGE message loss
+    (the lossy-link model, ``FaultConfig.msg_drop``).
+
+    ``keep`` is bool [n, n]: keep[i, j] = the message j -> i arrived.
+    Dropped edges are removed and surviving rows renormalised (the
+    receiver re-weights what it actually heard — the only thing a real
+    receiver CAN do), with the ``repair_for_dropout`` healing semantics
+    for rows left empty.  The self-edge always survives (a worker never
+    loses its own state).
+
+    Correctness note: because each direction drops independently, the
+    repaired matrix is row-stochastic but in general NOT doubly
+    stochastic even when ``w`` was — plain gossip through it converges
+    to a *biased* weighted average.  ``push_sum_link_matrix`` is the
+    mass-conserving counterpart that keeps the true mean recoverable.
+
+    A worker with every in/out edge dropped is repaired exactly like a
+    crashed worker (identity row) — crash = the degenerate all-links
+    case, which is what lets the legacy ``GossipConfig.dropout`` alias
+    route through this path."""
+    n = w.shape[0]
+    mask = (np.asarray(keep, bool) | np.eye(n, dtype=bool)).astype(w.dtype)
+    return _repair_edges(w, mask)
+
+
+def push_sum_link_matrix(w: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """Column-stochastic (mass-conserving) effective matrix for
+    push-sum / ratio consensus under message loss.
+
+    ``w`` is the round's (already crash/partition/churn-repaired)
+    row-stochastic mixing matrix; its transpose is the column-stochastic
+    out-share matrix B (sender j splits its mass by its own mixing row).
+    A dropped edge j -> i returns its share to the SENDER's self-term
+    (the message bounced; mass is never destroyed), so every column
+    still sums to exactly 1 and the ratio estimate params/mass stays a
+    convex combination of the honest values — the invariant the
+    push-sum property tests pin (Σ mass, nodes + in-flight, == n at
+    every round)."""
+    n = w.shape[0]
+    eye = np.eye(n, dtype=bool)
+    b = np.asarray(w, np.float64).T
+    k = (np.asarray(keep, bool) | eye)
+    m = b * k
+    # Undelivered share of each column back to the sender's diagonal.
+    lost = (b * ~k).sum(axis=0)
+    m[np.arange(n), np.arange(n)] += lost
+    return m
+
+
+def split_by_delay(m: np.ndarray, delay: np.ndarray,
+                   delay_max: int) -> np.ndarray:
+    """Split an effective mixing matrix into its per-staleness parts:
+    returns [D+1, n, n] with ``out[d] = m`` masked to the edges whose
+    message is d rounds stale (diagonal always d = 0; entries of
+    dropped edges are already 0 in ``m``).  ``sum(out, axis=0) == m``
+    exactly, so the split never changes the round's total weights —
+    only WHICH snapshot each weight applies to.  The input dtype is
+    preserved (push-sum's mass-conservation property tests run the
+    split in float64; the engines narrow to f32 at device put)."""
+    n = m.shape[0]
+    d = np.where(np.eye(n, dtype=bool), 0, np.asarray(delay))
+    out = np.stack([m * (d == k) for k in range(delay_max + 1)])
+    return out.astype(m.dtype)
+
+
+def repair_for_partition(w: np.ndarray, groups: np.ndarray) -> np.ndarray:
+    """Rebuild a mixing matrix under a network partition: edges that
+    cross the cut are removed and surviving rows renormalised, exactly
+    the ``repair_for_dropout`` healing semantics applied edge-wise.
+
+    ``groups`` is an int vector of partition-side ids; only same-group
+    edges survive.  A worker isolated by the cut (all neighbors on the
+    other side) keeps its own weights for the span (identity row), so
+    every side keeps mixing internally and the fleet re-fuses when the
+    partition heals — the matrix is data, nothing is recompiled.
+    """
+    g = np.asarray(groups).reshape(-1)
+    n = w.shape[0]
+    if g.shape[0] != n:
+        raise ValueError(f"groups has {g.shape[0]} entries for an "
+                         f"{n}-worker matrix")
+    same = (g[:, None] == g[None, :]).astype(w.dtype)
+    return _repair_edges(w, same)

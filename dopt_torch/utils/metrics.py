@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import csv
 import io
+import json
 import os
 import statistics
 from pathlib import Path
@@ -44,6 +45,8 @@ class History:
     def __init__(self, name: str = "history"):
         self.name = name
         self.rows: list[dict[str, Any]] = []
+        # The fault ledger: one row per (round, worker, kind, action).
+        self.faults: list[dict[str, Any]] = []
 
     def append(self, **row: Any) -> None:
         self.rows.append({k: _scalar(v) for k, v in row.items()})
@@ -63,6 +66,11 @@ class History:
         for i, r in enumerate(self.rows):
             w.writerow([i] + [r.get(c, "") for c in cols])
         return atomic_write_text(path, buf.getvalue(), newline="")
+
+
+    def faults_to_json(self, path: str | Path) -> Path:
+        """The fault ledger as dopt's ``--faults-json`` writes it."""
+        return atomic_write_text(path, json.dumps(self.faults, indent=2))
 
 
 def _scalar(v: Any) -> Any:

@@ -16,7 +16,8 @@ import dopt_torch.config as T
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 
 CLASSES = ["DataConfig", "ModelConfig", "OptimizerConfig", "GossipConfig",
-           "FederatedConfig", "ExperimentConfig"]
+           "FederatedConfig", "FaultConfig", "RobustConfig",
+           "ExperimentConfig"]
 
 
 def _default(f):
@@ -64,8 +65,6 @@ GOSSIP_ONLY = [
     ("gossip", "compression", "qsgd", "codecs"),
     ("gossip", "compression_ratio", 0.25, "codecs"),
     ("gossip", "qsgd_levels", 16, "codecs"),
-    ("gossip", "correction", "push_sum", "faults"),
-    ("gossip", "dropout", 0.1, "faults"),
     ("gossip", "diagnostics", "on", "telemetry"),
 ]
 BOTH = [
@@ -140,6 +139,6 @@ def test_cli_set_of_an_unported_field_names_its_slice():
     with pytest.raises(ValueError, match="'telemetry' slice"):
         main(["--preset", "headline-dsgd-model1", "--device", "cpu",
               "--set", "gossip.diagnostics=on"])
-    with pytest.raises(ValueError, match="'faults' slice"):
+    with pytest.raises(ValueError, match="'codecs' slice"):
         main(["--preset", "headline-dsgd-model1", "--device", "cpu",
-              "--set", "gossip.dropout=0.2"])
+              "--set", "gossip.compression=qsgd"])

@@ -254,11 +254,15 @@ def _opt(cfg, **kw):
     (lambda c: c.replace(model=dataclasses.replace(
         c.model, param_dtype="float16")), "unknown model.param_dtype"),
     (lambda c: c.replace(data=dataclasses.replace(
-        c.data, plan_impl="native")), "'native planner'"),
+        c.data, plan_impl="rust")), "unknown plan_impl 'rust'"),
     (lambda c: c.replace(model=dataclasses.replace(
         c.model, model="resnet18")), "'ResNet-18'"),
-    (lambda c: c.replace(faults=object()), "'faults'"),
-    (lambda c: c.replace(robust=object()), "'robust'"),
+    (lambda c: c.replace(faults=object()), "cfg.faults must be"),
+    (lambda c: c.replace(robust=object()), "cfg.robust must be"),
+    (lambda c: c.replace(faults=T.FaultConfig(crash=0.1)),
+     "'federated faults' slice"),
+    (lambda c: c.replace(robust=T.RobustConfig(aggregator="median")),
+     "'federated faults' slice"),
     (lambda c: c.replace(population=object()), "'population'"),
     (lambda c: c.replace(comm=object()), "'codecs'"),
     (lambda c: _fed(c, algorithm="scaffold", fused_update="on"),

@@ -154,7 +154,7 @@ def _replace(cfg, section, **kw):
      "unknown eval_mode 'stratified'; one of full|sharded"),
     (lambda c: _replace(c, "data", local_holdout=0.1,
                         holdout_mode="stratified"), "holdout"),
-    (lambda c: _replace(c, "data", plan_impl="native"), "native planner"),
+    (lambda c: _replace(c, "data", plan_impl="rust"), "native planner"),
     (lambda c: _replace(c, "model", compute_dtype="float16"),
      "unknown model.compute_dtype"),
     (lambda c: _replace(c, "model", model="resnet18"), "ResNet-18"),

@@ -299,8 +299,8 @@ def test_headline_preset_is_bench_config_with_both_kernels():
 def test_bf16_presets_are_bench_fast_legs(faithful):
     """headline-dsgd-model1[-idiomatic]-bf16 = bench.py
     _config(fast=True, faithful_model=faithful, fused="on") at MNIST
-    scale with both fused_update switches on, and the numpy planner in
-    place of the native one (the port has none yet)."""
+    scale with both fused_update switches on, the native planner
+    included."""
     import importlib.util
     import pathlib
 
@@ -314,7 +314,6 @@ def test_bf16_presets_are_bench_fast_legs(faithful):
                          faithful_model=faithful, fused="on")
     assert want.data.plan_impl == "native"
     want = want.replace(
-        data=dataclasses.replace(want.data, plan_impl="numpy"),
         optim=dataclasses.replace(want.optim, fused_update=True))
     suffix = "" if faithful else "-idiomatic"
     t = get_preset(f"headline-dsgd-model1{suffix}-bf16")
