@@ -133,6 +133,27 @@ Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
 Phase 2 builds the native planner (g++) beside the kernels, and phase 4
 also runs two small faulty configurations on the GPU against the CPU.
 
+11. the federated fault model at full width (MNIST-sized synthetic
+   sets; ``phase11``): 11a headline-fedavg-model1-faulty (16 lanes,
+   crash, partial stragglers, over-selection, partitions; kernel 1 gated
+   by the straggler budget, kernel 2 on the survivors' mask), 2 rounds
+   with the launch counts the rounds imply and the ledger equal to the
+   host stage's, killed after round 0 and resumed, and in blocks of 2,
+   each bit for bit; 11b baseline3-faulty as typed (compact, fixed-width
+   lanes, no kernel), 2 rounds per-round and in one block; 11c
+   baseline3-byzantine (signflip liars, trimmed mean) 2 rounds, then one
+   round each under the mean, median, Krum, multi-Krum and the mean with
+   clip_radius 1.0, and each aggregation call timed alone on 8 Model1
+   lanes with its peak memory; 11d baseline3-elastic (drop stragglers,
+   lossy and delayed uplinks, churn, the staleness buffer) 4 rounds
+   per-round and in blocks of 2 through the chaos round (History,
+   ledger, theta, the buffer and the counters bit for bit), its steady
+   replayed rate and a profiled replayed round; 11e baseline3 with two
+   pinned nan liars and the quarantine (after 2, for 3 rounds) at
+   6,000/1,000 samples, 6 rounds per-round and in blocks of 3, the
+   quarantine benching worker 0 at round 1 and readmitting it at 5;
+   11f the two new kernel sites timed as 3b times the others.
+
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
 """
@@ -271,9 +292,14 @@ def resume_check(label: str, cls, cfg, want_state: dict, want_launch: dict,
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
     drawn = []
-    if hasattr(c, "_sample_indices"):
-        draw = c._sample_indices
-        c._sample_indices = lambda: drawn.append(draw()) or drawn[-1]
+    if hasattr(c, "_round_participation"):
+        draw = c._round_participation
+
+        def record(t, chosen=None):
+            out = draw(t, chosen)
+            drawn.append(out[0])
+            return out
+        c._round_participation = record
     c.run(rounds=1)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -350,6 +376,334 @@ def resume_tiny(label: str, cls, cfg, ckdir: Path, dev) -> dict:
     same_state(f"8d {label}, round-2 checkpoint restored into a trainer "
                "with captured graphs", want, state(u))
     return kept
+
+
+def fed_state(tr) -> dict:
+    """``state`` plus the federated fault model's carried state: the
+    ledger, the quarantine and staleness mirrors and the staleness
+    buffer (History rows as JSON text, so NaN compares equal to NaN)."""
+    out = state(tr)
+    out["rows"] = [json.dumps(r) for r in out["rows"]]
+    out["ledger"] = [dict(r) for r in tr.history.faults]
+    out["mirrors"] = [tr._screen_streak.tolist(),
+                      tr._quarantine_until.tolist(),
+                      tr._stale_admit_round.tolist(),
+                      tr._stale_weight.tolist(), tr._stale_origin.tolist()]
+    if tr._stale_p is not None:
+        out["stale_p"] = {k: v.float().cpu().numpy().copy()
+                          for k, v in tr._stale_p.items()}
+    return out
+
+
+def fed_host_ledger(cfg, n_rounds: int) -> tuple[list, list]:
+    """The ledger the federated host stage writes for ``cfg`` with no
+    device run: participation round by round, the screen's flags taken
+    as the poisoning liars (nan/inf lies are screened, finite lies and
+    honest updates pass), fed back as the engine feeds them.  Returns
+    the rows and each round's surviving sample."""
+    import numpy as np
+
+    from dopt_torch.engine import FederatedTrainer
+
+    tr = FederatedTrainer(cfg, device="cpu", eval_train=False)
+    poison = (cfg.faults is not None
+              and cfg.faults.corrupt_mode in ("nan", "inf"))
+    rows, sels = [], []
+    for t in range(n_rounds):
+        sel, _, cmask, part_rows, _, _ = tr._round_participation(t)
+        flags = cmask[sel] if poison else np.zeros(len(sel), np.float32)
+        tr._apply_screen_feedback(t, sel, flags, part_rows)
+        rows += part_rows
+        sels.append(sel)
+    del tr
+    return rows, sels
+
+
+def phase11(dev, smi: str, get_preset, kit) -> dict:
+    """Phase 11, the federated fault model at full width (MNIST-sized
+    synthetic sets, the deterministic mode).  ``kit`` holds phase 3's
+    and 10e's timers (``time_ms``, ``k2_site``, ``gated_site``) and
+    phase 6's ``profile_round``.  Returns the launch counts of the main
+    path run (11a), its kernel rows (11f) and the rates."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dopt_torch import robust
+    from dopt_torch.config import FaultConfig, RobustConfig
+    from dopt_torch.engine import FederatedTrainer
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.parallel.collectives import (masked_average,
+                                                 mean_weight_matrix)
+
+    t11 = time.perf_counter()
+    rates = {}
+
+    def fed_run(label, cfg, n_rounds, block, want=None, want_launch=None,
+                finite=True, prof=False, tr=None):
+        """A fresh trainer (or ``tr``) on the card: n rounds in blocks of
+        ``block``, the kernel counts set to 0 just before and read just
+        after; finite losses and accuracies in range; against
+        ``want``/``want_launch`` bit for bit when given."""
+        base = torch.cuda.memory_allocated()
+        tr = FederatedTrainer(cfg, device=dev) if tr is None else tr
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=n_rounds, block=block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        st = fed_state(tr)
+        for row in tr.history.rows[-n_rounds:]:
+            if finite and not all(math.isfinite(row[k]) for k in (
+                    "train_loss", "test_loss", "local_loss")):
+                fail(f"11 {label}: non-finite loss in {row}")
+            if not all(0.0 <= row[k] <= 1.0 for k in ("train_acc",
+                                                      "test_acc")):
+                fail(f"11 {label}: accuracy out of range in {row}")
+        print(f"11 {label}: {n_rounds} rounds, block {block}: "
+              f"{n_rounds / wall:.4f} rounds/s, peak {peak} B over what was "
+              f"allocated before, launches {got}, {len(st['ledger'])} "
+              f"ledger rows; {smi}")
+        if want is not None:
+            same_state(f"11 {label}, against per-round", want, st)
+            if want_launch is not None and got != want_launch:
+                fail(f"11 {label}: launches {got} != {want_launch}")
+        if block > 1:
+            # The engine checked its device counters against the host
+            # replay after every round; they must equal the mirrors now.
+            for d, h in zip(tr._counters(), tr._host_counters()):
+                if not np.array_equal(d.cpu().numpy(), h):
+                    fail(f"11 {label}: device counters differ from the "
+                         "host mirrors")
+        idle = (kit.profile_round(f"11 {label}", functools.partial(
+            tr.run, rounds=1, block=block)) if prof else None)
+        rates[label] = (n_rounds / wall, peak, idle)
+        return tr, st, got
+
+    def check_ledger(label, got, cfg, n_rounds):
+        want, sels = fed_host_ledger(cfg, n_rounds)
+        if got != want:
+            fail(f"11 {label}: the card's ledger differs from the host "
+                 f"stage's: {got} vs {want}")
+        kinds = sorted({r["kind"] for r in got})
+        print(f"11 {label}: ledger of {len(got)} rows ({kinds}) equal to "
+              "the host stage's with no device run")
+        return sels
+
+    rounds = 2
+    # -- 11a. the faulty federated headline: both kernels, killed and
+    # resumed, blocked.
+    fhead = get_preset("headline-fedavg-model1-faulty")
+    tr, fh_state, fh_launch = fed_run(
+        "11a headline-fedavg-model1-faulty (both fused switches)", fhead,
+        rounds, 1, prof=False)
+    want = {"fused_sgd_momentum": rounds * tr.steps_per_round,
+            "fused_mix_sgd": rounds * tr.fused_spec.num_buckets}
+    print(f"11a launches {fh_launch} (expected {want}: kernel 1 gated, one "
+          "launch a step; kernel 2 once a bucket a round)")
+    if fh_launch != want:
+        fail(f"11a: launches {fh_launch} != {want}")
+    # The sites 11f times: round 0's survivors' mask and stragglers.
+    sel0 = check_ledger("11a", fh_state["ledger"], fhead, rounds)[0]
+    if not any(r["kind"] == "straggler" for r in fh_state["ledger"]):
+        fail("11a: no straggler in the faulty headline's two rounds")
+    rf0 = tr.faults.for_round(0)
+    del tr
+    torch.cuda.empty_cache()
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        victim = FederatedTrainer(fhead, device=dev)
+        victim.run(rounds=1, checkpoint_every=1, checkpoint_path=ckdir / "f")
+        del victim
+        resumed = FederatedTrainer(fhead, device=dev)
+        resumed.restore(ckdir / "f")
+        resumed.run(rounds=rounds - 1)
+        torch.cuda.synchronize()
+        same_state("11a headline-fedavg-model1-faulty, killed after round 0 "
+                   "and resumed, against the continuous run", fh_state,
+                   fed_state(resumed))
+        if launch_counts() != fh_launch:
+            fail(f"11a resume: launches {launch_counts()} != {fh_launch}")
+        del resumed
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    tr, _, _ = fed_run("11a headline-fedavg-model1-faulty blocked", fhead,
+                       rounds, 2, fh_state, fh_launch)
+    print(f"11a graphs {tr.graphs.captures}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 11b. baseline3-faulty as typed: compact, fixed-width lanes.
+    b3f = get_preset("baseline3-faulty")
+    tr, b3f_state, got = fed_run("11b baseline3-faulty per-round", b3f,
+                                 rounds, 1, prof=True)
+    if not tr._use_compact() or any(got.values()):
+        fail(f"11b: baseline3-faulty must run compact with no kernel: "
+             f"{got}")
+    del tr
+    check_ledger("11b", b3f_state["ledger"], b3f, rounds)
+    tr, _, _ = fed_run("11b baseline3-faulty, one block", b3f, rounds,
+                       rounds, b3f_state, got)
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 11c. baseline3-byzantine: signflip liars against each defense.
+    byz = get_preset("baseline3-byzantine")
+    tr, byz_state, _ = fed_run("11c baseline3-byzantine (trimmed mean)", byz,
+                               rounds, 1)
+    check_ledger("11c", byz_state["ledger"], byz, rounds)
+    liars = sorted({r["worker"] for r in byz_state["ledger"]
+                    if r["action"] == "injected_signflip"})
+    print(f"11c liars sampled: {liars}")
+    if not liars or not set(liars) <= {0, 1, 2}:
+        fail(f"11c: the pinned liars are workers 0-2, got {liars}")
+    del tr
+    per_round = {}
+    for name, rc in (
+            ("mean", dataclasses.replace(byz.robust, aggregator="mean")),
+            ("median", dataclasses.replace(byz.robust, aggregator="median")),
+            ("krum", dataclasses.replace(byz.robust, aggregator="krum")),
+            ("multi_krum", dataclasses.replace(byz.robust,
+                                               aggregator="multi_krum")),
+            ("mean, clip_radius 1.0", dataclasses.replace(
+                byz.robust, aggregator="mean", clip_radius=1.0))):
+        _, _, _ = fed_run(f"11c baseline3-byzantine, {name}",
+                          byz.replace(robust=rc), 1, 1, finite=name != "mean")
+        per_round[name] = rates[f"11c baseline3-byzantine, {name}"][0]
+    per_round["trimmed_mean"] = rates[
+        "11c baseline3-byzantine (trimmed mean)"][0]
+    # The aggregation calls alone on the round's 8 Model1 lanes.
+    shapes = param_shapes("model1")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    lanes = {k: torch.randn(8, *s, device=dev, generator=gen)
+             for k, s in shapes.items()}
+    center = {k: v[0].clone() for k, v in lanes.items()}
+    mask = torch.ones(8, device=dev)
+    mask[3] = 0.0
+    calls = {"mean": lambda: masked_average(lanes, mask),
+             "clip_to_ball 1.0": lambda: robust.clip_to_ball(lanes, center,
+                                                             1.0)}
+    for name in ("trimmed_mean", "median", "krum", "multi_krum"):
+        calls[name] = functools.partial(robust.make_aggregator(
+            name, trim_frac=0.25, krum_f=byz.robust.krum_f,
+            multi_krum_m=byz.robust.multi_krum_m), lanes, mask)
+    agg_ms = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        agg_ms[name] = (kit.time_ms(fn), peak)
+    for name, r in per_round.items():
+        print(f"11c aggregator {name}: {r:.4f} rounds/s (1 round, compact, "
+              f"8 lanes); {smi}")
+    for name, (ms, peak) in agg_ms.items():
+        print(f"11c aggregation call {name} over 8 Model1 lanes "
+              f"(1,663,370 f32 each), 7 alive: {ms:.4f} ms, peak {peak} B "
+              f"over what was allocated; {smi}")
+    del lanes, center
+    torch.cuda.empty_cache()
+
+    # -- 11d. baseline3-elastic: drop stragglers and delayed uplinks
+    # through the staleness buffer, per-round and through the chaos block.
+    el = get_preset("baseline3-elastic")
+    tr, el_state, got = fed_run("11d baseline3-elastic per-round", el, 4, 1)
+    if tr._use_compact() or not tr._has_stale:
+        fail("11d: baseline3-elastic must run full width with the buffer")
+    kinds = {r["kind"] for r in el_state["ledger"]}
+    actions = [r["action"] for r in el_state["ledger"]]
+    print(f"11d ledger kinds {sorted(kinds)}; admissions "
+          f"{[a for a in actions if a.startswith('admitted')]}")
+    if not any(a.startswith("admitted_after") for a in actions):
+        fail("11d: no late update was admitted in 4 rounds")
+    del tr
+    check_ledger("11d", el_state["ledger"], el, 4)
+    tr, _, _ = fed_run("11d baseline3-elastic, blocks of 2 (chaos round)",
+                       el, 4, 2, el_state, got)
+    # The timed blocked run holds round 0's eager warm-up and the
+    # capture; the steady rate is that of 4 replayed rounds, and one
+    # more replayed round runs under the profiler.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.run(rounds=4, block=2)
+    torch.cuda.synchronize()
+    steady = 4 / (time.perf_counter() - t)
+    rates["11d steady blocked"] = (steady, None, kit.profile_round(
+        "11d baseline3-elastic, a replayed chaos round",
+        functools.partial(tr.run, rounds=1, block=2)))
+    print(f"11d baseline3-elastic: steady blocked rate {steady:.4f} rounds/s "
+          f"(4 replayed chaos rounds, blocks of 2); graphs "
+          f"{tr.graphs.captures}; {smi}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 11e. the federated quarantine: nan liars benched after two
+    # screened participations for three rounds, per-round and in blocks
+    # of 3 through the chaos round.
+    b3 = get_preset("baseline3")
+    quar = b3.replace(
+        name="baseline3-quarantine",
+        data=dataclasses.replace(b3.data, synthetic_train_size=6_000,
+                                 synthetic_test_size=1_000),
+        federated=dataclasses.replace(b3.federated, local_ep=1,
+                                      compact=False),
+        faults=FaultConfig(corrupt=1.0, corrupt_max=2, corrupt_mode="nan"),
+        robust=RobustConfig(quarantine_after=2, quarantine_rounds=3))
+    tr, q_state, got = fed_run("11e baseline3 + nan liars + quarantine "
+                               "per-round", quar, 6, 1)
+    del tr
+    check_ledger("11e", q_state["ledger"], quar, 6)
+    q_rows = [(r["round"], r["worker"], r["action"])
+              for r in q_state["ledger"] if r["kind"] == "quarantine"]
+    print(f"11e quarantine rows {q_rows}")
+    benched = [(r, w, a) for r, w, a in q_rows
+               if a.startswith("quarantined_until_")]
+    if not benched or not any(a == "readmitted" for _, _, a in q_rows):
+        fail(f"11e: the quarantine must fire and readmit in 6 rounds: "
+             f"{q_rows}")
+    for r, w, a in benched:
+        until = int(a.rsplit("_", 1)[1])
+        if until != r + 4 or (until < 6
+                              and (until, w, "readmitted") not in q_rows):
+            fail(f"11e: worker {w} benched at {r} with {a}: {q_rows}")
+    tr, _, _ = fed_run("11e the same, blocks of 3 (chaos round)", quar, 6,
+                       3, q_state, got)
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 11f. the two new kernel sites, timed as 3b.
+    shapes = param_shapes("model1")
+    on = {w for w in range(16) if not rf0.straggler[w]}
+    site = {"k1": kit.gated_site(
+        f"faulty federated headline model1 W=16, {len(on)} lanes on "
+        "(round 0's stragglers off)", shapes, 16, on)}
+    mask0 = np.zeros(16, np.float32)
+    mask0[sel0] = 1.0
+    site["k2"] = kit.k2_site(
+        f"faulty federated headline model1 n=16, survivors "
+        f"{np.nonzero(mask0)[0].tolist()}, lr -1", shapes,
+        mean_weight_matrix(torch.tensor(mask0, device=dev)), -1.0)
+    for key, (rate, peak, idle) in rates.items():
+        print(f"11 rates {key}: {rate:.4f} rounds/s; peak {peak} B; idle "
+              f"{idle}; {smi}")
+    for name, (ms, peak) in agg_ms.items():
+        print(f"11 aggregation {name}: {ms:.4f} ms, peak {peak} B; {smi}")
+    print(f"11: phase 11 in {time.perf_counter() - t11:.1f} s")
+    return {"launch": fh_launch, "site": site}
 
 
 def main() -> None:
@@ -1700,6 +2054,15 @@ def main() -> None:
               f"{smi}")
     print(f"10: phase 10 in {time.perf_counter() - t10:.1f} s")
 
+    # -- 11. the federated fault model ------------------------------------
+    import types
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fed11 = phase11(dev, smi, get_preset, types.SimpleNamespace(
+        time_ms=time_ms, k2_site=k2_site, gated_site=gated_site,
+        profile_round=profile_round))
+    del flush
+
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
     for suffix, path, launched, t1, t2 in (
@@ -1747,8 +2110,13 @@ def main() -> None:
              site["k1 chaos gated"], site["k2 baseline1-faulty"]),
             ("headline-dsgd-model1-faulty", "headline-dsgd-model1-faulty: "
              "Model1, 6 workers, kernel 1 gated, kernel 2 on the repaired W",
-             site["k1 headline gated"], site["k2 headline-faulty"])):
-        launched = {**slice_launch, **fault_launch}[preset]
+             site["k1 headline gated"], site["k2 headline-faulty"]),
+            ("headline-fedavg-model1-faulty", "headline-fedavg-model1-"
+             "faulty: Model1, 16 lanes, kernel 1 gated by the partial "
+             "stragglers' budget, kernel 2 on the survivors' mask at lr -1",
+             fed11["site"]["k1"], fed11["site"]["k2"])):
+        launched = {**slice_launch, **fault_launch,
+                    "headline-fedavg-model1-faulty": fed11["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -15,10 +15,13 @@ Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph
 replays of the round, with a prefetched host pipeline, and save and
 restore their whole state (``save``/``restore``,
 ``run(checkpoint_every=K, checkpoint_path=P)``): a killed run resumes
-bit for bit.  The gossip engine runs dopt's fault model
-(``FaultConfig``, ``RobustConfig``: crash, straggle, partition, churn,
-Byzantine sends, clipped gossip, quarantine, lossy links, push-sum),
-and ``plan_impl="native"`` plans batches with dopt's C++ planner, built
+bit for bit.  Both engines run dopt's fault model (``FaultConfig``,
+``RobustConfig``): gossip under crash, straggle, partition, churn,
+Byzantine sends, clipped gossip, quarantine, lossy links and push-sum;
+federated under crash, stragglers, over-selection, server partitions,
+churn, lossy and delayed uplinks, Byzantine updates, the robust
+aggregators, clip-to-ball, quarantine and the staleness buffer.
+``plan_impl="native"`` plans batches with dopt's C++ planner, built
 with ``g++`` at first use.
 """
 

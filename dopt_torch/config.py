@@ -95,7 +95,9 @@ class FederatedConfig:
     # (dopt_torch.engine.graphs); on the CPU the same block loop runs
     # the body eagerly.
     comm_dtype: str | None = None   # arrives with the codecs slice
-    staleness_max: int = 0      # > 0 arrives with the network slice
+    staleness_max: int = 0
+    # > 0: late updates (drop-policy stragglers, delayed uplinks) are
+    # buffered and admitted d rounds later at weight staleness_decay**d.
     staleness_decay: float = 0.5
     update_sharding: str = "off"    # "scatter": multi-GPU slice
     update_bucket_mb: float = 4.0
@@ -261,7 +263,7 @@ class FaultConfig:
 
 @dataclass(frozen=True)
 class RobustConfig:
-    """Byzantine-robust aggregation & quarantine (``dopt_torch.robust``; the gossip half).
+    """Byzantine-robust aggregation & quarantine (``dopt_torch.robust``).
 
     The defense side of the threat model: ``FaultConfig.corrupt``
     injects lies, this config decides what the aggregation layer does
@@ -314,11 +316,10 @@ class ExperimentConfig:
     federated: FederatedConfig | None = None
     faults: FaultConfig | None = None
     # Fault injection (crash, straggle, partition, corrupt, link faults,
-    # churn); the gossip engine runs it, the federated engine refuses it
-    # until its slice.
+    # churn), in both engines.
     robust: RobustConfig | None = None
-    # Clipped gossip and quarantine (gossip); the federated aggregators
-    # arrive with the federated faults slice.
+    # Clipped gossip and quarantine (gossip); the robust aggregators,
+    # clip_radius and quarantine (federated).
     # Sections of later slices; the trainers refuse any that is set.
     seqlm: Any = None
     population: Any = None

@@ -43,6 +43,43 @@ while the current one runs (``dopt_torch.data.prefetch``).
 ``save``/``restore`` and ``run(checkpoint_every=, checkpoint_path=)``
 checkpoint the whole state, the client-sampling stream included, as
 ``GossipTrainer``'s do.
+
+The fault model (dopt/engine/federated.py:126-300, :922-1215,
+:1269-1397, :1526-1840, :2055-2414), from ``cfg.faults``
+(``dopt_torch.faults.FaultPlan``) and ``cfg.robust``:
+
+* participation — each round's sample passes dopt's host elif-chain
+  (quarantine > churn > crash > partition, where only group 0 reaches
+  the server > ``drop``-policy straggler > uplink drop > uplink delay >
+  survivor) in draw order; with ``over_select`` the server draws
+  ceil(m·(1+over_select)) clients, keeps the first m survivors and
+  releases the rest.  A fault-free round is the sorted draw, so the
+  sampling stream is dopt's and the fault-free port's byte for byte;
+* ``partial`` stragglers — a ``[W]`` step budget gates the local steps
+  (kernel 1's gated launch on the fused path);
+* corrupt — the liars' updates (and, for fedadmm/scaffold, their
+  companion state) are rewritten around theta (``corrupt_update`` with
+  ``ref``/``prev``: nan, inf, scale, signflip, stale) before the
+  non-finite screen, which runs on every round;
+* defenses — ``robust.clip_radius`` clips each lane's deviation from
+  theta (``clip_to_ball``), ``robust.aggregator`` replaces the masked
+  mean (trimmed mean, median, Krum, multi-Krum), and
+  ``robust.quarantine_after`` benches a client after that many
+  screened participations for ``quarantine_rounds``;
+* staleness (``federated.staleness_max`` > 0) — deadline-dropped
+  stragglers and delayed uplinks train anyway, their update is captured
+  into the ``[W, ...]`` buffer ``stale_p`` and admitted d rounds later at
+  weight ``staleness_decay``^d.
+
+The compact path pads the survivors to the static m lanes with a
+validity mask (``_fixed_width_sel``), so every faulted compact round has
+one shape.  Blocked runs with quarantine or staleness run the *chaos*
+round: participation is decided on the device from the pre-drawn
+candidates and the stateless fault vectors, the streak, sentence and
+admission counters are device state, and after the block's fetch the
+host replays the same integer rule for the ledger (``history.faults``,
+dopt's rows in dopt's order) and checks the device counters against its
+mirrors round by round.
 """
 
 from __future__ import annotations
@@ -63,6 +100,8 @@ from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
+from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
+                               validate_fault_config)
 from dopt_torch.models.zoo import deterministic, full_f32, stacked_forward
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import (admm_dual_ascent, grad_edit, rounded,
@@ -72,7 +111,9 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              make_update_shard_spec,
                                              masked_average,
                                              mean_weight_matrix, where_mask)
-from dopt_torch.robust import finite_lane_mask, masked_mean
+from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
+                               make_aggregator, masked_mean,
+                               validate_robust_config)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
@@ -82,18 +123,28 @@ _LOCAL_ALGORITHM = {"fedavg": "sgd", "fedprox": "fedprox",
                     "fedadmm": "fedadmm", "scaffold": "scaffold"}
 
 
+def produces_late(cfg: ExperimentConfig) -> bool:
+    """Whether the fault config makes late updates (``drop``-policy
+    stragglers or uplink delays) for the staleness buffer to capture."""
+    fc = cfg.faults
+    return fc is not None and ((fc.straggle > 0
+                                and fc.straggler_policy == "drop")
+                               or fc.msg_delay > 0)
+
+
 def validate_federated(cfg: ExperimentConfig) -> None:
     """Refuse every configuration the federated engine does not run yet,
-    naming the later slice that adds it; keep dopt's own refusals of the
-    fused epilogue with companion state and with compact sampling."""
+    naming the later slice that adds it, and make dopt's own refusals
+    (dopt/engine/federated.py:126-300, :551-600, :1783-1792) in dopt's
+    words: a robust aggregator or staleness with ``comm_dtype``,
+    staleness with a stateful algorithm or a robust aggregator, compact
+    sampling with staleness, and the fused epilogue with companion
+    state, compact sampling, a robust aggregator, ``clip_radius``,
+    corrupt faults or staleness."""
     f = cfg.federated
     if f is None:
         raise ValueError("cfg.federated must be set for FederatedTrainer")
     validate_common(cfg)
-    for section in ("faults", "robust"):
-        if getattr(cfg, section) is not None:
-            raise later(f"cfg.{section} on the federated engine",
-                        "federated faults")
     if f.algorithm not in _LOCAL_ALGORITHM:
         raise ValueError(f"unknown federated algorithm {f.algorithm!r}")
     if f.update_sharding not in ("off", "scatter"):
@@ -103,11 +154,45 @@ def validate_federated(cfg: ExperimentConfig) -> None:
         if getattr(f, knob) not in ("off", "on"):
             raise ValueError(f"unknown {knob} {getattr(f, knob)!r}; one of "
                              "off|on")
-    if f.staleness_max > 0:
-        raise later("staleness-aware aggregation (staleness_max > 0)",
-                    "network")
+    fc, rc = cfg.faults, cfg.robust
+    if fc is not None:
+        validate_fault_config(fc)
+    if rc is not None:
+        validate_robust_config(rc)
+    aggregator = rc.aggregator if rc is not None else "mean"
+    clip_radius = rc.clip_radius if rc is not None else 0.0
+    has_corrupt = fc is not None and fc.corrupt > 0
+    if aggregator != "mean" and f.comm_dtype:
+        raise ValueError(
+            "comm_dtype wire compression only applies to the masked-"
+            f"mean reduce; aggregator={aggregator!r} is a full-"
+            "precision robust statistic — drop one of the two")
     if f.update_sharding == "scatter":
         raise later("update_sharding='scatter'", "scatter and multi-GPU")
+    if f.staleness_max < 0:
+        raise ValueError("FederatedConfig.staleness_max must be >= 0")
+    if not 0.0 < f.staleness_decay <= 1.0:
+        raise ValueError(
+            f"FederatedConfig.staleness_decay={f.staleness_decay} "
+            "must be in (0, 1]")
+    if f.staleness_max > 0:
+        if f.algorithm not in ("fedavg", "fedprox"):
+            raise ValueError(
+                "staleness-aware aggregation needs a stateless-"
+                "client algorithm (fedavg|fedprox): SCAFFOLD/ADMM "
+                "companion state has no late-admission semantics")
+        if aggregator != "mean":
+            raise ValueError(
+                "staleness-aware aggregation is a weighted mean; "
+                f"it does not compose with aggregator="
+                f"{aggregator!r} (selection/trimming have no "
+                "decayed-weight form here) — drop one of the two")
+        if f.comm_dtype:
+            raise ValueError(
+                "comm_dtype wire compression only applies to the "
+                "masked-mean reduce; the staleness-weighted "
+                "aggregate runs its own full-precision sum — drop "
+                "one of the two")
     if f.comm_dtype:
         raise later(f"comm_dtype={f.comm_dtype!r}", "codecs")
     if f.diagnostics == "on":
@@ -115,16 +200,49 @@ def validate_federated(cfg: ExperimentConfig) -> None:
     if f.fused_update == "on":
         if f.algorithm not in ("fedavg", "fedprox"):
             raise ValueError(
-                "fused_update='on' fuses the masked-mean contraction with "
-                f"the theta update; algorithm {f.algorithm!r} carries "
-                "companion state (SCAFFOLD controls / ADMM duals) through "
-                "the aggregate, which the fused epilogue does not speak "
-                "(fedavg|fedprox)")
+                "fused_update='on' fuses the masked-mean contraction "
+                f"with the theta update; algorithm {f.algorithm!r} "
+                "carries companion state (SCAFFOLD controls / ADMM "
+                "duals) through the aggregate, which the fused "
+                "epilogue does not yet speak (fedavg|fedprox)")
+        if aggregator != "mean":
+            raise ValueError(
+                "fused_update='on' only applies to the masked-mean "
+                f"reduce; aggregator={aggregator!r} is a full-"
+                "precision robust contraction with no mixing-matrix "
+                "form — drop one of the two")
+        if clip_radius > 0:
+            raise ValueError(
+                "fused_update='on' does not compose with "
+                "RobustConfig.clip_radius (the ball projection "
+                "applies per lane BETWEEN the local step and the "
+                "mean, so the displacement contraction would skip "
+                "it) — drop one of the two")
+        if has_corrupt:
+            raise ValueError(
+                "fused_update='on' does not compose with corrupt "
+                "faults (the Byzantine injection rewrites lane "
+                "updates between the local step and the aggregate; "
+                "the robust defenses that make that meaningful are "
+                "unfused) — drop one of the two")
+        if f.staleness_max > 0:
+            raise ValueError(
+                "fused_update='on' does not compose with staleness-"
+                "aware aggregation (the admit-weighted sum over the "
+                "late buffer is not a masked mean) — drop one of "
+                "the two")
         if f.compact:
             raise ValueError(
                 "FederatedConfig.compact=True is incompatible with "
-                "fused_update='on': the fused epilogue contracts the full "
-                "[W, ...] slab — drop one of the two")
+                "fused_update='on': the fused epilogue contracts "
+                "the full [W, ...] slab (compact's gathered-lane "
+                "mean has no fixed-width contraction) — drop one "
+                "of the two")
+    if f.staleness_max > 0 and produces_late(cfg) and f.compact:
+        raise ValueError(
+            "FederatedConfig.compact=True is incompatible with "
+            "staleness-aware aggregation (captured lanes train "
+            "outside the sampled set) — drop one of the two")
 
 
 def _lanes(tree: dict[str, torch.Tensor], m: int) -> dict[str, torch.Tensor]:
@@ -132,9 +250,16 @@ def _lanes(tree: dict[str, torch.Tensor], m: int) -> dict[str, torch.Tensor]:
     return {k: x.repeat(m, *([1] * x.dim())) for k, x in tree.items()}
 
 
+def _pad_lanes(x: torch.Tensor, w: int) -> torch.Tensor:
+    """``x`` ([m, ...]) zero-padded along its lane axis to w lanes."""
+    if x.shape[0] == w:
+        return x
+    return torch.cat([x, x.new_zeros((w - x.shape[0],) + x.shape[1:])])
+
+
 class FederatedTrainer:
     """FedAvg / FedProx / FedADMM / SCAFFOLD over ``cfg.data.num_users``
-    clients on one device.
+    clients on one device, under dopt's fault model.
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
@@ -145,10 +270,11 @@ class FederatedTrainer:
     the ADMM duals (``self.duals``); its server control is
     ``self.c_global``; sampled SCAFFOLD clients start from a fresh zero
     momentum and refresh their control with the step size
-    lr/(1 − momentum).  Takes ``model.compute_dtype``,
-    ``model.param_dtype`` and ``optim.clip_norm`` as ``GossipTrainer``
-    does; with bf16 storage theta, the slab, the displacement store,
-    momentum, duals and controls are all bf16.  On CUDA ``run`` and the
+    lr/(1 − momentum) over the steps they executed.  Takes
+    ``model.compute_dtype``, ``model.param_dtype`` and
+    ``optim.clip_norm`` as ``GossipTrainer`` does; with bf16 storage
+    theta, the slab, the displacement store, momentum, duals, controls
+    and the staleness buffer are all bf16.  On CUDA ``run`` and the
     evals run in full f32 and in the deterministic mode, as
     ``GossipTrainer``'s do.
     """
@@ -165,7 +291,7 @@ class FederatedTrainer:
         # Per-epoch per-client rows, filled when the holdout is on: P1's
         # Client.history {global_round, epoch, train_loss, train_acc,
         # val_acc, val_loss (summed flavour)} plus a worker column, for
-        # the sampled clients only.
+        # the round's surviving sampled clients only.
         self.client_history = History(cfg.name + "-clients")
         w = self.num_workers = cfg.data.num_users
 
@@ -187,6 +313,7 @@ class FederatedTrainer:
         self.duals = (_lanes(zeros, w)
                       if f.algorithm in ("fedadmm", "scaffold") else None)
         self.c_global = zeros if f.algorithm == "scaffold" else None
+        self._setup_faults(zeros)
 
         self._fused_on = f.fused_update == "on"
         self.fused_spec = None
@@ -211,12 +338,91 @@ class FederatedTrainer:
                   scaffold_scale(lr_eff, self.steps_per_round)):
             rounded(float(x), DTYPES[cfg.model.param_dtype])
         # The round's packed metrics: local loss, test acc, test loss,
-        # train loss, train acc, then (holdout) the [4, m, E] epoch rows
-        # of the sampled clients.
-        width = 5 + (4 * self._sampled_count() * f.local_ep
-                     if self._val is not None else 0)
+        # train loss, train acc, the [W] screened flags, then (staleness)
+        # the [W] screened-on-admission flags, (holdout) the [4, W, E]
+        # epoch rows of the lanes and (quarantine or staleness) the
+        # chaos round's device counters.
+        width = (5 + w + (w if self._has_stale else 0)
+                 + (4 * w * f.local_ep if self._val is not None else 0)
+                 + len(self._counters()) * w)
         self._slot = torch.zeros(width, device=dev)
         self.graphs = RoundGraphs(self._body, self._slot)
+
+    def _setup_faults(self, zeros: dict[str, torch.Tensor]) -> None:
+        """The fault plan, the robust layer and its host mirrors, the
+        staleness schedule, and their device state: the ``[W, ...]``
+        staleness buffer and the chaos round's counters (streak and
+        sentence, and under staleness the admission round and weight),
+        all written in place."""
+        cfg, f, w, dev = self.cfg, self.cfg.federated, self.num_workers, \
+            self.device
+        self.faults = FaultPlan(w, cfg.faults, seed=cfg.seed)
+        fc = cfg.faults
+        self._may_straggle = (self.faults.may_straggle
+                              and fc.straggler_policy == "partial")
+        self._has_corrupt = self.faults.has_corrupt
+        rc = cfg.robust
+        aggregator = rc.aggregator if rc is not None else "mean"
+        self._clip = rc.clip_radius if rc is not None else 0.0
+        self._agg_robust = (make_aggregator(
+            aggregator, trim_frac=rc.trim_frac, krum_f=rc.krum_f,
+            multi_krum_m=rc.multi_krum_m) if aggregator != "mean" else None)
+        self._quarantine_on = bool(rc is not None and rc.quarantine_after > 0)
+        self._quarantine_after = rc.quarantine_after if rc else 0
+        self._quarantine_rounds = rc.quarantine_rounds if rc else 0
+        self._screen_streak = np.zeros(w, np.int64)
+        self._quarantine_until = np.zeros(w, np.int64)
+        self._staleness_max = f.staleness_max
+        self._staleness_decay = f.staleness_decay
+        self._has_stale = f.staleness_max > 0 and produces_late(cfg)
+        self._stale_admit_round = np.zeros(w, np.int64)
+        self._stale_weight = np.zeros(w, np.float64)
+        self._stale_origin = np.zeros(w, np.int64)
+        # Straggler budgets count epochs under the holdout's epoch loop
+        # and SGD steps otherwise (dopt :662-665).
+        self._straggle_units = (f.local_ep if self._val is not None
+                                else self.steps_per_round)
+        self._chaos = self._quarantine_on or self._has_stale
+        self._stale_p = ({k: torch.zeros((w,) + v.shape, dtype=v.dtype,
+                                         device=dev)
+                          for k, v in zeros.items()}
+                         if self._has_stale else None)
+        if self._chaos:
+            self._dev_streak = torch.zeros(w, dtype=torch.int32, device=dev)
+            self._dev_until = torch.zeros(w, dtype=torch.int32, device=dev)
+        if self._has_stale:
+            self._dev_admit = torch.zeros(w, dtype=torch.int32, device=dev)
+            self._dev_weight = torch.zeros(w, device=dev)
+            # f32(f64 decay**d) per d: the value the host admission gives
+            # through np.float32(self._stale_weight[i]).
+            self._decay_pow = torch.tensor(
+                [np.float32(float(f.staleness_decay) ** d)
+                 for d in range(max(self._staleness_max, 1) + 1)],
+                dtype=torch.float32, device=dev)
+
+    def _counters(self) -> list[torch.Tensor]:
+        """The chaos round's device counters, in packing order."""
+        if not self._chaos:
+            return []
+        out = [self._dev_streak, self._dev_until]
+        if self._has_stale:
+            out += [self._dev_admit, self._dev_weight]
+        return out
+
+    def _host_counters(self) -> list[np.ndarray]:
+        """The host mirrors of ``_counters``, as the device holds them."""
+        out = [self._screen_streak.astype(np.int32),
+               self._quarantine_until.astype(np.int32)]
+        if self._has_stale:
+            out += [self._stale_admit_round.astype(np.int32),
+                    self._stale_weight.astype(np.float32)]
+        return out
+
+    def _block_start(self) -> None:
+        """Before a block's rounds run: the device counters take the host
+        mirrors (a per-round run or a restore moves only the mirrors)."""
+        for d, h in zip(self._counters(), self._host_counters()):
+            d.copy_(torch.from_numpy(h))
 
     # -- sampling and path choice ---------------------------------------
     def _sampled_count(self) -> int:
@@ -224,13 +430,23 @@ class FederatedTrainer:
 
     def _sample_indices(self) -> np.ndarray:
         """m = max(int(frac·W), 1) clients without replacement, sorted —
-        dopt's draw from dopt's stream, round after round."""
+        dopt's draw from dopt's stream (a fault-free round's sample)."""
         m = self._sampled_count()
         chosen = self._sample_rng.choice(self.num_workers, m, replace=False)
         return np.sort(chosen).astype(np.int32)
 
+    def _draw_count(self) -> int:
+        """Clients drawn a round: m, or ceil(m·(1+over_select)) capped at
+        W when faults are on and the server over-selects."""
+        m = self._sampled_count()
+        c = self.faults.cfg
+        if self.faults.active and c.over_select > 0.0:
+            return min(int(np.ceil(m * (1.0 + c.over_select))),
+                       self.num_workers)
+        return m
+
     def _use_compact(self) -> bool:
-        if self._fused_on:
+        if self._fused_on or self._has_stale:
             return False
         if self._sampled_count() >= self.num_workers:
             return False
@@ -251,11 +467,296 @@ class FederatedTrainer:
         return lambda x: stacked_forward(name, params, x, faithful=faithful,
                                          dtype=dtype)
 
-    # -- one round ------------------------------------------------------
-    def _local(self, theta, params, moms, duals, idx, bw, val):
+    # -- host participation (dopt :1526-1840) ---------------------------
+    def _participation_static(self, t: int) -> dict:
+        """Round t's participation inputs that no quarantine or staleness
+        state touches: the candidate draw in draw order (the sampling
+        stream's one step) and the round's stateless fault vectors.  No
+        row is written: a chaos block draws these at staging and replays
+        ``_round_participation(t, chosen=...)`` after its fetch."""
+        w = self.num_workers
+        chosen = self._sample_rng.choice(
+            w, self._draw_count(), replace=False).astype(np.int32)
+        rf = self.faults.for_round(t)
+        up_drop, up_delay = self.faults.uplink_for_round(t)
+        unreach = (np.zeros(w, bool) if rf.partition is None
+                   else rf.partition != 0)
+        late_d = (self.faults.straggler_lateness(t, self._staleness_max)
+                  if self._has_stale else np.zeros(w, np.int32))
+        corrupt = (rf.corrupt if self._has_corrupt and rf.corrupt is not None
+                   else np.zeros(w, bool))
+        return dict(
+            chosen=chosen,
+            away=self.faults.away_for_round(t).astype(np.float32),
+            crashed=rf.crashed.astype(np.float32),
+            unreach=unreach.astype(np.float32),
+            straggler=rf.straggler.astype(np.float32),
+            up_drop=up_drop.astype(np.float32),
+            up_delay=up_delay.astype(np.int32),
+            late_d=late_d.astype(np.int32),
+            limits=FaultPlan.limits_for(rf, self._straggle_units),
+            corrupt=corrupt.astype(np.float32))
+
+    def _round_participation(self, t: int, chosen: np.ndarray | None = None
+                             ) -> tuple:
+        """Sample round t's clients and apply its faults (dopt's
+        ``_round_participation``): returns (survivors, sorted; [W]
+        straggler work limits; [W] corrupt mask; the round's ledger rows;
+        [W] capture mask; [W] admission weights).  A round with no fault
+        is the sorted draw.  With faults the chain quarantine > churn >
+        crash > partition > ``drop`` straggler > uplink drop > uplink
+        delay > survivor runs over the candidates in DRAW order, the
+        first m survivors stay and the surplus is released (sorting
+        first would release the highest ids).  Under staleness, late
+        stragglers and delayed uplinks are captured and admitted d rounds
+        later.  ``chosen`` is the chaos block's pre-drawn candidate list,
+        which the replay must not draw again."""
+        rows: list[dict] = []
+        w = self.num_workers
+        capture = np.zeros(w, np.float32)
+        admit_w = np.zeros(w, np.float32)
+        if self._quarantine_on:
+            expired = ((self._quarantine_until != 0)
+                       & (t >= self._quarantine_until))
+            for i in np.nonzero(expired)[0]:
+                rows.append({"round": int(t), "worker": int(i),
+                             "kind": "quarantine", "action": "readmitted"})
+                self._quarantine_until[i] = 0
+                self._screen_streak[i] = 0
+        if self._has_stale:
+            # Admissions due this round, unless their sender was
+            # quarantined meanwhile.
+            due = (self._stale_admit_round == t) & (self._stale_weight > 0)
+            for i in np.nonzero(due)[0]:
+                if self._quarantine_on and t < self._quarantine_until[i]:
+                    rows.append({"round": int(t), "worker": int(i),
+                                 "kind": "staleness",
+                                 "action": "dropped_quarantined"})
+                else:
+                    admit_w[i] = np.float32(self._stale_weight[i])
+                    d = int(t - self._stale_origin[i])
+                    rows.append({"round": int(t), "worker": int(i),
+                                 "kind": "staleness",
+                                 "action": f"admitted_after_{d}_rounds"})
+                self._stale_admit_round[i] = 0
+                self._stale_weight[i] = 0.0
+        away = self.faults.away_for_round(t)
+        if self.faults.has_churn:
+            rows.extend(churn_ledger_rows(self.faults, t, away))
+        m = self._sampled_count()
+        n_draw = self._draw_count()
+        if chosen is None:
+            chosen = self._sample_rng.choice(
+                w, n_draw, replace=False).astype(np.int32)
+        rf = self.faults.for_round(t)
+        limits = FaultPlan.limits_for(rf, self._straggle_units)
+        cmask = np.zeros(w, np.float32)
+        up_drop, up_delay = self.faults.uplink_for_round(t)
+        quarantined_now = (self._quarantine_on
+                           and bool((self._quarantine_until > t).any()))
+        if (not rf.any_fault and n_draw == m and not quarantined_now
+                and not away.any() and not up_drop.any()
+                and not up_delay.any() and not admit_w.any()):
+            return np.sort(chosen), limits, cmask, rows, capture, admit_w
+        c = self.faults.cfg
+        drop_policy = c is not None and c.straggler_policy == "drop"
+        late_d = (self.faults.straggler_lateness(t, self._staleness_max)
+                  if self._has_stale else None)
+        survivors: list[int] = []
+        captured: list[int] = []
+
+        def _capture(i: int, d: int) -> None:
+            d = min(int(d), self._staleness_max)
+            if self._stale_admit_round[i] > t:
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "staleness",
+                             "action": "pending_overwritten"})
+            capture[i] = 1.0
+            captured.append(i)
+            self._stale_admit_round[i] = t + d
+            self._stale_weight[i] = float(self._staleness_decay) ** d
+            self._stale_origin[i] = t
+
+        for i in chosen:
+            i = int(i)
+            if quarantined_now and t < self._quarantine_until[i]:
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "quarantine",
+                             "action": "excluded_while_quarantined"})
+            elif away[i]:
+                rows.append({"round": int(t), "worker": i, "kind": "churn",
+                             "action": "excluded_while_away"})
+            elif rf.crashed[i]:
+                rows.append({"round": int(t), "worker": i, "kind": "crash",
+                             "action": "dropped_from_round"})
+            elif rf.partition is not None and rf.partition[i] != 0:
+                # Only group 0 reaches the server for the span.
+                rows.append({
+                    "round": int(t), "worker": i, "kind": "partition",
+                    "action": f"unreachable_in_group_{int(rf.partition[i])}"})
+            elif rf.straggler[i] and drop_policy:
+                if self._has_stale:
+                    # The straggler finishes its whole local work and its
+                    # update arrives d rounds late.
+                    d = min(int(late_d[i]), self._staleness_max)
+                    rows.append({
+                        "round": int(t), "worker": i, "kind": "straggler",
+                        "action": f"deadline_buffered_arriving_{t + d}"})
+                    _capture(i, d)
+                else:
+                    rows.append({
+                        "round": int(t), "worker": i, "kind": "straggler",
+                        "action": (f"deadline_dropped_after_"
+                                   f"{int(limits[i])}_of_"
+                                   f"{self._straggle_units}")})
+            elif up_drop[i]:
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "msg_drop", "action": "uplink_dropped"})
+            elif up_delay[i] > 0:
+                d = int(up_delay[i])
+                if self._has_stale and d <= self._staleness_max:
+                    rows.append({"round": int(t), "worker": i,
+                                 "kind": "msg_delay",
+                                 "action": f"uplink_buffered_delay_{d}"})
+                    _capture(i, d)
+                else:
+                    rows.append({"round": int(t), "worker": i,
+                                 "kind": "msg_delay",
+                                 "action": f"uplink_dropped_stale_{d}"})
+            else:
+                survivors.append(i)
+        for i in survivors[m:]:
+            rows.append({"round": int(t), "worker": i, "kind": "overselect",
+                         "action": "released_surplus"})
+        survivors = np.sort(np.asarray(survivors[:m], np.int32))
+        if self._may_straggle:
+            for i in survivors:
+                if rf.straggler[i]:
+                    rows.append({
+                        "round": int(t), "worker": int(i),
+                        "kind": "straggler",
+                        "action": (f"truncated_to_{int(limits[i])}"
+                                   f"_of_{self._straggle_units}")})
+        if self._has_corrupt and rf.corrupt is not None:
+            mode = self.cfg.faults.corrupt_mode
+            # A liar lies on the late channel too.
+            for i in sorted(set(survivors.tolist()) | set(captured)):
+                if rf.corrupt[i]:
+                    cmask[i] = 1.0
+                    rows.append({"round": int(t), "worker": int(i),
+                                 "kind": "corrupt",
+                                 "action": f"injected_{mode}"})
+        return survivors, limits, cmask, rows, capture, admit_w
+
+    def _apply_screen_feedback(self, t: int, workers, flags,
+                               rows: list) -> None:
+        """Fold the round's non-finite-screen flags (aligned with
+        ``workers``, the surviving sampled clients) into the ledger and
+        the quarantine streaks: K consecutive screened participations
+        bench the client for ``quarantine_rounds``; one clean
+        participation resets the streak."""
+        for j, wid in enumerate(np.asarray(workers).reshape(-1)):
+            wid = int(wid)
+            if float(flags[j]) > 0.5:
+                self._screen_streak[wid] += 1
+                rows.append({"round": int(t), "worker": wid,
+                             "kind": "corrupt",
+                             "action": "screened_nonfinite"})
+                if (self._quarantine_on and self._screen_streak[wid]
+                        >= self._quarantine_after):
+                    until = int(t) + 1 + self._quarantine_rounds
+                    self._quarantine_until[wid] = until
+                    self._screen_streak[wid] = 0
+                    rows.append({"round": int(t), "worker": wid,
+                                 "kind": "quarantine",
+                                 "action": f"quarantined_until_{until}"})
+            else:
+                self._screen_streak[wid] = 0
+
+    def _fixed_width_sel(self, sel: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """The survivors padded to the static m lanes: survivors first,
+        then the lowest worker ids not selected, with a 0/1 validity
+        prefix.  Padding lanes train and are discarded, so every faulted
+        compact round has one shape."""
+        w, m = self.num_workers, self._sampled_count()
+        pad = np.setdiff1d(np.arange(w, dtype=np.int32), sel)[:m - len(sel)]
+        valid = np.zeros(m, np.float32)
+        valid[:len(sel)] = 1.0
+        return np.concatenate([sel, pad]).astype(np.int32), valid
+
+    # -- one round: host inputs -----------------------------------------
+    def _limit_steps(self, limits: np.ndarray) -> np.ndarray:
+        """Straggler budgets as the local phase's int32 SGD-step limits
+        (the holdout's epoch budgets times the steps an epoch)."""
+        f = self.cfg.federated
+        per = self.steps_per_round // f.local_ep if self._val is not None \
+            else 1
+        return (limits.astype(np.int64) * per).astype(np.int32)
+
+    def _plan(self, t: int, workers=None) -> dict[str, np.ndarray]:
+        """Round t's batch plan (of ``workers`` only, if given); under
+        churn a departed client's shard goes to its adopter."""
+        cfg, f = self.cfg, self.cfg.federated
+        plan = make_batch_plan(
+            self.faults.plan_matrix_for(t, self._train_matrix),
+            batch_size=f.local_bs, local_ep=f.local_ep, seed=cfg.seed,
+            round_idx=t, workers=workers, impl=cfg.data.plan_impl)
+        return {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
+
+    def _round_inputs(self, t: int, part: tuple
+                      ) -> tuple[str, dict[str, np.ndarray]]:
+        """Round t's device inputs from its participation ``part`` (pure):
+        the kind of round — "compact" (the survivors, padded to m lanes
+        under faults, with their plans, limits and corrupt mask) or
+        "full" (the [W] mask, and under staleness the load, admission
+        and capture vectors) — and its arrays."""
+        sel, limits, cmask, _, cap, admit = part
+        compact = self._use_compact()
+        lanes, valid = (self._fixed_width_sel(sel)
+                        if compact and self.faults.active else (sel, None))
+        use_c = compact and len(lanes) > 0
+        out = self._plan(t, lanes if use_c else None)
+        if use_c:
+            out["sel"] = lanes.astype(np.int64)
+            if valid is not None:
+                out["valid"] = valid
+            pick = lanes
+        else:
+            mask = np.zeros(self.num_workers, np.float32)
+            mask[sel] = 1.0
+            out["mask"] = mask
+            if self._has_stale:
+                out.update(load=np.clip(mask + cap, 0.0, 1.0),
+                           admit=admit.astype(np.float32), capture=cap)
+            pick = slice(None)
+        if self._may_straggle:
+            out["limit"] = self._limit_steps(limits[pick])
+        if self._has_corrupt:
+            out["cmask"] = cmask[pick].astype(np.float32)
+        return ("compact" if use_c else "full"), out
+
+    def _chaos_inputs(self, t: int, stat: dict) -> dict[str, np.ndarray]:
+        """A chaos round's device inputs (pure): the full-width plan, the
+        round index, the candidates in draw order and the stateless
+        fault vectors."""
+        out = self._plan(t)
+        out["t"] = np.array([t], np.int32)
+        out["chosen"] = stat["chosen"].astype(np.int64)
+        for k in ("away", "crashed", "unreach", "straggler", "up_drop",
+                  "up_delay", "late_d"):
+            out[k] = stat[k]
+        if self._may_straggle:
+            out["limit"] = self._limit_steps(stat["limits"])
+        if self._has_corrupt:
+            out["craw"] = stat["corrupt"]
+        return out
+
+    # -- one round: the device body -------------------------------------
+    def _local(self, theta, params, moms, duals, idx, bw, val, limit=None):
         """The algorithm's local phase on however many lanes ``params``
-        carries, in place; returns (losses, accs, em, the lanes' new
-        companion state or None)."""
+        carries, in place, gated by the straggler ``limit``; returns
+        (losses, accs, em, the lanes' new companion state or None)."""
         cfg, f = self.cfg, self.cfg.federated
         algo = f.algorithm
         edit = grad_edit(
@@ -267,30 +768,52 @@ class FederatedTrainer:
             self._train_y, self._sample_shape, lr=cfg.optim.lr,
             momentum=cfg.optim.momentum, fused=cfg.optim.fused_update,
             edit=edit, l2=cfg.optim.weight_decay,
-            clip_norm=cfg.optim.clip_norm, local_ep=f.local_ep, val=val)
+            clip_norm=cfg.optim.clip_norm, local_ep=f.local_ep, val=val,
+            limit=limit)
         with torch.no_grad():
             if algo == "fedadmm":
                 new = admm_dual_ascent(duals, params, theta, cfg.optim.rho)
             elif algo == "scaffold":
+                # A straggler refreshes with the steps it executed.
                 lr_eff = cfg.optim.lr / max(1.0 - cfg.optim.momentum, 1e-8)
+                steps = bw.shape[1]
                 new = scaffold_control_update(
                     duals, self.c_global, theta, params, lr=lr_eff,
-                    num_steps=bw.shape[1])
+                    num_steps=(steps if limit is None
+                               else torch.clamp_max(limit, steps)))
             else:
                 new = None
         return losses, accs, em, new
 
-    def _full_round(self, inp: dict[str, torch.Tensor]):
-        """All W lanes train; the mask keeps what the aggregate sees."""
+    def _corrupt(self, p_t, sub_new, cmask, theta, prev_p, prev_d):
+        """The liars' lies (dopt :942-958): their updates rewritten around
+        theta and, for fedadmm/scaffold, their companion state too."""
+        fc = self.cfg.faults
+        p_t = corrupt_update(p_t, cmask, fc.corrupt_mode, fc.corrupt_scale,
+                             ref=theta, prev=prev_p)
+        if sub_new is not None:
+            sub_new = corrupt_update(sub_new, cmask, fc.corrupt_mode,
+                                     fc.corrupt_scale, prev=prev_d)
+        return p_t, sub_new
+
+    def _full_round(self, inp: dict[str, torch.Tensor], mask: torch.Tensor,
+                    load=None, cmask=None, admit=None, capture=None):
+        """All W lanes train (dopt's ``round_fn``); the mask keeps what
+        the aggregate sees.  Under staleness the ``load`` lanes (the
+        sampled and the captured late senders) start from theta, the
+        admitted buffer lanes join the weighted sum and the captured
+        lanes' updates land in the buffer.  Returns (local loss, [W]
+        screened flags, [W] screened-on-admission flags or None, epoch
+        rows)."""
         w = self.num_workers
         scaffold = self.cfg.federated.algorithm == "scaffold"
-        mask = inp["mask"]
         theta = self._theta()
         theta_b = (flat_views(self._theta_flat, self.fused_spec)
                    if self._fused_on else broadcast_to_workers(theta, w))
         with torch.no_grad():
             prev_p = {k: v.detach().clone() for k, v in self.params.items()}
-            start = where_mask(mask, theta_b, prev_p)
+            start = where_mask(mask if load is None else load, theta_b,
+                               prev_p)
             for k, p in self.params.items():
                 p.copy_(start[k])
             prev_m = {k: v.clone() for k, v in self.momentum.items()}
@@ -299,10 +822,17 @@ class FederatedTrainer:
                 if scaffold else self.momentum)
         losses, accs, em, sub_new = self._local(theta, self.params, moms,
                                                 self.duals, inp["idx"],
-                                                inp["bw"], self._val)
+                                                inp["bw"], self._val,
+                                                inp.get("limit"))
+        stale_scr = None
         with torch.no_grad():
             p_t = self.params
-            agg = mask * finite_lane_mask(p_t)
+            if cmask is not None:
+                p_t, sub_new = self._corrupt(p_t, sub_new, cmask, theta,
+                                             prev_p, self.duals)
+            # The non-finite screen, always on.
+            fin = finite_lane_mask(p_t)
+            agg = mask * fin
             # Every carried state is written in place (RoundGraphs).
             if sub_new is not None:
                 new_duals = where_mask(agg, sub_new, self.duals)
@@ -326,27 +856,63 @@ class FederatedTrainer:
                                  lr=-1.0)
                 self._theta_flat.copy_(self._disp_flat)
             new_p = where_mask(agg, p_t, prev_p)
-            for k, p in p_t.items():
+            if not self._fused_on:
+                agg_in = (clip_to_ball(new_p, theta, self._clip)
+                          if self._clip > 0 else new_p)
+                if self._has_stale:
+                    avg, alive, stale_scr = self._stale_sum(
+                        agg_in, agg, theta, admit)
+                    new_stale = where_mask(capture, p_t, self._stale_p)
+                    for k, s in self._stale_p.items():
+                        s.copy_(new_stale[k])
+                else:
+                    avg = (masked_average(agg_in, agg)
+                           if self._agg_robust is None
+                           else self._agg_robust(agg_in, agg))
+                    alive = agg.sum() > 0
+                # A round with no survivor keeps theta.
+                for k, v in theta.items():
+                    v.copy_(torch.where(alive, avg[k], v))
+            for k, p in self.params.items():
                 p.copy_(new_p[k])
             if not scaffold:
                 new_m = where_mask(agg, self.momentum, prev_m)
                 for k, m in self.momentum.items():
                     m.copy_(new_m[k])
-            if not self._fused_on:
-                # A round with no survivor keeps theta.
-                avg = masked_average(new_p, agg)
-                alive = agg.sum() > 0
-                for k, v in theta.items():
-                    v.copy_(torch.where(alive, avg[k], v))
             lane_loss = losses.mean(1)
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = (lane_loss * agg).sum() / agg.sum().clamp_min(1.0)
-            if em:
-                em = {k: v[inp["sel"]] for k, v in em.items()}
-        return local_loss, em
+        return local_loss, mask * (1.0 - fin), stale_scr, em
+
+    def _stale_sum(self, agg_in, agg, theta, admit):
+        """The staleness-weighted aggregate (dopt :980-1017): the fresh
+        survivors at weight 1 and the admitted buffer lanes at their
+        decay weights, one normalised sum.  Buffer lanes that went
+        non-finite enter at weight 0 and are zeroed first (0·NaN would
+        poison the sum); the total weight is guarded only at zero.
+        Returns (aggregate, whether any weight, screened-on-admission)."""
+        fin_s = finite_lane_mask(self._stale_p)
+        aw = admit * fin_s
+        stale_z = where_mask(fin_s, self._stale_p,
+                             {k: torch.zeros_like(v)
+                              for k, v in self._stale_p.items()})
+        agg_stale = (clip_to_ball(stale_z, theta, self._clip)
+                     if self._clip > 0 else stale_z)
+        tot_w = agg.sum() + aw.sum()
+        denom = torch.where(tot_w > 0, tot_w, torch.ones_like(tot_w))
+        avg = {}
+        for k, x in agg_in.items():
+            mm = agg.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+            ss = aw.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+            avg[k] = (((x * mm).sum(0) + (agg_stale[k] * ss).sum(0))
+                      / denom.to(x.dtype))
+        return avg, tot_w > 0, (admit > 0).float() * (1.0 - fin_s)
 
     def _compact_round(self, inp: dict[str, torch.Tensor]):
-        """Only the m sampled lanes train: gather → local → scatter."""
+        """Only the sampled lanes train: gather → local → scatter (dopt's
+        ``compact_round_fn``).  Under faults the lanes are the survivors
+        padded to m, and ``valid`` folds into the screen, so a padding
+        lane is excluded and scatters its own state back."""
         w = self.num_workers
         scaffold = self.cfg.federated.algorithm == "scaffold"
         sel_t = inp["sel"]
@@ -364,9 +930,16 @@ class FederatedTrainer:
         val = (None if self._val is None
                else tuple(a[sel_t] for a in self._val))
         losses, accs, em, sub_new = self._local(theta, lanes, moms, duals,
-                                                inp["idx"], inp["bw"], val)
+                                                inp["idx"], inp["bw"], val,
+                                                inp.get("limit"))
         with torch.no_grad():
-            fin = finite_lane_mask(lanes)
+            p_t = lanes
+            if "cmask" in inp:
+                p_t, sub_new = self._corrupt(p_t, sub_new, inp["cmask"],
+                                             theta, prev_p, duals)
+            fin = finite_lane_mask(p_t)
+            if "valid" in inp:
+                fin = fin * inp["valid"]
             all_fin = fin.min() >= 1.0
             if sub_new is not None:
                 kept = where_mask(fin, sub_new, duals)
@@ -375,48 +948,128 @@ class FederatedTrainer:
                 if scaffold:
                     for k, c in self.c_global.items():
                         c.copy_(c + (kept[k] - duals[k]).sum(0) / w)
-            p_keep = where_mask(fin, lanes, prev_p)
+            p_keep = where_mask(fin, p_t, prev_p)
             for k, p in self.params.items():
                 p.index_copy_(0, sel_t, p_keep[k])
             if not scaffold:
                 m_keep = where_mask(fin, moms, prev_m)
                 for k, mo in self.momentum.items():
                     mo.index_copy_(0, sel_t, m_keep[k])
-            masked = masked_mean(p_keep, fin)
+            agg_in = (clip_to_ball(p_keep, theta, self._clip)
+                      if self._clip > 0 else p_keep)
+            if self._agg_robust is None:
+                masked = masked_mean(agg_in, fin)
+                new = {k: torch.where(all_fin, x.mean(0), masked[k])
+                       for k, x in agg_in.items()}
+            else:
+                new = self._agg_robust(agg_in, fin)
             any_fin = fin.sum() > 0
-            for k, x in p_keep.items():
-                theta[k].copy_(torch.where(
-                    any_fin, torch.where(all_fin, x.mean(0), masked[k]),
-                    theta[k]))
+            for k, v in theta.items():
+                v.copy_(torch.where(any_fin, new[k], v))
             lane_loss = losses.mean(1)
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = torch.where(
                 all_fin, losses.mean(),
                 (lane_loss * fin).sum() / fin.sum().clamp_min(1.0))
-        return local_loss, em
+            em = {k: _pad_lanes(v, w) for k, v in em.items()}
+        return local_loss, _pad_lanes(1.0 - fin, w), None, em
 
-    def _round_inputs(self, t: int, sel: np.ndarray) -> dict[str, np.ndarray]:
-        """Round t's host inputs for the sample ``sel``: the batch plan
-        (of the sampled lanes on the compact path), the selection and,
-        at full width, the [W] 0/1 mask."""
-        cfg, f = self.cfg, self.cfg.federated
-        compact = self._use_compact()
-        plan = make_batch_plan(self._train_matrix, batch_size=f.local_bs,
-                               local_ep=f.local_ep, seed=cfg.seed,
-                               round_idx=t, workers=sel if compact else None,
-                               impl=cfg.data.plan_impl)
-        out = {"idx": plan.idx.astype(np.int64), "bw": plan.weight,
-               "sel": sel.astype(np.int64)}
-        if not compact:
-            out["mask"] = np.zeros(self.num_workers, np.float32)
-            out["mask"][sel] = 1.0
+    def _device_participation(self, inp: dict[str, torch.Tensor],
+                              quar: torch.Tensor):
+        """The host elif-chain as device math over the candidates in draw
+        order (dopt's ``device_participation``): the first m survivors
+        (rank = running count of survivors ≤ m) form the [W] mask; under
+        staleness the captured late senders form the [W] capture mask
+        with their lateness.  The [W]-wide masks are one-hot sums over
+        the distinct candidates (no scatter)."""
+        f = self.cfg.faults
+        w = self.num_workers
+        ch = inp["chosen"]
+        n = ch.shape[0]
+        at = {k: inp[k][ch] for k in ("away", "crashed", "unreach",
+                                      "straggler", "up_drop", "up_delay")}
+        excl = (quar[ch] | (at["away"] > 0) | (at["crashed"] > 0)
+                | (at["unreach"] > 0))
+        sg = (at["straggler"] > 0) & ~excl
+        strag = (sg if f is not None and f.straggler_policy == "drop"
+                 else torch.zeros_like(sg))
+        after = excl | strag
+        ud = at["up_drop"] > 0
+        dl = at["up_delay"]
+        dl_c = (dl > 0) & ~after & ~ud
+        ok = ~(after | (ud & ~after) | dl_c)
+        idx = torch.arange(n, device=ch.device)
+        rank = ((idx[None, :] <= idx[:, None]) & ok[None, :]).sum(1)
+        onehot = ch[None, :] == torch.arange(w, device=ch.device)[:, None]
+        mask = (onehot & (ok & (rank <= self._sampled_count()))[None, :]
+                ).any(1).float()
+        if not self._has_stale:
+            return mask, None, None
+        s_max = self._staleness_max
+        cap_c = strag | (dl_c & (dl <= s_max))
+        d_c = torch.where(strag, torch.clamp_max(inp["late_d"][ch], s_max),
+                          torch.clamp_max(dl, s_max))
+        cap = (onehot & cap_c[None, :]).any(1).float()
+        d_vec = (onehot * torch.where(cap_c, d_c, torch.zeros_like(d_c)
+                                      )[None, :]).sum(1).to(torch.int32)
+        return mask, cap, d_vec
+
+    def _chaos_round(self, inp: dict[str, torch.Tensor]):
+        """A blocked round under quarantine or staleness (dopt's
+        ``chaos_block_fn`` body): expired sentences readmitted and due
+        admissions taken on the device counters, participation decided
+        on the device, the round, then the screen's streak and sentence
+        rule — every counter written in place."""
+        t = inp["t"]
+        stk, unt = self._dev_streak, self._dev_until
+        expired = (unt != 0) & (t >= unt)
+        unt.copy_(torch.where(expired, torch.zeros_like(unt), unt))
+        stk.copy_(torch.where(expired, torch.zeros_like(stk), stk))
+        quar = unt > t
+        admit = load = None
+        if self._has_stale:
+            sta, stw = self._dev_admit, self._dev_weight
+            due = (sta == t) & (stw > 0)
+            admit = torch.where(due & ~quar, stw, torch.zeros_like(stw))
+            sta.copy_(torch.where(due, torch.zeros_like(sta), sta))
+            stw.copy_(torch.where(due, torch.zeros_like(stw), stw))
+        mask, cap, d_vec = self._device_participation(inp, quar)
+        playing = mask
+        if self._has_stale:
+            captured = cap > 0
+            sta.copy_(torch.where(captured, t + d_vec, sta))
+            stw.copy_(torch.where(captured, self._decay_pow[d_vec.long()],
+                                  stw))
+            load = playing = torch.clamp(mask + cap, 0.0, 1.0)
+        cmask = inp["craw"] * playing if self._has_corrupt else None
+        out = self._full_round(inp, mask, load=load, cmask=cmask,
+                               admit=admit, capture=cap)
+        part = mask > 0
+        flagged = part & (out[1] > 0.5)
+        stk2 = torch.where(flagged, stk + 1,
+                           torch.where(part, torch.zeros_like(stk), stk))
+        if self._quarantine_on:
+            trigger = flagged & (stk2 >= self._quarantine_after)
+            unt.copy_(torch.where(
+                trigger, (t + 1 + self._quarantine_rounds).to(unt.dtype),
+                unt))
+            stk2 = torch.where(trigger, torch.zeros_like(stk2), stk2)
+        stk.copy_(stk2)
         return out
 
-    def _body(self, inp: dict[str, torch.Tensor], kind=None) -> None:
-        """The round on the device: train, aggregate, evaluate, metrics
-        into the slot (``kind`` is unused: one kind of round)."""
-        step = self._compact_round if self._use_compact() else self._full_round
-        local_loss, em = step(inp)
+    def _body(self, inp: dict[str, torch.Tensor], kind: str) -> None:
+        """The round on the device — a "full", "compact" or "chaos"
+        round, then the evals — with its metrics in the slot."""
+        if kind == "chaos":
+            out = self._chaos_round(inp)
+        elif kind == "compact":
+            out = self._compact_round(inp)
+        else:
+            out = self._full_round(
+                inp, inp["mask"], load=inp.get("load"),
+                cmask=inp.get("cmask"), admit=inp.get("admit"),
+                capture=inp.get("capture"))
+        local_loss, screened, stale_scr, em = out
         ev = self._global_eval()
         parts = [local_loss, ev["acc"], ev["loss_sum"]]
         if self.eval_train:
@@ -426,48 +1079,94 @@ class FederatedTrainer:
             parts += [tm["loss_mean"].mean(), tm["acc"].mean()]
         else:
             parts += [local_loss.new_zeros(())] * 2
+        parts.append(screened)
+        if self._has_stale:
+            parts.append(torch.zeros_like(screened) if stale_scr is None
+                         else stale_scr)
         if em:
             parts += [em[k] for k in ("train_loss", "train_acc", "val_acc",
                                       "val_loss_sum")]
+        # The counters are the chaos round's; other rounds leave zeros.
+        parts += [c if kind == "chaos" else torch.zeros_like(c)
+                  for c in self._counters()]
         with torch.no_grad():
             torch.cat([p.reshape(-1).float() for p in parts], out=self._slot)
 
-    def _record(self, t: int, sel: np.ndarray, vals: np.ndarray) -> None:
-        """Round t's History row (and client rows) from its metrics."""
-        f = self.cfg.federated
+    # -- one round: the rows ---------------------------------------------
+    def _record(self, t: int, kind: str, sel: np.ndarray, rows: list,
+                      vals: np.ndarray) -> None:
+        """After round t's fetch, in dopt's order: the screened flags into
+        the ledger and the quarantine mirrors, the buffer lanes screened
+        on admission, the rows into ``history.faults``, the History row
+        and the client rows; after a chaos round the device counters
+        must equal the host mirrors."""
+        f, w = self.cfg.federated, self.num_workers
         ll, acc, loss_sum, t_loss, t_acc = (float(v) for v in vals[:5])
+        lanes = slice(0, len(sel)) if kind == "compact" else sel
+        self._apply_screen_feedback(t, sel, vals[5:5 + w][lanes], rows)
+        off = 5 + w
+        if self._has_stale:
+            for i in np.nonzero(vals[off:off + w] > 0.5)[0]:
+                rows.append({"round": int(t), "worker": int(i),
+                             "kind": "staleness",
+                             "action": "screened_nonfinite_on_admission"})
+            off += w
+        self.history.faults.extend(rows)
         self.history.append(round=t, test_acc=acc, test_loss=loss_sum,
                             train_loss=t_loss, train_acc=t_acc,
                             local_loss=ll)
         if self._val is not None:
-            tl, ta, va, vl = vals[5:].reshape(4, len(sel), f.local_ep)
+            e = f.local_ep
+            tl, ta, va, vl = vals[off:off + 4 * w * e].reshape(4, w, e)[
+                :, lanes]
             for j, wid in enumerate(sel):
-                for e in range(f.local_ep):
+                for k in range(e):
                     self.client_history.append(
-                        global_round=t, epoch=e, worker=int(wid),
-                        train_loss=float(tl[j, e]), train_acc=float(ta[j, e]),
-                        val_acc=float(va[j, e]), val_loss=float(vl[j, e]))
+                        global_round=t, epoch=k, worker=int(wid),
+                        train_loss=float(tl[j, k]), train_acc=float(ta[j, k]),
+                        val_acc=float(va[j, k]), val_loss=float(vl[j, k]))
+        if kind == "chaos":
+            dev = vals[len(vals) - len(self._counters()) * w:].reshape(-1, w)
+            for d, h in zip(dev, self._host_counters()):
+                if not np.array_equal(d.astype(h.dtype), h):
+                    raise RuntimeError("fused-chaos host replay diverged "
+                                       "from the device counters")
 
     # -- blocks: the stateful draw, the pure build, the rows -----------
     def _draw_block(self, ts: list[int]) -> dict:
-        """The block's client samples: the sampling stream advances here,
-        on the caller's thread, in block order.  One kind of round."""
-        return {"ts": ts, "kinds": [None] * len(ts),
-                "sels": [self._sample_indices() for _ in ts]}
+        """The block's stateful host draws, on the caller's thread in
+        block order: each round's participation (its ledger rows
+        included), or under quarantine or staleness only the candidates
+        and the stateless fault vectors (the participation is replayed
+        after the fetch)."""
+        if self._chaos:
+            return {"ts": ts, "kinds": ["chaos"] * len(ts),
+                    "stats": [self._participation_static(t) for t in ts]}
+        return {"ts": ts, "parts": [self._round_participation(t)
+                                    for t in ts]}
 
     def _build_block(self, meta: dict) -> dict:
-        """The block's batch plans, masks and selections, stacked and
-        uploaded: pure, so the prefetch stager may run it on its
-        background thread."""
-        rounds = [self._round_inputs(t, sel)
-                  for t, sel in zip(meta["ts"], meta["sels"])]
+        """The block's plans and device inputs, stacked and uploaded:
+        pure, so the prefetch stager may run it on its background
+        thread."""
+        if self._chaos:
+            rounds = [self._chaos_inputs(t, s)
+                      for t, s in zip(meta["ts"], meta["stats"])]
+        else:
+            built = [self._round_inputs(t, p)
+                     for t, p in zip(meta["ts"], meta["parts"])]
+            meta["kinds"] = [k for k, _ in built]
+            rounds = [r for _, r in built]
         meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
                               for k in rounds[0]}, self.device)
         return meta
 
     def _record_block(self, meta: dict, vals: np.ndarray) -> None:
-        for t, sel, v in zip(meta["ts"], meta["sels"], vals):
-            self._record(t, sel, v)
+        for j, (t, kind) in enumerate(zip(meta["ts"], meta["kinds"])):
+            part = (self._round_participation(
+                t, chosen=meta["stats"][j]["chosen"])
+                if kind == "chaos" else meta["parts"][j])
+            self._record(t, kind, part[0], part[3], vals[j])
             self.round += 1
 
     def run(self, rounds: int | None = None, block: int | None = None,
@@ -476,8 +1175,10 @@ class FederatedTrainer:
         client fraction ``cfg.federated.frac``, in blocks of ``block``
         (default ``cfg.federated.block_rounds``; the last block may be
         shorter); ``self.round`` and the sampling stream persist across
-        calls.  ``checkpoint_every``/``checkpoint_path`` as
-        ``GossipTrainer.run``: a killed run resumes bit for bit, the
+        calls.  Compact sampling with the quarantine runs per-round
+        whatever ``block`` says, as dopt's does (its gather depends on
+        the quarantine state).  ``checkpoint_every``/``checkpoint_path``
+        as ``GossipTrainer.run``: a killed run resumes bit for bit, the
         client sample included."""
         f = self.cfg.federated
         rounds = f.rounds if rounds is None else rounds
@@ -485,19 +1186,21 @@ class FederatedTrainer:
         check_checkpoint_args(checkpoint_every, checkpoint_path)
         t0 = time.perf_counter()
         with full_f32(self.device), deterministic(self.device):
-            if block > 1:
+            if block > 1 and not (self._quarantine_on
+                                  and self._use_compact()):
                 run_blocked(self, rounds, block, prefetch=f.prefetch == "on",
                             checkpoint_every=checkpoint_every,
                             checkpoint_path=checkpoint_path)
             else:
                 for _ in range(rounds):
                     t = self.round
-                    sel = self._sample_indices()
-                    host = self._round_inputs(t, sel)
+                    part = self._round_participation(t)
+                    kind, host = self._round_inputs(t, part)
                     self._body({k: torch.from_numpy(v).to(self.device)
-                                for k, v in host.items()})
+                                for k, v in host.items()}, kind)
                     # ONE device→host fetch per round.
-                    self._record(t, sel, self._slot.cpu().numpy())
+                    self._record(t, kind, part[0], part[3],
+                                       self._slot.cpu().numpy())
                     self.round += 1
                     if checkpoint_every and self.round % checkpoint_every == 0:
                         self.save(checkpoint_path)
@@ -507,21 +1210,24 @@ class FederatedTrainer:
     # -- checkpoint -----------------------------------------------------
     def save(self, path) -> None:
         """Checkpoint theta, the stacked params, momentum (not for
-        SCAFFOLD, whose momentum is round-local), the duals or controls
-        and SCAFFOLD's server control, with dopt's meta keys and the
-        client-sampling stream's state — without it a resumed run would
-        replay round 0's sample.  The fused slab's rows are one model,
-        so theta is written as row 0: fused and unfused checkpoints are
-        interchangeable, as in dopt."""
+        SCAFFOLD, whose momentum is round-local), the duals or controls,
+        SCAFFOLD's server control and the staleness buffer ``stale_p``,
+        with dopt's meta keys (the fault ledger, the quarantine mirrors,
+        the admission schedule) and the client-sampling stream's state —
+        without it a resumed run would replay round 0's sample.  The
+        fused slab's rows are one model, so theta is written as row 0:
+        fused and unfused checkpoints are interchangeable, as in dopt."""
         algo = self.cfg.federated.algorithm
         arrays = {"theta": self._theta(), "params": self.params,
                   "duals": self.duals, "c_global": self.c_global}
         if algo != "scaffold":
             arrays["momentum"] = self.momentum
+        if self._has_stale:
+            arrays["stale_p"] = self._stale_p
         meta = checkpoint_meta(self, algo)
-        w = self.num_workers
-        meta.update(stale_admit_round=[0] * w, stale_weight=[0.0] * w,
-                    stale_origin=[0] * w,
+        meta.update(stale_admit_round=self._stale_admit_round.tolist(),
+                    stale_weight=self._stale_weight.tolist(),
+                    stale_origin=self._stale_origin.tolist(),
                     sample_rng_state=self._sample_rng.bit_generator.state)
         save_checkpoint(path, arrays=arrays, meta=meta)
 
@@ -544,6 +1250,10 @@ class FederatedTrainer:
             raise ValueError(
                 "scaffold trainer requires the server control variate "
                 "('c_global') in the checkpoint")
+        if self._has_stale and "stale_p" not in arrays:
+            raise ValueError(
+                "staleness-aware trainer requires its late-update "
+                "buffer ('stale_p') in the checkpoint")
         shape = self.cfg.model.input_shape
         tree = {k: port_layout(v, input_shape=shape)
                 for k, v in arrays.items()}
@@ -564,6 +1274,20 @@ class FederatedTrainer:
         if self.c_global is not None:
             copy_into(self.c_global, tree["c_global"], what="c_global")
         restore_meta(self, meta)
+        w = self.num_workers
+        self._screen_streak = np.asarray(meta.get("screen_streak", [0] * w),
+                                         np.int64)
+        self._quarantine_until = np.asarray(
+            meta.get("quarantine_until", [0] * w), np.int64)
+        if self._has_stale:
+            copy_into(self._stale_p, tree["stale_p"], what="stale_p")
+            self._stale_admit_round = np.asarray(
+                meta.get("stale_admit_round", [0] * w), np.int64)
+            self._stale_weight = np.asarray(
+                meta.get("stale_weight", [0.0] * w), np.float64)
+            self._stale_origin = np.asarray(
+                meta.get("stale_origin", [0] * w), np.int64)
+        self._block_start()
         if meta.get("sample_rng_state"):
             self._sample_rng.bit_generator.state = meta["sample_rng_state"]
 

@@ -163,8 +163,11 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
     """Run ``rounds`` rounds of ``trainer`` in blocks of up to ``block``:
     stage a block (``trainer._draw_block(ts)`` on this thread, in block
     order; ``trainer._build_block(meta)``, pure, which uploads
-    ``meta["dev"]``), run its rounds through ``trainer.graphs`` with the
-    kinds ``meta["kinds"]``, make ONE device→host fetch, and hand the
+    ``meta["dev"]``; the draw or the build sets ``meta["kinds"]``), call
+    ``trainer._block_start()`` where the trainer has one (the federated
+    engine loads its host mirrors into its device counters there), run
+    the block's rounds through ``trainer.graphs`` with the kinds
+    ``meta["kinds"]``, make ONE device→host fetch, and hand the
     ``[k, M]`` metrics to ``trainer._record_block(meta, vals)``, which
     writes the rows in round order and advances ``trainer.round``.  With
     ``prefetch`` the loop runs dispatch → stage-next → fetch: the next
@@ -179,6 +182,7 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
     a stream one block ahead of the committed rounds."""
     next_ckpt = ((trainer.round // checkpoint_every + 1) * checkpoint_every
                  if checkpoint_every else None)
+    start = getattr(trainer, "_block_start", None)
     stager = PrefetchStager() if prefetch else None
     try:
         done = 0
@@ -188,6 +192,8 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
             meta = stager.take(ts[0]) if stager is not None else None
             if meta is None:
                 meta = trainer._build_block(trainer._draw_block(ts))
+            if start is not None:
+                start()
             out = trainer.graphs.run_block(ready(*meta["dev"]),
                                            meta["kinds"])
             left = rounds - done - k

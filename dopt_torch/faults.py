@@ -10,9 +10,9 @@ killed-and-resumed runs see the same faults, and a whole block's fault
 inputs can be drawn before it runs.  ``churn_ledger_rows`` writes the
 membership transitions into the fault ledger (``History.faults``), one
 row per (round, worker, kind, action).  ``corrupt_update`` is the lie
-itself on the device: what a Byzantine worker broadcasts, in torch.
-The engines consume the plan: dopt_torch/engine/gossip.py (the federated
-engine's fault model is a later slice of the port).
+itself on the device: what a Byzantine worker broadcasts (gossip) or
+reports (federated), in torch.  Both engines consume the plan
+(dopt_torch/engine/gossip.py, dopt_torch/engine/federated.py).
 """
 
 from __future__ import annotations
@@ -600,35 +600,44 @@ def parse_corrupt_spec(spec: str,
 
 
 def corrupt_update(update: dict[str, torch.Tensor], cmask: torch.Tensor,
-                   mode: str, scale: float) -> dict[str, torch.Tensor]:
+                   mode: str, scale: float, ref=None,
+                   prev=None) -> dict[str, torch.Tensor]:
     """Inject the round's Byzantine corruption into a stacked
-    ``[W, ...]`` dict — what each worker BROADCASTS in gossip (the
-    reference point is the origin; dopt's ``ref``/``prev`` arguments
-    serve the federated engine, whose slice ports them).  ``cmask`` is
-    the [W] 0/1 corrupt mask (data, so a graph replays it with new
-    masks).  Modes: 'nan'/'inf' poison the lanes outright; 'scale'
-    multiplies the lane by ``scale`` (rounded to the tensor's dtype, as
-    dopt's ``jnp.asarray(scale, x.dtype)``); 'signflip' negates it.
-    'stale' needs the federated engine's previous update and is
-    refused here, as the gossip engine refuses it."""
+    ``[W, ...]`` dict: what each worker broadcasts in gossip, or the
+    update a client reports to the federated server.  ``cmask`` is the
+    [W] 0/1 corrupt mask (data, so a graph replays it with new masks).
+    ``ref`` is the point updates are measured from (theta, without the
+    worker axis, in the federated engine; None = the origin, the gossip
+    case) and ``prev`` the lanes' previous state for mode 'stale'.
+
+    Modes: 'nan'/'inf' poison the lanes outright; 'scale' blows the
+    update up by ``scale`` around ``ref`` (r + s·(x − r); the factor
+    rounded to the tensor's dtype, as dopt's ``jnp.asarray(scale,
+    x.dtype)``); 'signflip' reflects it through ``ref`` (2r − x);
+    'stale' replays ``prev``, which only the federated engine has: the
+    gossip engine passes none and refuses the mode."""
     out = {}
     for k, x in update.items():
+        r = None if ref is None else ref[k]
         if mode == "nan":
             bad = torch.full_like(x, float("nan"))
         elif mode == "inf":
             bad = torch.full_like(x, float("inf"))
         elif mode == "scale":
-            # The factor rounded to the tensor's dtype, as a host scalar
-            # (no host-to-device copy inside a captured round); the
-            # product of two bf16 values is exact in f32, so this rounds
-            # once, as dopt's bf16-by-bf16 product does.
-            bad = x * rounded(scale, x.dtype)
+            # The factor as a host scalar rounded to the dtype (no
+            # host-to-device copy inside a captured round); the product
+            # of two bf16 values is exact in f32, so this rounds once, as
+            # dopt's bf16-by-bf16 product does.
+            s = rounded(scale, x.dtype)
+            bad = x * s if r is None else r + (x - r) * s
         elif mode == "signflip":
-            bad = -x
+            bad = -x if r is None else (2 * r - x).to(x.dtype)
         elif mode == "stale":
-            raise ValueError("corrupt_mode='stale' needs the previous "
-                             "update, which only the federated engine "
-                             "carries")
+            if prev is None:
+                raise ValueError("corrupt_mode='stale' needs the previous "
+                                 "update, which only the federated engine "
+                                 "carries")
+            bad = prev[k]
         else:
             raise ValueError(f"unknown corrupt_mode {mode!r}; one of "
                              f"{CORRUPT_MODES}")

@@ -100,10 +100,19 @@ def scaffold_grad_edit(grads, c_global, c_local):
 
 
 def scaffold_control_update(c_local, c_global, theta, params, *, lr: float,
-                            num_steps: int):
+                            num_steps):
     """Option-II control refresh after K local steps:
     c_i⁺ = c_i − c + (theta − y_i)/(K·lr), ``lr`` the EFFECTIVE step
-    size (the engine passes lr/(1 − momentum))."""
+    size (the engine passes lr/(1 − momentum)).  ``num_steps`` is an int,
+    or a [W] int tensor of each lane's executed steps (a straggler
+    refreshes with the steps it finished): the scale is then f32 per
+    lane, as dopt's, and the result is cast back to the storage dtype."""
+    if isinstance(num_steps, torch.Tensor):
+        scale = 1.0 / (lr * torch.clamp_min(num_steps, 1).float())
+        return {k: (ci - c_global[k] + scale.reshape(
+                    (-1,) + (1,) * (ci.dim() - 1)) * (theta[k] - params[k])
+                    ).to(ci.dtype)
+                for k, ci in c_local.items()}
     scale = scaffold_scale(lr, num_steps)
     return {k: ci - c_global[k]
             + _scalar(scale, ci) * (theta[k] - params[k])

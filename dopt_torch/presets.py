@@ -32,7 +32,13 @@ partition), ``baseline1-byzantine`` (a scale-mode liar, clipped gossip,
 quarantine) and ``baseline1-lossy`` (message drop and delay, churn,
 crash, push-sum); ``bench-chaos-baseline1-lossy`` is bench.py's chaos
 cocktail at MNIST's sizes, and ``headline-dsgd-model1-faulty`` the
-headline under ``baseline1-faulty``'s faults.
+headline under ``baseline1-faulty``'s faults.  The federated ones are
+dopt's too: ``baseline3-faulty`` (crash, ``partial`` stragglers,
+over-selection, partitions), ``baseline3-byzantine`` (three pinned
+sign-flipping liars against the trimmed mean) and ``baseline3-elastic``
+(``drop`` stragglers, lossy and delayed uplinks and churn under the
+staleness buffer); ``headline-fedavg-model1-faulty`` is the federated
+headline under ``baseline3-faulty``'s faults.
 """
 
 from __future__ import annotations
@@ -250,6 +256,47 @@ def bench_chaos_baseline1_lossy() -> ExperimentConfig:
         robust=RobustConfig(quarantine_after=3, quarantine_rounds=5))
 
 
+# baseline3's federated fault variants, as dopt.presets defines them.
+BASELINE3_FAULTS = FaultConfig(crash=0.1, straggle=0.2, straggle_frac=0.5,
+                               over_select=0.3, partition=0.05,
+                               partition_span=2)
+
+
+def baseline_3_faulty() -> ExperimentConfig:
+    return dataclasses.replace(baseline_3_fedavg_noniid(),
+                               name="baseline3-fedavg16-noniid-faulty",
+                               faults=BASELINE3_FAULTS)
+
+
+def baseline_3_byzantine() -> ExperimentConfig:
+    return dataclasses.replace(
+        baseline_3_fedavg_noniid(), name="baseline3-fedavg16-byzantine",
+        faults=FaultConfig(corrupt=1.0, corrupt_max=3,
+                           corrupt_mode="signflip", corrupt_scale=10.0),
+        robust=RobustConfig(aggregator="trimmed_mean", trim_frac=0.25))
+
+
+def baseline_3_elastic() -> ExperimentConfig:
+    cfg = baseline_3_fedavg_noniid()
+    return dataclasses.replace(
+        cfg, name="baseline3-fedavg16-noniid-elastic",
+        federated=dataclasses.replace(cfg.federated, staleness_max=3,
+                                      staleness_decay=0.5),
+        faults=FaultConfig(straggle=0.5, straggle_frac=0.5,
+                           straggler_policy="drop", msg_drop=0.05,
+                           msg_delay=0.15, msg_delay_max=3, churn=0.02,
+                           churn_span=3, crash=0.05))
+
+
+def headline_fedavg_model1_faulty() -> ExperimentConfig:
+    """``headline-fedavg-model1`` (both fused switches on) under
+    ``baseline3-faulty``'s fault config: kernel 1 gated by the straggler
+    budget at 16 lanes, kernel 2 on the survivors' mask."""
+    return dataclasses.replace(headline_fedavg_model1(),
+                               name="headline-fedavg-model1-faulty",
+                               faults=BASELINE3_FAULTS)
+
+
 def headline_dsgd_model1_faulty() -> ExperimentConfig:
     """``headline-dsgd-model1`` (both fused switches on) under
     ``baseline1-faulty``'s fault config: kernel 1 gated by the straggler
@@ -290,6 +337,10 @@ PRESETS = {
     "headline-dsgd-model1-idiomatic-bf16": lambda: headline_dsgd_model1_bf16(
         faithful=False),
     "headline-dsgd-model1-faulty": headline_dsgd_model1_faulty,
+    "headline-fedavg-model1-faulty": headline_fedavg_model1_faulty,
+    "baseline3-faulty": baseline_3_faulty,
+    "baseline3-byzantine": baseline_3_byzantine,
+    "baseline3-elastic": baseline_3_elastic,
     "baseline1-faulty": baseline_1_faulty,
     "baseline1-byzantine": baseline_1_byzantine,
     "baseline1-lossy": baseline_1_lossy,

@@ -10,8 +10,10 @@ and ``--resume`` save and restore the whole training state (dopt's
 flags): a run killed at any point and restarted with ``--resume`` is the
 continuous run bit for bit.  ``--faults`` and ``--corrupt`` install a
 fault config (dopt's spec syntax, ``dopt_torch.faults.parse_fault_spec``
-and ``parse_corrupt_spec``) and ``--faults-json`` writes the run's fault
-ledger.
+and ``parse_corrupt_spec``), on either engine, and ``--faults-json`` writes
+the run's fault ledger; ``--aggregator`` sets the federated server's
+robust aggregator (dopt's flag: it installs a robust section before the
+``--set`` overrides apply).
 """
 
 from __future__ import annotations
@@ -99,8 +101,18 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--corrupt", default=None, metavar="SPEC",
                     help="inject Byzantine corruption (workers that lie): "
                          "'p=0.25,mode=signflip,scale=50,max=2' or a bare "
-                         "probability; merges onto --faults.  Gossip modes: "
-                         "nan|inf|scale|signflip")
+                         "probability; merges onto --faults.  Modes: "
+                         "nan|inf|scale|signflip, and stale (federated "
+                         "only: replay the previous update)")
+    ap.add_argument("--aggregator", default=None,
+                    choices=["mean", "trimmed_mean", "median", "krum",
+                             "multi_krum"],
+                    help="Byzantine-robust aggregation: how the federated "
+                         "server combines the surviving updates (default "
+                         "mean); tune with --set robust.trim_frac=... etc.  "
+                         "The gossip engine's defense is clipped gossip: "
+                         "'--aggregator mean --set robust.clip_radius=R' "
+                         "(the flag installs the robust section)")
     ap.add_argument("--faults-json", default=None, metavar="PATH",
                     help="write the run's fault ledger here as JSON")
     args = ap.parse_args(argv)
@@ -115,6 +127,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.checkpoint_every and not args.checkpoint:
         raise SystemExit("--checkpoint-every requires --checkpoint PATH")
     cfg = get_preset(args.preset)
+    if args.aggregator:
+        # Installed before --set, so '--aggregator krum --set
+        # robust.krum_f=2' works on a preset without a robust section.
+        from dopt_torch.config import RobustConfig
+
+        cfg = cfg.replace(robust=dataclasses.replace(
+            cfg.robust or RobustConfig(), aggregator=args.aggregator))
     for spec in args.overrides:
         cfg = apply_override(cfg, spec)
     if args.faults:

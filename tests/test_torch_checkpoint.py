@@ -232,8 +232,13 @@ def test_federated_resume_continues_sampling_stream(tmp_path):
     round 0's."""
     def recording(tr):
         seen = []
-        draw = tr._sample_indices
-        tr._sample_indices = lambda: seen.append(draw()) or seen[-1]
+        draw = tr._round_participation
+
+        def record(t, chosen=None):
+            out = draw(t, chosen)
+            seen.append(out[0])
+            return out
+        tr._round_participation = record
         return seen
 
     cfg = _fed_cfg(T, fused=True)
@@ -246,6 +251,7 @@ def test_federated_resume_continues_sampling_stream(tmp_path):
     c.restore(tmp_path / "ck")
     got = recording(c)
     c.run(rounds=2, block=2)
+    assert len(want) == 4
     assert [s.tolist() for s in got] == [s.tolist() for s in want[2:]]
     meta = json.loads((tmp_path / "ck" / "meta.json").read_text())
     fresh = host_rng(cfg.seed, 314159)

@@ -568,11 +568,19 @@ def test_refusals_match_dopt(case):
 
 
 def test_federated_engine_refuses_faults_naming_its_slice():
+    """The federated engine runs the fault model now; what it still
+    refuses under faults names the slice that adds it: population mode
+    and the wire codecs."""
     fed = _cfg(T).replace(gossip=None, federated=T.FederatedConfig(
         frac=0.5, local_ep=1, local_bs=16))
-    for kw in (dict(faults=T.FaultConfig(crash=0.1)),
-               dict(robust=T.RobustConfig(clip_radius=1.0))):
-        with pytest.raises(ValueError, match="'federated faults' slice"):
+    for kw, slice_name in (
+            (dict(faults=T.FaultConfig(crash=0.1), population=object()),
+             "population"),
+            (dict(robust=T.RobustConfig(clip_radius=1.0),
+                  federated=dataclasses.replace(fed.federated,
+                                                comm_dtype="bfloat16")),
+             "codecs")):
+        with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
             FederatedTrainer(fed.replace(**kw), device="cpu")
 
 

@@ -247,7 +247,9 @@ def _opt(cfg, **kw):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (lambda c: _fed(c, staleness_max=2), "'network' slice"),
+    (lambda c: _fed(c, staleness_max=2, compact=True).replace(
+        faults=T.FaultConfig(msg_delay=0.2, msg_delay_max=2)),
+     "incompatible with staleness-aware aggregation"),
     (lambda c: _fed(c, update_sharding="scatter"), "'scatter and multi-GPU'"),
     (lambda c: _fed(c, comm_dtype="bfloat16"), "'codecs'"),
     (lambda c: _fed(c, diagnostics="on"), "'telemetry'"),
@@ -259,10 +261,11 @@ def _opt(cfg, **kw):
         c.model, model="resnet18")), "'ResNet-18'"),
     (lambda c: c.replace(faults=object()), "cfg.faults must be"),
     (lambda c: c.replace(robust=object()), "cfg.robust must be"),
-    (lambda c: c.replace(faults=T.FaultConfig(crash=0.1)),
-     "'federated faults' slice"),
-    (lambda c: c.replace(robust=T.RobustConfig(aggregator="median")),
-     "'federated faults' slice"),
+    (lambda c: c.replace(faults=T.FaultConfig(crash=0.1),
+                         population=object()), "'population' slice"),
+    (lambda c: _fed(c, fused_update="on").replace(
+        robust=T.RobustConfig(aggregator="median")),
+     "only applies to the masked-mean"),
     (lambda c: c.replace(population=object()), "'population'"),
     (lambda c: c.replace(comm=object()), "'codecs'"),
     (lambda c: _fed(c, algorithm="scaffold", fused_update="on"),
