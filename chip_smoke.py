@@ -154,6 +154,26 @@ also runs two small faulty configurations on the GPU against the CPU.
    quarantine benching worker 0 at round 1 and readmitting it at 5;
    11f the two new kernel sites timed as 3b times the others.
 
+12. async and one-peer mixing, telemetry and on-card diagnostics
+   (``phase12``): 12a bench.py's topology-modes legs as the presets
+   bench-topo-complete-sync, -one_peer_exp-sync and -one_peer_exp-async
+   (32 workers, the MLP in bf16 compute, 16,384/2,048 samples): per-round
+   4 rounds against blocks of 2 bit for bit, then blocked as bench.py
+   times them (eval only in round 0, a warm-up block, three timed blocks
+   of 8 replayed rounds), a profiled block's idle share and the peak
+   memory, and async round 0 bit for bit sync round 0; 12b the one-peer
+   leg with both fused switches: kernel 2's ring kernel at n = 32 and
+   kernel 1 at 32 MLP lanes timed as 3b, the ring kernel's ptxas line
+   (no stack frame, no spills), the launch counts of 2 rounds, blocks of
+   2 against per-round, and the blocked rate; 12c both f32 headlines, 2
+   rounds with diagnostics on and a MemorySink: state and launches equal
+   to phase 5's runs (diagnostics off), the blocked stream canonically
+   equal to the per-round one, the gossip headline killed after round 0
+   and resumed into one JSONL stream that ``obs.check`` accepts, every
+   ``resource`` event's peak the card's ``max_memory_allocated``, and the
+   six reductions timed alone on the gossip headline's state.
+Every phase prints the script's elapsed time as it starts.
+
 The line before the last is a JSON object {"kernels": [...]} with one
 entry per kernel and path; the last is {"ok": true, "device": {...}}.
 """
@@ -180,6 +200,7 @@ sys.path.insert(0, str(ROOT))
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 REPS = 25
+T0 = 0.0   # the script's start (main), for the per-phase elapsed lines
 # The port's own agreement limits (tests/test_torch_*.py, PARITY.md:90).
 LOSS_TOL, ACC_TOL, PARAM_REL_TOL = 1e-3, 1e-4, 1e-4
 
@@ -218,7 +239,7 @@ def state(tr) -> dict:
     for name in ("_q", "_fbuf", "_theta_flat"):
         if hasattr(tr, name):
             out[name] = {"": getattr(tr, name).float().cpu().numpy().copy()}
-    for name in ("theta", "duals", "c_global"):
+    for name in ("theta", "duals", "c_global", "_async_prev"):
         if getattr(tr, name, None) is not None:
             out[name] = host(getattr(tr, name))
     if hasattr(tr, "_sample_rng"):
@@ -706,7 +727,286 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
     return {"launch": fh_launch, "site": site}
 
 
+def phase12(dev, smi: str, get_preset, kit) -> dict:
+    """Phase 12, async and one-peer mixing and the telemetry stream with
+    on-card diagnostics.  ``kit`` holds phase 3's timers (``time_ms``,
+    ``k1_site``, ``k2_site``), phase 6's ``profile_round`` and phase 5's
+    2-round headline runs (``g_state``/``glaunch``, ``f_state``/
+    ``flaunch``).  Returns the launch counts of 12b's and 12c's main-path
+    runs, the kernel rows of 12b's sites, and the rates."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.engine.gossip import round_diag
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.obs import (JsonlSink, MemorySink, Telemetry, attach,
+                                canonical, check_stream)
+    from dopt_torch.obs.check import main as check_main
+    from dopt_torch.ops import _build
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.topology import build_mixing_matrices
+
+    t12 = time.perf_counter()
+    rates: dict[str, tuple] = {}
+    out: dict = {"launch": {}}
+
+    def zero_counts() -> None:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+
+    def timed_run(tr, n, block) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=n, block=block)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # -- 12a. bench.py's topology-modes legs (32 workers, the MLP in bf16
+    # compute): blocked as bench times them (eval beyond the run, a warm-up
+    # block, then timed blocks), per-round beside them, blocked ≡
+    # per-round, and async ≡ sync in round 0.
+    legs = ("bench-topo-complete-sync", "bench-topo-one_peer_exp-sync",
+            "bench-topo-one_peer_exp-async")
+    block, reps, never = 8, 3, 10 ** 6
+    r0 = {}
+    for name in legs:
+        cfg = get_preset(name)
+        base = torch.cuda.memory_allocated()
+        per = GossipTrainer(cfg, device=dev, eval_every=never)
+        wall = timed_run(per, 4, 1)
+        per_rate = 4 / wall
+        blk = GossipTrainer(cfg, device=dev, eval_every=never)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        blk.run(rounds=4, block=2)
+        same_state(f"12a {name}, blocks of 2, against per-round",
+                   state(per), state(blk))
+        if any(launch_counts().values()):
+            fail(f"12a {name}: kernels launched with both switches off")
+        del per, blk
+        tr = GossipTrainer(cfg, device=dev, eval_every=never)
+        timed_run(tr, block, block)            # warm-up: round 0 and captures
+        samples = [block / timed_run(tr, block, block) for _ in range(reps)]
+        peak = torch.cuda.max_memory_allocated() - base
+        idle = kit.profile_round(f"12a {name}, {block} replayed rounds",
+                                 functools.partial(tr.run, rounds=block,
+                                                   block=block))
+        rate = float(np.median(samples))
+        rates[f"12a {name}"] = (per_rate, rate, idle, peak)
+        print(f"12a {name}: per-round {per_rate:.4f} rounds/s; blocked "
+              f"{rate:.4f} rounds/s (median of {reps} blocks of {block} "
+              f"replayed rounds: {[round(s, 4) for s in samples]}); idle "
+              f"{100 * idle:.1f}% of a profiled block; peak {peak} B over "
+              f"what was allocated before; graphs {tr.graphs.captures}; "
+              f"{smi}")
+        del tr
+        torch.cuda.empty_cache()
+        if "one_peer" in name:
+            one = GossipTrainer(cfg, device=dev)
+            one.run(rounds=1)
+            r0[cfg.gossip.mixing] = state(one)
+            del one
+    same_state("12a one-peer async round 0 against sync round 0",
+               {k: v for k, v in r0["sync"].items()},
+               {k: v for k, v in r0["async"].items() if k in r0["sync"]})
+
+    # -- 12b. the one-peer sync leg with both fused switches: kernel 2's
+    # ring kernel at n = 32 and kernel 1 at 32 MLP lanes.
+    report = _build.parse_ptxas(_build.resource_report())
+    for k, r in report.items():
+        if "mix_sgd_ring_kernel" in k:
+            print(f"12b n = 32 build: {k[:60]}: {r['registers']} registers, "
+                  f"{r['stack_frame']} B stack frame, {r['spill_stores']} B "
+                  f"spill stores, {r['spill_loads']} B spill loads")
+            if r["stack_frame"] or r["spill_stores"] or r["spill_loads"]:
+                fail(f"12b: the ring kernel spills at n = 32: {r}")
+    onep = get_preset("bench-topo-one_peer_exp-sync")
+    fused = onep.replace(
+        name=onep.name + "-fused",
+        optim=dataclasses.replace(onep.optim, fused_update=True),
+        gossip=dataclasses.replace(onep.gossip, fused_update="on"))
+    mlp_s = param_shapes("mlp")
+    w0 = build_mixing_matrices("one_peer_exp", "metropolis", 32,
+                               seed=onep.seed).for_round(0)
+    site = {"k1": kit.k1_site("bench-topo one-peer mlp W=32", mlp_s, 32),
+            "k2": kit.k2_site("bench-topo one-peer mlp n=32, W_0 = (I + "
+                              "P_1)/2, lr 1", mlp_s, torch.tensor(
+                                  np.asarray(w0, np.float32), device=dev),
+                              1.0)}
+    out["site"] = site
+    per = GossipTrainer(fused, device=dev)
+    zero_counts()
+    per.run(rounds=2)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = {"fused_sgd_momentum": 2 * per.steps_per_round,
+            "fused_mix_sgd": 2 * per.fused_spec.num_buckets}
+    print(f"12b {fused.name}: launches {got} (expected {want}: kernel 1 "
+          "once a step over 32 lanes, kernel 2 once a bucket a round at "
+          "n = 32)")
+    if got != want:
+        fail(f"12b: launches {got} != {want}")
+    out["launch"]["bench-topo-one_peer_exp-sync"] = got
+    for row in per.history.rows:
+        if not (math.isfinite(row["avg_train_loss"])
+                and 0.0 <= row["avg_test_acc"] <= 1.0):
+            fail(f"12b: bad row {row}")
+    blk = GossipTrainer(fused, device=dev)
+    zero_counts()
+    blk.run(rounds=2, block=2)
+    same_state("12b one-peer fused, blocks of 2, against per-round",
+               state(per), state(blk))
+    if launch_counts() != got:
+        fail(f"12b blocked: launches {launch_counts()} != {got}")
+    del per, blk
+    tr = GossipTrainer(fused, device=dev, eval_every=never)
+    timed_run(tr, block, block)
+    samples = [block / timed_run(tr, block, block) for _ in range(reps)]
+    rates["12b one-peer fused"] = (None, float(np.median(samples)), None,
+                                   None)
+    print(f"12b {fused.name}: blocked {np.median(samples):.4f} rounds/s "
+          f"({samples}); {smi}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 12c. both f32 headlines with diagnostics on and a telemetry
+    # stream: the params and launches of phase 5's runs, per-round ≡
+    # blocked streams, a killed-and-resumed JSONL stream, resource events.
+    def diag_run(label, cls, cfg, n, block, want, want_launch):
+        """A fresh trainer with a MemorySink: n rounds in blocks of
+        ``block``, the state and launches against ``want`` and
+        ``want_launch`` (the diagnostics-off run's), every ``resource``
+        event's peak against the card's allocator."""
+        base = torch.cuda.memory_allocated()
+        tr = cls(cfg, device=dev)
+        mem = MemorySink()
+        attach(tr, Telemetry([mem]))
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        wall = timed_run(tr, n, block)
+        peak = torch.cuda.max_memory_allocated()
+        got = launch_counts()
+        events = mem.events
+        check_stream(events)
+        res = [e for e in events if e["kind"] == "resource"]
+        if not res or any(e["source"] != "device" or e["peak_bytes"] > peak
+                          or e["live_bytes"] > e["peak_bytes"]
+                          for e in res) or res[-1]["peak_bytes"] != peak:
+            fail(f"12c {label}: resource events {res} against the card's "
+                 f"peak {peak} B")
+        print(f"12c {label}: {n} rounds in {wall:.3f} s ({n / wall:.4f} "
+              f"rounds/s), launches {got}, {len(events)} events "
+              f"({sorted({e['kind'] for e in events})}), resource peak "
+              f"{res[-1]['peak_bytes']} B = the card's max_memory_allocated "
+              f"({peak - base} B over what was allocated before the "
+              f"trainer); {smi}")
+        same_state(f"12c {label}, against the run with diagnostics off",
+                   want, state(tr))
+        if got != want_launch:
+            fail(f"12c {label}: launches {got} != {want_launch}")
+        return tr, events, got, wall
+
+    ghead = get_preset("headline-dsgd-model1")
+    gdiag = ghead.replace(gossip=dataclasses.replace(ghead.gossip,
+                                                     diagnostics="on"))
+    fhead = get_preset("headline-fedavg-model1")
+    fdiag = fhead.replace(federated=dataclasses.replace(fhead.federated,
+                                                        diagnostics="on"))
+    tr, g_events, g_got, g_wall = diag_run(
+        "headline-dsgd-model1, diagnostics on", GossipTrainer, gdiag, 2, 1,
+        kit.g_state, kit.glaunch)
+    # The six reductions alone, on the run's final state, timed as 3b.
+    params = tr._param_dict()
+    moms = dict(zip(tr._names, tr.momentum))
+    start = {k: v.clone() for k, v in params.items()}
+    losses = torch.rand(tr.num_workers, tr.steps_per_round, device=dev)
+    ones = torch.ones(tr.num_workers, device=dev)
+    diag_ms = kit.time_ms(lambda: round_diag(params, moms, start, losses,
+                                             ones))
+    print(f"12c gossip round_diag on 6 Model1 lanes: {diag_ms:.4f} ms a "
+          f"round against the diagnosed round's {1e3 * g_wall / 2:.1f} ms "
+          f"wall; {smi}")
+    del tr, params, moms, start
+    _, gb_events, gb_got, _ = diag_run(
+        "headline-dsgd-model1, diagnostics on, blocks of 2", GossipTrainer,
+        gdiag, 2, 2, kit.g_state, kit.glaunch)
+    if canonical(gb_events) != canonical(g_events):
+        fail("12c: the blocked gossip stream differs from the per-round one")
+    print("12c headline-dsgd-model1: blocked stream = per-round stream "
+          f"({len(canonical(g_events))} canonical events, gauges included)")
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-obs-"))
+    try:
+        mpath = ckdir / "metrics.jsonl"
+        victim = GossipTrainer(gdiag, device=dev)
+        t1 = Telemetry.to_jsonl(mpath)
+        attach(victim, t1)
+        zero_counts()
+        victim.run(rounds=1, checkpoint_every=1,
+                   checkpoint_path=ckdir / "ck")
+        t1.close()
+        del victim
+        resumed = GossipTrainer(gdiag, device=dev)
+        resumed.restore(ckdir / "ck")
+        t2 = Telemetry.to_jsonl(mpath, resume=True)
+        attach(resumed, t2)
+        resumed.run(rounds=1)
+        t2.close()
+        same_state("12c headline-dsgd-model1, diagnostics on, killed after "
+                   "round 0 and resumed, against phase 5", kit.g_state,
+                   state(resumed))
+        if launch_counts() != kit.glaunch:
+            fail(f"12c resume: launches {launch_counts()} != "
+                 f"{kit.glaunch}")
+        if check_main([str(mpath)]) != 0:
+            fail("12c: obs.check refused the killed-and-resumed stream")
+        merged = JsonlSink.read(mpath)
+        if canonical(merged) != canonical(g_events):
+            fail("12c: the killed-and-resumed stream differs from the "
+                 "continuous one")
+        print(f"12c killed-and-resumed JSONL stream: {len(merged)} events, "
+              "passes obs.check, canonically equal to the continuous run")
+        del resumed
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _, f_events, f_got, f_wall = diag_run(
+        "headline-fedavg-model1, diagnostics on", FederatedTrainer, fdiag,
+        2, 1, kit.f_state, kit.flaunch)
+    _, fb_events, _, _ = diag_run(
+        "headline-fedavg-model1, diagnostics on, blocks of 2",
+        FederatedTrainer, fdiag, 2, 2, kit.f_state, kit.flaunch)
+    if canonical(fb_events) != canonical(f_events):
+        fail("12c: the blocked federated stream differs from the per-round "
+             "one")
+    print("12c headline-fedavg-model1: blocked stream = per-round stream "
+          f"({len(canonical(f_events))} canonical events, gauges included)")
+    for label, events in (("gossip", g_events), ("federated", f_events)):
+        gauges = {e["name"]: round(e["value"], 6) for e in events
+                  if e["kind"] == "gauge" and e["round"] == 1}
+        print(f"12c {label} headline round-1 gauges {gauges}")
+    out["launch"]["headline-dsgd-model1-diagnostics"] = g_got
+    out["launch"]["headline-fedavg-model1-diagnostics"] = f_got
+    rates["12c gossip diagnosed"] = (2 / g_wall, None, None, None)
+    rates["12c federated diagnosed"] = (2 / f_wall, None, None, None)
+    out["diag_ms"] = diag_ms
+    torch.cuda.empty_cache()
+    for key, (per_rate, rate, idle, peak) in rates.items():
+        print(f"12 rates {key}: per-round {per_rate}, blocked {rate} "
+              f"rounds/s; idle {idle}; peak {peak} B; {smi}")
+    out["rates"] = rates
+    print(f"12: phase 12 in {time.perf_counter() - t12:.1f} s")
+    return out
+
+
 def main() -> None:
+    global T0
+    T0 = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -747,6 +1047,7 @@ def main() -> None:
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 2")
     # -- 2. build ---------------------------------------------------------
     # The kernels (nvcc) and the native planner (g++) build at once, one
     # compiler process each.
@@ -802,6 +1103,7 @@ def main() -> None:
         fail(f"ptxas reported kernel 2 instantiations {sorted(seen)}, "
              f"expected {sorted(want)}")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 3")
     # -- 3. kernels against their plain versions --------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1054,6 +1356,7 @@ def main() -> None:
         fail("an empty call counted a kernel launch")
     print("empty work: no launch counted")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 3b")
     # -- 3b. the call sites of the dense models and the gossip algorithms -
     # Each kernel at the shapes phase 9's paths give it, f32, against its
     # plain version (kernel 1 bit-identical, kernel 2 within the f32
@@ -1129,6 +1432,7 @@ def main() -> None:
           "launch-bound")
     del flush, p, m, g
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 4")
     # -- 4. small-input agreement: GPU runs vs CPU runs --------------------
     tiny_data = DataConfig(dataset="synthetic", num_users=4, iid=False,
                            shards=2, synthetic_train_size=128,
@@ -1297,6 +1601,7 @@ def main() -> None:
                ("train_loss", "local_loss"), "test_acc",
                ("worker_params", "global_params"))
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5")
     # -- 5. main paths ----------------------------------------------------
     def main_path(name, cls, rounds, loss_keys, acc_keys, workers, cfg=None):
         cfg = get_preset(name) if cfg is None else cfg
@@ -1391,6 +1696,7 @@ def main() -> None:
           f"the time")
     del btr
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5d/5e")
     # -- 5d/5e. the JAX bench's fast legs: bf16 compute, f32 storage -----
     fast = {}
     for name in ("headline-dsgd-model1-bf16",
@@ -1406,6 +1712,7 @@ def main() -> None:
     btr_bf16, b_launch, b_state = fast.pop("headline-dsgd-model1-bf16")
     del fast
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5f")
     # -- 5f. bf16 storage in both engines --------------------------------
     # The wrappers' C entry points are wrapped for these runs to record
     # the dtype code (0 f32, 1 bf16) of every launch.
@@ -1451,6 +1758,7 @@ def main() -> None:
         bf16_state[label] = state(tr)
         del tr
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 6")
     # -- 6. profile one more round of each path ---------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -1493,6 +1801,7 @@ def main() -> None:
     del gtr, ftr, btr_bf16, trainer
     torch.cuda.empty_cache()
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 7a")
     # -- 7a. determinism: the same run twice, bit for bit ------------------
     cudnn = torch.backends.cudnn
     with deterministic(dev):
@@ -1523,6 +1832,7 @@ def main() -> None:
             for _ in range(2)]
     same_state("7a tiny fedadmm, compact, 10% holdout, twice", *runs)
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 7b")
     # -- 7b. blocked (CUDA-graph replays) against per-round ----------------
     def blocked(label, cls, cfg, want_state, want_launch, n, block,
                 phase="7b", **kw):
@@ -1568,6 +1878,7 @@ def main() -> None:
         blocked(label, cls, cfg, state(tr), launch, 3, 2)
         del tr
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 7c")
     # -- 7c. rates: per-round against blocked -----------------------------
     every = 10 ** 6   # eval_every beyond the run: only round 0 evaluates
     for name in ("headline-dsgd-model1-bf16", "headline-dsgd-model1"):
@@ -1605,6 +1916,7 @@ def main() -> None:
               f"{got['per-round']:.4f} rounds/s: "
               f"{got['blocked'] / got['per-round']:.3f}x")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 8")
     # -- 8. checkpoint and resume on the card -----------------------------
     import shutil
     import tempfile
@@ -1663,6 +1975,7 @@ def main() -> None:
               f"{r['restore_s']:.4f} s ({r['bytes'] / r['restore_s'] / 1e9:.3f}"
               f" GB/s); {smi}")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 9")
     # -- 9. this slice's paths at full width -------------------------------
     t9 = time.perf_counter()
     held = torch.cuda.memory_allocated()
@@ -1717,6 +2030,7 @@ def main() -> None:
               f"over what was allocated before the trainer, launches "
               f"{slice_launch[preset]}; {smi}")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 9f")
     # -- 9f. the matching path, bit for bit ------------------------------
     gossip9 = switched(get_preset("reference-gossip"))
     small9 = gossip9.replace(
@@ -1781,6 +2095,7 @@ def main() -> None:
           f"{b1_rate['blocked'] / b1_rate['per-round']:.3f}x; {smi}")
     print(f"9: phases 9a-9f in {time.perf_counter() - t9:.1f} s")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 10")
     # -- 10. the gossip fault model ----------------------------------------
     t10 = time.perf_counter()
     from dopt_torch.faults import FaultPlan
@@ -2054,6 +2369,7 @@ def main() -> None:
               f"{smi}")
     print(f"10: phase 10 in {time.perf_counter() - t10:.1f} s")
 
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 11")
     # -- 11. the federated fault model ------------------------------------
     import types
 
@@ -2061,7 +2377,15 @@ def main() -> None:
     fed11 = phase11(dev, smi, get_preset, types.SimpleNamespace(
         time_ms=time_ms, k2_site=k2_site, gated_site=gated_site,
         profile_round=profile_round))
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 12")
+
+    # -- 12. async and one-peer mixing, telemetry and diagnostics --------
+    obs12 = phase12(dev, smi, get_preset, types.SimpleNamespace(
+        time_ms=time_ms, k1_site=k1_site, k2_site=k2_site,
+        profile_round=profile_round, g_state=g_state, glaunch=glaunch,
+        f_state=f_state, flaunch=flaunch))
     del flush
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
@@ -2114,9 +2438,18 @@ def main() -> None:
             ("headline-fedavg-model1-faulty", "headline-fedavg-model1-"
              "faulty: Model1, 16 lanes, kernel 1 gated by the partial "
              "stragglers' budget, kernel 2 on the survivors' mask at lr -1",
-             fed11["site"]["k1"], fed11["site"]["k2"])):
+             fed11["site"]["k1"], fed11["site"]["k2"]),
+            ("bench-topo-one_peer_exp-sync", "bench-topo-one_peer_exp-sync "
+             "with both fused switches: MLP, 32 workers, kernel 1 over 32 "
+             "lanes, kernel 2's ring kernel at n = 32",
+             obs12["site"]["k1"], obs12["site"]["k2"]),
+            ("headline-dsgd-model1-diagnostics", "headline-dsgd-model1 with "
+             "diagnostics on and a telemetry stream", k1, k2),
+            ("headline-fedavg-model1-diagnostics", "headline-fedavg-model1 "
+             "with diagnostics on and a telemetry stream", k1f, k2f)):
         launched = {**slice_launch, **fault_launch,
-                    "headline-fedavg-model1-faulty": fed11["launch"]}[preset]
+                    "headline-fedavg-model1-faulty": fed11["launch"],
+                    **obs12["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -22,7 +22,9 @@ federated under crash, stragglers, over-selection, server partitions,
 churn, lossy and delayed uplinks, Byzantine updates, the robust
 aggregators, clip-to-ball, quarantine and the staleness buffer.
 ``plan_impl="native"`` plans batches with dopt's C++ planner, built
-with ``g++`` at first use.
+with ``g++`` at first use.  The gossip engine runs async (staleness-1)
+and one-peer mixing; both engines stream dopt's telemetry
+(``dopt_torch.obs``) with the on-card diagnostics.
 """
 
 import os

@@ -71,6 +71,10 @@ The fault model (dopt/engine/federated.py:126-300, :922-1215,
   into the ``[W, ...]`` buffer ``stale_p`` and admitted d rounds later at
   weight ``staleness_decay``^d.
 
+Telemetry and ``federated.diagnostics="on"`` as ``GossipTrainer``'s:
+the bundle after each round's fetch, the six gauges (the sixth the lane
+dispersion mean_i ||p_i − theta||) computed inside the round.
+
 The compact path pads the survivors to the static m lanes with a
 validity mask (``_fixed_width_sel``), so every faulted compact round has
 one shape.  Blocked runs with quarantine or staleness run the *chaos*
@@ -84,6 +88,7 @@ mirrors round by round.
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -103,6 +108,8 @@ from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
 from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
                                validate_fault_config)
 from dopt_torch.models.zoo import deterministic, full_f32, stacked_forward
+from dopt_torch.obs import consensus_distance
+from dopt_torch.obs.events import DIAG_GAUGES, finite_diag_gauges
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import (admm_dual_ascent, grad_edit, rounded,
                               scaffold_control_update, scaffold_scale)
@@ -112,12 +119,15 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              masked_average,
                                              mean_weight_matrix, where_mask)
 from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
+                               global_norm_f32, lane_sq_norms,
                                make_aggregator, masked_mean,
                                validate_robust_config)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import host_rng
+from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
+                                        emit_device_resource)
 
 _LOCAL_ALGORITHM = {"fedavg": "sgd", "fedprox": "fedprox",
                     "fedadmm": "fedadmm", "scaffold": "scaffold"}
@@ -195,8 +205,6 @@ def validate_federated(cfg: ExperimentConfig) -> None:
                 "one of the two")
     if f.comm_dtype:
         raise later(f"comm_dtype={f.comm_dtype!r}", "codecs")
-    if f.diagnostics == "on":
-        raise later("diagnostics='on'", "telemetry")
     if f.fused_update == "on":
         if f.algorithm not in ("fedavg", "fedprox"):
             raise ValueError(
@@ -245,6 +253,42 @@ def validate_federated(cfg: ExperimentConfig) -> None:
             "outside the sampled set) — drop one of the two")
 
 
+def round_diag(p_lanes: dict[str, torch.Tensor],
+               p_start: dict[str, torch.Tensor],
+               m_new: dict[str, torch.Tensor],
+               theta_new: dict[str, torch.Tensor],
+               p_fleet: dict[str, torch.Tensor], losses: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """The round's [6] f32 diagnostics on the device (dopt's federated
+    ``round_diag``, federated.py:827-870): the L2 norm of the
+    aggregating lanes' displacement from their round-start load
+    (``mask``: a screened lane reverts to its stale params, a compact
+    padding lane is out), of the carried momentum and of the new global
+    model; the aggregating lanes' train-loss mean and max − min spread
+    (lanes with a non-finite loss left out); and the fleet dispersion
+    mean_i ||p_i − theta|| over every carried lane.  ``p_start`` may
+    lack the lane axis (the compact round starts every lane at
+    theta)."""
+    upd = (lane_sq_norms({k: p_lanes[k].float() - p_start[k].float()
+                          for k in p_lanes}) * mask).sum().sqrt()
+    lane = losses.mean(1).float()
+    okl = mask * torch.isfinite(lane)
+    on = okl > 0
+    lmean = torch.where(on, lane, 0.0).sum() / okl.sum().clamp_min(1.0)
+    spread = torch.where(okl.sum() > 0,
+                         torch.where(on, lane, -math.inf).max()
+                         - torch.where(on, lane, math.inf).min(), 0.0)
+    sq = None
+    for k in sorted(p_fleet):
+        x = p_fleet[k].float()
+        d = (x - theta_new[k].float()[None]).reshape(x.shape[0], -1)
+        s = (d * d).sum(1)
+        sq = s if sq is None else sq + s
+    return torch.stack([upd, global_norm_f32(m_new),
+                        global_norm_f32(theta_new), lmean, spread,
+                        sq.sqrt().mean()])
+
+
 def _lanes(tree: dict[str, torch.Tensor], m: int) -> dict[str, torch.Tensor]:
     """m fresh contiguous copies of a single model, as ``[m, ...]``."""
     return {k: x.repeat(m, *([1] * x.dim())) for k, x in tree.items()}
@@ -279,6 +323,8 @@ class FederatedTrainer:
     ``GossipTrainer``'s do.
     """
 
+    engine_kind = "federated"
+
     def __init__(self, cfg: ExperimentConfig, *, device=None,
                  init_params=None, eval_train: bool = True):
         validate_federated(cfg)
@@ -294,6 +340,13 @@ class FederatedTrainer:
         # the round's surviving sampled clients only.
         self.client_history = History(cfg.name + "-clients")
         w = self.num_workers = cfg.data.num_users
+        # Telemetry (``dopt_torch.obs.attach``), as GossipTrainer's.
+        self.timers = PhaseTimers()
+        self.telemetry = None
+        self._diag = f.diagnostics == "on"
+        self._diag_keys = DIAG_GAUGES + ("lane_dispersion",)
+        self._compile_watch = CompileWatcher()
+        self._last_step_total = 0.0
 
         load_device_data(self, cfg, dev, local_bs=f.local_bs)
         self.steps_per_round = steps_per_round(self._train_matrix,
@@ -340,11 +393,13 @@ class FederatedTrainer:
         # The round's packed metrics: local loss, test acc, test loss,
         # train loss, train acc, the [W] screened flags, then (staleness)
         # the [W] screened-on-admission flags, (holdout) the [4, W, E]
-        # epoch rows of the lanes and (quarantine or staleness) the
-        # chaos round's device counters.
+        # epoch rows of the lanes, (quarantine or staleness) the chaos
+        # round's device counters and, last, the [6] diagnostics block
+        # (``diagnostics="on"``).
         width = (5 + w + (w if self._has_stale else 0)
                  + (4 * w * f.local_ep if self._val is not None else 0)
-                 + len(self._counters()) * w)
+                 + len(self._counters()) * w
+                 + (len(self._diag_keys) if self._diag else 0))
         self._slot = torch.zeros(width, device=dev)
         self.graphs = RoundGraphs(self._body, self._slot)
 
@@ -882,7 +937,13 @@ class FederatedTrainer:
             lane_loss = losses.mean(1)
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = (lane_loss * agg).sum() / agg.sum().clamp_min(1.0)
-        return local_loss, mask * (1.0 - fin), stale_scr, em
+            # From the carried state: the lanes' displacement from their
+            # round-start load, the momentum, the new theta, the fleet.
+            diag = (round_diag(new_p, start, self.momentum, self._theta(),
+                               new_p, em["train_loss"] if em else losses,
+                               agg)
+                    if self._diag else None)
+        return local_loss, mask * (1.0 - fin), stale_scr, em, diag
 
     def _stale_sum(self, agg_in, agg, theta, admit):
         """The staleness-weighted aggregate (dopt :980-1017): the fresh
@@ -957,6 +1018,10 @@ class FederatedTrainer:
                     mo.index_copy_(0, sel_t, m_keep[k])
             agg_in = (clip_to_ball(p_keep, theta, self._clip)
                       if self._clip > 0 else p_keep)
+            # Every lane started at this round's theta, which is
+            # overwritten below.
+            theta0 = ({k: v.clone() for k, v in theta.items()}
+                      if self._diag else None)
             if self._agg_robust is None:
                 masked = masked_mean(agg_in, fin)
                 new = {k: torch.where(all_fin, x.mean(0), masked[k])
@@ -971,8 +1036,12 @@ class FederatedTrainer:
             local_loss = torch.where(
                 all_fin, losses.mean(),
                 (lane_loss * fin).sum() / fin.sum().clamp_min(1.0))
+            diag = (round_diag(p_keep, theta0, self.momentum, theta,
+                               self.params,
+                               em["train_loss"] if em else losses, fin)
+                    if self._diag else None)
             em = {k: _pad_lanes(v, w) for k, v in em.items()}
-        return local_loss, _pad_lanes(1.0 - fin, w), None, em
+        return local_loss, _pad_lanes(1.0 - fin, w), None, em, diag
 
     def _device_participation(self, inp: dict[str, torch.Tensor],
                               quar: torch.Tensor):
@@ -1069,7 +1138,7 @@ class FederatedTrainer:
                 inp, inp["mask"], load=inp.get("load"),
                 cmask=inp.get("cmask"), admit=inp.get("admit"),
                 capture=inp.get("capture"))
-        local_loss, screened, stale_scr, em = out
+        local_loss, screened, stale_scr, em, diag = out
         ev = self._global_eval()
         parts = [local_loss, ev["acc"], ev["loss_sum"]]
         if self.eval_train:
@@ -1089,6 +1158,8 @@ class FederatedTrainer:
         # The counters are the chaos round's; other rounds leave zeros.
         parts += [c if kind == "chaos" else torch.zeros_like(c)
                   for c in self._counters()]
+        if diag is not None:
+            parts.append(diag)
         with torch.no_grad():
             torch.cat([p.reshape(-1).float() for p in parts], out=self._slot)
 
@@ -1125,12 +1196,15 @@ class FederatedTrainer:
                         global_round=t, epoch=k, worker=int(wid),
                         train_loss=float(tl[j, k]), train_acc=float(ta[j, k]),
                         val_acc=float(va[j, k]), val_loss=float(vl[j, k]))
+        n_diag = len(self._diag_keys) if self._diag else 0
+        end = len(vals) - n_diag
         if kind == "chaos":
-            dev = vals[len(vals) - len(self._counters()) * w:].reshape(-1, w)
+            dev = vals[end - len(self._counters()) * w:end].reshape(-1, w)
             for d, h in zip(dev, self._host_counters()):
                 if not np.array_equal(d.astype(h.dtype), h):
                     raise RuntimeError("fused-chaos host replay diverged "
                                        "from the device counters")
+        self._round_telemetry(t, rows, vals[end:] if n_diag else None)
 
     # -- blocks: the stateful draw, the pure build, the rows -----------
     def _draw_block(self, ts: list[int]) -> dict:
@@ -1168,6 +1242,8 @@ class FederatedTrainer:
                 if kind == "chaos" else meta["parts"][j])
             self._record(t, kind, part[0], part[3], vals[j])
             self.round += 1
+        emit_device_resource(self, meta["ts"][-1], "chaos_block_fn"
+                             if self._chaos else "block_fn")
 
     def run(self, rounds: int | None = None, block: int | None = None,
             checkpoint_every: int = 0, checkpoint_path=None) -> History:
@@ -1194,18 +1270,70 @@ class FederatedTrainer:
             else:
                 for _ in range(rounds):
                     t = self.round
-                    part = self._round_participation(t)
-                    kind, host = self._round_inputs(t, part)
-                    self._body({k: torch.from_numpy(v).to(self.device)
-                                for k, v in host.items()}, kind)
-                    # ONE device→host fetch per round.
-                    self._record(t, kind, part[0], part[3],
-                                       self._slot.cpu().numpy())
+                    with self.timers.phase("host_batch_plan"):
+                        part = self._round_participation(t)
+                        kind, host = self._round_inputs(t, part)
+                        inp = {k: torch.from_numpy(v).to(self.device)
+                               for k, v in host.items()}
+                    with self.timers.phase("round_step"):
+                        self._body(inp, kind)
+                        # ONE device→host fetch per round.
+                        vals = self._slot.cpu().numpy()
+                    self._record(t, kind, part[0], part[3], vals)
+                    emit_device_resource(
+                        self, t, "compact_fn" if kind == "compact"
+                        else "round_fn")
                     self.round += 1
                     if checkpoint_every and self.round % checkpoint_every == 0:
                         self.save(checkpoint_path)
         self.total_time = time.perf_counter() - t0
+        self._run_summary_telemetry()
         return self.history
+
+    # -- telemetry (dopt_torch.obs) -------------------------------------
+    def _round_telemetry(self, t: int, frows: list, diag=None) -> None:
+        """Round t's bundle (dopt :2655-2696): the fault-ledger rows, the
+        host-mirror gauges (quarantine, the staleness schedule) and the
+        fetched diagnostics as gauges, then the History row as the
+        ``round`` event, at the same point of the per-round, blocked and
+        chaos-blocked loops.  No-op without telemetry."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        quarantined = int((self._quarantine_until > t).sum())
+        gauges = {"quarantine_active": float(quarantined),
+                  "screen_streak_max": float(self._screen_streak.max()),
+                  "participating_lanes": float(self.num_workers
+                                               - quarantined)}
+        if diag is not None:
+            gauges.update(finite_diag_gauges(self._diag_keys, diag))
+        if self._has_stale:
+            gauges["stale_pending"] = float((self._stale_weight > 0).sum())
+            gauges["stale_weight_total"] = float(self._stale_weight.sum())
+        tele.emit_round_bundle(t, engine=self.engine_kind,
+                               metrics=self.history.rows[-1], faults=frows,
+                               gauges=gauges)
+
+    def _consensus_value(self) -> float | None:
+        """Mean over clients of ||p_i − theta||, or None on round 0 or for
+        a diverged fleet (dopt :2704-2722)."""
+        if self.round == 0:
+            return None
+        cd = consensus_distance(self.params, self._theta())
+        return cd if math.isfinite(cd) else None
+
+    def _run_summary_telemetry(self) -> None:
+        """The end-of-``run()`` consensus-distance gauge, suppressed
+        under ``diagnostics="on"`` (its ``lane_dispersion`` gauge is the
+        same meter every round)."""
+        tele = self.telemetry
+        if tele is None or self._diag:
+            return
+        cd = self._consensus_value()
+        if cd is not None:
+            tele.emit("gauge", round=self.round - 1,
+                      name="consensus_distance", value=cd,
+                      engine=self.engine_kind)
 
     # -- checkpoint -----------------------------------------------------
     def save(self, path) -> None:
@@ -1229,7 +1357,15 @@ class FederatedTrainer:
                     stale_weight=self._stale_weight.tolist(),
                     stale_origin=self._stale_origin.tolist(),
                     sample_rng_state=self._sample_rng.bit_generator.state)
-        save_checkpoint(path, arrays=arrays, meta=meta)
+        with self.timers.phase("checkpoint"):
+            save_checkpoint(path, arrays=arrays, meta=meta)
+        if self.telemetry is not None:
+            # After the atomic save landed, with the consensus snapshot.
+            ev = {"round": int(self.round)}
+            cd = self._consensus_value()
+            if cd is not None:
+                ev["consensus_distance"] = cd
+            self.telemetry.emit("checkpoint", **ev)
 
     def restore(self, path) -> None:
         """Resume from a checkpoint written by ``save`` (same config), or

@@ -25,6 +25,14 @@ them:
   (``host_rng(seed, 60551)``), on the main thread in round order, and
   carried through checkpoints.
 
+``gossip.mixing="async"`` (dsgd) is dopt's staleness-1 mixing: each
+worker's own term reads its current params, its neighbours' terms the
+previous round's entry state, x_i ← W_ii·x_i(t) + Σ_{j≠i} W_ij·x_j(t−1),
+with the previous state a carried buffer (``async_prev``, round −1's the
+shared init) written in place and checkpointed.  The one-peer
+exponential schedule (``topology="one_peer_exp"``) mixes on the dense
+path, as every schedule does on one GPU.
+
 ``gossip.eval_mode="sharded"`` evaluates each worker on its round-robin
 1/W shard of the test set during training (``evaluate`` stays the full
 test set, as dopt's).
@@ -89,6 +97,12 @@ is dopt's deprecated alias of ``faults.crash``) and ``cfg.robust``:
   carried params are then the numerators and ``worker_params`` the
   de-biased estimates.
 
+Telemetry (``dopt_torch.obs.attach``) streams each round's fault rows,
+gauges and History row after the round's fetch, at the same point of
+the per-round and the blocked loops; ``gossip.diagnostics="on"`` adds
+six gauges computed on the device inside the round (``round_diag``),
+packed last into the round's metric vector.
+
 Every draw is host numpy, stateless per (seed, kind, round), so the
 fault ledger (``history.faults``: one row per round, worker, kind and
 action, in dopt's order) is dopt's bit for bit, and per-round, blocked
@@ -104,6 +118,7 @@ gradient to that global norm after the algorithm's edit.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -121,12 +136,15 @@ from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
 from dopt_torch.models.zoo import (LAYERS, StackedModel, deterministic,
                                    full_f32, init_worker_params,
                                    param_shapes, stacked_forward)
+from dopt_torch.obs import consensus_distance
+from dopt_torch.obs.events import DIAG_GAUGES, finite_diag_gauges
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
                                              make_update_shard_spec, mix_dense)
 from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
-                               finite_lane_mask, validate_robust_config)
+                               finite_lane_mask, lane_sq_norms,
+                               validate_robust_config)
 from dopt_torch.topology import (build_mixing_matrices, push_sum_link_matrix,
                                  random_matching_matrix, repair_for_dropout,
                                  repair_for_dropout_torch,
@@ -136,6 +154,8 @@ from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import host_rng
+from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
+                                        emit_device_resource)
 
 # The dtypes ``model.compute_dtype`` and ``model.param_dtype`` take.
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -245,10 +265,9 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g.diagnostics not in ("off", "on"):
         raise ValueError(f"unknown diagnostics {g.diagnostics!r}; one of "
                          "off|on")
-    if g.diagnostics == "on":
-        raise later("diagnostics='on'", "telemetry")
-    if g.mixing != "sync":
-        raise later(f"mixing={g.mixing!r}", "async and one-peer mixing")
+    if g.mixing not in ("sync", "async"):
+        raise ValueError(f"unknown gossip mixing {g.mixing!r}; one of "
+                         "sync|async")
     if g.prefetch not in ("off", "on"):
         raise ValueError(f"unknown prefetch {g.prefetch!r}; one of off|on")
     if g.update_sharding != "off":
@@ -354,6 +373,28 @@ def validate_fault_model(cfg: ExperimentConfig) -> None:
             "push-sum: drop-repaired matrices leave the compiled shift set "
             "and the per-staleness stack needs the dense path (the 'auto' "
             "default picks it)")
+    if g.mixing == "async":
+        # dopt's async refusals (its gossip.py:814-846); scatter and
+        # population are refused earlier, naming their slices.
+        if g.algorithm != "dsgd":
+            raise ValueError(
+                "mixing='async' only applies to the single-sweep "
+                f"dsgd consensus, not {g.algorithm!r}: fedlcon's eps "
+                "sweeps and choco's compressed exchange have no "
+                "staleness-1 diag/off-diag split, and matching/"
+                "nocons have no static schedule to stale against")
+        if robust_active:
+            raise ValueError(
+                "mixing='async' does not compose with the robust "
+                "layer (corrupt faults / clip_radius / quarantine "
+                "screen the CURRENT round's sends; a stale mix has "
+                "no current wire to screen) — drop one of the two")
+        if link_mode:
+            raise ValueError(
+                "mixing='async' does not compose with link faults / "
+                "push-sum (the per-staleness [D+1, n, n] stack "
+                "already models delayed state; staleness-1 is its "
+                "D=1 special case) — drop one of the two")
     if g.fused_update == "on" and robust_active:
         raise ValueError(
             "fused_update='on' does not compose with the robust layer "
@@ -365,6 +406,49 @@ def validate_fault_model(cfg: ExperimentConfig) -> None:
             "fused_update='on' does not compose with link faults / "
             "push-sum (the per-staleness [D+1, n, n] contraction carries "
             "its own mass/staleness buffers) — drop one of the two")
+    if g.fused_update == "on" and g.mixing == "async":
+        raise ValueError(
+            "fused_update='on' does not compose with "
+            "mixing='async' (the staleness-1 diag/off-diag "
+            "split reads two source trees; the fused "
+            "contraction reads one) — drop one of the two")
+
+
+def round_diag(p_new: dict[str, torch.Tensor], m_new: dict[str, torch.Tensor],
+               p_start: dict[str, torch.Tensor], losses: torch.Tensor,
+               alive: torch.Tensor) -> torch.Tensor:
+    """The round's [6] f32 diagnostics on the device (dopt's
+    ``round_diag``, gossip.py:1063-1110), from the carried state: the
+    L2 norms of the round's displacement ``p_new − p_start`` (a dead
+    lane carries its state: zero), of the carried momentum and of the
+    carried params; the lanes' train-loss mean and max − min spread;
+    and the consensus distance mean_i ||p_i − p̄||.  All six reduce over
+    the lanes that are alive and whose state and loss are finite, so
+    one NaN lane does not blind every gauge."""
+    upd_sq = lane_sq_norms({k: p_new[k].float() - p_start[k].float()
+                            for k in p_new})
+    m_sq, p_sq = lane_sq_norms(m_new), lane_sq_norms(p_new)
+    lane = losses.mean(1).float()
+    ok = (alive * torch.isfinite(upd_sq) * torch.isfinite(m_sq)
+          * torch.isfinite(p_sq) * torch.isfinite(lane))
+    on = ok > 0
+    denom = ok.sum().clamp_min(1.0)
+    norms = [torch.where(on, v, 0.0).sum().sqrt()
+             for v in (upd_sq, m_sq, p_sq)]
+    lmean = torch.where(on, lane, 0.0).sum() / denom
+    spread = torch.where(ok.sum() > 0,
+                         torch.where(on, lane, -math.inf).max()
+                         - torch.where(on, lane, math.inf).min(), 0.0)
+    sq = None
+    for k in sorted(p_new):
+        x = p_new[k].float()
+        okx = ok.reshape((-1,) + (1,) * (x.dim() - 1))
+        x0 = torch.where(okx > 0, x, 0.0)
+        d = (x0 - (x0.sum(0) / denom)[None] * okx).reshape(x.shape[0], -1)
+        s = (d * d).sum(1)
+        sq = s if sq is None else sq + s
+    cd = torch.where(on, sq.sqrt(), 0.0).sum() / denom
+    return torch.stack([*norms, lmean, spread, cd])
 
 
 def centralized_config(cfg: ExperimentConfig) -> ExperimentConfig:
@@ -497,6 +581,8 @@ class GossipTrainer:
     (``dopt_torch.models.deterministic``), so a run repeats bit for bit.
     """
 
+    engine_kind = "gossip"
+
     def __init__(self, cfg: ExperimentConfig, *, eval_every: int = 1,
                  device=None, init_params=None):
         validate_slice(cfg)
@@ -510,6 +596,14 @@ class GossipTrainer:
         self.eval_every = eval_every
         self.round = 0
         self.history = History(cfg.name)
+        # Telemetry (``dopt_torch.obs.attach``): None runs the loop with
+        # no emission; every site is host code after a fetch.
+        self.timers = PhaseTimers()
+        self.telemetry = None
+        self._diag = g.diagnostics == "on"
+        self._diag_keys = DIAG_GAUGES + ("consensus_distance",)
+        self._compile_watch = CompileWatcher()
+        self._last_step_total = 0.0
         w = cfg.data.num_users
         self.num_workers = w
 
@@ -558,6 +652,12 @@ class GossipTrainer:
                         and not g.faithful_bugs else 1)
         self._do_mix = g.algorithm in ("dsgd", "fedlcon", "gossip")
         self._setup_faults(stacked)
+        # Async (staleness-1) mixing carries the previous round's entry
+        # state; round −1's is the shared init, so async round 0 mixes
+        # what sync round 0 mixes.
+        self._async = g.mixing == "async"
+        self._async_prev = ({k: v.clone() for k, v in stacked.items()}
+                            if self._async else None)
 
         # Fused epilogue carry: q (post-mix state) and fbuf (displacement
         # to the post-local endpoint) as flat bucket stores; round −1's
@@ -575,11 +675,13 @@ class GossipTrainer:
 
         # The round's packed metrics: train loss, train acc, test acc,
         # test loss, then the [W] screened flags (robust runs), the
-        # [4, W, E] epoch rows (holdout) and the device quarantine's [W]
-        # streak and until (fused quarantine), as dopt packs them.
+        # [4, W, E] epoch rows (holdout), the device quarantine's [W]
+        # streak and until (fused quarantine) and, last, the [6]
+        # diagnostics block (``diagnostics="on"``), as dopt packs them.
         width = (4 + (w if self._robust_active else 0)
                  + (4 * w * g.local_ep if self._val is not None else 0)
-                 + (2 * w if self._fused_quar else 0))
+                 + (2 * w if self._fused_quar else 0)
+                 + (len(self._diag_keys) if self._diag else 0))
         self._slot = torch.zeros(width, device=dev)
         self.graphs = RoundGraphs(self._body, self._slot)
 
@@ -761,6 +863,13 @@ class GossipTrainer:
         out = {}
         if self._link_mode:
             out["mats"] = arg.astype(np.float32)
+        elif self._async:
+            # The diag/off-diag split after every repair (dopt
+            # :2144-2156): a departed lane's identity row becomes diag 1
+            # and an all-zero off-diagonal row, a pure local step.
+            out["w"] = (arg * (1.0 - np.eye(self.num_workers))).astype(
+                np.float32)
+            out["wdiag"] = np.diag(arg).astype(np.float32)
         elif self._do_mix:
             out["w"] = arg.astype(np.float32)
         if self._has_faults or self._fused_quar:
@@ -792,8 +901,8 @@ class GossipTrainer:
             p.copy_(new[k])
 
     @torch.no_grad()
-    def _consensus(self, w_t: torch.Tensor,
-                   cmask: torch.Tensor | None) -> torch.Tensor | None:
+    def _consensus(self, w_t: torch.Tensor, cmask: torch.Tensor | None,
+                   wdiag: torch.Tensor | None = None) -> torch.Tensor | None:
         """Leave the round's post-consensus state in the model's params;
         returns the robust layer's [W] screened flags (None off it)."""
         if self._fused_on:
@@ -802,6 +911,9 @@ class GossipTrainer:
             self._write_params(flat_views(self._q, self.fused_spec))
             return None
         params = self._param_dict()
+        if self._async:
+            self._write_params(self._async_mix(params, w_t, wdiag))
+            return None
         if not self._robust_active:
             mixed = params
             for _ in range(self._sweeps):
@@ -826,6 +938,21 @@ class GossipTrainer:
                 mixed = mix_dense(mixed, w_t)
         self._write_params(mixed)
         return screened
+
+    def _async_mix(self, params: dict[str, torch.Tensor], w_off: torch.Tensor,
+                   wdiag: torch.Tensor) -> dict[str, torch.Tensor]:
+        """dopt's ``async_mix`` (:987-1006): the self-term reads the
+        current params, every neighbour term the previous round's entry
+        state, d·p(t) + W_off·prev in f32, cast back to the storage
+        dtype.  The mix reads the old prev before this round's entry is
+        copied into it (in place: a captured graph holds addresses)."""
+        nb = mix_dense(self._async_prev, w_off)
+        mixed = {k: (wdiag.reshape((-1,) + (1,) * (p.dim() - 1)) * p.float()
+                     + nb[k].float()).to(p.dtype)
+                 for k, p in params.items()}
+        for k, b in self._async_prev.items():
+            b.copy_(params[k])
+        return mixed
 
     @torch.no_grad()
     def _link_consensus(self, mats: torch.Tensor,
@@ -939,13 +1066,18 @@ class GossipTrainer:
         if self._link_mode:
             self._link_consensus(inp["mats"], cmask)
         elif w_t is not None:
-            screened = self._consensus(w_t, cmask)
+            screened = self._consensus(w_t, cmask, inp.get("wdiag"))
         if self._robust_active and screened is None:
             screened = torch.zeros(self.num_workers, device=self.device)
-        if self._may_die:
-            with torch.no_grad():
-                p_pre = [p.clone() for p in self._params]
-                m_pre = [m.clone() for m in self.momentum]
+        # The post-consensus state: dead lanes fall back to it, and the
+        # diagnostics measure the local displacement from it (on the
+        # fused carry it is q, which the local phase leaves alone).
+        with torch.no_grad():
+            p_pre = ([p.clone() for p in self._params]
+                     if self._may_die or (self._diag and not self._fused_on)
+                     else None)
+            m_pre = ([m.clone() for m in self.momentum] if self._may_die
+                     else None)
         ev = self._evaluate_round() if do_eval else None
         losses, accs, em = local_steps(
             self.model, self._param_dict(),
@@ -963,6 +1095,17 @@ class GossipTrainer:
                                     p_pre + m_pre):
                     up = alive.reshape((-1,) + (1,) * (cur.dim() - 1)) > 0
                     cur.copy_(torch.where(up, cur, old))
+            diag = None
+            if self._diag:
+                # On the de-biased estimates, before push-sum's rebias.
+                p_start = (flat_views(self._q, self.fused_spec)
+                           if p_pre is None
+                           else dict(zip(self._names, p_pre)))
+                diag = round_diag(
+                    self._param_dict(), dict(zip(self._names, self.momentum)),
+                    p_start, em["train_loss"] if em else losses,
+                    torch.ones(self.num_workers, device=self.device)
+                    if alive is None else alive)
             if self._push_sum:
                 # The carried state is the numerator: z · mass.
                 for p in self._params:
@@ -994,6 +1137,8 @@ class GossipTrainer:
             if self._fused_quar:
                 self._quarantine_update(screened, alive, inp["t"])
                 parts += [self._dev_streak, self._dev_until]
+            if diag is not None:
+                parts.append(diag)
             torch.cat([p.reshape(-1).float() for p in parts], out=self._slot)
 
     def _record(self, t: int, vals: np.ndarray, do_eval: bool) -> None:
@@ -1026,12 +1171,16 @@ class GossipTrainer:
             self._apply_screen_feedback(t, alive, vals[4:4 + w], rows)
         self.history.faults.extend(rows)
         self._record(t, vals, do_eval)
+        n_diag = len(self._diag_keys) if self._diag else 0
         if self._fused_quar:
-            dev = vals[-2 * w:].astype(np.int64)
+            end = len(vals) - n_diag
+            dev = vals[end - 2 * w:end].astype(np.int64)
             if not (np.array_equal(dev[:w], self._screen_streak)
                     and np.array_equal(dev[w:], self._quarantine_until)):
                 raise RuntimeError("fused-quarantine host replay diverged "
                                    "from the device counters")
+        self._round_telemetry(t, rows, vals[len(vals) - n_diag:]
+                              if n_diag else None)
 
     def _apply_screen_feedback(self, t: int, alive, flags,
                                rows: list) -> None:
@@ -1096,6 +1245,7 @@ class GossipTrainer:
                 rows, alive = meta["rows"][j], meta["alive"][j]
             self._finish_round(t, vals[j], do_eval, rows, alive)
             self.round += 1
+        emit_device_resource(self, meta["ts"][-1], "block_fn")
 
     def run(self, rounds: int | None = None, eps: int | None = None,
             block: int | None = None, checkpoint_every: int = 0,
@@ -1131,23 +1281,73 @@ class GossipTrainer:
                 for _ in range(rounds):
                     t = self.round
                     do_eval = t % self.eval_every == 0
-                    arg, alive, limits, cmask, rows, quar = \
-                        self._round_inputs(t, self._matrix_for_round(t))
-                    inp = {**self._plan_inputs(t),
-                           **self._device_inputs(t, arg, alive, limits,
-                                                 cmask)}
-                    self._body({k: torch.from_numpy(v).to(self.device)
-                                for k, v in inp.items()}, do_eval)
-                    # ONE device→host fetch per round.
-                    vals = self._slot.cpu().numpy()
+                    with self.timers.phase("host_batch_plan"):
+                        arg, alive, limits, cmask, rows, quar = \
+                            self._round_inputs(t, self._matrix_for_round(t))
+                        inp = {**self._plan_inputs(t),
+                               **self._device_inputs(t, arg, alive, limits,
+                                                     cmask)}
+                        inp = {k: torch.from_numpy(v).to(self.device)
+                               for k, v in inp.items()}
+                    with self.timers.phase("round_step"):
+                        self._body(inp, do_eval)
+                        # ONE device→host fetch per round.
+                        vals = self._slot.cpu().numpy()
                     if self._fused_quar:
                         alive = alive * (1.0 - quar)
                     self._finish_round(t, vals, do_eval, rows, alive)
+                    emit_device_resource(self, t, "round_fn")
                     self.round += 1
                     if checkpoint_every and self.round % checkpoint_every == 0:
                         self.save(checkpoint_path)
         self.total_time = time.perf_counter() - t0
+        self._run_summary_telemetry()
         return self.history
+
+    # -- telemetry (dopt_torch.obs) -------------------------------------
+    def _round_telemetry(self, t: int, frows: list, diag=None) -> None:
+        """Round t's bundle (dopt :1917-1953): the fault-ledger rows, the
+        host-mirror gauges and the fetched diagnostics as gauges, then
+        the History row as the ``round`` event — all from post-fetch
+        host data at the same point of the per-round and the blocked
+        loops, so their streams are equal.  No-op without telemetry."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        quarantined = int((self._quarantine_until > t).sum())
+        gauges = {"quarantine_active": float(quarantined),
+                  "screen_streak_max": float(self._screen_streak.max()),
+                  "participating_lanes": float(self.num_workers
+                                               - quarantined)}
+        if diag is not None:
+            gauges.update(finite_diag_gauges(self._diag_keys, diag))
+        tele.emit_round_bundle(t, engine=self.engine_kind,
+                               metrics=self.history.rows[-1], faults=frows,
+                               gauges=gauges)
+
+    def _consensus_value(self) -> float | None:
+        """Mean over workers of ||x_i − x̄|| on the de-biased estimates,
+        or None on round 0 or for a diverged fleet (dopt :1962-1982)."""
+        if self.round == 0:
+            return None
+        cd = consensus_distance(self._debiased_params())
+        return cd if math.isfinite(cd) else None
+
+    def _run_summary_telemetry(self) -> None:
+        """The end-of-``run()`` consensus-distance gauge, one a call;
+        suppressed under ``diagnostics="on"``, whose per-round gauge
+        carries it (an extra one mid-stream would break a resumed
+        stream's equality)."""
+        tele = self.telemetry
+        if tele is None or self._diag:
+            return
+        cd = self._consensus_value()
+        if cd is not None:
+            tele.emit("gauge", round=self.round - 1,
+                      name="consensus_distance", value=cd,
+                      engine=self.engine_kind)
+
+
 
     # -- checkpoint -----------------------------------------------------
     def save(self, path) -> None:
@@ -1157,9 +1357,11 @@ class GossipTrainer:
         ``fused_update="on"`` the displacement ``fused_buf`` — the
         carried params are then the post-mix q, as in dopt — plus
         dopt's meta keys (round, History and client rows, the matching
-        stream's state, the fault ledger and the screen's host mirrors)
-        and on the link path push-sum's ``push_mass``, the staleness
-        buffer ``link_buf`` and the in-flight mass ``link_buf_mass``."""
+        stream's state, the fault ledger and the screen's host mirrors),
+        on the link path push-sum's ``push_mass``, the staleness buffer
+        ``link_buf`` and the in-flight mass ``link_buf_mass``, and under
+        async mixing the previous round's state ``async_prev``.  With
+        telemetry attached a ``checkpoint`` event follows the save."""
         arrays = {"momentum": dict(zip(self._names, self.momentum))}
         if self._fused_on:
             arrays["params"] = flat_views(self._q, self.fused_spec)
@@ -1175,9 +1377,21 @@ class GossipTrainer:
                 arrays["link_buf"] = self._link_buf
                 if self._push_sum:
                     arrays["link_buf_mass"] = {"mass": self._link_buf_mass}
+        if self._async:
+            # Without it a resumed async run would mix round t against
+            # the wrong previous-round state.
+            arrays["async_prev"] = self._async_prev
         meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
         meta["matching_rng_state"] = self._matching_rng.bit_generator.state
-        save_checkpoint(path, arrays=arrays, meta=meta)
+        with self.timers.phase("checkpoint"):
+            save_checkpoint(path, arrays=arrays, meta=meta)
+        if self.telemetry is not None:
+            # After the atomic save landed, with the consensus snapshot.
+            ev = {"round": int(self.round)}
+            cd = self._consensus_value()
+            if cd is not None:
+                ev["consensus_distance"] = cd
+            self.telemetry.emit("checkpoint", **ev)
 
     def restore(self, path) -> None:
         """Resume from a checkpoint written by ``save`` (same config), or
@@ -1204,9 +1418,16 @@ class GossipTrainer:
                 "— the checkpoint's 'params' are the post-mix state q, "
                 "not the post-local endpoint; restore with "
                 "fused_update='on'")
+        if self._async and "async_prev" not in arrays:
+            raise ValueError(
+                "mixing='async' trainer requires its previous-round "
+                "state ('async_prev') in the checkpoint")
         shape = self.cfg.model.input_shape
         tree = {k: port_layout(arrays[k], input_shape=shape)
-                for k in ("params", "momentum", "fused_buf") if k in arrays}
+                for k in ("params", "momentum", "fused_buf", "async_prev")
+                if k in arrays}
+        if self._async:
+            copy_into(self._async_prev, tree["async_prev"], what="async_prev")
         copy_into(dict(zip(self._names, self.momentum)), tree["momentum"],
                   what="momentum")
         if self._fused_on:

@@ -169,7 +169,10 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
     the block's rounds through ``trainer.graphs`` with the kinds
     ``meta["kinds"]``, make ONE device→host fetch, and hand the
     ``[k, M]`` metrics to ``trainer._record_block(meta, vals)``, which
-    writes the rows in round order and advances ``trainer.round``.  With
+    writes the rows (and the telemetry) in round order and advances
+    ``trainer.round``.  ``trainer.timers`` times the staging
+    (``host_batch_plan``) and the block up to its fetch
+    (``round_step``).  With
     ``prefetch`` the loop runs dispatch → stage-next → fetch: the next
     block is drawn here and built on the stager's thread while this
     block's rounds run.
@@ -183,6 +186,7 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
     next_ckpt = ((trainer.round // checkpoint_every + 1) * checkpoint_every
                  if checkpoint_every else None)
     start = getattr(trainer, "_block_start", None)
+    timers = trainer.timers
     stager = PrefetchStager() if prefetch else None
     try:
         done = 0
@@ -191,19 +195,23 @@ def run_blocked(trainer, rounds: int, block: int, *, prefetch: bool,
             ts = [trainer.round + j for j in range(k)]
             meta = stager.take(ts[0]) if stager is not None else None
             if meta is None:
-                meta = trainer._build_block(trainer._draw_block(ts))
+                with timers.phase("host_batch_plan"):
+                    meta = trainer._build_block(trainer._draw_block(ts))
             if start is not None:
                 start()
-            out = trainer.graphs.run_block(ready(*meta["dev"]),
-                                           meta["kinds"])
-            left = rounds - done - k
-            end = ts[-1] + 1
-            if (stager is not None and left
-                    and (next_ckpt is None or end < next_ckpt)):
-                nts = [end + j for j in range(min(block, left))]
-                stager.stage(nts[0], trainer._build_block,
-                             trainer._draw_block(nts))
-            trainer._record_block(meta, out.cpu().numpy())
+            with timers.phase("round_step"):
+                out = trainer.graphs.run_block(ready(*meta["dev"]),
+                                               meta["kinds"])
+                left = rounds - done - k
+                end = ts[-1] + 1
+                if (stager is not None and left
+                        and (next_ckpt is None or end < next_ckpt)):
+                    nts = [end + j for j in range(min(block, left))]
+                    with timers.phase("host_batch_plan"):
+                        drawn = trainer._draw_block(nts)
+                    stager.stage(nts[0], trainer._build_block, drawn)
+                vals = out.cpu().numpy()
+            trainer._record_block(meta, vals)
             done += k
             if next_ckpt is not None and trainer.round >= next_ckpt:
                 trainer.save(checkpoint_path)

@@ -38,7 +38,10 @@ over-selection, partitions), ``baseline3-byzantine`` (three pinned
 sign-flipping liars against the trimmed mean) and ``baseline3-elastic``
 (``drop`` stragglers, lossy and delayed uplinks and churn under the
 staleness buffer); ``headline-fedavg-model1-faulty`` is the federated
-headline under ``baseline3-faulty``'s faults.
+headline under ``baseline3-faulty``'s faults.  ``bench-topo-complete-sync``,
+``bench-topo-one_peer_exp-sync`` and ``bench-topo-one_peer_exp-async`` are
+bench.py's topology-modes legs (dense, one-peer and async mixing at 32
+workers).
 """
 
 from __future__ import annotations
@@ -256,6 +259,24 @@ def bench_chaos_baseline1_lossy() -> ExperimentConfig:
         robust=RobustConfig(quarantine_after=3, quarantine_rounds=5))
 
 
+def bench_topology(topology: str, mixing: str) -> ExperimentConfig:
+    """dopt bench.py ``_topology_config`` (its topology-modes legs,
+    ``_measure_topology_modes``) at the sizes its full run passes: 32
+    workers on IID synthetic data, the non-faithful MLP in bf16 compute,
+    native plans, metropolis weights, one local epoch."""
+    return ExperimentConfig(
+        name=f"bench-topo-{topology}-{mixing}", seed=2028,
+        data=DataConfig(dataset="synthetic", num_users=32, iid=True,
+                        synthetic_train_size=16_384,
+                        synthetic_test_size=2_048, plan_impl="native"),
+        model=ModelConfig(model="mlp", faithful=False,
+                          compute_dtype="bfloat16"),
+        optim=OptimizerConfig(lr=0.05, momentum=0.5),
+        gossip=GossipConfig(algorithm="dsgd", topology=topology,
+                            mode="metropolis", mixing=mixing, rounds=20,
+                            local_ep=1, local_bs=64))
+
+
 # baseline3's federated fault variants, as dopt.presets defines them.
 BASELINE3_FAULTS = FaultConfig(crash=0.1, straggle=0.2, straggle_frac=0.5,
                                over_select=0.3, partition=0.05,
@@ -337,6 +358,11 @@ PRESETS = {
     "headline-dsgd-model1-idiomatic-bf16": lambda: headline_dsgd_model1_bf16(
         faithful=False),
     "headline-dsgd-model1-faulty": headline_dsgd_model1_faulty,
+    "bench-topo-complete-sync": lambda: bench_topology("complete", "sync"),
+    "bench-topo-one_peer_exp-sync": lambda: bench_topology("one_peer_exp",
+                                                           "sync"),
+    "bench-topo-one_peer_exp-async": lambda: bench_topology("one_peer_exp",
+                                                            "async"),
     "headline-fedavg-model1-faulty": headline_fedavg_model1_faulty,
     "baseline3-faulty": baseline_3_faulty,
     "baseline3-byzantine": baseline_3_byzantine,

@@ -13,14 +13,21 @@ fault config (dopt's spec syntax, ``dopt_torch.faults.parse_fault_spec``
 and ``parse_corrupt_spec``), on either engine, and ``--faults-json`` writes
 the run's fault ledger; ``--aggregator`` sets the federated server's
 robust aggregator (dopt's flag: it installs a robust section before the
-``--set`` overrides apply).
+``--set`` overrides apply).  ``--metrics-out`` streams the run's telemetry
+(``dopt_torch.obs``) as JSONL, appending from its round watermark under
+``--resume``; ``--trace-out`` writes the host spans as a Chrome trace;
+``--diagnostics on|off`` sets the section's on-card diagnostics; ``--trace
+DIR`` writes a torch.profiler trace of the run (the counterpart of dopt's
+XLA trace).  Async mixing is ``--set gossip.mixing=async``, as in dopt.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
+import pathlib
 import re
 import sys
 
@@ -115,6 +122,29 @@ def main(argv: list[str] | None = None) -> int:
                          "(the flag installs the robust section)")
     ap.add_argument("--faults-json", default=None, metavar="PATH",
                     help="write the run's fault ledger here as JSON")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="stream telemetry (dopt_torch.obs) to this JSONL "
+                         "file: per-round 'round' events (the history row), "
+                         "typed 'fault' events (the ledger), 'gauge' events "
+                         "(quarantine/staleness state, the diagnostics, the "
+                         "end-of-run consensus distance).  With --resume the "
+                         "stream appends from its round watermark; check it "
+                         "with 'python -m dopt_torch.obs.check PATH'")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of the host "
+                         "spans (batch planning, the round or block up to "
+                         "its fetch, checkpoint writes) here")
+    ap.add_argument("--diagnostics", choices=("off", "on"), default=None,
+                    help="per-round on-card diagnostics (the section's "
+                         "diagnostics): 'on' emits update/grad/param norms, "
+                         "the lane-loss mean and spread and the consensus "
+                         "distance / lane dispersion as gauges, plus "
+                         "device-memory 'resource' and graph-capture "
+                         "'compile' events, into --metrics-out; default "
+                         "keeps the preset's setting")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run into DIR "
+                         "(trace.json; Perfetto or chrome://tracing)")
     args = ap.parse_args(argv)
 
     from dopt_torch.engine import FederatedTrainer, GossipTrainer
@@ -151,6 +181,10 @@ def main(argv: list[str] | None = None) -> int:
                 faults=parse_corrupt_spec(args.corrupt, base=cfg.faults))
         except ValueError as e:
             raise SystemExit(str(e))
+    if args.diagnostics is not None:
+        name = "federated" if cfg.federated is not None else "gossip"
+        cfg = cfg.replace(**{name: dataclasses.replace(
+            getattr(cfg, name), diagnostics=args.diagnostics)})
     if cfg.federated is not None:
         trainer = FederatedTrainer(cfg, device=args.device)
         default_rounds = cfg.federated.rounds
@@ -167,8 +201,33 @@ def main(argv: list[str] | None = None) -> int:
     if args.resume:
         trainer.restore(args.resume)
         print(f"resumed at round {trainer.round}", file=sys.stderr)
-    trainer.run(rounds=rounds, checkpoint_every=args.checkpoint_every,
-                checkpoint_path=args.checkpoint)
+    tele = None
+    if args.metrics_out or args.trace_out:
+        from dopt_torch.obs import Telemetry, attach
+
+        tele = (Telemetry.to_jsonl(args.metrics_out,
+                                   resume=bool(args.resume))
+                if args.metrics_out else Telemetry())
+        attach(trainer, tele,
+               checkpoint_every=args.checkpoint_every or None)
+    run = functools.partial(trainer.run, rounds=rounds,
+                            checkpoint_every=args.checkpoint_every,
+                            checkpoint_path=args.checkpoint)
+    if args.trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if trainer.device.type == "cuda"
+                                         else [])
+        with profile(activities=acts) as prof:
+            run()
+        out = pathlib.Path(args.trace)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "trace.json"))
+        print(f"wrote torch.profiler trace to {out / 'trace.json'}",
+              file=sys.stderr)
+    else:
+        run()
     for row in trainer.history.rows[-rounds:]:
         print(json.dumps(row))
     print(f"device={trainer.device} total_time_s={trainer.total_time:.2f}",
@@ -183,6 +242,16 @@ def main(argv: list[str] | None = None) -> int:
     if args.checkpoint:
         trainer.save(args.checkpoint)
         print(f"checkpointed to {args.checkpoint}", file=sys.stderr)
+    if tele is not None:
+        # Closed after the last save: a save emits a checkpoint event.
+        tele.close()
+        if args.metrics_out:
+            print(f"wrote telemetry stream to {args.metrics_out}",
+                  file=sys.stderr)
+        if args.trace_out:
+            tele.write_trace(args.trace_out)
+            print(f"wrote host span trace to {args.trace_out}",
+                  file=sys.stderr)
     return 0
 
 

@@ -67,6 +67,32 @@ class History:
             w.writerow([i] + [r.get(c, "") for c in cols])
         return atomic_write_text(path, buf.getvalue(), newline="")
 
+    def merge_resumed(self, rows, *, key: str = "round") -> int:
+        """Fold the rows of a RESUMED run into this history under the
+        telemetry stream's watermark rule: rows at rounds this history
+        already holds are dropped (the continuous prefix wins), and the
+        first new row must continue the sequence (a gap raises: the
+        resume lost a round).  Returns the number of rows appended."""
+        last = -1
+        for r in self.rows:
+            if key in r and isinstance(r[key], int):
+                last = max(last, r[key])
+        appended = 0
+        for r in rows:
+            t = r.get(key)
+            if not isinstance(t, int):
+                raise ValueError(
+                    f"merge_resumed: row without an int {key!r}: {r!r}")
+            if t <= last:
+                continue
+            if t != last + 1:
+                raise ValueError(
+                    f"merge_resumed: round gap {last} -> {t} (the resumed "
+                    "stream is missing rounds)")
+            self.rows.append(dict(r))
+            last = t
+            appended += 1
+        return appended
 
     def faults_to_json(self, path: str | Path) -> Path:
         """The fault ledger as dopt's ``--faults-json`` writes it."""

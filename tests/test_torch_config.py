@@ -65,7 +65,8 @@ GOSSIP_ONLY = [
     ("gossip", "compression", "qsgd", "codecs"),
     ("gossip", "compression_ratio", 0.25, "codecs"),
     ("gossip", "qsgd_levels", 16, "codecs"),
-    ("gossip", "diagnostics", "on", "telemetry"),
+    # Lifted by the telemetry slice: the value now runs (slice None).
+    ("gossip", "diagnostics", "on", None),
 ]
 BOTH = [
     ("model", "stage_sizes", (1, 1, 1, 1), "ResNet-18"),
@@ -92,8 +93,12 @@ def test_unported_values_refused_naming_their_slice(section, field, value,
         engines.append((FederatedTrainer, _fed()))
         sec = next(r[0] for r in BOTH if r[1] == field)
     for cls, base in engines:
+        cfg = _with(base, sec, field, value)
+        if slice_name is None:
+            assert len(cls(cfg, device="cpu").run(rounds=1).rows) == 1
+            continue
         with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
-            cls(_with(base, sec, field, value), device="cpu")
+            cls(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [("eps", 2), ("faithful_bugs", True)])
@@ -128,17 +133,18 @@ def test_defaults_and_one_device_mesh_run():
 
 
 def test_cli_set_of_an_unported_field_names_its_slice():
-    """``--set gossip.diagnostics=on`` is a field of the preset now; the
-    trainer refuses it with the telemetry slice, not "not a field"."""
+    """``--set gossip.diagnostics=on`` is a field of the preset, and since
+    the telemetry slice it runs; an unported field's value is refused
+    naming its slice, not "not a field"."""
     from dopt_torch.run import apply_override, main
     from dopt_torch.presets import get_preset
 
-    cfg = apply_override(get_preset("headline-dsgd-model1"),
-                         "gossip.diagnostics=on")
+    cfg = apply_override(get_preset("baseline1"), "gossip.diagnostics=on")
     assert cfg.gossip.diagnostics == "on"
-    with pytest.raises(ValueError, match="'telemetry' slice"):
-        main(["--preset", "headline-dsgd-model1", "--device", "cpu",
-              "--set", "gossip.diagnostics=on"])
+    assert main(["--preset", "baseline1", "--device", "cpu", "--rounds",
+                 "1", "--set", "gossip.diagnostics=on", "--set",
+                 "data.synthetic_train_size=160", "--set",
+                 "data.synthetic_test_size=16"]) == 0
     with pytest.raises(ValueError, match="'codecs' slice"):
         main(["--preset", "headline-dsgd-model1", "--device", "cpu",
               "--set", "gossip.compression=qsgd"])

@@ -252,7 +252,9 @@ def _opt(cfg, **kw):
      "incompatible with staleness-aware aggregation"),
     (lambda c: _fed(c, update_sharding="scatter"), "'scatter and multi-GPU'"),
     (lambda c: _fed(c, comm_dtype="bfloat16"), "'codecs'"),
-    (lambda c: _fed(c, diagnostics="on"), "'telemetry'"),
+    # Lifted by the telemetry slice: the option now runs (match None).
+    pytest.param(lambda c: _fed(c, diagnostics="on"), None,
+                 id="<lambda>-'telemetry'"),
     (lambda c: c.replace(model=dataclasses.replace(
         c.model, param_dtype="float16")), "unknown model.param_dtype"),
     (lambda c: c.replace(data=dataclasses.replace(
@@ -275,8 +277,12 @@ def _opt(cfg, **kw):
     (lambda c: c.replace(federated=None), "cfg.federated must be set"),
 ])
 def test_unsupported_configs_raise(edit, match):
+    cfg = edit(_cfg(T))
+    if match is None:
+        assert len(FederatedTrainer(cfg, device="cpu").run(rounds=1).rows) == 1
+        return
     with pytest.raises(ValueError, match=match):
-        FederatedTrainer(edit(_cfg(T)), device="cpu")
+        FederatedTrainer(cfg, device="cpu")
 
 
 def test_no_device_raises_without_cuda():

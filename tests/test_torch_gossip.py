@@ -149,7 +149,9 @@ def _replace(cfg, section, **kw):
      "scatter and multi-GPU"),
     (lambda c: _replace(c, "gossip", comm_dtype="bfloat16"), "codecs"),
     (lambda c: _replace(c, "gossip", comm_impl="shift"), "scatter"),
-    (lambda c: _replace(c, "gossip", mixing="async"), "async"),
+    # Lifted by the async slice: the option now runs (match None).
+    pytest.param(lambda c: _replace(c, "gossip", mixing="async"), None,
+                 id="<lambda>-async"),
     (lambda c: _replace(c, "gossip", eval_mode="stratified"),
      "unknown eval_mode 'stratified'; one of full|sharded"),
     (lambda c: _replace(c, "data", local_holdout=0.1,
@@ -166,8 +168,12 @@ def _replace(cfg, section, **kw):
     (lambda c: c.replace(federated=object()), "federated engine"),
 ])
 def test_unsupported_configs_raise(edit, match):
+    cfg = edit(_cfg(T, (8, 8, 1), False))
+    if match is None:
+        assert len(GossipTrainer(cfg, device="cpu").run(rounds=1).rows) == 1
+        return
     with pytest.raises(ValueError, match=match):
-        GossipTrainer(edit(_cfg(T, (8, 8, 1), False)), device="cpu")
+        GossipTrainer(cfg, device="cpu")
 
 
 def test_run_cli_on_cpu(tmp_path, capsys):
