@@ -7,8 +7,8 @@ kernels are hand-written CUDA (``dopt_torch/csrc``), built with ``nvcc``
 at first use.  Ported so far: the gossip engine — D-SGD, no consensus,
 centralized, FedLCon and pairwise matching (``GossipTrainer``) — and the
 federated engine — FedAvg, FedProx, FedADMM and SCAFFOLD
-(``FederatedTrainer``) — on the reference CNNs, the MLP and the logistic
-model, over MNIST, FMNIST, CIFAR-10/100 and a9a (raw files or the
+(``FederatedTrainer``) — on the reference CNNs, the MLP, the logistic
+model and dopt's GroupNorm ResNet-18, over MNIST, FMNIST, CIFAR-10/100 and a9a (raw files or the
 synthetic fallback), with the reference's local train/val holdout, and
 both of dopt's Pallas kernels.
 Both trainers run multi-round blocks (``block_rounds > 1``) as CUDA-graph

@@ -12,6 +12,7 @@ value, naming the slice that adds it.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -42,8 +43,9 @@ class DataConfig:
 class ModelConfig:
     """Model zoo selection (reference ``args.model`` string dispatch)."""
 
-    model: str = "model1"    # model1 | model3 | mlp | logistic
-    stage_sizes: tuple[int, ...] | None = None   # ResNet-18 slice
+    model: str = "model1"    # model1 | model3 | mlp | logistic | resnet18
+    stage_sizes: tuple[int, ...] | None = None
+    # resnet18 only: residual blocks a stage; None = (2, 2, 2, 2).
     faithful: bool = True
     # faithful=True reproduces the reference's Softmax-head +
     # CrossEntropyLoss double-softmax; False uses the corrected logits
@@ -134,7 +136,6 @@ class GossipConfig:
     comm_impl: str = "auto"     # the single-device port always mixes dense
     block_rounds: int = 1
     # > 1: blocks of that many rounds, as FederatedConfig.block_rounds.
-    prefetch: str = "off"       # "off" | "on", as FederatedConfig.prefetch
     faithful_bugs: bool = False   # fedlcon: one sweep, the reference's bug
     self_weight: bool = False   # reference mixing has a zero diagonal
     hier_groups: int = 2
@@ -155,6 +156,7 @@ class GossipConfig:
     # fbuf) and runs the round epilogue q_t = W·q_{t-1} − fbuf_{t-1} as
     # one CUDA kernel pass per flat bucket — the D-PSGD ordering of
     # dopt's GossipConfig.fused_update.
+    prefetch: str = "off"       # "off" | "on", as FederatedConfig.prefetch
     diagnostics: str = "off"    # "on" arrives with the telemetry slice
     dropout: float = 0.0        # dopt's deprecated alias of faults.crash
 
@@ -336,3 +338,93 @@ class ExperimentConfig:
     @property
     def num_users(self) -> int:
         return self.data.num_users
+
+
+def from_reference_args(args: Mapping[str, Any]) -> ExperimentConfig:
+    """An ``ExperimentConfig`` from a reference-style flat args dict,
+    dopt's mapping: the notebooks' key names (num_users, local_ep,
+    local_bs, lr, momentum, model, dataset, iid, shards, rho, seed,
+    topology, mode, frac, rounds, eps), so published experiment
+    dictionaries replay verbatim.  A usable ``topology`` (or
+    ``paradigm="gossip"``) makes a gossip config, anything else a
+    federated one; keys whose value is None take the default."""
+    def _get(key: str, default):
+        v = args.get(key)
+        return default if v is None else v
+
+    model_name = str(_get("model", "")).lower()
+    dataset = str(_get("dataset", "mnist")).lower()
+    num_classes = 10
+    if dataset in ("cifar", "cifar10"):
+        dataset = "cifar10"
+        input_shape: tuple[int, ...] = (32, 32, 3)
+        default_model = "model3"
+    elif dataset == "cifar100":
+        input_shape = (32, 32, 3)
+        default_model = "model3"
+        num_classes = 100
+    elif dataset == "a9a":
+        input_shape = (123,)   # LIBSVM a9a: 123 binary features, 2 classes
+        default_model = "logistic"
+        num_classes = 2
+    elif dataset == "synthetic":
+        input_shape = tuple(_get("input_shape", (28, 28, 1)))
+        default_model = "mlp"
+    else:
+        input_shape = (28, 28, 1)
+        default_model = "model1"
+    if model_name in ("", "none"):
+        model_name = default_model
+    if args.get("unequal"):
+        raise ValueError(
+            "unequal splits are not supported (the reference has none; "
+            "both its partitioner families produce equal-size shards)")
+    data = DataConfig(dataset=dataset, iid=bool(_get("iid", True)),
+                      shards=int(_get("shards", 2)),
+                      num_users=int(_get("num_users", 8)),
+                      data_dir=args.get("data_dir"))
+    model = ModelConfig(model=model_name, num_classes=num_classes,
+                        input_shape=input_shape,
+                        faithful=bool(_get("faithful", True)))
+    optim = OptimizerConfig(lr=float(_get("lr", 0.01)),
+                            momentum=float(_get("momentum", 0.5)),
+                            rho=float(_get("rho", 0.1)),
+                            optimizer=str(_get("optimizer", "sgd")))
+    federated = gossip = None
+    # Reference form cells carry unused keys with value None: route on a
+    # usable topology value, not on the key's presence.
+    if args.get("topology") or str(_get("paradigm", "")) == "gossip":
+        gossip = GossipConfig(algorithm=str(_get("algorithm", "dsgd")),
+                              topology=str(_get("topology", "circle")),
+                              mode=str(_get("mode", "stochastic")),
+                              rounds=int(_get("rounds", 10)),
+                              local_ep=int(_get("local_ep", 4)),
+                              local_bs=int(_get("local_bs", 128)),
+                              eps=int(_get("eps", 1)))
+    else:
+        federated = FederatedConfig(algorithm=str(_get("algorithm", "fedavg")),
+                                    frac=float(_get("frac", 0.1)),
+                                    rounds=int(_get("rounds", 20)),
+                                    local_ep=int(_get("local_ep", 10)),
+                                    local_bs=int(_get("local_bs", 50)))
+    return ExperimentConfig(name=str(args.get("name", "experiment")),
+                            seed=int(args.get("seed", 2022)), data=data,
+                            model=model, optim=optim, federated=federated,
+                            gossip=gossip)
+
+
+def exp_details(cfg: ExperimentConfig) -> str:
+    """Human-readable config dump, dopt's character for character (the
+    reference's ``exp_details``): the name, seed and backend, then every
+    field of each section that is set."""
+    lines = [f"Experiment: {cfg.name}", f"  seed      : {cfg.seed}",
+             f"  backend   : {cfg.backend}"]
+    for section in ("data", "model", "optim", "federated", "gossip", "faults",
+                    "robust", "population", "comm"):
+        sub = getattr(cfg, section)
+        if sub is None:
+            continue
+        lines.append(f"  [{section}]")
+        for f in dataclasses.fields(sub):
+            lines.append(f"    {f.name:12s}: {getattr(sub, f.name)}")
+    return "\n".join(lines)

@@ -6,9 +6,12 @@ parameter dict with the same leading axes; ``params_to_jax`` is its
 exact inverse.  Only transposes and reshapes: the round trip is
 bit-exact.  Both dispatch on the tree's layers: ``conv1`` marks
 Model1/Model3 (the worker axis is there when ``conv1``'s kernel has
-rank 5); any other tree is dense — the MLP's ``{fc1, fc2, head}`` or the
-logistic model's ``{linear}`` (the worker axis is there when a kernel
-has rank 3).
+rank 5); ``Conv_0`` marks ResNet-18, whose nested tree (``Conv_0``,
+``GroupNorm_0``, ``ResidualBlock_k/{Conv_i, GroupNorm_i}``, ``head``)
+maps to dotted names (``ResidualBlock_0.Conv_0.weight``), GroupNorm's
+``scale`` and ``bias`` as they are; any other tree is dense — the MLP's
+``{fc1, fc2, head}`` or the logistic model's ``{linear}`` (the worker
+axis is there when a kernel has rank 3).
 
 Layouts (per worker): flax conv ``[kh, kw, Cin, Cout]`` ↔ torch
 ``[Cout, Cin, kh, kw]``; flax dense ``[in, out]`` ↔ torch ``[out, in]``;
@@ -44,8 +47,53 @@ def _dense(k: np.ndarray) -> np.ndarray:
     return np.array(np.swapaxes(k, -1, -2), order="C")
 
 
+def _conv_from_jax(k: np.ndarray) -> np.ndarray:
+    """[..., kh, kw, Cin, Cout] → [..., Cout, Cin, kh, kw]."""
+    lead = tuple(range(k.ndim - 4))
+    return np.ascontiguousarray(np.transpose(
+        k, lead + tuple(len(lead) + i for i in (3, 2, 0, 1))))
+
+
+def _conv_to_jax(w: np.ndarray) -> np.ndarray:
+    """[..., Cout, Cin, kh, kw] → [..., kh, kw, Cin, Cout]."""
+    lead = tuple(range(w.ndim - 4))
+    return np.ascontiguousarray(np.transpose(
+        w, lead + tuple(len(lead) + i for i in (2, 3, 1, 0))))
+
+
+def _resnet_from_jax(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_resnet_from_jax(v, f"{prefix}{key}."))
+        elif key == "kernel":
+            v = _host(v)
+            out[f"{prefix}weight"] = (_dense(v) if prefix == "head."
+                                      else _conv_from_jax(v))
+        else:
+            out[f"{prefix}{key}"] = np.array(_host(v))
+    return out
+
+
+def _resnet_to_jax(p: dict[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for name in sorted(p):
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "weight":
+            node["kernel"] = (_dense(p[name]) if path == ["head"]
+                              else _conv_to_jax(p[name]))
+        else:
+            node[leaf] = p[name].copy()
+    return out
+
+
 def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     """dopt flax tree (numpy leaves) → port parameter dict."""
+    if "Conv_0" in tree:
+        return _resnet_from_jax(tree)
     tree = {layer: {k: _host(v) for k, v in leaves.items()}
             for layer, leaves in tree.items()}
     if "conv1" not in tree:
@@ -58,9 +106,6 @@ def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)
 
-    def conv(k):
-        return np.transpose(k, a + tuple(lead + i for i in (3, 2, 0, 1)))
-
     def fc1(k):
         c2 = tree["conv2"]["kernel"].shape[-1]
         k = k.reshape(k.shape[:lead] + (hp, wp, c2, k.shape[-1]))
@@ -68,8 +113,8 @@ def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
         return k.reshape(k.shape[:lead + 1] + (-1,))
 
     out = {}
-    for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
-                     ("fc2", _dense)):
+    for layer, f in (("conv1", _conv_from_jax), ("conv2", _conv_from_jax),
+                     ("fc1", fc1), ("fc2", _dense)):
         out[f"{layer}.weight"] = np.ascontiguousarray(
             f(tree[layer]["kernel"]))
         out[f"{layer}.bias"] = np.array(tree[layer]["bias"])
@@ -80,6 +125,8 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
     """Port parameter dict (numpy or tensors) → dopt flax tree."""
     p = {k: (v.detach().float().cpu().numpy() if hasattr(v, "detach")
              else np.asarray(v)) for k, v in params.items()}
+    if "Conv_0.weight" in p:
+        return _resnet_to_jax(p)
     if "conv1.weight" not in p:
         layers = dict.fromkeys(k.rsplit(".", 1)[0] for k in p)
         return {layer: {"kernel": _dense(p[f"{layer}.weight"]),
@@ -89,9 +136,6 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
     a = tuple(range(lead))
     hp, wp = _post_pool(input_shape)
 
-    def conv(w):
-        return np.transpose(w, a + tuple(lead + i for i in (2, 3, 1, 0)))
-
     def fc1(w):
         c2 = p["conv2.weight"].shape[lead]
         w = w.reshape(w.shape[:lead + 1] + (c2, hp, wp))
@@ -100,8 +144,8 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
 
     return {layer: {"kernel": np.ascontiguousarray(f(p[f"{layer}.weight"])),
                     "bias": p[f"{layer}.bias"].copy()}
-            for layer, f in (("conv1", conv), ("conv2", conv), ("fc1", fc1),
-                             ("fc2", _dense))}
+            for layer, f in (("conv1", _conv_to_jax), ("conv2", _conv_to_jax),
+                             ("fc1", fc1), ("fc2", _dense))}
 
 
 def port_layout(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:

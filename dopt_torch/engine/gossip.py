@@ -133,7 +133,7 @@ from dopt_torch.engine.local import (local_steps, prepare_holdout,
                                      stacked_eval_gathered, stacked_evaluate)
 from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
                                validate_fault_config)
-from dopt_torch.models.zoo import (LAYERS, StackedModel, deterministic,
+from dopt_torch.models.zoo import (MODELS, StackedModel, deterministic,
                                    full_f32, init_worker_params,
                                    param_shapes, stacked_forward)
 from dopt_torch.obs import consensus_distance
@@ -209,8 +209,6 @@ def validate_common(cfg: ExperimentConfig) -> None:
     for knob in ("mesh_devices", "mesh_hosts"):
         if getattr(cfg, knob) not in (None, 1):
             raise later(f"{knob}={getattr(cfg, knob)}", "scatter and multi-GPU")
-    if m.stage_sizes is not None:
-        raise later(f"model.stage_sizes={m.stage_sizes}", "ResNet-18")
     if m.stacked_impl == "vmap":
         raise ValueError(
             "stacked_impl='vmap' is dopt's oracle-parity mode (a vmapped "
@@ -224,11 +222,11 @@ def validate_common(cfg: ExperimentConfig) -> None:
                          "numpy|native (the C++ native planner)")
     if m.model.lower() == "transformer":
         raise later("the sequence model", "seqlm")
-    if m.model.lower() == "resnet18":
-        raise later("model 'resnet18'", "ResNet-18")
-    if m.model.lower() not in LAYERS:
+    if m.model.lower() not in MODELS:
         raise ValueError(f"unknown model {m.model!r}; one of "
-                         f"{sorted([*LAYERS, 'resnet18', 'transformer'])}")
+                         f"{sorted([*MODELS, 'transformer'])}")
+    if m.stage_sizes is not None and m.model.lower() != "resnet18":
+        raise ValueError("stage_sizes applies to resnet18 only")
     for knob in ("compute_dtype", "param_dtype"):
         if getattr(m, knob) not in DTYPES:
             raise ValueError(f"unknown model.{knob} {getattr(m, knob)!r}; "
@@ -503,13 +501,15 @@ def initial_params(cfg: ExperimentConfig, init_params=None
     if init_params is None:
         gen = torch.Generator().manual_seed(cfg.seed)
         p0 = init_worker_params(name, num_classes=mc.num_classes,
-                                input_shape=mc.input_shape, generator=gen)
+                                input_shape=mc.input_shape, generator=gen,
+                                stage_sizes=mc.stage_sizes)
     else:
         p0 = {k: torch.from_numpy(np.asarray(v, np.float32))
               for k, v in params_from_jax(
                   init_params, input_shape=mc.input_shape).items()}
         want = param_shapes(name, num_classes=mc.num_classes,
-                            input_shape=mc.input_shape)
+                            input_shape=mc.input_shape,
+                            stage_sizes=mc.stage_sizes)
         got = {k: tuple(v.shape) for k, v in p0.items()}
         if got != want:
             raise ValueError(f"init_params shapes {got} do not match "

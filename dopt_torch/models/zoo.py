@@ -1,9 +1,9 @@
-"""The reference CNNs and the dense models as worker-stacked PyTorch
-modules.
+"""The reference CNNs, the dense models and the GroupNorm ResNet-18 as
+worker-stacked PyTorch modules.
 
-Counterpart of dopt's Model1/Model3, MLP and LogisticRegression
-(``dopt/models/zoo.py``) in the form its engines run them: the whole
-fleet's forward as one program.  Every parameter carries a leading
+Counterpart of dopt's Model1/Model3, MLP, LogisticRegression and
+ResNet18 (``dopt/models/zoo.py``) in the form its engines run them: the
+whole fleet's forward as one program.  Every parameter carries a leading
 worker axis ``[W, ...]``.  Each conv is ONE grouped
 ``F.conv2d(..., groups=W)`` over worker-major channels, so worker w's
 channels meet only worker w's kernel (dopt's
@@ -21,11 +21,19 @@ bf16 compute (``dtype=torch.bfloat16``) casts where dopt's forwards
 cast: the input and every weight and bias go to bf16, the convs and
 dense layers run in bf16, and a faithful head's softmax runs in f32
 (``_head``).  The CNN's corrected head computes its logits layer in f32
-on an f32 copy of the activation (zoo.py:136-145); the MLP and the
-logistic model compute every layer, head included, in the compute
-dtype.  Autograd through the casts hands f32 gradients to f32
+on an f32 copy of the activation (zoo.py:136-145); the MLP, the
+logistic model and ResNet-18 compute every layer, head included, in the
+compute dtype.  Autograd through the casts hands f32 gradients to f32
 parameters, as dopt's cast VJP does.  No ``torch.autocast``: its op
 lists pick their own cast points.
+
+ResNet-18 (dopt's ``ResNet18``/``ResidualBlock``, run as its
+``_make_stacked_resnet_apply``): 3×3 convs without bias, GroupNorm with
+``min(32, C)`` groups a worker, a 1×1 projection shortcut wherever the
+shape changes, a global mean pool and a ``head`` layer computed in the
+compute dtype.  Its parameters keep dopt's nested names as dotted ones
+(``ResidualBlock_0.Conv_0.weight``, ``GroupNorm_0.scale``), registered
+in sorted order, which is dopt's flatten order.
 
 Faithful quirks (``faithful=True``): no activation after the convs and
 a softmax head, so the cross-entropy on top is the reference's double
@@ -50,14 +58,47 @@ MLP_HIDDEN = (200, 200)
 LAYERS = {"model1": ("conv1", "conv2", "fc1", "fc2"),
           "model3": ("conv1", "conv2", "fc1", "fc2"),
           "mlp": ("fc1", "fc2", "head"), "logistic": ("linear",)}
+RESNET_STAGES = (2, 2, 2, 2)   # ResNet18.stage_sizes' default
+# Every model the port runs.
+MODELS = (*LAYERS, "resnet18")
+
+
+def _resnet_shapes(num_classes: int, channels: int, stage_sizes
+                   ) -> dict[str, tuple[int, ...]]:
+    """ResNet-18's shapes in sorted name order.  Stage s has 64·2^s
+    channels and strides 2 in its first block when s > 0; a block has the
+    projection shortcut (``Conv_2``) exactly when its channels change,
+    which is exactly when it strides."""
+    shapes = {"Conv_0.weight": (64, channels, 3, 3),
+              "GroupNorm_0.scale": (64,), "GroupNorm_0.bias": (64,)}
+    blocks = [64 * 2 ** stage for stage, n in enumerate(stage_sizes)
+              for _ in range(n)]
+    cout = 64
+    for k, (cin, cout) in enumerate(zip([64, *blocks], blocks)):
+        blk = f"ResidualBlock_{k}"
+        convs = [(cout, cin, 3, 3), (cout, cout, 3, 3)]
+        if cin != cout:
+            convs.append((cout, cin, 1, 1))
+        for i, shape in enumerate(convs):
+            shapes[f"{blk}.Conv_{i}.weight"] = shape
+            shapes[f"{blk}.GroupNorm_{i}.scale"] = (cout,)
+            shapes[f"{blk}.GroupNorm_{i}.bias"] = (cout,)
+    shapes["head.weight"] = (num_classes, cout)
+    shapes["head.bias"] = (num_classes,)
+    return {k: shapes[k] for k in sorted(shapes)}
 
 
 def param_shapes(name: str, *, num_classes: int = 10,
-                 input_shape: tuple[int, ...] = (28, 28, 1)
-                 ) -> dict[str, tuple[int, ...]]:
-    """Per-worker parameter shapes of a zoo model, in PyTorch layout."""
-    if name not in LAYERS:
-        raise ValueError(f"unknown model {name!r}; one of {sorted(LAYERS)}")
+                 input_shape: tuple[int, ...] = (28, 28, 1),
+                 stage_sizes=None) -> dict[str, tuple[int, ...]]:
+    """Per-worker parameter shapes of a zoo model, in PyTorch layout
+    (ResNet-18's in sorted name order; ``stage_sizes`` is its block
+    count a stage, None for the default (2, 2, 2, 2))."""
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")
+    if name == "resnet18":
+        return _resnet_shapes(num_classes, input_shape[-1],
+                              tuple(stage_sizes or RESNET_STAGES))
     if name == "mlp":
         a, b = MLP_HIDDEN
         return {"fc1.weight": (a, math.prod(input_shape)), "fc1.bias": (a,),
@@ -79,17 +120,20 @@ def param_shapes(name: str, *, num_classes: int = 10,
 
 def init_worker_params(name: str, *, num_classes: int = 10,
                        input_shape: tuple[int, ...] = (28, 28, 1),
-                       generator: torch.Generator | None = None
-                       ) -> dict[str, torch.Tensor]:
+                       generator: torch.Generator | None = None,
+                       stage_sizes=None) -> dict[str, torch.Tensor]:
     """One worker's init of a zoo model with flax's defaults: LeCun-normal
-    weights (normal truncated at ±2σ, σ = √(1/fan_in)/0.8796…) and zero
-    biases.  Drawn on the CPU, so a seed gives the same init on every
-    device."""
+    weights (normal truncated at ±2σ, σ = √(1/fan_in)/0.8796…), zero
+    biases and GroupNorm scales of one.  Drawn on the CPU, so a seed
+    gives the same init on every device."""
     out = {}
     for key, shape in param_shapes(name, num_classes=num_classes,
-                                   input_shape=input_shape).items():
+                                   input_shape=input_shape,
+                                   stage_sizes=stage_sizes).items():
         t = torch.zeros(shape, dtype=torch.float32)
-        if key.endswith("weight"):
+        if key.endswith("scale"):
+            t.fill_(1.0)
+        elif key.endswith("weight"):
             std = math.sqrt(1.0 / math.prod(shape[1:])) / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
@@ -226,12 +270,122 @@ def stacked_dense_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
     return torch.softmax(z, dim=-1) if faithful else z
 
 
+def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's 'SAME' padding of one spatial axis: the total split with
+    the odd element after, so a stride-2 3×3 conv of an even axis pads
+    (0, 1), where ``F.conv2d(padding=1)`` would pad (1, 1)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _resnet_conv(z, weight, groups, dtype, stride=1):
+    """'SAME' conv without bias of worker-major channels with
+    [W, Cout, Cin, k, k] kernels, as one grouped conv in ``dtype``; an
+    uneven 'SAME' padding is applied explicitly first."""
+    k = weight.shape[-1]
+    (ht, hb), (wl, wr) = (_same_pad(n, k, stride) for n in z.shape[2:])
+    if ht == hb and wl == wr:
+        pad = (ht, wl)
+    else:
+        z, pad = F.pad(z, (wl, wr, ht, hb)), 0
+    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]).to(dtype),
+                    stride=stride, padding=pad, groups=groups)
+
+
+def group_norm_stacked(z: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, *, num_workers: int,
+                       groups_per_worker: int, eps: float = 1e-6
+                       ) -> torch.Tensor:
+    """flax ``GroupNorm`` over worker-major NCHW channels, dopt's
+    ``_group_norm_stacked``: the ``W·g`` groups tile the workers'
+    channel blocks, so no group spans two workers.  E[x] and E[x²]
+    accumulate in f32 (the square taken in the compute dtype, as
+    ``jnp.square`` is), ``var = max(E[x²] − E[x]², 0)``, and the
+    normalisation is one ``z·a + c`` in ``z``'s dtype with
+    per-(sample, channel) f32 coefficients cast to it, rounded as XLA
+    rounds it: the trajectories are sensitive to that last rounding
+    (an f32 ResNet-18's gradients moved 2.6e-4 relative between one
+    rounding and two).  ``scale`` and ``bias`` are ``[W, C]``."""
+    b, wc = z.shape[:2]
+    g = num_workers * groups_per_worker
+    zg = z.reshape(b, g, -1)
+    mean = zg.mean(-1, dtype=torch.float32)                   # [b, g]
+    mean2 = (zg * zg).mean(-1, dtype=torch.float32)
+    inv = torch.rsqrt((mean2 - mean * mean).clamp_min(0.0) + eps)
+    cpg = wc // g
+    inv_c = inv.repeat_interleave(cpg, 1)                     # [b, wc]
+    mean_c = mean.repeat_interleave(cpg, 1)
+    sc = scale.reshape(1, wc).float()
+    a = (sc * inv_c).to(z.dtype)
+    c0 = (bias.reshape(1, wc).float() - mean_c * inv_c * sc).to(z.dtype)
+    a, c0 = a[:, :, None, None], c0[:, :, None, None]
+    if z.dtype == torch.float32:
+        # One rounding, as XLA's contracted multiply-add.
+        return torch.addcmul(c0, z, a)
+    # Two roundings in bf16, as XLA's (bit for bit on the CPU).
+    return (z * a).add_(c0)
+
+
+def stacked_resnet_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
+                           *, faithful: bool,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ResNet-18's fleet forward (dopt's ``_make_stacked_resnet_apply``):
+    NHWC ``[W, B, H, Wd, C]`` inputs → f32 ``[W, B, num_classes]``.  The
+    depth is read off ``params``: ``ResidualBlock_k`` for k = 0, 1, …,
+    and a block with a ``Conv_2`` projection strides 2 (``_resnet_shapes``).
+    Every conv, GroupNorm and the head run in ``dtype``."""
+    if x.device.type == "cpu":
+        # NNPACK's fast CPU convs (batches of 16 and more) keep five
+        # digits (6e-6 relative against f64; 2e-7 without), which
+        # GroupNorm's E[x²] − E[x]² turns into 1e-3 on the gradients.
+        with torch.backends.nnpack.flags(enabled=False):
+            return _resnet_forward(params, x, faithful=faithful, dtype=dtype)
+    return _resnet_forward(params, x, faithful=faithful, dtype=dtype)
+
+
+def _resnet_forward(params, x, *, faithful, dtype):
+    w, b, h, wd, c = x.shape
+    z = x.to(dtype).permute(1, 0, 4, 2, 3).reshape(b, w * c, h, wd)
+
+    def gn(z, prefix, gpw):
+        return group_norm_stacked(z, params[f"{prefix}.scale"],
+                                  params[f"{prefix}.bias"], num_workers=w,
+                                  groups_per_worker=gpw)
+
+    z = F.relu(gn(_resnet_conv(z, params["Conv_0.weight"], w, dtype),
+                  "GroupNorm_0", 32))
+    k = 0
+    while f"ResidualBlock_{k}.Conv_0.weight" in params:
+        blk = f"ResidualBlock_{k}"
+        proj = f"{blk}.Conv_2.weight" in params
+        stride = 2 if proj else 1
+        gpw = min(32, params[f"{blk}.Conv_0.weight"].shape[1])
+        y = _resnet_conv(z, params[f"{blk}.Conv_0.weight"], w, dtype, stride)
+        y = F.relu(gn(y, f"{blk}.GroupNorm_0", gpw))
+        y = gn(_resnet_conv(y, params[f"{blk}.Conv_1.weight"], w, dtype),
+               f"{blk}.GroupNorm_1", gpw)
+        if proj:
+            z = gn(_resnet_conv(z, params[f"{blk}.Conv_2.weight"], w, dtype,
+                                stride), f"{blk}.GroupNorm_2", gpw)
+        z = F.relu(y + z)
+        k += 1
+    # Global mean pool, then the head over the worker axis in ``dtype``
+    # (dopt zoo.py:428-434), feature-major as ``_stacked_linear`` takes it.
+    z = z.mean((2, 3)).reshape(b, w, -1).permute(1, 2, 0)    # [W, C, B]
+    z = _stacked_linear(z, params["head.weight"], params["head.bias"], dtype)
+    z = z.transpose(1, 2).float()             # [W, B, num_classes]
+    return torch.softmax(z, dim=-1) if faithful else z
+
+
 def stacked_forward(name: str, params: dict[str, torch.Tensor],
                     x: torch.Tensor, *, faithful: bool,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fleet's forward of zoo model ``name`` (``LAYERS``' keys)."""
-    if name not in LAYERS:
-        raise ValueError(f"unknown model {name!r}; one of {sorted(LAYERS)}")
+    """The fleet's forward of zoo model ``name`` (``MODELS``)."""
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")
+    if name == "resnet18":
+        return stacked_resnet_forward(params, x, faithful=faithful,
+                                      dtype=dtype)
     if name in _HIDDEN:
         return stacked_cnn_forward(params, x, faithful=faithful, dtype=dtype)
     return stacked_dense_forward(params, x, layers=LAYERS[name],
@@ -249,9 +403,11 @@ class StackedModel(nn.Module):
     """Zoo model ``name`` for a fleet of workers, built from a dict of
     ``[W, ...]`` tensors in ``param_shapes`` layout (stored in their own
     dtype) and computing in ``dtype``; its parameters are registered in
-    ``LAYERS[name]`` order.  Model1 has 1,663,370 params a worker on
-    28×28×1, Model3 1,105,098 on 32×32×3, the MLP 199,210 on 28×28×1 and
-    the logistic model 248 on a9a's 123 features."""
+    ``LAYERS[name]`` order, ResNet-18's in sorted name order as nested
+    modules (``ResidualBlock_0.Conv_0.weight``).  Model1 has 1,663,370
+    params a worker on 28×28×1, Model3 1,105,098 on 32×32×3, the MLP
+    199,210 on 28×28×1, the logistic model 248 on a9a's 123 features and
+    ResNet-18 11,173,962 on 32×32×3 (62 tensors)."""
 
     def __init__(self, name: str, params: dict[str, torch.Tensor], *,
                  faithful: bool, dtype: torch.dtype = torch.float32):
@@ -259,6 +415,16 @@ class StackedModel(nn.Module):
         self.model_name = name
         self.faithful = faithful
         self.compute_dtype = dtype
+        if name == "resnet18":
+            for key in sorted(params):
+                *path, leaf = key.split(".")
+                mod = self
+                for part in path:
+                    if not hasattr(mod, part):
+                        mod.add_module(part, nn.Module())
+                    mod = getattr(mod, part)
+                mod.register_parameter(leaf, nn.Parameter(params[key]))
+            return
         for layer in LAYERS[name]:
             setattr(self, layer, _Layer(params[f"{layer}.weight"],
                                         params[f"{layer}.bias"]))

@@ -11,11 +11,12 @@ holdout) — both exactly as dopt.presets types them, and so do
 ``reference-fedlcon`` (eps 5) and ``reference-gossip`` (pairwise
 matching), the P2 study's other algorithms.  ``baseline1`` (4-worker
 MNIST MLP, metropolis ring), ``baseline2`` (16-worker Model3 on
-CIFAR-10, doubly-stochastic ring), ``baseline3`` (16-client FedAvg) and
-``baseline4`` (16-worker FedADMM logistic regression on a9a) are dopt's
-BASELINE.json configs.  Dataset sizes are the real datasets'; without
-raw files on disk the loaders fall back to the shape-compatible
-synthetic set.
+CIFAR-10, doubly-stochastic ring), ``baseline3`` (16-client FedAvg),
+``baseline4`` (16-worker FedADMM logistic regression on a9a) and
+``baseline5`` (32-worker D-SGD of the GroupNorm ResNet-18 on CIFAR-10,
+random graphs) are dopt's BASELINE.json configs.  Dataset sizes are the
+real datasets'; without raw files on disk the loaders fall back to the
+shape-compatible synthetic set.
 
 ``headline-dsgd-model1`` is dopt's bench.py headline workload
 (``_config(fast=False)``: f32, numpy planner, faithful Model1, 60,000 /
@@ -163,6 +164,22 @@ def baseline_4_admm_a9a() -> ExperimentConfig:
                               weight_decay=1e-4),
         federated=FederatedConfig(algorithm="fedadmm", frac=1.0, rounds=50,
                                   local_ep=2, local_bs=128),
+    )
+
+
+def baseline_5_gossip32_resnet() -> ExperimentConfig:
+    """32-worker gossip SGD, ResNet-18 (GroupNorm) on CIFAR-10,
+    time-varying random graphs with metropolis weights; 13 steps of 128
+    a round on 1,560 samples a worker."""
+    return ExperimentConfig(
+        name="baseline5-gossip32-resnet18", seed=3,
+        data=_cifar_data(32, iid=False, shards=4),
+        model=ModelConfig(model="resnet18", faithful=False,
+                          input_shape=(32, 32, 3)),
+        optim=OptimizerConfig(lr=0.1, momentum=0.9),
+        gossip=GossipConfig(algorithm="dsgd", topology="random",
+                            mode="metropolis", rounds=200, local_ep=1,
+                            local_bs=128),
     )
 
 
@@ -341,6 +358,7 @@ PRESETS = {
     "baseline2": baseline_2_dsgd_cifar_cnn,
     "baseline3": baseline_3_fedavg_noniid,
     "baseline4": baseline_4_admm_a9a,
+    "baseline5": baseline_5_gossip32_resnet,
     "reference-dsgd-star": lambda: reference_gossip("dsgd", "star"),
     "reference-dsgd-circle": lambda: reference_gossip("dsgd", "circle"),
     "reference-dsgd-complete": lambda: reference_gossip("dsgd", "complete"),

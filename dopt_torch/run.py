@@ -19,6 +19,10 @@ robust aggregator (dopt's flag: it installs a robust section before the
 ``--diagnostics on|off`` sets the section's on-card diagnostics; ``--trace
 DIR`` writes a torch.profiler trace of the run (the counterpart of dopt's
 XLA trace).  Async mixing is ``--set gossip.mixing=async``, as in dopt.
+``--num-users`` and ``--synthetic-scale`` resize the fleet and the
+synthetic sets after the overrides (dopt's order and floors), and
+``--timers`` prints the phase-timer report.  The config goes to stderr
+first as dopt's ``exp_details`` writes it.
 """
 
 from __future__ import annotations
@@ -82,6 +86,11 @@ def main(argv: list[str] | None = None) -> int:
                          "gossip.rounds or federated.rounds)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
+    ap.add_argument("--num-users", type=int, default=None)
+    ap.add_argument("--synthetic-scale", type=float, default=None,
+                    help="scale synthetic dataset sizes (e.g. 0.1 for "
+                         "smoke); the train size stays at least 8 a "
+                         "worker and the test size at least 64")
     ap.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
                     dest="overrides",
                     help="override a config field by dotted path, e.g. "
@@ -145,8 +154,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run into DIR "
                          "(trace.json; Perfetto or chrome://tracing)")
+    ap.add_argument("--timers", action="store_true",
+                    help="print the phase-timer report (dopt's columns)")
     args = ap.parse_args(argv)
 
+    from dopt_torch.config import exp_details
     from dopt_torch.engine import FederatedTrainer, GossipTrainer
     from dopt_torch.presets import PRESETS, get_preset
 
@@ -185,6 +197,18 @@ def main(argv: list[str] | None = None) -> int:
         name = "federated" if cfg.federated is not None else "gossip"
         cfg = cfg.replace(**{name: dataclasses.replace(
             getattr(cfg, name), diagnostics=args.diagnostics)})
+    if args.num_users is not None:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   num_users=args.num_users))
+    if args.synthetic_scale is not None:
+        d = cfg.data
+        cfg = cfg.replace(data=dataclasses.replace(
+            d, synthetic_train_size=max(
+                int(d.synthetic_train_size * args.synthetic_scale),
+                d.num_users * 8),
+            synthetic_test_size=max(
+                int(d.synthetic_test_size * args.synthetic_scale), 64)))
+    print(exp_details(cfg), file=sys.stderr)
     if cfg.federated is not None:
         trainer = FederatedTrainer(cfg, device=args.device)
         default_rounds = cfg.federated.rounds
@@ -232,6 +256,8 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(row))
     print(f"device={trainer.device} total_time_s={trainer.total_time:.2f}",
           file=sys.stderr)
+    if args.timers:
+        print(trainer.timers.report(), file=sys.stderr)
     if args.csv:
         trainer.history.to_csv(args.csv)
         print(f"wrote {args.csv}", file=sys.stderr)

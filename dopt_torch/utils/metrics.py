@@ -99,6 +99,27 @@ class History:
         return atomic_write_text(path, json.dumps(self.faults, indent=2))
 
 
+def time_to_target(history: History, *, target: float,
+                   key: str = "avg_test_acc",
+                   seconds_per_round: float | None = None) -> dict[str, Any]:
+    """dopt's north-star meter: the first round at which ``key`` reaches
+    ``target`` and, given a measured wall-clock a round, the implied
+    time to target.  Returns {reached, round, rounds, seconds}:
+    ``round`` is the row's round number, ``rounds`` counts the rows up
+    to and including it, ``seconds`` is rounds × seconds_per_round (None
+    without a rate).  Rows without ``key`` (eval-skipped rounds) are
+    passed over."""
+    for i, row in enumerate(history.rows):
+        v = row.get(key)
+        if v is not None and v >= target:
+            rounds = i + 1
+            return {"reached": True, "round": row.get("round", i),
+                    "rounds": rounds,
+                    "seconds": (None if seconds_per_round is None
+                                else rounds * seconds_per_round)}
+    return {"reached": False, "round": None, "rounds": None, "seconds": None}
+
+
 def _scalar(v: Any) -> Any:
     """Unwrap 0-d arrays / tensors so rows are plain JSON-able."""
     if hasattr(v, "item") and getattr(v, "ndim", 0) == 0:

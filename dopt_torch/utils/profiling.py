@@ -51,6 +51,26 @@ class PhaseTimers:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
+    def summary(self) -> dict[str, dict[str, float]]:
+        return {
+            name: {
+                "total_s": round(self.totals[name], 4),
+                "count": self.counts[name],
+                "mean_s": round(self.totals[name]
+                                / max(self.counts[name], 1), 5),
+            }
+            for name in self.totals
+        }
+
+    def report(self) -> str:
+        """dopt's ``--timers`` table: one row a phase, the longest first."""
+        rows = ["phase                total_s   count   mean_s"]
+        for name, s in sorted(self.summary().items(),
+                              key=lambda kv: -kv[1]["total_s"]):
+            rows.append(f"{name:20s} {s['total_s']:8.3f} {s['count']:7d} "
+                        f"{s['mean_s']:9.5f}")
+        return "\n".join(rows)
+
 
 def device_memory_stats(device: torch.device) -> dict | None:
     """Device-memory occupancy: ``{live_bytes, peak_bytes, source}``.
