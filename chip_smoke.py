@@ -177,11 +177,10 @@ also runs two small faulty configurations on the GPU against the CPU.
 
 13. dopt's GroupNorm ResNet-18 and baseline5 at full width (32 workers,
    11,173,962 params a worker in 62 tensors, CIFAR-10-sized synthetic
-   sets, ``phase13``): 13a both fused switches, 2 rounds per-round with
-   the test-set eval in round 0 only (each round's wall with the eval
-   split out, the peak, kernel 1 at 4 launches a step, kernel 2 at 11 a
-   round); 13f one more round of it under the profiler; 13b both kernels
-   at 13a's shapes against their plain versions, their bounds and their
+   sets, ``phase13``): 13a both fused switches, rounds 1-2 per-round
+   (no f32 eval: it took 42 s a call; each round's wall, the peak,
+   kernel 1 at 4 launches a step, kernel 2 at 11 a round); 13b both
+   kernels at 13a's shapes against their plain versions, their bounds and their
    library calls; 13c 13a in blocks of 2, bit for bit, with the graphs'
    memory; 13d bf16 compute; 13e baseline5 as typed, one round with no
    eval and no kernel; 13g a killed-and-resumed run at stage sizes (1, 1,
@@ -189,6 +188,22 @@ also runs two small faulty configurations on the GPU against the CPU.
    and checkpoint_every=2, bit for bit the continuous run.  Phase 4 also runs
    a baseline5-shaped gossip and a fedavg ResNet-18 (stage sizes (1, 1),
    8×8×3) on the GPU against the CPU.
+
+14. choco and the narrowed wire (``phase14``), f32 under the
+   deterministic mode unless said: 14a headline-dsgd-model1 with choco
+   (γ = 0.1; top-k 0.1, rand-k 0.1, QSGD 16 levels), kernel 1 on and the
+   fused epilogue off, 2 rounds each with eval in round 0 (round walls,
+   the exchange's time, rates beside phase 5's dsgd, the peak, kernel 1
+   every step and kernel 2 never); 14b dopt's keyed draws on the card
+   against the CPU — uniform at [6, 1,663,370] and the top-k and rand-k
+   results bit for bit, QSGD within one level on at most 1e-4 of the
+   elements — and a tiny choco run on the GPU against the CPU; 14c
+   14a's rand-k run in blocks of 2 and killed and resumed, bit for bit
+   with x_hat; 14d ``comm_dtype="bfloat16"`` on both headlines (fused
+   epilogue off) beside the f32 wire; 14e baseline5 with choco rand-k
+   0.01 in bf16 compute, one round (the exchange's share, the peak);
+   14f the compressors' pieces (draw, select, scatter) and whole calls
+   timed at 14a's and 14e's shapes beside their bytes bounds.
 
 Every profile records the device activity only (phase 6's
 ``profile_round``), and every synthetic set is made once and shared by
@@ -1036,8 +1051,8 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     width on the card: 32 workers, 11,173,962 parameters a worker (62
     tensors), CIFAR-10's sizes (50,000/10,000 synthetic samples), f32
     under the deterministic mode unless said.  ``kit`` holds phase 3's
-    timers (``time_ms``, ``k1_site``, ``k2_site``) and phase 6's
-    ``profile_round``; ``ckdir`` takes 13g's checkpoints.  Returns the
+    timers (``time_ms``, ``k1_site``, ``k2_site``); ``ckdir`` takes
+    13g's checkpoints.  Returns the
     launch counts of 13a's main-path run and the kernel rows of 13b."""
     import numpy as np
     import torch
@@ -1082,16 +1097,19 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                 fail(f"13 {label}: {k} has shape {final[k].shape} or is "
                      "non-finite")
 
-    def rounds_timed(label, cfg, n, *, block=1, tr=None):
+    def rounds_timed(label, cfg, n, *, block=1, tr=None, start=0):
         """A fresh trainer (or ``tr``) runs n rounds per-round, each timed
         alone with the in-round eval split out, or (block > 1) in one
         timed call; the counts set to 0 just before and read just after,
-        the peak over what was allocated before the trainer."""
+        the peak over what was allocated before the trainer.  A fresh
+        trainer starting at round ``start`` = 1 skips the eval (which
+        eval_every runs in round 0 only)."""
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         t = time.perf_counter()
-        tr = GossipTrainer(cfg, device=dev, eval_every=round0_only) \
-            if tr is None else tr
+        if tr is None:
+            tr = GossipTrainer(cfg, device=dev, eval_every=round0_only)
+            tr.round = start
         built = time.perf_counter() - t
         evals: list[float] = []
         evaluate = tr._evaluate_round
@@ -1126,10 +1144,11 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         rates[label] = (n / sum(walls), walls, evals, peak)
         return tr, got, peak
 
-    # -- 13a. both fused switches, 2 rounds per-round, eval in round 0.
+    # -- 13a. both fused switches, 2 rounds per-round, rounds 1-2: no
+    # f32 eval (~42 s a call on the H100; 13d evaluates, in bf16 compute).
     n = 2
-    tr, a_launch, _ = rounds_timed("13a baseline5, both fused switches", fused,
-                                   n)
+    tr, a_launch, _ = rounds_timed("13a baseline5, both fused switches "
+                                   "(rounds 1-2)", fused, n, start=1)
     steps, buckets = tr.steps_per_round, tr.fused_spec.num_buckets
     want = {"fused_sgd_momentum": 4 * steps * n, "fused_mix_sgd": 11 * n}
     print(f"13a {steps} steps a round, {buckets} buckets "
@@ -1141,10 +1160,6 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
              f"expected 13, 11 and {want}")
     check_params("13a", tr)
     a_state = state(tr)
-    # -- 13f. one more fused f32 round (no eval) under the profiler.
-    idle = kit.profile_round("13f baseline5, both fused switches, f32",
-                             functools.partial(tr.run, rounds=1))
-    rates["13f idle"] = (None, None, None, idle)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -1171,7 +1186,8 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
 
     # -- 13c. 13a blocked, in blocks of 2: bit for bit.
     tr, c_launch, c_peak = rounds_timed(
-        "13c baseline5, both fused switches, blocks of 2", fused, n, block=2)
+        "13c baseline5, both fused switches, blocks of 2 (rounds 1-2)",
+        fused, n, block=2, start=1)
     same_state("13c baseline5 blocked, against 13a", a_state, state(tr))
     if c_launch != a_launch:
         fail(f"13c: launches {c_launch} != 13a's {a_launch}")
@@ -1252,9 +1268,365 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     del resumed
     for key, (rate, walls, evals, peak) in rates.items():
         print(f"13 rates {key}: {rate} rounds/s; walls {walls} s; evals "
-              f"{evals} s; peak {peak} B (13f: idle share); {smi}")
+              f"{evals} s; peak {peak} B; {smi}")
     print(f"13: phase 13 in {time.perf_counter() - t13:.1f} s")
     return {"launch": a_launch, "site": site, "rates": rates}
+
+
+def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
+    """Phase 14, choco and the narrowed wire on the card: f32 under the
+    deterministic mode unless said.  ``kit`` holds phase 3's ``flush``
+    buffer and phase 5's headline walls (``gwall``, ``fwall`` for
+    ``rounds`` rounds); ``ckdir`` takes 14c's checkpoint.  Returns each
+    path's launch counts (``launch``) for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.convert import dopt_flat_order
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.ops import compression as C
+    from dopt_torch.ops.fused_update import (MAX_TENSORS, fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.utils import prng
+
+    t14 = time.perf_counter()
+    rep = dataclasses.replace
+    head = get_preset("headline-dsgd-model1")
+    fhead = get_preset("headline-fedavg-model1")
+    round0_only = 10 ** 9
+    g_rate = kit.rounds / kit.gwall
+    f_rate = kit.rounds / kit.fwall
+    launch: dict[str, dict] = {}
+
+    def choco(base, compression, ratio=0.1, levels=0, gamma=0.1):
+        """``base`` with choco, kernel 1 on and the fused epilogue off
+        (dopt refuses it with choco)."""
+        return base.replace(
+            optim=rep(base.optim, fused_update=True),
+            gossip=rep(base.gossip, fused_update="off", algorithm="choco",
+                       compression=compression, compression_ratio=ratio,
+                       qsgd_levels=levels, choco_gamma=gamma))
+
+    def choco_state(tr) -> dict:
+        out = state(tr)
+        out["x_hat"] = {k: v.float().cpu().numpy().copy()
+                        for k, v in tr.x_hat.items()}
+        return out
+
+    def run14(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False):
+        """A fresh trainer (or ``tr``) runs n rounds, per-round (each
+        timed alone, choco's exchange timed inside it) or in one blocked
+        call; eval in round 0 only (none with ``skip_eval``: the run
+        starts at round 1).  The counts are set to 0 just before the run
+        and read just after; the peak is over what was allocated before
+        the trainer."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        if tr is None:
+            tr = (GossipTrainer(cfg, device=dev, eval_every=round0_only)
+                  if cls is GossipTrainer else cls(cfg, device=dev))
+            if skip_eval:
+                tr.round = 1
+        built = time.perf_counter() - t
+        mix_s: list[float] = []
+        if block == 1 and getattr(tr, "_choco", False):
+            mix = tr._choco_mix
+
+            def timed_mix(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = mix(*a)
+                torch.cuda.synchronize()
+                mix_s.append(time.perf_counter() - t)
+                return out
+            tr._choco_mix = timed_mix
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(n if block == 1 else 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.run(rounds=1 if block == 1 else n, block=block)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        got = launch_counts()
+        tr.__dict__.pop("_choco_mix", None)
+        peak = torch.cuda.max_memory_allocated() - base
+        for row in tr.history.rows:
+            if not all(math.isfinite(v) for k, v in row.items()
+                       if k.endswith("loss")):
+                fail(f"14 {label}: non-finite loss in {row}")
+        tensors = len(getattr(tr, "_names", None) or tr.params)
+        want = {"fused_sgd_momentum": n * tr.steps_per_round
+                * -(-tensors // MAX_TENSORS), "fused_mix_sgd": 0}
+        if got != want:
+            fail(f"14 {label}: launches {got}, expected {want} (kernel 1 "
+                 "every step, kernel 2 never)")
+        print(f"14 {label}: built in {built:.2f} s; walls "
+              f"{[round(w, 4) for w in walls]} s; {n / sum(walls):.4f} "
+              f"rounds/s; choco exchange {[round(s, 4) for s in mix_s]} s "
+              f"a round; peak {peak} B over what was allocated before; "
+              f"launches {got}; {smi}")
+        return tr, got, walls, peak, mix_s
+
+    # -- 14a. choco on the gossip headline: top-k 0.1, rand-k 0.1 and
+    # QSGD with 16 levels, γ = 0.1, 2 rounds each.
+    n = 2
+    cfgs = {"topk": choco(head, "topk"), "randk": choco(head, "randk"),
+            "qsgd": choco(head, "qsgd", levels=16)}
+    a_state = {}
+    for name, cfg in cfgs.items():
+        tr, got, walls, peak, mix_s = run14(f"14a choco {name}", GossipTrainer,
+                                            cfg, n)
+        launch[f"headline-dsgd-model1-choco-{name}"] = got
+        print(f"14a choco {name}: {n / sum(walls):.4f} rounds/s against "
+              f"phase 5's dsgd {g_rate:.4f} (both fused switches); the "
+              f"exchange takes {100 * sum(mix_s) / sum(walls):.2f}% of the "
+              f"walls; {smi}")
+        if name == "randk":
+            a_state = choco_state(tr)
+            a_launch = got
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 14b. the draws, masks and QSGD on the card against the CPU.
+    w = 6
+    shapes = param_shapes("model1")
+    key = prng.fold_in(prng.jax_key(head.seed ^ 0x0C0C0), 1)
+    u_cpu = prng.uniform(key, (w, 1_663_370))
+    u_gpu = prng.uniform(key.to(dev), (w, 1_663_370)).cpu()
+    if not torch.equal(u_cpu.view(torch.int32), u_gpu.view(torch.int32)):
+        fail("14b: uniform on the card differs from the CPU's")
+    print(f"14b uniform [{w}, 1663370]: the card's bits equal the CPU's")
+    gen = torch.Generator().manual_seed(14)
+    tree = {k: torch.randn(w, *s, generator=gen) for k, s in shapes.items()}
+    fwd = dopt_flat_order(shapes, input_shape=(28, 28, 1))
+    order_c = C.device_order(fwd)
+    order_g = C.device_order(fwd, dev)
+    tree_g = {k: v.to(dev) for k, v in tree.items()}
+    key_g = key.to(dev)
+    for name, fn in (("top_k", lambda t, o, k: C.top_k_compress(
+            t, 0.1, order=o)), ("rand_k", lambda t, o, k: C.rand_k_compress(
+                t, 0.1, k, order=o))):
+        a, b = fn(tree, order_c, key), fn(tree_g, order_g, key_g)
+        for k in tree:
+            if not torch.equal(a[k].view(torch.int32),
+                               b[k].cpu().view(torch.int32)):
+                fail(f"14b {name}: the card's {k} differs from the CPU's")
+        print(f"14b {name} 0.1 at Model1's shapes (W = {w}): the card's "
+              "result equals the CPU's bit for bit")
+    a = C.qsgd_compress(tree, 0.1, key, levels=16, order=order_c)
+    b = C.qsgd_compress(tree_g, 0.1, key_g, levels=16, order=order_g)
+    off = total = 0
+    for k, x in tree.items():
+        qa, qb = a[k].reshape(w, -1).numpy(), b[k].cpu().reshape(w, -1).numpy()
+        d = np.abs(qa - qb)
+        bad = d > 1e-6 * np.abs(qa)
+        total += qa.size
+        if not bad.any():
+            continue
+        off += int(bad.sum())
+        xd = x.reshape(w, -1).double().numpy()
+        if fwd[k] is not None:
+            xd = xd[:, fwd[k]]
+            d, bad = d[:, fwd[k]], bad[:, fwd[k]]
+        m = xd.shape[1]
+        bsz = min(2048, m)
+        xd = np.pad(xd, ((0, 0), (0, -(-m // bsz) * bsz - m)))
+        step = np.repeat(np.sqrt((xd ** 2).reshape(w, -1, bsz).sum(2)), bsz,
+                         axis=1)[:, :m] / 16
+        if not (np.abs(d - step) <= 1e-5 * step)[bad].all():
+            fail(f"14b qsgd: {k} differs by other than one level")
+    if off > 1e-4 * total:
+        fail(f"14b qsgd: {off} of {total} elements a level away")
+    print(f"14b qsgd 16 levels: the card's result within 1e-6 relative of "
+          f"the CPU's on all but {off} of {total} elements, each one level "
+          "away (bound: 1e-4 of them)")
+    del u_cpu, u_gpu, tree_g, a, b
+    tiny = choco(head.replace(
+        data=rep(head.data, dataset="synthetic", num_users=4,
+                 synthetic_train_size=128, synthetic_test_size=32),
+        model=rep(head.model, input_shape=(8, 8, 1)),
+        gossip=rep(head.gossip, local_ep=1, local_bs=16)), "randk",
+        ratio=0.25, gamma=0.2)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        tr = GossipTrainer(tiny, device=d)
+        tr.run(rounds=2)
+        runs[d] = tr
+    for ra, rb in zip(runs["cuda"].history.rows, runs["cpu"].history.rows,
+                      strict=True):
+        if (abs(ra["avg_train_loss"] - rb["avg_train_loss"]) > LOSS_TOL
+                or abs(ra["avg_test_acc"] - rb["avg_test_acc"]) > ACC_TOL):
+            fail(f"14b tiny choco: cuda {ra} vs cpu {rb}")
+    rel = max(max_rel(runs["cpu"].worker_params(),
+                      runs["cuda"].worker_params()),
+              max_rel({k: v.float().numpy() for k, v in
+                       runs["cpu"].x_hat.items()},
+                      {k: v.float().cpu().numpy() for k, v in
+                       runs["cuda"].x_hat.items()}))
+    if not rel <= PARAM_REL_TOL:
+        fail(f"14b tiny choco: params or x_hat differ by {rel:.3e}")
+    print(f"14b tiny choco rand-k 0.25 (Model1 at 8x8, 4 workers, "
+          f"128/32, 2 rounds): cuda vs cpu History within {LOSS_TOL}/{ACC_TOL}, params "
+          f"and x_hat max-rel {rel:.3e} (limit {PARAM_REL_TOL})")
+    del runs, tr
+
+    # -- 14c. 14a's rand-k run in blocks of 2, and killed and resumed.
+    tr, got, _, c_peak, _ = run14("14c choco randk, blocks of 2",
+                                  GossipTrainer, cfgs["randk"], n, block=2)
+    same_state("14c choco randk blocked, against 14a", a_state,
+               choco_state(tr))
+    if got != a_launch:
+        fail(f"14c: launches {got} != 14a's {a_launch}")
+    print(f"14c graphs {tr.graphs.captures}; peak {c_peak} B; {smi}")
+    del tr
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    victim = GossipTrainer(cfgs["randk"], device=dev, eval_every=round0_only)
+    victim.run(rounds=1, checkpoint_every=1, checkpoint_path=ckdir / "choco")
+    del victim
+    resumed = GossipTrainer(cfgs["randk"], device=dev, eval_every=round0_only)
+    resumed.restore(ckdir / "choco")
+    resumed.run(rounds=1)
+    torch.cuda.synchronize()
+    same_state("14c choco randk killed after round 0 and resumed, against "
+               "14a", a_state, choco_state(resumed))
+    if launch_counts() != a_launch:
+        fail(f"14c resume: launches {launch_counts()} != {a_launch}")
+    del resumed, a_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14d. the narrowed wire on both headlines, beside the f32 wire.
+    g32 = head.replace(gossip=rep(head.gossip, fused_update="off"))
+    f32 = fhead.replace(federated=rep(fhead.federated, fused_update="off",
+                                      compact=False))
+    for label, cls, cfg in (("gossip", GossipTrainer, g32),
+                            ("federated", FederatedTrainer, f32)):
+        res = {}
+        for wire in (None, "bfloat16"):
+            sec = "gossip" if cls is GossipTrainer else "federated"
+            c = cfg.replace(**{sec: rep(getattr(cfg, sec), comm_dtype=wire)})
+            tr, got, walls, peak, _ = run14(
+                f"14d {label} headline, fused epilogue off, wire "
+                f"{wire or 'float32'}", cls, c, n)
+            if cls is FederatedTrainer and tr._use_compact():
+                fail("14d: the federated run left the full width")
+            res[wire] = (tr.worker_params(), n / sum(walls))
+            if wire:
+                launch[f"headline-{'dsgd' if sec == 'gossip' else 'fedavg'}"
+                       f"-model1-wire-bf16"] = got
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        rel = max_rel(res[None][0], res["bfloat16"][0])
+        base_rate = g_rate if cls is GossipTrainer else f_rate
+        print(f"14d {label}: bf16 wire {res['bfloat16'][1]:.4f} against f32 "
+              f"wire {res[None][1]:.4f} rounds/s "
+              f"({res['bfloat16'][1] / res[None][1]:.4f}x; phase 5's fused "
+              f"headline {base_rate:.4f}); params max-rel distance from the "
+              f"f32 wire after {n} rounds {rel:.3e}; {smi}")
+        if not (rel > 0 and math.isfinite(rel)):
+            fail(f"14d {label}: the bf16 wire moved params by {rel}")
+
+    # -- 14e. the compressors at their largest site: baseline5 (32
+    # workers, ResNet-18, 62 tensors), choco rand-k 0.01, bf16 compute,
+    # one round with no eval.
+    b5 = get_preset("baseline5")
+    b5c = choco(b5.replace(model=rep(b5.model, compute_dtype="bfloat16")),
+                "randk", ratio=0.01)
+    tr, got, walls, peak, mix_s = run14("14e baseline5 choco randk 0.01, "
+                                        "bf16 compute (round 1)",
+                                        GossipTrainer, b5c, 1, skip_eval=True)
+    launch["baseline5-choco-randk"] = got
+    print(f"14e baseline5 choco: round {walls[0]:.3f} s, exchange "
+          f"{mix_s[0]:.3f} s = {100 * mix_s[0] / walls[0]:.1f}% of it; peak "
+          f"{peak} B; {smi}")
+    x_shapes = {k: tuple(v.shape) for k, v in tr.x_hat.items()}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14f. the compressors' pieces, CUDA-event medians of cold-L2
+    # calls, at 14a's and 14e's shapes, each beside its bytes bound.
+    def time_calls(fn, reps) -> float:
+        fn()
+        evs = []
+        for _ in range(reps):
+            kit.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            evs.append((a, b))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+    rows14 = {}
+    for site, leaf_shapes, inp, reps in (
+            ("model1 W=6", {k: (6, *s) for k, s in shapes.items()},
+             (28, 28, 1), 11),
+            ("resnet18 W=32", x_shapes, (32, 32, 3), 3)):
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = {k: torch.randn(*s, device=dev, generator=g)
+             for k, s in leaf_shapes.items()}
+        order = C.device_order(dopt_flat_order(
+            {k: s[1:] for k, s in leaf_shapes.items()}, input_shape=inp),
+            dev)
+        elems = sum(v.numel() for v in x.values())
+        ratio = 0.1 if site.startswith("model1") else 0.01
+        names = sorted(x)
+        scores = [prng.uniform(prng.fold_in(key_g, i), (s[0], math.prod(
+            s[1:]))) for i, s in enumerate(leaf_shapes[k] for k in names)]
+        keeps = [C.top_k_mask(sc, max(math.ceil(ratio * sc.shape[1]), 1))
+                 for sc in scores]
+
+        def draw():
+            for i, k in enumerate(names):
+                s = leaf_shapes[k]
+                prng.uniform(prng.fold_in(key_g, i),
+                             (s[0], math.prod(s[1:])))
+
+        def select():
+            for sc in scores:
+                C.top_k_mask(sc, max(math.ceil(ratio * sc.shape[1]), 1))
+
+        def scatter():
+            for k, keep in zip(names, keeps):
+                maps = order[k]
+                m = keep if maps is None else keep.index_select(1, maps[1])
+                x[k].reshape(keep.shape) * m.to(torch.float32) * 10.0
+
+        pieces = {
+            "uniform": (draw, 4 * elems),
+            "rand_k select": (select, 5 * elems),
+            "rand_k scatter": (scatter, 9 * elems),
+            "rand_k_compress": (lambda: C.rand_k_compress(
+                x, ratio, key_g, order=order), 8 * elems),
+            "top_k_compress": (lambda: C.top_k_compress(
+                x, ratio, order=order), 8 * elems),
+            "qsgd_compress": (lambda: C.qsgd_compress(
+                x, ratio, key_g, levels=16, order=order), 8 * elems)}
+        for piece, (fn, nbytes) in pieces.items():
+            ms = time_calls(fn, reps)
+            bound = 1e3 * nbytes / MEM_BYTES_PER_S
+            rows14[f"{site} {piece}"] = (ms, bound)
+            print(f"14f {piece} at {site} ({elems} f32 elements, ratio "
+                  f"{ratio}): {ms:.3f} ms (median of {reps} cold-L2 calls), "
+                  f"bytes bound {bound:.3f} ms ({nbytes} B at 3.35 TB/s; "
+                  f"{100 * bound / ms:.1f}% of it); {smi}")
+        del x, scores, keeps, order
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"14: phase 14 in {time.perf_counter() - t14:.1f} s")
+    return {"launch": launch, "rows": rows14}
 
 
 def main() -> None:
@@ -2669,8 +3041,16 @@ def main() -> None:
     ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
     try:
         res13 = phase13(dev, smi, get_preset, types.SimpleNamespace(
-            time_ms=time_ms, k1_site=k1_site, k2_site=k2_site,
-            profile_round=profile_round), ckdir)
+            time_ms=time_ms, k1_site=k1_site, k2_site=k2_site), ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 14")
+
+    # -- 14. choco and the narrowed wire ----------------------------------
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        res14 = phase14(dev, smi, get_preset, types.SimpleNamespace(
+            flush=flush, rounds=rounds, gwall=gwall, fwall=fwall), ckdir)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     del flush
@@ -2739,10 +3119,24 @@ def main() -> None:
             ("baseline5", "baseline5 with both fused switches: ResNet-18, "
              "32 workers, kernel 1 in 4 launches over 62 tensors a step, "
              "kernel 2's ring kernel at n = 32 over 11 buckets",
-             res13["site"]["k1"], res13["site"]["k2"])):
+             res13["site"]["k1"], res13["site"]["k2"]),
+            *((f"headline-dsgd-model1-choco-{c}", "headline-dsgd-model1 "
+               f"with choco {c} (γ = 0.1) and the fused epilogue off: "
+               "Model1, 6 workers, kernel 1 every step, kernel 2 never",
+               k1, None) for c in ("topk", "randk", "qsgd")),
+            ("headline-dsgd-model1-wire-bf16", "headline-dsgd-model1 with "
+             "comm_dtype bfloat16 and the fused epilogue off: kernel 1 every "
+             "step, kernel 2 never", k1, None),
+            ("headline-fedavg-model1-wire-bf16", "headline-fedavg-model1 "
+             "with comm_dtype bfloat16 and the fused epilogue off: 16 lanes, "
+             "kernel 1 every step, kernel 2 never", k1f, None),
+            ("baseline5-choco-randk", "baseline5 with choco rand-k 0.01, bf16 "
+             "compute, the fused epilogue off: kernel 1 in 4 launches over "
+             "62 tensors a step, kernel 2 never", res13["site"]["k1"], None)):
         launched = {**slice_launch, **fault_launch,
                     "headline-fedavg-model1-faulty": fed11["launch"],
-                    **obs12["launch"], "baseline5": res13["launch"]}[preset]
+                    **obs12["launch"], "baseline5": res13["launch"],
+                    **res14["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

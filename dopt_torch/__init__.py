@@ -23,8 +23,10 @@ churn, lossy and delayed uplinks, Byzantine updates, the robust
 aggregators, clip-to-ball, quarantine and the staleness buffer.
 ``plan_impl="native"`` plans batches with dopt's C++ planner, built
 with ``g++`` at first use.  The gossip engine runs async (staleness-1)
-and one-peer mixing; both engines stream dopt's telemetry
-(``dopt_torch.obs``) with the on-card diagnostics.
+and one-peer mixing and CHOCO-SGD with dopt's compressors (top-k,
+rand-k, QSGD; dopt's ``jax.random`` draws bit for bit); both engines
+narrow their consensus or aggregation wire (``comm_dtype``) and stream
+dopt's telemetry (``dopt_torch.obs``) with the on-card diagnostics.
 """
 
 import os

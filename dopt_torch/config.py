@@ -5,8 +5,8 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
 packages.  Fields and sections of later slices (population, comm,
-seqlm, the codecs' knobs, the mesh) exist with dopt's defaults: the trainers refuse any other
-value, naming the slice that adds it.
+seqlm, the mesh) exist with dopt's defaults: the trainers refuse any
+other value, naming the slice that adds it.
 """
 
 from __future__ import annotations
@@ -96,7 +96,9 @@ class FederatedConfig:
     # of the round body, with one device→host fetch a block
     # (dopt_torch.engine.graphs); on the CPU the same block loop runs
     # the body eagerly.
-    comm_dtype: str | None = None   # arrives with the codecs slice
+    comm_dtype: str | None = None
+    # Wire narrowing of the masked-mean reduce (bfloat16|float16|float32):
+    # the f32 partial sum is narrowed once; forces the full width.
     staleness_max: int = 0
     # > 0: late updates (drop-policy stragglers, delayed uplinks) are
     # buffered and admitted d rounds later at weight staleness_decay**d.
@@ -121,7 +123,7 @@ class FederatedConfig:
 class GossipConfig:
     """Serverless gossip/consensus path (reference P2 ``simulators.py``)."""
 
-    algorithm: str = "dsgd"     # dsgd | nocons | centralized | fedlcon | gossip
+    algorithm: str = "dsgd"     # dsgd | nocons | centralized | fedlcon | gossip | choco
     topology: str = "circle"    # circle | star | complete | dynamic | random
     #                           # | torus | hierarchical | one_peer_exp
     mode: str = "stochastic"    # stochastic | double_stochastic | metropolis | uniform | ones
@@ -140,7 +142,9 @@ class GossipConfig:
     self_weight: bool = False   # reference mixing has a zero diagonal
     hier_groups: int = 2
     hier_period: int = 4
-    # choco and its compressors: the codecs slice.
+    # choco (algorithm="choco"): consensus step γ, the compressor
+    # (topk|randk|qsgd|none), its ratio (qsgd: levels = ratio·256 unless
+    # qsgd_levels), and comm_dtype, the consensus wire's dtype.
     choco_gamma: float = 1.0
     compression: str = "topk"
     compression_ratio: float = 1.0

@@ -156,3 +156,50 @@ def port_layout(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     if any(isinstance(v, dict) for v in tree.values()):
         return params_from_jax(tree, input_shape=input_shape)
     return dict(tree)
+
+
+def _jax_leaves(tree) -> list[np.ndarray]:
+    """A flax tree's leaves in ``jax.tree_util.tree_flatten`` order
+    (dict keys sorted at every level)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _jax_leaves(tree[k])]
+    return [tree]
+
+
+def dopt_flat_order(shapes: dict[str, tuple[int, ...]], *,
+                    input_shape=(28, 28, 1)) -> dict[str, np.ndarray | None]:
+    """Each port tensor's flat index map into dopt's layout of its leaf.
+
+    ``shapes`` holds one worker's port shapes (``{"conv1.weight": (32, 1,
+    5, 5), ...}``).  For every name, ``order[name][j]`` is the port flat
+    index of element j of dopt's leaf flattened in dopt's layout (conv
+    ``[kh, kw, Cin, Cout]``, dense ``[in, out]``, the CNN's fc1 rows in
+    HWC order), or None where the two layouts agree.  The map comes from
+    ``params_to_jax`` itself, run on index-valued tensors, and dopt's
+    flatten order of the leaves is the port's sorted names — so a draw
+    over dopt's leaf i lands on the element of ``sorted(shapes)[i]`` it
+    lands on in dopt."""
+    names = sorted(shapes)
+    offsets, off = {}, 0
+    for name in names:
+        offsets[name] = off
+        off += int(np.prod(shapes[name], dtype=np.int64))
+    index = {name: np.arange(offsets[name],
+                             offsets[name] + int(np.prod(shapes[name],
+                                                         dtype=np.int64)),
+                             dtype=np.int64).reshape(shapes[name])
+             for name in names}
+    leaves = _jax_leaves(params_to_jax(index, input_shape=input_shape))
+    if len(leaves) != len(names):
+        raise ValueError(f"{len(names)} port tensors map to {len(leaves)} "
+                         "dopt leaves")
+    out = {}
+    for name, leaf in zip(names, leaves):
+        flat = np.ascontiguousarray(leaf).reshape(-1) - offsets[name]
+        if flat.size != index[name].size or not (
+                0 <= flat.min() and flat.max() < flat.size):
+            raise ValueError(f"dopt's leaf in {name!r}'s place is not "
+                             f"{name!r}'s")
+        out[name] = (None if np.array_equal(flat, np.arange(flat.size))
+                     else flat)
+    return out

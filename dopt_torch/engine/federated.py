@@ -26,6 +26,13 @@ Three execution paths, same math up to float summation order:
   captured round must find every state at the address it was captured
   with, and one graph then serves every round).
 
+``federated.comm_dtype`` narrows the masked-mean reduce's wire: the f32
+partial sum is rounded once to that dtype (``masked_average``), as
+dopt's one-device mesh does.  It forces the full-width path (the
+compact mean has no cross-worker collective to narrow) and refuses an
+explicit ``compact=True``, the fused epilogue, the robust aggregators
+and the staleness buffer, in dopt's words.
+
 History rows are P1's: round, test_acc, test_loss (the global model on
 the test set, P1's summed loss), train_loss, train_acc (every client's
 own model on its own train split), local_loss (the survivors' mean
@@ -117,7 +124,8 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              flat_views,
                                              make_update_shard_spec,
                                              masked_average,
-                                             mean_weight_matrix, where_mask)
+                                             mean_weight_matrix, where_mask,
+                                             wire_dtype)
 from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
                                global_norm_f32, lane_sq_norms,
                                make_aggregator, masked_mean,
@@ -146,11 +154,11 @@ def validate_federated(cfg: ExperimentConfig) -> None:
     """Refuse every configuration the federated engine does not run yet,
     naming the later slice that adds it, and make dopt's own refusals
     (dopt/engine/federated.py:126-300, :551-600, :1783-1792) in dopt's
-    words: a robust aggregator or staleness with ``comm_dtype``,
-    staleness with a stateful algorithm or a robust aggregator, compact
-    sampling with staleness, and the fused epilogue with companion
-    state, compact sampling, a robust aggregator, ``clip_radius``,
-    corrupt faults or staleness."""
+    words: a robust aggregator, staleness or compact sampling with
+    ``comm_dtype``, staleness with a stateful algorithm or a robust
+    aggregator, compact sampling with staleness, and the fused epilogue
+    with companion state, compact sampling, a robust aggregator,
+    ``clip_radius``, corrupt faults, staleness or ``comm_dtype``."""
     f = cfg.federated
     if f is None:
         raise ValueError("cfg.federated must be set for FederatedTrainer")
@@ -203,8 +211,7 @@ def validate_federated(cfg: ExperimentConfig) -> None:
                 "masked-mean reduce; the staleness-weighted "
                 "aggregate runs its own full-precision sum — drop "
                 "one of the two")
-    if f.comm_dtype:
-        raise later(f"comm_dtype={f.comm_dtype!r}", "codecs")
+    wire_dtype(f.comm_dtype)
     if f.fused_update == "on":
         if f.algorithm not in ("fedavg", "fedprox"):
             raise ValueError(
@@ -239,6 +246,12 @@ def validate_federated(cfg: ExperimentConfig) -> None:
                 "aware aggregation (the admit-weighted sum over the "
                 "late buffer is not a masked mean) — drop one of "
                 "the two")
+        if f.comm_dtype:
+            raise ValueError(
+                "comm_dtype wire compression only applies to the "
+                "plain masked-average collective; the fused "
+                "epilogue contracts at f32 in one HBM pass — drop "
+                "one of the two")
         if f.compact:
             raise ValueError(
                 "FederatedConfig.compact=True is incompatible with "
@@ -251,6 +264,13 @@ def validate_federated(cfg: ExperimentConfig) -> None:
             "FederatedConfig.compact=True is incompatible with "
             "staleness-aware aggregation (captured lanes train "
             "outside the sampled set) — drop one of the two")
+    if f.comm_dtype and f.compact:
+        # dopt refuses it at its first round; the compact path's mean
+        # has no cross-worker collective to narrow.
+        raise ValueError(
+            "FederatedConfig.compact=True is incompatible with "
+            "comm_dtype (the compact path has no cross-worker "
+            "collective to compress)")
 
 
 def round_diag(p_lanes: dict[str, torch.Tensor],
@@ -430,6 +450,7 @@ class FederatedTrainer:
         self._staleness_max = f.staleness_max
         self._staleness_decay = f.staleness_decay
         self._has_stale = f.staleness_max > 0 and produces_late(cfg)
+        self._comm_dtype = wire_dtype(f.comm_dtype)
         self._stale_admit_round = np.zeros(w, np.int64)
         self._stale_weight = np.zeros(w, np.float64)
         self._stale_origin = np.zeros(w, np.int64)
@@ -501,7 +522,9 @@ class FederatedTrainer:
         return m
 
     def _use_compact(self) -> bool:
-        if self._fused_on or self._has_stale:
+        # comm_dtype forces the full width: its narrowing acts on the
+        # masked-mean reduce, which the compact path does not run.
+        if self._fused_on or self._has_stale or self._comm_dtype is not None:
             return False
         if self._sampled_count() >= self.num_workers:
             return False
@@ -921,7 +944,7 @@ class FederatedTrainer:
                     for k, s in self._stale_p.items():
                         s.copy_(new_stale[k])
                 else:
-                    avg = (masked_average(agg_in, agg)
+                    avg = (masked_average(agg_in, agg, self._comm_dtype)
                            if self._agg_robust is None
                            else self._agg_robust(agg_in, agg))
                     alive = agg.sum() > 0

@@ -23,7 +23,19 @@ them:
 * ``gossip`` — pairwise gossip: each round's matrix is a random perfect
   matching drawn from a stateful host stream
   (``host_rng(seed, 60551)``), on the main thread in round order, and
-  carried through checkpoints.
+  carried through checkpoints;
+* ``choco`` — CHOCO-SGD (Koloskova et al. 2019): each worker sends
+  q = Q(x − x̂) (``gossip.compression``: topk, randk, qsgd or none,
+  ``dopt_torch.ops.compression``), the public copy ``x_hat`` advances by
+  q, and x += γ·(W x̂ − x̂).  The round's key is ``fold_in(key(seed ^
+  0x0C0C0), t)`` with t on the device, so a captured round replays
+  with the next round's draws; the draws are dopt's ``jax.random``
+  bits (``dopt_torch.utils.prng``) over each tensor in dopt's layout.
+  A dead lane sends nothing under faults: its x̂ freezes.
+
+``gossip.comm_dtype`` narrows every consensus sweep's wire (dsgd,
+fedlcon's sweeps, matchings, choco's x̂ mix, async's neighbour term) to
+that dtype, contracting the f32 matrix in f32 (``mix_dense``).
 
 ``gossip.mixing="async"`` (dsgd) is dopt's staleness-1 mixing: each
 worker's own term reads its current params, its neighbours' terms the
@@ -120,12 +132,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from dopt_torch.config import ExperimentConfig, FaultConfig, RobustConfig
-from dopt_torch.convert import params_from_jax, port_layout
+from dopt_torch.convert import dopt_flat_order, params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, sharded_eval_batches, upload)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
@@ -138,10 +151,12 @@ from dopt_torch.models.zoo import (MODELS, StackedModel, deterministic,
                                    param_shapes, stacked_forward)
 from dopt_torch.obs import consensus_distance
 from dopt_torch.obs.events import DIAG_GAUGES, finite_diag_gauges
+from dopt_torch.ops.compression import device_order, make_compressor
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import rounded
 from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
-                                             make_update_shard_spec, mix_dense)
+                                             make_update_shard_spec, mix_dense,
+                                             where_mask, wire_dtype)
 from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
                                finite_lane_mask, lane_sq_norms,
                                validate_robust_config)
@@ -153,7 +168,7 @@ from dopt_torch.topology import (build_mixing_matrices, push_sum_link_matrix,
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
-from dopt_torch.utils.prng import host_rng
+from dopt_torch.utils.prng import fold_in, host_rng, jax_key
 from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
                                         emit_device_resource)
 
@@ -162,7 +177,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ALGORITHMS = ("dsgd", "nocons", "centralized", "fedlcon", "gossip", "choco")
 # The algorithms that mix with a topology's schedule (gossip draws a
 # matching each round; nocons does not mix).
-SCHEDULED = ("dsgd", "fedlcon")
+SCHEDULED = ("dsgd", "fedlcon", "choco")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -249,17 +264,9 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     if g.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown gossip algorithm {g.algorithm!r}; one of "
                          f"{'|'.join(ALGORITHMS)}")
-    if g.algorithm == "choco":
-        raise later("gossip algorithm 'choco'", "codecs")
     if g.eval_mode not in ("full", "sharded"):
         raise ValueError(f"unknown eval_mode {g.eval_mode!r}; one of "
                          "full|sharded")
-    for knob, default, slice_name in (
-            ("choco_gamma", 1.0, "codecs"), ("compression", "topk", "codecs"),
-            ("compression_ratio", 1.0, "codecs"),
-            ("qsgd_levels", 0, "codecs")):
-        if getattr(g, knob) != default:
-            raise later(f"gossip.{knob}={getattr(g, knob)!r}", slice_name)
     if g.diagnostics not in ("off", "on"):
         raise ValueError(f"unknown diagnostics {g.diagnostics!r}; one of "
                          "off|on")
@@ -274,8 +281,7 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     validate_fault_model(cfg)
     if g.comm_impl == "shift":
         raise later("comm_impl='shift'", "scatter and multi-GPU")
-    if g.comm_dtype:
-        raise later(f"comm_dtype={g.comm_dtype!r}", "codecs")
+    wire_dtype(g.comm_dtype)
     if g.fused_update not in ("off", "on"):
         raise ValueError(f"unknown fused_update {g.fused_update!r}; "
                          "one of off|on")
@@ -287,7 +293,8 @@ def validate_slice(cfg: ExperimentConfig) -> None:
             "fused_update='on' fuses the single dense consensus sweep with "
             f"the update; algorithm {g.algorithm!r} has no such sweep to "
             "fuse (dsgd|gossip: fedlcon's eps sweeps re-enter the matrix, "
-            "nocons/centralized never mix)")
+            "choco exchanges compressed deltas, nocons/centralized never "
+            "mix)")
 
 
 def validate_fault_model(cfg: ExperimentConfig) -> None:
@@ -410,6 +417,12 @@ def validate_fault_model(cfg: ExperimentConfig) -> None:
             "mixing='async' (the staleness-1 diag/off-diag "
             "split reads two source trees; the fused "
             "contraction reads one) — drop one of the two")
+    if g.fused_update == "on" and g.comm_dtype:
+        raise ValueError(
+            "comm_dtype wire compression only applies to the "
+            "plain consensus collectives; the fused epilogue "
+            "contracts at f32 in one HBM pass — drop one of "
+            "the two")
 
 
 def round_diag(p_new: dict[str, torch.Tensor], m_new: dict[str, torch.Tensor],
@@ -651,7 +664,9 @@ class GossipTrainer:
         self._sweeps = (g.eps if g.algorithm == "fedlcon"
                         and not g.faithful_bugs else 1)
         self._do_mix = g.algorithm in ("dsgd", "fedlcon", "gossip")
+        self._comm_dtype = wire_dtype(g.comm_dtype)
         self._setup_faults(stacked)
+        self._setup_choco(stacked)
         # Async (staleness-1) mixing carries the previous round's entry
         # state; round −1's is the shared init, so async round 0 mixes
         # what sync round 0 mixes.
@@ -734,6 +749,36 @@ class GossipTrainer:
             elif d > 0:
                 self._link_buf = {k: v.expand(d, *v.shape).contiguous()
                                   for k, v in stacked.items()}
+
+    def _setup_choco(self, stacked: dict[str, torch.Tensor]) -> None:
+        """CHOCO-SGD's state (dopt :252-256, :1008-1025): the public copy
+        ``x_hat`` (zeros in the storage dtype), the compressor, γ rounded
+        to the storage dtype, the base key ``key(seed ^ 0x0C0C0)`` and
+        each tensor's flat index map into dopt's layout, which the
+        compressor draws over."""
+        g, mc = self.cfg.gossip, self.cfg.model
+        self._choco = g.algorithm == "choco"
+        self.x_hat: dict[str, torch.Tensor] = {}
+        if not self._choco:
+            return
+        self._compressor = make_compressor(
+            g.compression, g.compression_ratio, qsgd_levels=g.qsgd_levels)
+        real = (g.compression == "qsgd"
+                or (g.compression in ("topk", "randk")
+                    and g.compression_ratio < 1.0))
+        if g.choco_gamma >= 1.0 and real:
+            warnings.warn(
+                "choco_gamma >= 1 with a real compressor can diverge: "
+                "CHOCO-SGD theory scales γ down with the compressor's "
+                "contraction factor (try γ ≈ 0.1·compression_ratio)",
+                stacklevel=3)
+        self._choco_gamma = rounded(float(g.choco_gamma),
+                                    DTYPES[mc.param_dtype])
+        self._choco_key = jax_key(self.cfg.seed ^ 0x0C0C0, device=self.device)
+        self._choco_order = device_order(dopt_flat_order(
+            {k: tuple(v.shape[1:]) for k, v in stacked.items()},
+            input_shape=mc.input_shape), self.device)
+        self.x_hat = {k: torch.zeros_like(v) for k, v in stacked.items()}
 
     # -- one round: host stage, device body -----------------------------
     def _matrix_for_round(self, t: int) -> np.ndarray:
@@ -870,7 +915,7 @@ class GossipTrainer:
             out["w"] = (arg * (1.0 - np.eye(self.num_workers))).astype(
                 np.float32)
             out["wdiag"] = np.diag(arg).astype(np.float32)
-        elif self._do_mix:
+        elif self._do_mix or self._choco:
             out["w"] = arg.astype(np.float32)
         if self._has_faults or self._fused_quar:
             out["alive"] = alive.astype(np.float32)
@@ -879,7 +924,8 @@ class GossipTrainer:
             out["limit"] = (limits.astype(np.int64) * per).astype(np.int32)
         if self._has_corrupt:
             out["cmask"] = cmask.astype(np.float32)
-        if self._fused_quar:
+        if self._fused_quar or self._choco:
+            # Device data: a captured round replays with the next t.
             out["t"] = np.array([t], np.int32)
         return out
 
@@ -902,9 +948,13 @@ class GossipTrainer:
 
     @torch.no_grad()
     def _consensus(self, w_t: torch.Tensor, cmask: torch.Tensor | None,
-                   wdiag: torch.Tensor | None = None) -> torch.Tensor | None:
+                   wdiag: torch.Tensor | None = None,
+                   alive: torch.Tensor | None = None,
+                   t: torch.Tensor | None = None) -> torch.Tensor | None:
         """Leave the round's post-consensus state in the model's params;
-        returns the robust layer's [W] screened flags (None off it)."""
+        returns the robust layer's [W] screened flags (None off it).
+        ``comm_dtype`` narrows every sweep's wire (dsgd, fedlcon's
+        sweeps, matchings, choco's x̂ mix, async's neighbour term)."""
         if self._fused_on:
             fused_mix_update(self._q, self._fbuf, w_t, self.fused_spec,
                              lr=1.0)
@@ -914,10 +964,13 @@ class GossipTrainer:
         if self._async:
             self._write_params(self._async_mix(params, w_t, wdiag))
             return None
+        if self._choco:
+            self._write_params(self._choco_mix(params, w_t, alive, t))
+            return None
         if not self._robust_active:
             mixed = params
             for _ in range(self._sweeps):
-                mixed = mix_dense(mixed, w_t)
+                mixed = mix_dense(mixed, w_t, self._comm_dtype)
             self._write_params(mixed)
             return None
         # A liar corrupts only what it broadcasts; its own state trains
@@ -946,13 +999,33 @@ class GossipTrainer:
         state, d·p(t) + W_off·prev in f32, cast back to the storage
         dtype.  The mix reads the old prev before this round's entry is
         copied into it (in place: a captured graph holds addresses)."""
-        nb = mix_dense(self._async_prev, w_off)
+        nb = mix_dense(self._async_prev, w_off, self._comm_dtype)
         mixed = {k: (wdiag.reshape((-1,) + (1,) * (p.dim() - 1)) * p.float()
                      + nb[k].float()).to(p.dtype)
                  for k, p in params.items()}
         for k, b in self._async_prev.items():
             b.copy_(params[k])
         return mixed
+
+    def _choco_mix(self, params: dict[str, torch.Tensor], w_t: torch.Tensor,
+                   alive: torch.Tensor | None, t: torch.Tensor
+                   ) -> dict[str, torch.Tensor]:
+        """One CHOCO-SGD exchange (dopt's ``choco_mix``, :1027-1044):
+        q = Q(x − x̂) with the round's key ``fold_in(key, t)`` (``t`` on
+        the device), a dead lane sends nothing (its x̂ freezes), x̂ += q
+        in place, and x += γ·(W x̂ − x̂), each op in the storage dtype."""
+        key = fold_in(self._choco_key, t)
+        diff = {k: p - self.x_hat[k] for k, p in params.items()}
+        q = self._compressor(diff, key, self._choco_order)
+        if self._has_faults:
+            q = where_mask(alive, q, {k: torch.zeros_like(v)
+                                      for k, v in q.items()})
+        for k, xh in self.x_hat.items():
+            xh.add_(q[k])
+        mixed = mix_dense(self.x_hat, w_t, self._comm_dtype)
+        return {k: p + ((mixed[k] - self.x_hat[k]) * self._choco_gamma
+                        ).to(p.dtype)
+                for k, p in params.items()}
 
     @torch.no_grad()
     def _link_consensus(self, mats: torch.Tensor,
@@ -1066,7 +1139,8 @@ class GossipTrainer:
         if self._link_mode:
             self._link_consensus(inp["mats"], cmask)
         elif w_t is not None:
-            screened = self._consensus(w_t, cmask, inp.get("wdiag"))
+            screened = self._consensus(w_t, cmask, inp.get("wdiag"),
+                                       alive, inp.get("t"))
         if self._robust_active and screened is None:
             screened = torch.zeros(self.num_workers, device=self.device)
         # The post-consensus state: dead lanes fall back to it, and the
@@ -1359,9 +1433,10 @@ class GossipTrainer:
         dopt's meta keys (round, History and client rows, the matching
         stream's state, the fault ledger and the screen's host mirrors),
         on the link path push-sum's ``push_mass``, the staleness buffer
-        ``link_buf`` and the in-flight mass ``link_buf_mass``, and under
-        async mixing the previous round's state ``async_prev``.  With
-        telemetry attached a ``checkpoint`` event follows the save."""
+        ``link_buf`` and the in-flight mass ``link_buf_mass``, under
+        async mixing the previous round's state ``async_prev``, and
+        under choco the public copy ``x_hat``.  With telemetry attached
+        a ``checkpoint`` event follows the save."""
         arrays = {"momentum": dict(zip(self._names, self.momentum))}
         if self._fused_on:
             arrays["params"] = flat_views(self._q, self.fused_spec)
@@ -1381,6 +1456,8 @@ class GossipTrainer:
             # Without it a resumed async run would mix round t against
             # the wrong previous-round state.
             arrays["async_prev"] = self._async_prev
+        if self._choco:
+            arrays["x_hat"] = self.x_hat
         meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
         meta["matching_rng_state"] = self._matching_rng.bit_generator.state
         with self.timers.phase("checkpoint"):
@@ -1422,12 +1499,19 @@ class GossipTrainer:
             raise ValueError(
                 "mixing='async' trainer requires its previous-round "
                 "state ('async_prev') in the checkpoint")
+        if self._choco and "x_hat" not in arrays:
+            raise ValueError(
+                "choco trainer requires its public-copy state "
+                "('x_hat') in the checkpoint")
         shape = self.cfg.model.input_shape
         tree = {k: port_layout(arrays[k], input_shape=shape)
-                for k in ("params", "momentum", "fused_buf", "async_prev")
+                for k in ("params", "momentum", "fused_buf", "async_prev",
+                          "x_hat")
                 if k in arrays}
         if self._async:
             copy_into(self._async_prev, tree["async_prev"], what="async_prev")
+        if self._choco:
+            copy_into(self.x_hat, tree["x_hat"], what="x_hat")
         copy_into(dict(zip(self._names, self.momentum)), tree["momentum"],
                   what="momentum")
         if self._fused_on:

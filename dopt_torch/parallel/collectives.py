@@ -7,7 +7,14 @@ tensor (dopt leaves it to XLA outside Pallas; here it is
 ``torch.matmul``).  The federated aggregation's helpers —
 ``where_mask``, ``masked_average``, ``mean_weight_matrix``,
 ``broadcast_to_workers`` — take and return dicts of tensors (dopt's
-pytrees), single-device (no mesh, no wire dtype).
+pytrees), single-device (no mesh).
+
+``comm_dtype`` (``wire_dtype``: bfloat16, float16, float32) is dopt's
+wire narrowing in its one-device form.  ``mix_dense`` narrows each
+tensor to the wire dtype and contracts the f32 matrix against its f32
+upcast (``_mix_dense_compressed``); ``masked_average`` sums in f32 and
+narrows the one partial sum (``_masked_average_compressed``).  Both
+change numbers on one device, as dopt's do on a one-device mesh.
 
 ``UpdateShardSpec`` is dopt's flat-bucket plan (collectives.py:349):
 the stacked tensors, in sorted-name order (the order ``jax.tree``
@@ -26,14 +33,39 @@ import math
 import torch
 
 
-def mix_dense(stacked: dict[str, torch.Tensor],
-              w_matrix: torch.Tensor) -> dict[str, torch.Tensor]:
+# The wire dtypes: the names ``jnp.dtype`` takes in dopt that torch has.
+WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+               "float32": torch.float32}
+
+
+def wire_dtype(name: str | None) -> torch.dtype | None:
+    """``comm_dtype``'s torch dtype (None for no narrowing)."""
+    if not name:
+        return None
+    if name not in WIRE_DTYPES:
+        raise ValueError(f"unknown comm_dtype {name!r}; one of "
+                         f"{'|'.join(WIRE_DTYPES)}")
+    return WIRE_DTYPES[name]
+
+
+def mix_dense(stacked: dict[str, torch.Tensor], w_matrix: torch.Tensor,
+              comm_dtype: torch.dtype | None = None
+              ) -> dict[str, torch.Tensor]:
     """x_i ← Σ_j W_ij x_j for every tensor of a stacked ``[W, ...]``
-    dict; the matrix is cast to the tensors' dtype, as dopt does."""
+    dict; the matrix is cast to the tensors' dtype, as dopt does.  With
+    ``comm_dtype`` each tensor is narrowed to it, and the f32 matrix
+    contracts its f32 upcast in f32 before the cast to the tensor's
+    dtype (with bf16 storage and a bf16 wire this is another
+    arithmetic, not a no-op)."""
     out = {}
     for k, x in stacked.items():
-        w = w_matrix.to(x.device, x.dtype)
-        out[k] = (w @ x.reshape(x.shape[0], -1)).reshape(x.shape)
+        rows = x.reshape(x.shape[0], -1)
+        if comm_dtype is None:
+            y = w_matrix.to(x.device, x.dtype) @ rows
+        else:
+            y = (w_matrix.to(x.device, torch.float32)
+                 @ rows.to(comm_dtype).float()).to(x.dtype)
+        out[k] = y.reshape(x.shape)
     return out
 
 
@@ -49,12 +81,20 @@ def where_mask(mask: torch.Tensor, a: dict[str, torch.Tensor],
             for k, x in a.items()}
 
 
-def masked_average(stacked: dict[str, torch.Tensor],
-                   mask: torch.Tensor) -> dict[str, torch.Tensor]:
+def masked_average(stacked: dict[str, torch.Tensor], mask: torch.Tensor,
+                   comm_dtype: torch.dtype | None = None
+                   ) -> dict[str, torch.Tensor]:
     """theta ← Σ_i m_i x_i / max(Σ_i m_i, 1), a dict WITHOUT the worker
-    axis (reference ``average_weights`` with client sampling as data)."""
+    axis (reference ``average_weights`` with client sampling as data).
+    With ``comm_dtype`` the sum runs in f32, the one partial sum is
+    narrowed to the wire dtype and upcast, and the f32 divide is cast
+    to the tensor's dtype."""
     m = mask.float()
     denom = m.sum().clamp_min(1.0)
+    if comm_dtype is not None:
+        return {k: ((x.float() * _lane(m, x)).sum(0).to(comm_dtype).float()
+                    / denom).to(x.dtype)
+                for k, x in stacked.items()}
     return {k: (x * _lane(m, x).to(x.dtype)).sum(0) / denom.to(x.dtype)
             for k, x in stacked.items()}
 

@@ -570,15 +570,14 @@ def test_refusals_match_dopt(case):
 def test_federated_engine_refuses_faults_naming_its_slice():
     """The federated engine runs the fault model now; what it still
     refuses under faults names the slice that adds it: population mode
-    and the wire codecs."""
+    and the bucket codec (``cfg.comm``; ``comm_dtype`` runs since the
+    codecs slice)."""
     fed = _cfg(T).replace(gossip=None, federated=T.FederatedConfig(
         frac=0.5, local_ep=1, local_bs=16))
     for kw, slice_name in (
             (dict(faults=T.FaultConfig(crash=0.1), population=object()),
              "population"),
-            (dict(robust=T.RobustConfig(clip_radius=1.0),
-                  federated=dataclasses.replace(fed.federated,
-                                                comm_dtype="bfloat16")),
+            (dict(robust=T.RobustConfig(clip_radius=1.0), comm=object()),
              "codecs")):
         with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
             FederatedTrainer(fed.replace(**kw), device="cpu")
