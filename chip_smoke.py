@@ -205,6 +205,25 @@ also runs two small faulty configurations on the GPU against the CPU.
    14f the compressors' pieces (draw, select, scatter) and whole calls
    timed at 14a's and 14e's shapes beside their bytes bounds.
 
+15. scatter, shift and the bucket codec (``phase15``), f32 under the
+   deterministic mode unless said, kernel 1 on and the fused epilogue
+   off (dopt refuses it with scatter): 15a headline-dsgd-model1 with
+   ``update_sharding="scatter"`` (2 buckets), 2 rounds per-round and a
+   blocked run of 2 bit for bit, its History within the multi-round
+   bound of 14d's dense f32 run (one mix of the same inputs within 1e-6
+   of the dense mix; 15c and 15d likewise); 15b the q8 codec with no budget and the 6-worker
+   lossy-link budget (q4 everywhere), the exchange's time and share and
+   the plan's bytes; 15c the explicit shift path with scatter against
+   15a; 15d headline-fedavg-model1 at full width with the scatter reduce,
+   f32 (against 14d's) and ``comm.wire_dtype="bfloat16"``; 15e baseline5
+   with scatter and q8 in bf16 compute, one round (11 buckets, the
+   exchange's share, the peak); 15f the collectives on a world-size-1
+   NCCL group (``init_file_group``) equal to their group-None forms bit
+   for bit, the card's encodes equal to the CPU's, and the draw,
+   ``qint_encode`` and ``qint_decode`` timed against their bytes bound;
+   15g the q8 run blocked and killed-and-resumed, bit for bit with the
+   residuals.  Kernel 2 launches on no phase-15 path.
+
 Every profile records the device activity only (phase 6's
 ``profile_round``), and every synthetic set is made once and shared by
 the trainers that ask for it (from phase 4 on).  Every phase prints the
@@ -1504,6 +1523,7 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     torch.cuda.empty_cache()
 
     # -- 14d. the narrowed wire on both headlines, beside the f32 wire.
+    f32wire: dict[str, dict] = {}
     g32 = head.replace(gossip=rep(head.gossip, fused_update="off"))
     f32 = fhead.replace(federated=rep(fhead.federated, fused_update="off",
                                       compact=False))
@@ -1519,6 +1539,14 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
             if cls is FederatedTrainer and tr._use_compact():
                 fail("14d: the federated run left the full width")
             res[wire] = (tr.worker_params(), n / sum(walls))
+            if wire is None:
+                # Phase 15 holds the scatter path against this run.
+                f32wire[label] = {
+                    "rate": n / sum(walls),
+                    "rows": [dict(r) for r in tr.history.rows],
+                    "params": (tr.global_params()
+                               if cls is FederatedTrainer
+                               else tr.worker_params())}
             if wire:
                 launch[f"headline-{'dsgd' if sec == 'gossip' else 'fedavg'}"
                        f"-model1-wire-bf16"] = got
@@ -1626,7 +1654,449 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     print(f"14: phase 14 in {time.perf_counter() - t14:.1f} s")
-    return {"launch": launch, "rows": rows14}
+    return {"launch": launch, "rows": rows14, "f32wire": f32wire}
+
+
+def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
+    """Phase 15, the scatter path, the shift path and the bucket codec on
+    the card: f32 under the deterministic mode unless said.  ``kit`` holds
+    phase 3's ``flush`` buffer and phase 14d's f32-wire runs of both
+    headlines (``f32wire``: rate, History rows and params), which 15a and
+    15d are held against; ``ckdir`` takes 15g's checkpoint.  Returns each
+    path's launch counts (``launch``) for the kernels line."""
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dopt_torch.analysis.comm_bytes import lossy_budget_bytes, plan_bytes
+    from dopt_torch.config import CommConfig
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.ops import compression as C
+    from dopt_torch.ops.fused_update import (MAX_TENSORS, fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.parallel import collectives as P
+    from dopt_torch.parallel.mesh import WorkerGroup, init_file_group
+    from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
+                                     schedule_shift_decomposition)
+    from dopt_torch.utils import prng
+
+    t15 = time.perf_counter()
+    rep = dataclasses.replace
+    head = get_preset("headline-dsgd-model1")
+    fhead = get_preset("headline-fedavg-model1")
+    round0_only = 10 ** 9
+    launch: dict[str, dict] = {}
+    n = 2
+
+    def scatter(base, comm=None, **g):
+        """``base`` with the scatter path, kernel 1 on and the fused
+        epilogue off (dopt refuses it with scatter)."""
+        return base.replace(
+            optim=rep(base.optim, fused_update=True), comm=comm,
+            gossip=rep(base.gossip, fused_update="off",
+                       update_sharding="scatter", **g))
+
+    def full_state(tr) -> dict:
+        out = state(tr)
+        out["comm_residual"] = {str(i): r.cpu().numpy().copy()
+                                for i, r in enumerate(tr._comm_res)}
+        return out
+
+    def run15(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False):
+        """A fresh trainer (or ``tr``) runs n rounds, per-round (each
+        timed alone, the codec exchange timed inside it) or in one
+        blocked call, eval in round 0 only (none with ``skip_eval``: the
+        run starts at round 1).  The counts are set to 0 just before the
+        run and read just after; kernel 1 must launch every step and
+        kernel 2 never; the peak is over what was allocated before the
+        trainer."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        if tr is None:
+            tr = (GossipTrainer(cfg, device=dev, eval_every=round0_only)
+                  if cls is GossipTrainer else cls(cfg, device=dev))
+            if skip_eval:
+                tr.round = 1
+        built = time.perf_counter() - t
+        mix_s: list[float] = []
+        if block == 1 and getattr(tr, "_codec_on", False):
+            mix = tr._codec_mix
+
+            def timed_mix(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = mix(*a)
+                torch.cuda.synchronize()
+                mix_s.append(time.perf_counter() - t)
+                return out
+            tr._codec_mix = timed_mix
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(n if block == 1 else 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.run(rounds=1 if block == 1 else n, block=block)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        got = launch_counts()
+        tr.__dict__.pop("_codec_mix", None)
+        peak = torch.cuda.max_memory_allocated() - base
+        for row in tr.history.rows:
+            if not all(math.isfinite(v) for k, v in row.items()
+                       if k.endswith("loss")):
+                fail(f"15 {label}: non-finite loss in {row}")
+        tensors = len(getattr(tr, "_names", None) or tr.params)
+        want = {"fused_sgd_momentum": n * tr.steps_per_round
+                * -(-tensors // MAX_TENSORS), "fused_mix_sgd": 0}
+        if got != want:
+            fail(f"15 {label}: launches {got}, expected {want} (kernel 1 "
+                 "every step, kernel 2 never)")
+        print(f"15 {label}: built in {built:.2f} s; walls "
+              f"{[round(w, 4) for w in walls]} s; {n / sum(walls):.4f} "
+              f"rounds/s; codec exchange {[round(s, 4) for s in mix_s]} s "
+              f"a round; peak {peak} B over what was allocated before; "
+              f"launches {got}; {smi}")
+        return tr, got, walls, peak, mix_s
+
+    def bounded(label, want_rows, want_params, tr, keys, acc) -> float:
+        """The multi-round History bound (slice 1: LOSS_TOL, ACC_TOL) and
+        the params' max-relative distance after the run, printed: over
+        a full-width round's 316 steps a reassociated sum grows past
+        PARAM_REL_TOL (the one-mix checks hold the paths themselves)."""
+        for ra, rb in zip(want_rows, tr.history.rows, strict=True):
+            for k in keys:
+                if k in ra and abs(ra[k] - rb[k]) > LOSS_TOL:
+                    fail(f"{label}: {k} {ra[k]} vs {rb[k]}")
+            if acc in ra and abs(ra[acc] - rb[acc]) > ACC_TOL:
+                fail(f"{label}: {acc} {ra[acc]} vs {rb[acc]}")
+        got = (tr.global_params() if isinstance(tr, FederatedTrainer)
+               else tr.worker_params())
+        rel = max_rel(want_params, got)
+        if not math.isfinite(rel):
+            fail(f"{label}: params distance {rel}")
+        print(f"{label}: History within {LOSS_TOL}/{ACC_TOL}; params "
+              f"max-rel distance {rel:.3e} after {n} full-width rounds")
+        return rel
+
+    def one_mix(label, want, got) -> None:
+        """One mix of the same inputs on the card, two paths: within
+        1e-6 relative (f32 sums in another order)."""
+        rel = max(float((got[k].float() - v.float()).abs().max()
+                        / v.float().abs().max().clamp_min(1e-12))
+                  for k, v in want.items())
+        if not rel <= 1e-6:
+            fail(f"{label}: one mix differs by {rel:.3e} (limit 1e-6)")
+        print(f"{label}: one mix on the card within {rel:.3e} relative "
+              "(limit 1e-6)")
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x6 = {k: torch.randn(6, *s, device=dev, generator=gen)
+          for k, s in param_shapes("model1").items()}
+    w6 = torch.from_numpy(build_mixing_matrices(
+        "circle", "stochastic", 6, seed=head.seed).for_round(0).astype(
+            np.float32)).to(dev)
+    spec6 = P.make_update_shard_spec(x6)
+    ids6 = schedule_shift_decomposition(build_mixing_matrices(
+        "circle", "stochastic", 6, seed=head.seed))
+    c6 = torch.from_numpy(coeffs_for_matrix(w6.cpu().numpy(), ids6)).to(dev)
+    dense6 = P.mix_dense(x6, w6)
+    one_mix("15a scatter against the dense mix", dense6,
+            P.mix_update_scatter(x6, w6, None, spec6))
+    one_mix(f"15c scatter over shifts {ids6} against the dense mix", dense6,
+            P.mix_update_scatter(x6, c6, None, spec6, shift_ids=ids6))
+    x16 = {k: torch.randn(16, *s, device=dev, generator=gen)
+           for k, s in param_shapes("model1").items()}
+    m16 = (torch.arange(16, device=dev) % 2 == 0).float()
+    one_mix("15d scatter mean against the dense masked mean",
+            P.masked_average(x16, m16), P.masked_average_scatter(
+                x16, m16, None, P.make_update_shard_spec(x16)))
+    del x6, x16, dense6
+
+    def time_calls(fn, reps) -> float:
+        """CUDA-event median of ``reps`` cold-L2 calls (phase 14f's)."""
+        fn()
+        evs = []
+        for _ in range(reps):
+            kit.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            evs.append((a, b))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+    gkeys = ("avg_train_loss", "avg_test_loss")
+    fkeys = ("test_loss", "train_loss", "local_loss")
+    g14, f14 = kit.f32wire["gossip"], kit.f32wire["federated"]
+
+    # -- 15a. scatter on the gossip headline: 2 buckets, per-round and
+    # blocked, held against 14d's dense unfused f32 run.
+    a_cfg = scatter(head)
+    tr, got, walls, peak, _ = run15("15a headline scatter", GossipTrainer,
+                                    a_cfg, n)
+    widths = [b - a for a, b in zip(tr.scatter_spec.bounds,
+                                    tr.scatter_spec.bounds[1:])]
+    if widths != [1_048_576, 614_794]:
+        fail(f"15a: buckets {widths}, expected [1048576, 614794]")
+    launch["headline-dsgd-model1-scatter"] = got
+    a_rate = n / sum(walls)
+    bounded("15a scatter against 14d's dense unfused f32 run", g14["rows"],
+            g14["params"], tr, gkeys, "avg_test_acc")
+    print(f"15a scatter: {a_rate:.4f} rounds/s against 14d's dense f32 wire "
+          f"{g14['rate']:.4f} ({a_rate / g14['rate']:.4f}x); buckets "
+          f"{widths}; peak {peak} B; {smi}")
+    a_state = state(tr)
+    del tr
+    tr, got_b, walls_b, _, _ = run15("15a headline scatter, blocks of 2",
+                                     GossipTrainer, a_cfg, n, block=2)
+    same_state("15a scatter blocked, against per-round", a_state, state(tr))
+    if got_b != got:
+        fail(f"15a blocked launches {got_b} != per-round {got}")
+    print(f"15a blocked graphs {tr.graphs.captures}; "
+          f"{n / sum(walls_b):.4f} rounds/s")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15b. the bucket codec on the headline: q8 with no budget, and
+    # the lossy-link budget of 6 workers (unreachable: q4 everywhere).
+    dense = 4 * 1_663_370
+    budget = lossy_budget_bytes(dense, 6)
+    codec_cfgs = {
+        "q8": scatter(head, CommConfig(codec="qsgd")),
+        "q4": scatter(head, CommConfig(codec="qsgd",
+                                       byte_budget_mb=budget / (1 << 20)))}
+    b_res = {}
+    for name, cfg in codec_cfgs.items():
+        tr, got, walls, peak, mix_s = run15(f"15b codec {name}",
+                                            GossipTrainer, cfg, n)
+        plan = tr.codec_plan
+        if plan.kinds != (name, name):
+            fail(f"15b {name}: plan {plan.kinds}")
+        pb = plan_bytes(plan, tr.scatter_spec)
+        launch[f"headline-dsgd-model1-scatter-{name}"] = got
+        rate = n / sum(walls)
+        share = 100 * sum(mix_s) / sum(walls)
+        print(f"15b codec {name}: plan {pb['kinds']}, {pb['wire_bytes']} "
+              f"wire B a lane a round against {pb['dense_bytes']} dense "
+              f"({pb['compression']:.2f}x; budget "
+              f"{budget if name == 'q4' else 'none'} B); exchange "
+              f"{[round(s, 4) for s in mix_s]} s a round = {share:.2f}% of "
+              f"the walls; {rate:.4f} rounds/s against 15a's {a_rate:.4f}; "
+              "on one GPU no byte crosses a wire; " + smi)
+        b_res[name] = (full_state(tr), got, rate, share)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 15c. the explicit shift path with scatter, against 15a.
+    tr, got, walls, peak, _ = run15("15c headline scatter + shift",
+                                    GossipTrainer,
+                                    scatter(head, comm_impl="shift"), n)
+    if tr._shift_ids is None:
+        fail("15c: comm_impl='shift' did not take the shift path")
+    launch["headline-dsgd-model1-scatter-shift"] = got
+    bounded(f"15c shift {tr._shift_ids} against 15a", a_state["rows"],
+            a_state["params"], tr, gkeys, "avg_test_acc")
+    print(f"15c shift: {n / sum(walls):.4f} rounds/s against 15a's "
+          f"{a_rate:.4f}; {smi}")
+    del tr, a_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15d. the federated headline at full width with the scatter
+    # reduce, f32 and with comm.wire_dtype bfloat16.
+    fs = fhead.replace(federated=rep(fhead.federated, fused_update="off",
+                                     compact=False,
+                                     update_sharding="scatter"))
+    for wire in (None, "bfloat16"):
+        cfg = fs.replace(comm=None if wire is None
+                         else CommConfig(wire_dtype=wire))
+        tr, got, walls, peak, _ = run15(
+            f"15d fedavg headline scatter, wire {wire or 'float32'}",
+            FederatedTrainer, cfg, n)
+        if tr._use_compact():
+            fail("15d: the federated scatter run left the full width")
+        launch["headline-fedavg-model1-scatter"
+               + ("" if wire is None else "-wire-bf16")] = got
+        rate = n / sum(walls)
+        if wire is None:
+            bounded("15d fedavg scatter against 14d's f32 run",
+                    f14["rows"], f14["params"], tr, fkeys, "test_acc")
+        print(f"15d fedavg scatter wire {wire or 'float32'}: {rate:.4f} "
+              f"rounds/s against 14d's f32 wire {f14['rate']:.4f} "
+              f"({rate / f14['rate']:.4f}x); peak {peak} B; {smi}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 15e. the codec at its largest site: baseline5 (32 workers,
+    # ResNet-18, 11 buckets), q8, bf16 compute, one round with no eval.
+    b5 = get_preset("baseline5")
+    b5c = scatter(b5.replace(model=rep(b5.model, compute_dtype="bfloat16")),
+                  CommConfig(codec="qsgd"))
+    tr, got, walls, peak, mix_s = run15("15e baseline5 scatter q8, bf16 "
+                                        "compute (round 1)", GossipTrainer,
+                                        b5c, 1, skip_eval=True)
+    e_widths = [b - a for a, b in zip(tr.scatter_spec.bounds,
+                                      tr.scatter_spec.bounds[1:])]
+    if e_widths != [1_048_576] * 10 + [688_202]:
+        fail(f"15e: buckets {e_widths}")
+    launch["baseline5-scatter-q8"] = got
+    res_bytes = sum(r.numel() * 4 for r in tr._comm_res)
+    pb = plan_bytes(tr.codec_plan, tr.scatter_spec)
+    print(f"15e baseline5 codec: round {walls[0]:.3f} s, exchange "
+          f"{mix_s[0]:.3f} s = {100 * mix_s[0] / walls[0]:.1f}% of it; "
+          f"{len(e_widths)} buckets x {tr.num_workers} lanes = "
+          f"{tr.num_workers * sum(e_widths)} "
+          f"entries; residuals {res_bytes} B; plan {pb['wire_bytes']} B a "
+          f"lane against {pb['dense_bytes']} ({pb['compression']:.2f}x); "
+          f"peak {peak} B; {smi}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15f. the collectives alone: a world-size-1 NCCL group issues
+    # every collective, equal to the group-None forms bit for bit; the
+    # codec pieces timed against their bytes bound.
+    wg = init_file_group(ckdir, 0, 1, backend="nccl", num_workers=6)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(15)
+        for site, lanes, wd in (("15b", 6, (1_048_576, 614_794)),
+                                ("15e", 32, (1_048_576, 688_202))):
+            meter = collections.Counter()
+            wgs = WorkerGroup(size=1, rank=0, lanes=lanes, group=wg.group,
+                              meter=meter)
+            bk = [torch.randn(lanes, x, device=dev, generator=gen)
+                  for x in wd]
+            res = [0.01 * torch.randn_like(b) for b in bk]
+            w = torch.rand(lanes, lanes, device=dev, generator=gen)
+            w = w / w.sum(1, keepdim=True)
+            mask = (torch.arange(lanes, device=dev) % 3 != 1).float()
+            mix = build_mixing_matrices("circle", "stochastic", lanes)
+            ids = schedule_shift_decomposition(mix)
+            coeffs = torch.from_numpy(coeffs_for_matrix(
+                mix.for_round(0).astype(np.float32), ids)).to(dev)
+            spec = P.make_update_shard_spec({"x": torch.cat(bk, 1)},
+                                            bucket_bytes=4 << 20)
+            tree = {"x": torch.cat(bk, 1)}
+            plan = P.BucketCodecPlan(kinds=("q8", "q4"), chunk=1024,
+                                     dense_bytes=0, wire_bytes=0)
+            key = prng.fold_in(prng.jax_key(head.seed ^ 0xC0DEC,
+                                            device=dev), 1)
+            pairs = {
+                "mix_dense_scatter": (
+                    P.mix_dense_scatter(bk, w, wgs),
+                    P.mix_dense_scatter(bk, w, None)),
+                "mix_dense_scatter bf16": (
+                    P.mix_dense_scatter(bk, w, wgs, torch.bfloat16),
+                    P.mix_dense_scatter(bk, w, None, torch.bfloat16)),
+                "masked_average_scatter": (
+                    list(P.masked_average_scatter(
+                        tree, mask, wgs, spec).values()),
+                    list(P.masked_average_scatter(
+                        tree, mask, None, spec).values())),
+                "mix_shifts": (P.mix_shifts(bk, ids, coeffs, wgs),
+                               P.mix_shifts(bk, ids, coeffs, None)),
+                "mix_codec_gather": tuple(
+                    [*m, *r] for m, r in (
+                        P.mix_codec_gather(bk, res, w, wgs, plan, key),
+                        P.mix_codec_gather(bk, res, w, None, plan,
+                                           key)))}
+            for name, (a, b) in pairs.items():
+                for x, y in zip(a, b, strict=True):
+                    if not torch.equal(x, y):
+                        fail(f"15f {site} {name}: the NCCL group's result "
+                             "differs from the group-None form")
+            print(f"15f {site} ({lanes} lanes, buckets {list(wd)}): "
+                  f"{', '.join(pairs)} on a world-size-1 NCCL group equal "
+                  f"the group-None forms bit for bit; bytes handed to "
+                  f"torch.distributed {dict(sorted(meter.items()))}")
+            # The card's encodes against the CPU's on two lanes.
+            v = bk[0][:2] + res[0][:2]
+            for bits in (8, 4):
+                pg, sg = C.qint_encode(v, torch.arange(2, device=dev), key,
+                                       bits=bits)
+                pc, sc = C.qint_encode(v.cpu(), torch.arange(2), key.cpu(),
+                                       bits=bits)
+                if not (torch.equal(pg.cpu(), pc)
+                        and torch.equal(sg.cpu(), sc)):
+                    fail(f"15f {site}: the card's q{bits} encode differs "
+                         "from the CPU's")
+            print(f"15f {site}: the card's q8 and q4 encodes of two lanes "
+                  "equal the CPU's bit for bit")
+            for b, e in zip(bk, res):
+                elems = b.numel()
+                ids_ = torch.arange(lanes, device=dev)
+                nc = -(-b.shape[1] // 1024)
+                for bits in (8, 4):
+                    payload, scale = C.qint_encode(b + e, ids_, key,
+                                                   bits=bits)
+                    pieces = {
+                        "draw": (lambda: prng.uniform_many(
+                            C.lane_fold_keys(key, ids_), (nc, 1024)),
+                            4 * lanes * nc * 1024),
+                        "qint_encode": (lambda: C.qint_encode(
+                            b, ids_, key, bits=bits),
+                            elems * (4 + bits / 8) + 4 * lanes * nc),
+                        "qint_decode": (lambda: C.qint_decode(
+                            payload, scale, b.shape[1], bits=bits),
+                            elems * (4 + bits / 8) + 4 * lanes * nc)}
+                    for piece, (fn, nbytes) in pieces.items():
+                        if piece == "draw" and bits == 4:
+                            continue
+                        ms = time_calls(fn, 5)
+                        bound = 1e3 * nbytes / MEM_BYTES_PER_S
+                        print(f"15f {site} {piece}"
+                              f"{'' if piece == 'draw' else f' q{bits}'} at "
+                              f"[{lanes}, {b.shape[1]}]: {ms:.3f} ms (median "
+                              f"of 5 cold-L2 calls), bytes bound "
+                              f"{bound:.3f} ms ({int(nbytes)} B at 3.35 "
+                              f"TB/s; {100 * bound / ms:.1f}% of it); {smi}")
+            del bk, res, pairs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # -- 15g. the codec headline: blocked and killed-and-resumed against
+    # 15b's per-round q8 run, bit for bit, residuals included.
+    want, want_launch = b_res["q8"][0], b_res["q8"][1]
+    tr, got, _, _, _ = run15("15g codec q8, blocks of 2", GossipTrainer,
+                             codec_cfgs["q8"], n, block=2)
+    same_state("15g codec q8 blocked, against 15b", want, full_state(tr))
+    if got != want_launch:
+        fail(f"15g blocked launches {got} != {want_launch}")
+    del tr
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    victim = GossipTrainer(codec_cfgs["q8"], device=dev,
+                           eval_every=round0_only)
+    victim.run(rounds=1, checkpoint_every=1, checkpoint_path=ckdir / "codec")
+    del victim
+    resumed = GossipTrainer(codec_cfgs["q8"], device=dev,
+                            eval_every=round0_only)
+    resumed.restore(ckdir / "codec")
+    resumed.run(rounds=1)
+    torch.cuda.synchronize()
+    same_state("15g codec q8 killed after round 0 and resumed, against 15b",
+               want, full_state(resumed))
+    if launch_counts() != want_launch:
+        fail(f"15g resume: launches {launch_counts()} != {want_launch}")
+    del resumed, b_res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"15: phase 15 in {time.perf_counter() - t15:.1f} s")
+    return {"launch": launch}
 
 
 def main() -> None:
@@ -3053,6 +3523,15 @@ def main() -> None:
             flush=flush, rounds=rounds, gwall=gwall, fwall=fwall), ckdir)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 15")
+
+    # -- 15. scatter, shift and the bucket codec --------------------------
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        res15 = phase15(dev, smi, get_preset, types.SimpleNamespace(
+            flush=flush, f32wire=res14["f32wire"]), ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
     del flush
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
@@ -3132,11 +3611,26 @@ def main() -> None:
              "kernel 1 every step, kernel 2 never", k1f, None),
             ("baseline5-choco-randk", "baseline5 with choco rand-k 0.01, bf16 "
              "compute, the fused epilogue off: kernel 1 in 4 launches over "
-             "62 tensors a step, kernel 2 never", res13["site"]["k1"], None)):
+             "62 tensors a step, kernel 2 never", res13["site"]["k1"], None),
+            *((f"headline-dsgd-model1-scatter{s}", "headline-dsgd-model1 "
+               f"with update_sharding scatter{d} and the fused epilogue "
+               "off: kernel 1 every step, kernel 2 never", k1, None)
+              for s, d in (("", ""), ("-q8", ", the q8 bucket codec"),
+                           ("-q4", ", the q4 bucket codec (lossy-link "
+                            "budget)"), ("-shift", ", comm_impl shift"))),
+            *((f"headline-fedavg-model1-scatter{s}", "headline-fedavg-"
+               f"model1 with the scatter reduce{d} and the fused epilogue "
+               "off: 16 lanes, kernel 1 every step, kernel 2 never", k1f,
+               None) for s, d in (("", ""), ("-wire-bf16",
+                                             ", comm.wire_dtype bfloat16"))),
+            ("baseline5-scatter-q8", "baseline5 with scatter and the q8 "
+             "bucket codec, bf16 compute, the fused epilogue off: kernel 1 "
+             "in 4 launches over 62 tensors a step, kernel 2 never",
+             res13["site"]["k1"], None)):
         launched = {**slice_launch, **fault_launch,
                     "headline-fedavg-model1-faulty": fed11["launch"],
                     **obs12["launch"], "baseline5": res13["launch"],
-                    **res14["launch"]}[preset]
+                    **res14["launch"], **res15["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -27,6 +27,11 @@ and one-peer mixing and CHOCO-SGD with dopt's compressors (top-k,
 rand-k, QSGD; dopt's ``jax.random`` draws bit for bit); both engines
 narrow their consensus or aggregation wire (``comm_dtype``) and stream
 dopt's telemetry (``dopt_torch.obs``) with the on-card diagnostics.
+Both run dopt's ``update_sharding="scatter"``, and the gossip engine
+``comm_impl="shift"`` and the bucket codec (``CommConfig``: q8/q4 with
+error feedback), on one GPU; their collectives also run over a
+``torch.distributed`` group of several ranks
+(``dopt_torch.parallel``).
 """
 
 import os
@@ -38,13 +43,14 @@ import os
 # without it.  A value the caller set is kept.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
-                               FederatedConfig, GossipConfig, ModelConfig,
-                               OptimizerConfig, RobustConfig)
+from dopt_torch.config import (CommConfig, DataConfig, ExperimentConfig,
+                               FaultConfig, FederatedConfig, GossipConfig,
+                               ModelConfig, OptimizerConfig, RobustConfig)
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 from dopt_torch.presets import PRESETS, get_preset
 
 __all__ = [
+    "CommConfig",
     "DataConfig",
     "ExperimentConfig",
     "FaultConfig",

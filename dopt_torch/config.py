@@ -4,9 +4,9 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``OptimizerConfig``, ``FederatedConfig``, ``GossipConfig`` and
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
-packages.  Fields and sections of later slices (population, comm,
-seqlm, the mesh) exist with dopt's defaults: the trainers refuse any
-other value, naming the slice that adds it.
+packages.  Fields and sections of later slices (population, seqlm,
+a mesh of more than one GPU) exist with dopt's defaults: the trainers
+refuse any other value, naming the slice that adds it.
 """
 
 from __future__ import annotations
@@ -103,9 +103,13 @@ class FederatedConfig:
     # > 0: late updates (drop-policy stragglers, delayed uplinks) are
     # buffered and admitted d rounds later at weight staleness_decay**d.
     staleness_decay: float = 0.5
-    update_sharding: str = "off"    # "scatter": multi-GPU slice
+    update_sharding: str = "off"
+    # "scatter": the masked mean runs over flat buckets as a
+    # reduce-scatter, a shard divide and an all-gather
+    # (masked_average_scatter).
     update_bucket_mb: float = 4.0
-    # Per-worker payload bound of one flat bucket of the fused epilogue.
+    # Per-worker payload bound of one flat bucket of the scatter path and
+    # the fused epilogue.
     fused_update: str = "off"
     # "off" | "on".  "on" carries theta as the [W, ...] broadcast slab in
     # a flat bucket store and runs each round's masked mean + theta
@@ -135,7 +139,10 @@ class GossipConfig:
     # full — every worker evaluates the whole test split; sharded — each
     # evaluates its round-robin 1/W shard (the in-training metric only).
     mixing: str = "sync"
-    comm_impl: str = "auto"     # the single-device port always mixes dense
+    comm_impl: str = "auto"
+    # auto | dense | shift: "shift" mixes by the schedule's circulant
+    # diagonals (dopt_torch.parallel.collectives.mix_shifts); "auto"
+    # takes it only where a wire makes it win, so never on one GPU.
     block_rounds: int = 1
     # > 1: blocks of that many rounds, as FederatedConfig.block_rounds.
     faithful_bugs: bool = False   # fedlcon: one sweep, the reference's bug
@@ -152,8 +159,11 @@ class GossipConfig:
     comm_dtype: str | None = None
     correction: str = "none"    # "push_sum": ratio consensus (link path)
     update_sharding: str = "off"
+    # "scatter": the consensus mix runs over flat buckets as a
+    # reduce-scatter of f32 partial contractions (mix_update_scatter).
     update_bucket_mb: float = 4.0
-    # Per-worker payload bound of one flat bucket of the fused epilogue
+    # Per-worker payload bound of one flat bucket of the scatter path and
+    # the fused epilogue
     # (dopt_torch.parallel.collectives.make_update_shard_spec).
     fused_update: str = "off"
     # "off" | "on".  "on" carries (post-mix params q, displacement
@@ -310,6 +320,66 @@ class RobustConfig:
 
 
 @dataclass(frozen=True)
+class CommConfig:
+    """The per-bucket wire schedule of ``update_sharding="scatter"``
+    (dopt's ``CommConfig``), shared by both engines: which wire format
+    each flat bucket speaks.  ``make_codec_plan`` maps a byte budget
+    onto formats — the big buckets compress hardest (packed int8, or
+    nibble-packed int4, with per-chunk scales and error feedback), the
+    small ones stay exact — and ``link_byte_budget`` derives that budget
+    from the lossy-link fault model.  ``None`` on ExperimentConfig keeps
+    every path as it was."""
+
+    codec: str = "none"
+    # "none" | "qsgd": the per-bucket stochastic int8/int4 codec
+    # (dopt_torch.ops.compression.qint_encode).  The gossip engine
+    # carries the error-feedback residual ("comm_residual" in
+    # checkpoints); draws are per (round, bucket, global lane), so codec
+    # runs repeat, block and resume bit for bit.
+    wire_dtype: str | None = None
+    # Narrowing for the buckets the codec does not cover (the whole wire
+    # with codec="none"): None | "bfloat16" | "float16".
+    byte_budget_mb: float = 0.0
+    # Per-lane per-round wire budget in MiB.  0: every bucket of at
+    # least min_codec_bytes gets the codec at int8.  > 0: buckets
+    # escalate largest first (base -> q8 -> q4) until the plan fits.
+    min_codec_bytes: int = 4096
+    # Buckets whose per-lane f32 payload is below this keep the base
+    # wire format.
+    chunk: int = 1024
+    # Elements per f32 scale of the integer codec; even (int4 packs two
+    # levels a byte).
+    error_feedback: str = "on"
+    # "on" | "off": carry each bucket's quantization residual into the
+    # next round's encode; "off" drops it.
+
+    def __post_init__(self) -> None:
+        if self.codec not in ("none", "qsgd"):
+            raise ValueError(
+                f"unknown comm codec {self.codec!r}; one of none|qsgd")
+        if self.wire_dtype not in (None, "bfloat16", "float16"):
+            raise ValueError(
+                f"unknown comm wire_dtype {self.wire_dtype!r}; one of "
+                "bfloat16|float16 (or None for the leaf dtype)")
+        if self.byte_budget_mb < 0:
+            raise ValueError(
+                f"comm byte_budget_mb must be >= 0, got "
+                f"{self.byte_budget_mb}")
+        if self.min_codec_bytes < 0:
+            raise ValueError(
+                f"comm min_codec_bytes must be >= 0, got "
+                f"{self.min_codec_bytes}")
+        if self.chunk <= 0 or self.chunk % 2:
+            raise ValueError(
+                f"comm chunk must be a positive even count, got "
+                f"{self.chunk}")
+        if self.error_feedback not in ("on", "off"):
+            raise ValueError(
+                f"unknown comm error_feedback {self.error_feedback!r}; "
+                "one of on|off")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """Top-level experiment description (the notebook form cell, typed)."""
 
@@ -326,15 +396,19 @@ class ExperimentConfig:
     robust: RobustConfig | None = None
     # Clipped gossip and quarantine (gossip); the robust aggregators,
     # clip_radius and quarantine (federated).
+    comm: CommConfig | None = None
+    # The scatter path's per-bucket wire schedule (codec, wire dtype,
+    # byte budget); needs update_sharding="scatter".
     # Sections of later slices; the trainers refuse any that is set.
     seqlm: Any = None
     population: Any = None
-    comm: Any = None
     backend: str = "jax"
     # dopt's engine switch: "jax" is dopt's engine, which the port takes
     # to mean its own; "torch" (dopt's sequential CPU oracle) is refused.
-    mesh_devices: int | None = None   # > 1: scatter and multi-GPU slice
+    mesh_devices: int | None = None
     mesh_hosts: int | None = None
+    # GPUs the worker axis spreads over, and dopt's hybrid host axis:
+    # None or 1 is one GPU; more arrives with the multi-GPU engines.
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

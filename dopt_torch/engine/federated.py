@@ -33,6 +33,14 @@ compact mean has no cross-worker collective to narrow) and refuses an
 explicit ``compact=True``, the fused epilogue, the robust aggregators
 and the staleness buffer, in dopt's words.
 
+``federated.update_sharding="scatter"`` runs the masked mean over flat
+buckets (``masked_average_scatter``: the f32 masked partial sum, a
+reduce-scatter over the flat axis, the divide on the shard, one
+all-gather — on one GPU no collective is issued), at the full width;
+``comm.wire_dtype`` (``cfg.comm``, codec "none" only) narrows its
+partial sums.  It refuses the robust aggregators, the staleness buffer,
+``compact=True`` and the fused epilogue, in dopt's words.
+
 History rows are P1's: round, test_acc, test_loss (the global model on
 the test set, P1's summed loss), train_loss, train_acc (every client's
 own model on its own train split), local_loss (the survivors' mean
@@ -124,8 +132,10 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              flat_views,
                                              make_update_shard_spec,
                                              masked_average,
+                                             masked_average_scatter,
                                              mean_weight_matrix, where_mask,
                                              wire_dtype)
+from dopt_torch.parallel.mesh import make_worker_group
 from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
                                global_norm_f32, lane_sq_norms,
                                make_aggregator, masked_mean,
@@ -186,7 +196,46 @@ def validate_federated(cfg: ExperimentConfig) -> None:
             f"mean reduce; aggregator={aggregator!r} is a full-"
             "precision robust statistic — drop one of the two")
     if f.update_sharding == "scatter":
-        raise later("update_sharding='scatter'", "scatter and multi-GPU")
+        if aggregator != "mean":
+            raise ValueError(
+                "update_sharding='scatter' shards the masked-MEAN "
+                f"reduce; aggregator={aggregator!r} is a full-"
+                "precision robust statistic over whole updates — "
+                "drop one of the two")
+        if f.staleness_max > 0:
+            raise ValueError(
+                "update_sharding='scatter' does not compose with "
+                "staleness-aware aggregation (its decay-weighted "
+                "sum runs on the unsharded tree) — drop one of "
+                "the two")
+        if f.compact:
+            raise ValueError(
+                "update_sharding='scatter' is a full-width sharded "
+                "reduce; FederatedConfig.compact gathers m lanes "
+                "and has no cross-worker collective to shard — "
+                "drop one of the two")
+    comm = cfg.comm
+    if comm is not None:
+        if f.update_sharding != "scatter":
+            raise ValueError(
+                "the comm substrate schedule (ExperimentConfig.comm) "
+                "speaks the flat-bucket wire of "
+                "update_sharding='scatter'; set "
+                "federated.update_sharding='scatter' to arm it "
+                f"(got update_sharding={f.update_sharding!r})")
+        if comm.codec != "none":
+            raise ValueError(
+                f"comm.codec={comm.codec!r} needs a stable "
+                "per-lane error-feedback residual across rounds; "
+                "the federated round re-binds sampled clients onto "
+                "lanes, so run the codec on the gossip engine and "
+                "use comm.wire_dtype for federated wire narrowing")
+        if f.comm_dtype and comm.wire_dtype:
+            raise ValueError(
+                f"federated.comm_dtype={f.comm_dtype!r} and "
+                f"comm.wire_dtype={comm.wire_dtype!r} both name "
+                "a wire dtype; set exactly one (comm.wire_dtype is "
+                "the substrate-schedule spelling of the same knob)")
     if f.staleness_max < 0:
         raise ValueError("FederatedConfig.staleness_max must be >= 0")
     if not 0.0 < f.staleness_decay <= 1.0:
@@ -246,6 +295,12 @@ def validate_federated(cfg: ExperimentConfig) -> None:
                 "aware aggregation (the admit-weighted sum over the "
                 "late buffer is not a masked mean) — drop one of "
                 "the two")
+        if f.update_sharding == "scatter":
+            raise ValueError(
+                "update_sharding='scatter' already restructures the "
+                "aggregation hot path; fused_update='on' is the "
+                "single-device fusion of the same epilogue — drop "
+                "one of the two")
         if f.comm_dtype:
             raise ValueError(
                 "comm_dtype wire compression only applies to the "
@@ -387,6 +442,15 @@ class FederatedTrainer:
                       if f.algorithm in ("fedadmm", "scaffold") else None)
         self.c_global = zeros if f.algorithm == "scaffold" else None
         self._setup_faults(zeros)
+        # The scatter path's worker group (one rank, no wire) and flat
+        # bucket plan; comm.wire_dtype narrows its reduce.
+        self.group = make_worker_group(w)
+        self.scatter_spec = (make_update_shard_spec(
+            self.momentum, fold=self.group.size,
+            bucket_bytes=int(f.update_bucket_mb * (1 << 20)))
+            if f.update_sharding == "scatter" else None)
+        if cfg.comm is not None and cfg.comm.wire_dtype:
+            self._comm_dtype = wire_dtype(cfg.comm.wire_dtype)
 
         self._fused_on = f.fused_update == "on"
         self.fused_spec = None
@@ -523,8 +587,10 @@ class FederatedTrainer:
 
     def _use_compact(self) -> bool:
         # comm_dtype forces the full width: its narrowing acts on the
-        # masked-mean reduce, which the compact path does not run.
-        if self._fused_on or self._has_stale or self._comm_dtype is not None:
+        # masked-mean reduce, which the compact path does not run; so
+        # does the scatter path, a full-width reduce.
+        if (self._fused_on or self._has_stale or self._comm_dtype is not None
+                or self.scatter_spec is not None):
             return False
         if self._sampled_count() >= self.num_workers:
             return False
@@ -943,6 +1009,11 @@ class FederatedTrainer:
                     new_stale = where_mask(capture, p_t, self._stale_p)
                     for k, s in self._stale_p.items():
                         s.copy_(new_stale[k])
+                elif self.scatter_spec is not None:
+                    avg = masked_average_scatter(
+                        agg_in, agg, self.group, self.scatter_spec,
+                        comm_dtype=self._comm_dtype)
+                    alive = agg.sum() > 0
                 else:
                     avg = (masked_average(agg_in, agg, self._comm_dtype)
                            if self._agg_robust is None

@@ -43,7 +43,25 @@ previous round's entry state, x_i ← W_ii·x_i(t) + Σ_{j≠i} W_ij·x_j(t−1)
 with the previous state a carried buffer (``async_prev``, round −1's the
 shared init) written in place and checkpointed.  The one-peer
 exponential schedule (``topology="one_peer_exp"``) mixes on the dense
-path, as every schedule does on one GPU.
+path unless ``comm_impl="shift"`` asks for the shift path.
+
+The consensus wire (dopt :599-800), over a ``WorkerGroup``
+(``dopt_torch.parallel.mesh``) of one rank with no wire:
+
+* ``gossip.comm_impl="shift"`` mixes by the schedule's circulant
+  diagonals (``mix_shifts``; the round's ``[k, n]`` coefficient table is
+  device data); ``"auto"`` takes the shift path only where a wire makes
+  it win, which one GPU never does.
+* ``gossip.update_sharding="scatter"`` mixes flat buckets as f32 partial
+  contractions and a reduce-scatter (``mix_update_scatter``): W and the
+  sum stay f32 whatever the storage dtype.
+* ``cfg.comm`` (``CommConfig``, scatter only) schedules each bucket's
+  wire: ``wire_dtype`` narrowing, or with ``codec="qsgd"`` the q8/q4
+  integer codec with error feedback (``mix_codec_gather``).  The
+  residual is one ``[W, Fb]`` f32 buffer a bucket, written in place and
+  checkpointed as ``comm_residual``; the draws key on (round, bucket,
+  global lane) from ``key(seed ^ 0xC0DEC)``, with the round as device
+  data, so a captured round replays with the next round's draws.
 
 ``gossip.eval_mode="sharded"`` evaluates each worker on its round-robin
 1/W shard of the test set during training (``evaluate`` stays the full
@@ -137,7 +155,8 @@ import warnings
 import numpy as np
 import torch
 
-from dopt_torch.config import ExperimentConfig, FaultConfig, RobustConfig
+from dopt_torch.config import (CommConfig, ExperimentConfig, FaultConfig,
+                               RobustConfig)
 from dopt_torch.convert import dopt_flat_order, params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, sharded_eval_batches, upload)
@@ -154,17 +173,23 @@ from dopt_torch.obs.events import DIAG_GAUGES, finite_diag_gauges
 from dopt_torch.ops.compression import device_order, make_compressor
 from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import rounded
-from dopt_torch.parallel.collectives import (alloc_flat, flat_views,
-                                             make_update_shard_spec, mix_dense,
-                                             where_mask, wire_dtype)
+from dopt_torch.parallel.collectives import (alloc_flat, buckets_to_stacked,
+                                             flat_views, make_codec_plan,
+                                             make_update_shard_spec,
+                                             mix_codec_gather, mix_dense,
+                                             mix_shifts, mix_update_scatter,
+                                             shift_comm_lanes,
+                                             stacked_to_buckets, where_mask,
+                                             wire_dtype)
+from dopt_torch.parallel.mesh import make_worker_group
 from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
                                finite_lane_mask, lane_sq_norms,
                                validate_robust_config)
-from dopt_torch.topology import (build_mixing_matrices, push_sum_link_matrix,
-                                 random_matching_matrix, repair_for_dropout,
-                                 repair_for_dropout_torch,
+from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
+                                 push_sum_link_matrix, random_matching_matrix,
+                                 repair_for_dropout, repair_for_dropout_torch,
                                  repair_for_link_drop, repair_for_partition,
-                                 split_by_delay)
+                                 schedule_shift_decomposition, split_by_delay)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
                                          save_checkpoint)
 from dopt_torch.utils.metrics import History
@@ -204,13 +229,14 @@ def later(what: str, slice_name: str) -> ValueError:
 def validate_common(cfg: ExperimentConfig) -> None:
     """Refusals shared by both engines, each naming its later slice."""
     d, m = cfg.data, cfg.model
-    for section, cls in (("faults", FaultConfig), ("robust", RobustConfig)):
+    for section, cls in (("faults", FaultConfig), ("robust", RobustConfig),
+                         ("comm", CommConfig)):
         sec = getattr(cfg, section)
         if sec is not None and not isinstance(sec, cls):
             raise ValueError(f"cfg.{section} must be a dopt_torch.config."
                              f"{cls.__name__}, got {type(sec).__name__}")
     for section, slice_name in (("population", "population"),
-                                ("comm", "codecs"), ("seqlm", "seqlm")):
+                                ("seqlm", "seqlm")):
         if getattr(cfg, section) is not None:
             raise later(f"cfg.{section}", slice_name)
     if cfg.backend == "torch":
@@ -223,7 +249,7 @@ def validate_common(cfg: ExperimentConfig) -> None:
                          "'jax' selects the engine, here the port's own")
     for knob in ("mesh_devices", "mesh_hosts"):
         if getattr(cfg, knob) not in (None, 1):
-            raise later(f"{knob}={getattr(cfg, knob)}", "scatter and multi-GPU")
+            raise later(f"{knob}={getattr(cfg, knob)}", "multi-GPU engines")
     if m.stacked_impl == "vmap":
         raise ValueError(
             "stacked_impl='vmap' is dopt's oracle-parity mode (a vmapped "
@@ -275,13 +301,9 @@ def validate_slice(cfg: ExperimentConfig) -> None:
                          "sync|async")
     if g.prefetch not in ("off", "on"):
         raise ValueError(f"unknown prefetch {g.prefetch!r}; one of off|on")
-    if g.update_sharding != "off":
-        raise later(f"update_sharding={g.update_sharding!r}",
-                    "scatter and multi-GPU")
     validate_fault_model(cfg)
-    if g.comm_impl == "shift":
-        raise later("comm_impl='shift'", "scatter and multi-GPU")
     wire_dtype(g.comm_dtype)
+    validate_wire(cfg)
     if g.fused_update not in ("off", "on"):
         raise ValueError(f"unknown fused_update {g.fused_update!r}; "
                          "one of off|on")
@@ -295,6 +317,103 @@ def validate_slice(cfg: ExperimentConfig) -> None:
             "fuse (dsgd|gossip: fedlcon's eps sweeps re-enter the matrix, "
             "choco exchanges compressed deltas, nocons/centralized never "
             "mix)")
+
+
+def validate_wire(cfg: ExperimentConfig) -> None:
+    """dopt's refusals of the bucket wire, the shift path and the scatter
+    path (its gossip.py:607-669, :723-757, :834-840, :896-906), in
+    dopt's words; the robust and link refusals of ``comm_impl="shift"``
+    are ``validate_fault_model``'s."""
+    g, comm = cfg.gossip, cfg.comm
+    codec_on = comm is not None and comm.codec != "none"
+    if comm is not None:
+        if g.update_sharding != "scatter":
+            raise ValueError(
+                "the comm substrate schedule (ExperimentConfig.comm) "
+                "speaks the flat-bucket wire of "
+                "update_sharding='scatter'; set "
+                "gossip.update_sharding='scatter' to arm it (got "
+                f"update_sharding={g.update_sharding!r})")
+        if g.comm_dtype and comm.wire_dtype:
+            raise ValueError(
+                f"gossip.comm_dtype={g.comm_dtype!r} and "
+                f"comm.wire_dtype={comm.wire_dtype!r} both name "
+                "a wire dtype; set exactly one (comm.wire_dtype is "
+                "the substrate-schedule spelling of the same knob)")
+        if codec_on and g.algorithm not in ("dsgd", "gossip"):
+            raise ValueError(
+                f"comm.codec={comm.codec!r} carries a per-bucket "
+                "error-feedback residual across single-sweep "
+                "consensus rounds; use algorithm dsgd|gossip "
+                f"(got {g.algorithm!r}: fedlcon's eps sweeps would "
+                "re-encode mid-round, choco already quantizes its "
+                "own exchange, nocons|centralized|matching never "
+                "run the bucket wire)")
+        if codec_on and g.comm_impl == "shift":
+            raise ValueError(
+                "comm_impl='shift' ships circulant ppermute lanes; "
+                "the bucket codec speaks the gathered-bucket wire — "
+                "use comm_impl='auto'|'dense' with comm.codec")
+    if g.comm_impl not in ("auto", "dense", "shift"):
+        raise ValueError(
+            f"unknown comm_impl {g.comm_impl!r}; one of auto|dense|shift")
+    if g.update_sharding not in ("off", "scatter"):
+        raise ValueError(
+            f"unknown update_sharding {g.update_sharding!r}; "
+            "one of off|scatter")
+    robust_active, link_mode = fault_paths(cfg)
+    if g.update_sharding == "scatter":
+        if g.algorithm not in ("dsgd", "fedlcon", "gossip", "choco"):
+            raise ValueError(
+                "update_sharding='scatter' shards the consensus "
+                "mix; algorithm "
+                f"{g.algorithm!r} has no dense mixing step to "
+                "shard (dsgd|fedlcon|gossip|choco)")
+        if robust_active:
+            raise ValueError(
+                "update_sharding='scatter' does not compose with "
+                "the robust layer (corrupt faults / clip_radius / "
+                "quarantine run full-precision pairwise mixing on "
+                "the unsharded tree) — drop one of the two")
+        if link_mode:
+            raise ValueError(
+                "update_sharding='scatter' does not compose with "
+                "link faults / push-sum (the per-staleness "
+                "[D+1, n, n] contraction carries its own buffers) "
+                "— drop one of the two")
+        if g.mixing == "async":
+            raise ValueError(
+                "mixing='async' does not compose with "
+                "update_sharding='scatter' (the bucketed partial "
+                "contractions assume one source tree; the async "
+                "diag/off-diag split reads two) — drop one of "
+                "the two")
+    if g.fused_update == "on":
+        if g.update_sharding == "scatter":
+            raise ValueError(
+                "update_sharding='scatter' already restructures the "
+                "consensus/update hot path; fused_update='on' is "
+                "the single-device fusion of the same epilogue — "
+                "drop one of the two")
+        if g.comm_impl == "shift":
+            raise ValueError(
+                "comm_impl='shift' is incompatible with "
+                "fused_update='on': the fused epilogue is one dense "
+                "[n, n] contraction, and the ppermute shift "
+                "decomposition has no single-pass fused form")
+
+
+def fault_paths(cfg: ExperimentConfig) -> tuple[bool, bool]:
+    """Whether the gossip config takes the robust layer (corrupt faults,
+    clipped gossip, quarantine) and the lossy-link path (``msg_drop``/
+    ``msg_delay``, push-sum)."""
+    g, fc, rc = cfg.gossip, cfg.faults, cfg.robust
+    robust_active = ((fc is not None and fc.corrupt > 0)
+                     or (rc is not None and (rc.clip_radius > 0
+                                             or rc.quarantine_after > 0)))
+    link_mode = ((fc is not None and (fc.msg_drop > 0 or fc.msg_delay > 0))
+                 or g.correction == "push_sum")
+    return robust_active, link_mode
 
 
 def validate_fault_model(cfg: ExperimentConfig) -> None:
@@ -317,7 +436,7 @@ def validate_fault_model(cfg: ExperimentConfig) -> None:
     has_corrupt = fc is not None and fc.corrupt > 0
     clip_tau = rc.clip_radius if rc is not None else 0.0
     quarantine = rc is not None and rc.quarantine_after > 0
-    robust_active = has_corrupt or clip_tau > 0 or quarantine
+    robust_active, link_mode = fault_paths(cfg)
     if has_corrupt:
         if fc.corrupt_mode == "stale":
             raise ValueError(
@@ -342,8 +461,6 @@ def validate_fault_model(cfg: ExperimentConfig) -> None:
             "RobustConfig clip_radius/quarantine need a mixing algorithm "
             f"to act on (dsgd|fedlcon|gossip); {g.algorithm!r} never "
             "communicates")
-    has_link = fc is not None and (fc.msg_drop > 0 or fc.msg_delay > 0)
-    link_mode = has_link or g.correction == "push_sum"
     if link_mode:
         if g.algorithm not in ("dsgd", "gossip"):
             raise ValueError(
@@ -667,6 +784,7 @@ class GossipTrainer:
         self._comm_dtype = wire_dtype(g.comm_dtype)
         self._setup_faults(stacked)
         self._setup_choco(stacked)
+        self._setup_wire(stacked)
         # Async (staleness-1) mixing carries the previous round's entry
         # state; round −1's is the shared init, so async round 0 mixes
         # what sync round 0 mixes.
@@ -779,6 +897,64 @@ class GossipTrainer:
             {k: tuple(v.shape[1:]) for k, v in stacked.items()},
             input_shape=mc.input_shape), self.device)
         self.x_hat = {k: torch.zeros_like(v) for k, v in stacked.items()}
+
+    def _setup_wire(self, stacked: dict[str, torch.Tensor]) -> None:
+        """The consensus wire (dopt :599-800): the worker group (one rank,
+        no wire), ``comm.wire_dtype``, the shift set, the scatter spec,
+        the codec plan, and the codec's error-feedback residual — one
+        ``[W, Fb]`` f32 zero buffer a bucket (round −1's residual is
+        zero, so round 0 encodes v = x), written in place."""
+        cfg, g, w = self.cfg, self.cfg.gossip, self.num_workers
+        self.group = make_worker_group(w)
+        comm = cfg.comm
+        self._codec_on = comm is not None and comm.codec != "none"
+        if comm is not None and comm.wire_dtype:
+            self._comm_dtype = wire_dtype(comm.wire_dtype)
+        # dopt's path choice: the shift path only where it wins — a wire
+        # (more than one rank), a sparse shift set, and fewer shipped
+        # lanes than the dense gather's with a 2x margin.
+        self._shift_ids = None
+        if (g.comm_impl != "dense" and not self._robust_active
+                and not self._link_mode and not self._codec_on
+                and self.mixing is not None and (self._do_mix or self._choco)):
+            extra = (0,) if self.faults.affects_matrix else ()
+            ids = schedule_shift_decomposition(self.mixing, max_shifts=None,
+                                               extra_shifts=extra)
+            size = self.group.size
+            lanes = w // size
+            shipped = shift_comm_lanes(ids, lanes, size)
+            if g.comm_impl == "auto" and (
+                    size == 1 or len(ids) > max(3, w // 2)
+                    or (shipped > 3 and 2 * shipped > max(w - lanes, 1))):
+                ids = None
+            self._shift_ids = ids
+        elif g.comm_impl == "shift":
+            raise ValueError(
+                "comm_impl='shift' needs a mixing-schedule algorithm "
+                f"(dsgd|fedlcon|choco), not {g.algorithm!r}")
+        self.scatter_spec = None
+        if g.update_sharding == "scatter":
+            self.scatter_spec = make_update_shard_spec(
+                stacked, fold=self.group.size,
+                bucket_bytes=int(g.update_bucket_mb * (1 << 20)))
+        self.codec_plan = None
+        self._comm_res: list[torch.Tensor] = []
+        if comm is not None:
+            self.codec_plan = make_codec_plan(
+                self.scatter_spec, codec=comm.codec,
+                wire_dtype=comm.wire_dtype,
+                byte_budget=int(comm.byte_budget_mb * (1 << 20)),
+                min_codec_bytes=comm.min_codec_bytes, chunk=comm.chunk)
+        if self._codec_on:
+            self._comm_ef = comm.error_feedback == "on"
+            self._comm_key = jax_key(cfg.seed ^ 0xC0DEC, device=self.device)
+            # The codec's chunks and draws run over dopt's element order.
+            self._comm_order = device_order(dopt_flat_order(
+                {k: tuple(v.shape[1:]) for k, v in stacked.items()},
+                input_shape=cfg.model.input_shape), self.device)
+            b = self.scatter_spec.bounds
+            self._comm_res = [torch.zeros(w, hi - lo, device=self.device)
+                              for lo, hi in zip(b, b[1:])]
 
     # -- one round: host stage, device body -----------------------------
     def _matrix_for_round(self, t: int) -> np.ndarray:
@@ -906,17 +1082,22 @@ class GossipTrainer:
         ``cmask`` and, for the device quarantine, the round ``t``; each
         only where the configuration uses it."""
         out = {}
+        shift = self._shift_ids
         if self._link_mode:
             out["mats"] = arg.astype(np.float32)
         elif self._async:
             # The diag/off-diag split after every repair (dopt
             # :2144-2156): a departed lane's identity row becomes diag 1
             # and an all-zero off-diagonal row, a pure local step.
-            out["w"] = (arg * (1.0 - np.eye(self.num_workers))).astype(
+            w_off = (arg * (1.0 - np.eye(self.num_workers))).astype(
                 np.float32)
+            out["w"] = (w_off if shift is None
+                        else coeffs_for_matrix(w_off, shift))
             out["wdiag"] = np.diag(arg).astype(np.float32)
         elif self._do_mix or self._choco:
-            out["w"] = arg.astype(np.float32)
+            # The shift path takes the round's [k, n] coefficient table.
+            out["w"] = (arg.astype(np.float32) if shift is None
+                        else coeffs_for_matrix(arg.astype(np.float32), shift))
         if self._has_faults or self._fused_quar:
             out["alive"] = alive.astype(np.float32)
         if self._may_straggle:
@@ -924,7 +1105,7 @@ class GossipTrainer:
             out["limit"] = (limits.astype(np.int64) * per).astype(np.int32)
         if self._has_corrupt:
             out["cmask"] = cmask.astype(np.float32)
-        if self._fused_quar or self._choco:
+        if self._fused_quar or self._choco or self._codec_on:
             # Device data: a captured round replays with the next t.
             out["t"] = np.array([t], np.int32)
         return out
@@ -961,6 +1142,9 @@ class GossipTrainer:
             self._write_params(flat_views(self._q, self.fused_spec))
             return None
         params = self._param_dict()
+        if self._codec_on:
+            self._write_params(self._codec_mix(params, w_t, t))
+            return None
         if self._async:
             self._write_params(self._async_mix(params, w_t, wdiag))
             return None
@@ -970,7 +1154,7 @@ class GossipTrainer:
         if not self._robust_active:
             mixed = params
             for _ in range(self._sweeps):
-                mixed = mix_dense(mixed, w_t, self._comm_dtype)
+                mixed = self._mix_once(mixed, w_t)
             self._write_params(mixed)
             return None
         # A liar corrupts only what it broadcasts; its own state trains
@@ -992,6 +1176,39 @@ class GossipTrainer:
         self._write_params(mixed)
         return screened
 
+    def _mix_once(self, x: dict[str, torch.Tensor], arg: torch.Tensor
+                  ) -> dict[str, torch.Tensor]:
+        """One consensus sweep (dopt's ``mix_once``): ``arg`` is the
+        round's ``[n, n]`` matrix, or the ``[k, n]`` coefficient table on
+        the shift path; the scatter path mixes flat buckets."""
+        if self.scatter_spec is not None:
+            return mix_update_scatter(x, arg, self.group, self.scatter_spec,
+                                      shift_ids=self._shift_ids,
+                                      comm_dtype=self._comm_dtype)
+        if self._shift_ids is not None:
+            return mix_shifts(x, self._shift_ids, arg, self.group,
+                              self._comm_dtype)
+        return mix_dense(x, arg, self._comm_dtype)
+
+    def _codec_mix(self, params: dict[str, torch.Tensor], w_t: torch.Tensor,
+                   t: torch.Tensor) -> dict[str, torch.Tensor]:
+        """One compressed sweep over the flat buckets (dopt's
+        ``codec_mix``, :958-973): the key is ``fold_in(key(seed ^
+        0xC0DEC), t)`` with t on the device, bucket i folds i, each lane
+        its global id; the residuals take v − decode(encode(v)) in place
+        (zeros with ``error_feedback="off"``)."""
+        key = fold_in(self._comm_key, t)
+        buckets = stacked_to_buckets(params, self.scatter_spec,
+                                     self._comm_order)
+        mixed, new_res = mix_codec_gather(buckets, self._comm_res, w_t,
+                                          self.group, self.codec_plan, key)
+        for r, e in zip(self._comm_res, new_res):
+            if self._comm_ef:
+                r.copy_(e)
+            else:
+                r.zero_()
+        return buckets_to_stacked(mixed, self.scatter_spec, self._comm_order)
+
     def _async_mix(self, params: dict[str, torch.Tensor], w_off: torch.Tensor,
                    wdiag: torch.Tensor) -> dict[str, torch.Tensor]:
         """dopt's ``async_mix`` (:987-1006): the self-term reads the
@@ -999,7 +1216,7 @@ class GossipTrainer:
         state, d·p(t) + W_off·prev in f32, cast back to the storage
         dtype.  The mix reads the old prev before this round's entry is
         copied into it (in place: a captured graph holds addresses)."""
-        nb = mix_dense(self._async_prev, w_off, self._comm_dtype)
+        nb = self._mix_once(self._async_prev, w_off)
         mixed = {k: (wdiag.reshape((-1,) + (1,) * (p.dim() - 1)) * p.float()
                      + nb[k].float()).to(p.dtype)
                  for k, p in params.items()}
@@ -1022,7 +1239,7 @@ class GossipTrainer:
                                       for k, v in q.items()})
         for k, xh in self.x_hat.items():
             xh.add_(q[k])
-        mixed = mix_dense(self.x_hat, w_t, self._comm_dtype)
+        mixed = self._mix_once(self.x_hat, w_t)
         return {k: p + ((mixed[k] - self.x_hat[k]) * self._choco_gamma
                         ).to(p.dtype)
                 for k, p in params.items()}
@@ -1435,7 +1652,9 @@ class GossipTrainer:
         on the link path push-sum's ``push_mass``, the staleness buffer
         ``link_buf`` and the in-flight mass ``link_buf_mass``, under
         async mixing the previous round's state ``async_prev``, and
-        under choco the public copy ``x_hat``.  With telemetry attached
+        under choco the public copy ``x_hat``, and with the bucket codec
+        the per-bucket residuals ``comm_residual`` (``b0``, ``b1``, ...,
+        ``[W, Fb]`` f32 in dopt's element order).  With telemetry attached
         a ``checkpoint`` event follows the save."""
         arrays = {"momentum": dict(zip(self._names, self.momentum))}
         if self._fused_on:
@@ -1458,6 +1677,11 @@ class GossipTrainer:
             arrays["async_prev"] = self._async_prev
         if self._choco:
             arrays["x_hat"] = self.x_hat
+        if self._codec_on:
+            # The residual is carried state: a resumed codec run feeds
+            # back the quantization error the continuous run would.
+            arrays["comm_residual"] = {f"b{i}": r
+                                       for i, r in enumerate(self._comm_res)}
         meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
         meta["matching_rng_state"] = self._matching_rng.bit_generator.state
         with self.timers.phase("checkpoint"):
@@ -1495,6 +1719,20 @@ class GossipTrainer:
                 "— the checkpoint's 'params' are the post-mix state q, "
                 "not the post-local endpoint; restore with "
                 "fused_update='on'")
+        if self._codec_on and "comm_residual" not in arrays:
+            raise ValueError(
+                "comm.codec trainer requires its per-bucket "
+                "error-feedback residual ('comm_residual') in the "
+                "checkpoint — this checkpoint is from an "
+                "uncompressed run, whose rounds never accumulated "
+                "a quantization error to feed back")
+        if not self._codec_on and "comm_residual" in arrays:
+            raise ValueError(
+                "checkpoint carries a comm error-feedback residual "
+                "('comm_residual') but this trainer runs without the "
+                "bucket codec — the residual's pending correction "
+                "would be silently dropped; restore with the same "
+                "CommConfig codec armed")
         if self._async and "async_prev" not in arrays:
             raise ValueError(
                 "mixing='async' trainer requires its previous-round "
@@ -1512,6 +1750,9 @@ class GossipTrainer:
             copy_into(self._async_prev, tree["async_prev"], what="async_prev")
         if self._choco:
             copy_into(self.x_hat, tree["x_hat"], what="x_hat")
+        if self._codec_on:
+            copy_into({f"b{i}": r for i, r in enumerate(self._comm_res)},
+                      arrays["comm_residual"], what="comm_residual")
         copy_into(dict(zip(self._names, self.momentum)), tree["momentum"],
                   what="momentum")
         if self._fused_on:

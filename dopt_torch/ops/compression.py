@@ -1,4 +1,5 @@
-"""choco's compressors (dopt/ops/compression.py:49-160, :243-271).
+"""choco's compressors and the bucket wire's integer codec
+(dopt/ops/compression.py:49-271).
 
 CHOCO-SGD (``gossip.algorithm="choco"``) has each worker send a
 compressed difference ``Q(x_i − x̂_i)``.  ``Q`` acts per worker on every
@@ -30,8 +31,16 @@ an f32 sum whose order torch does not share with XLA, so a level near a
 rounding boundary may land one step away from dopt's (the tests state
 that bound).
 
+The scatter path's codec (``CommConfig(codec="qsgd")``) rounds each
+``[L, F]`` bucket slab stochastically to 8- or 4-bit levels with one f32
+scale per (lane, ``chunk`` elements): ``qint_encode`` returns the packed
+payload and the scales, the two tensors that cross the wire, and
+``qint_decode`` inverts them.  Lane i draws from ``fold_in(key, i)`` with
+i its GLOBAL lane id (``lane_fold_keys``), so a lane's bits do not
+depend on the rank that encodes it.
+
 All of this is stock torch on the tensors' device, with no host sync:
-a choco round captures into a CUDA graph.
+a choco or codec round captures into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from dopt_torch.utils.prng import fold_in, uniform
+from dopt_torch.utils.prng import fold_in, fold_in_many, uniform, uniform_many
 
 Order = dict[str, tuple[torch.Tensor, torch.Tensor] | None]
 COMPRESSORS = ("none", "topk", "randk", "qsgd")
@@ -170,6 +179,85 @@ def qsgd_compress(tree: dict[str, torch.Tensor], ratio: float,
         q = torch.where(norm > 0, q, 0.0).reshape(w, nb * b)[:, :n]
         out[name] = _back(q, maps, x).to(x.dtype)
     return out
+
+
+QINT_QMAX = {8: 127, 4: 7}
+
+
+def lane_fold_keys(key: torch.Tensor, lane_ids) -> torch.Tensor:
+    """``[L, 2]`` per-lane keys ``fold_in(key, global lane id)``."""
+    ids = torch.as_tensor(lane_ids, dtype=torch.int64, device=key.device)
+    return fold_in_many(key, ids)
+
+
+def _chunk_pad(f: int, chunk: int) -> tuple[int, int]:
+    nc = -(-f // chunk)
+    return nc, nc * chunk - f
+
+
+def qint_encode(v: torch.Tensor, lane_ids, key: torch.Tensor, *,
+                chunk: int = 1024, bits: int = 8
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Round an ``[L, F]`` slab stochastically to ``bits``-bit levels with
+    per-(lane, chunk) max-abs scales: ``(payload, scale)``.
+
+    * bits=8: ``payload`` int8 ``[L, Fp]``, levels in [-127, 127];
+    * bits=4: ``payload`` uint8 ``[L, Fp/2]``, two nibbles a byte, the
+      level biased by +8 into [1, 15], the even element in the low
+      nibble;
+
+    ``scale`` is f32 ``[L, Fp/chunk]`` and Fp is F rounded up to a chunk
+    multiple.  level = floor(v/scale + u), u ~ U[0, 1) from the lane's
+    key, so the rounding is unbiased."""
+    if bits not in QINT_QMAX:
+        raise ValueError(f"qint codec supports bits in {{8, 4}}, got {bits}")
+    if chunk % 2:
+        raise ValueError(f"qint chunk must be even, got {chunk}")
+    qmax = QINT_QMAX[bits]
+    lanes, f = v.shape
+    nc, pad = _chunk_pad(f, chunk)
+    vf = v.float()
+    if pad:
+        vf = torch.nn.functional.pad(vf, (0, pad))
+    bk = vf.reshape(lanes, nc, chunk)
+    # A true division, as XLA's: CUDA divides by a Python scalar through
+    # its reciprocal, which can differ from the quotient in the last bit.
+    scale = bk.abs().amax(2) / torch.full((), float(qmax), device=v.device)
+    safe = torch.where(scale > 0, scale, 1.0)
+    y = bk / safe[:, :, None]
+    u = uniform_many(lane_fold_keys(key, lane_ids), (nc, chunk))
+    lv = torch.clamp(torch.floor(y + u), -qmax, qmax).to(torch.int32)
+    lv = lv.reshape(lanes, nc * chunk)
+    if bits == 8:
+        return lv.to(torch.int8), scale
+    biased = (lv + 8).to(torch.uint8)
+    return biased[:, 0::2] | (biased[:, 1::2] << 4), scale
+
+
+def qint_decode(payload: torch.Tensor, scale: torch.Tensor, f: int, *,
+                chunk: int = 1024, bits: int = 8,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``qint_encode``'s inverse: levels · scale, cut to width ``f``.
+    The leading axis is whatever crossed the wire (L lanes or the n of
+    a gathered fleet)."""
+    rows = payload.shape[0]
+    if bits == 8:
+        lv = payload.float()
+    else:
+        lo = (payload & 0xF).to(torch.int32)
+        hi = ((payload >> 4) & 0xF).to(torch.int32)
+        lv = torch.stack([lo, hi], dim=-1).reshape(rows, -1).float() - 8.0
+    nc = scale.shape[-1]
+    safe = torch.where(scale > 0, scale, 1.0)
+    bk = lv.reshape(rows, nc, -1) * safe[:, :, None]
+    return bk.reshape(rows, -1)[:, :f].to(out_dtype)
+
+
+def qint_wire_bytes(f: int, *, chunk: int = 1024, bits: int = 8) -> int:
+    """Per-lane wire bytes of one encoded bucket: the packed levels and
+    the f32 scale sidecar."""
+    nc, pad = _chunk_pad(f, chunk)
+    return (f + pad) * bits // 8 + nc * 4
 
 
 def make_compressor(name: str, ratio: float, *, qsgd_levels: int = 0

@@ -10,6 +10,11 @@ The repairs (``repair_for_dropout`` and its device twin,
 ``push_sum_link_matrix``, ``split_by_delay``) are dopt's too: the fault
 model heals the mixing matrix as data each round.
 
+``shift_decomposition``, ``schedule_shift_decomposition`` and
+``coeffs_for_matrix`` cut a schedule into its circulant diagonals for
+the shift path (``comm_impl="shift"``): one static shift set for the
+run, and each round's ``[k, n]`` coefficients as data.
+
 Faithful-mode invariants (as in dopt): zero diagonal unless
 ``self_weight``; ``stochastic`` normalises columns then transposes;
 ``double_stochastic`` is Sinkhorn with the reference's star special case
@@ -236,6 +241,10 @@ class MixingMatrices:
     def for_round(self, t: int) -> np.ndarray:
         return self.matrices[t % len(self.matrices)]
 
+    @property
+    def n(self) -> int:
+        return self.matrices[0].shape[0]
+
 
 def build_mixing_matrices(
     topology: str,
@@ -306,6 +315,62 @@ def random_matching_matrix(n: int, rng: np.random.Generator) -> np.ndarray:
         i = perm[-1]
         w[i, i] = 1.0
     return w
+
+
+def shift_decomposition(w: np.ndarray, max_shifts: int | None = None
+                        ) -> list[tuple[int, np.ndarray]] | None:
+    """``[(shift, coeffs[n]), ...]`` with ``W[i, (i+shift) % n] ==
+    coeffs[i]`` covering every nonzero of ``w``, or None when there are
+    more than ``max_shifts`` nonzero diagonals."""
+    n = w.shape[0]
+    shifts: list[tuple[int, np.ndarray]] = []
+    for s in range(n):
+        coeffs = np.array([w[i, (i + s) % n] for i in range(n)])
+        if np.any(coeffs != 0):
+            shifts.append((s, coeffs))
+    if max_shifts is not None and len(shifts) > max_shifts:
+        return None
+    return shifts
+
+
+def schedule_shift_decomposition(
+    mixing: MixingMatrices,
+    *,
+    max_shifts: int | None = None,
+    extra_shifts: Sequence[int] = (),
+) -> tuple[int, ...] | None:
+    """The sorted union of the circulant shifts of every matrix of a
+    schedule (one static set for the run), with ``extra_shifts`` (mod n)
+    added — shift 0 where a dropout repair may add identity rows.  None
+    as soon as the union exceeds ``max_shifts``."""
+    n = mixing.n
+    ids: set[int] = {int(s) % n for s in extra_shifts}
+    for m in mixing.matrices:
+        dec = shift_decomposition(m)
+        assert dec is not None
+        ids.update(s for s, _ in dec)
+        if max_shifts is not None and len(ids) > max_shifts:
+            return None
+    out = tuple(sorted(ids))
+    if max_shifts is not None and len(out) > max_shifts:
+        return None
+    return out
+
+
+def coeffs_for_matrix(w: np.ndarray, shift_ids: Sequence[int]) -> np.ndarray:
+    """The ``[k, n]`` f32 table ``coeffs[k, i] = w[i, (i + shift_ids[k])
+    % n]``; raises where ``w`` has support outside the shift set."""
+    n = w.shape[0]
+    rows = np.arange(n)
+    coeffs = np.stack([w[rows, (rows + int(s)) % n] for s in shift_ids])
+    recon = np.zeros_like(w)
+    for k, s in enumerate(shift_ids):
+        recon[rows, (rows + int(s)) % n] = coeffs[k]
+    if not np.array_equal(recon, w):
+        raise ValueError(
+            f"matrix support is not covered by shifts {tuple(shift_ids)}"
+        )
+    return coeffs.astype(np.float32)
 
 
 def repair_for_dropout(w: np.ndarray, alive: np.ndarray) -> np.ndarray:

@@ -15,7 +15,9 @@ counter-based generator with a public algorithm.  ``jax_key``,
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``;
 * ``uniform(k, shape)`` runs threefry2x32 on each element's flat index
   as the counter pair (hi, lo), takes ``bits = x0 ^ x1`` and returns
-  ``bitcast_f32((bits >> 9) | 0x3F800000) − 1``, a float in [0, 1).
+  ``bitcast_f32((bits >> 9) | 0x3F800000) − 1``, a float in [0, 1);
+* ``fold_in_many`` and ``uniform_many`` are the same for a ``[L, 2]``
+  stack of keys at once (``jax.vmap`` of the two).
 
 A key is a ``[2]`` int64 tensor holding two 32-bit words.  The words are
 carried in int64 and masked to 32 bits after every add and shift,
@@ -97,6 +99,36 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.cat([x0, x1])
 
 
+def fold_in_many(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(lambda d: fold_in(key, d))(data)``: an ``[L, 2]`` stack
+    of keys from one key and an integer tensor of L elements."""
+    d = data.reshape(-1).to(device=key.device, dtype=torch.int64) & _M32
+    x0 = torch.zeros_like(d)
+    x0, x1 = threefry2x32(key[0:1], key[1:2], x0, d)
+    return torch.stack([x0, x1], dim=1)
+
+
+def _bits_to_uniform(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    bits = x0.bitwise_xor_(x1).bitwise_right_shift_(9).bitwise_or_(0x3F800000)
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_many(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.vmap(lambda k: uniform(k, shape))(keys)`` for an ``[L, 2]``
+    stack of keys: ``[L, *shape]`` f32 on the keys' device."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    lanes = keys.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    x0 = (idx >> 32).expand(lanes, n).contiguous()
+    x1 = (idx & _M32).expand(lanes, n).contiguous()
+    del idx
+    x0, x1 = threefry2x32(keys[:, 0:1], keys[:, 1:2], x0, x1)
+    return _bits_to_uniform(x0, x1).reshape((lanes,) + shape)
+
+
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: f32 in [0, 1), on ``device``
     (the key's when None)."""
@@ -111,5 +143,4 @@ def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     # flat index, then x0 ^ x1.
     idx = torch.arange(n, dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(key[0:1], key[1:2], idx >> 32, idx & _M32)
-    bits = x0.bitwise_xor_(x1).bitwise_right_shift_(9).bitwise_or_(0x3F800000)
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    return _bits_to_uniform(x0, x1).reshape(shape)

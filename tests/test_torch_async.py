@@ -260,18 +260,29 @@ def test_refusals_in_dopts_words(case, devices):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(mixing="async", update_sharding="scatter"),
-     "'scatter and multi-GPU' slice"),
-    (dict(mixing="async", comm_impl="shift"), "'scatter and multi-GPU'"),
+    # Since the scatter slice: dopt's own refusal of async with scatter,
+    # and async over an explicit shift path runs (match None).
+    pytest.param(dict(mixing="async", update_sharding="scatter"),
+                 "mixing='async' does not compose with "
+                 "update_sharding='scatter'",
+                 id="over0-'scatter and multi-GPU' slice"),
+    pytest.param(dict(mixing="async", comm_impl="shift"), None,
+                 id="over1-'scatter and multi-GPU'"),
 ])
 def test_multi_gpu_refusals_name_their_slice(over, match):
-    """The one-GPU port mixes dense: the scatter and shift paths stay
-    refused, naming the multi-GPU slice (``comm_impl='auto'`` is the
-    dense path)."""
-    with pytest.raises(ValueError, match=match):
-        GossipTrainer(_cfg(T, **over), device="cpu")
-    assert GossipTrainer(_cfg(T, mixing="async", comm_impl="auto"),
-                         device="cpu")._async
+    """Async with the scatter path is refused in dopt's words; async over
+    an explicit shift path mixes through the shift collectives; on one
+    GPU ``comm_impl='auto'`` is the dense path."""
+    if match is None:
+        tr = GossipTrainer(_cfg(T, **over), device="cpu")
+        assert tr._async and tr._shift_ids is not None
+        assert len(tr.run(rounds=1).rows) == 1
+    else:
+        with pytest.raises(ValueError, match=match):
+            GossipTrainer(_cfg(T, **over), device="cpu")
+    tr = GossipTrainer(_cfg(T, mixing="async", comm_impl="auto"),
+                       device="cpu")
+    assert tr._async and tr._shift_ids is None
 
 
 def _bench():

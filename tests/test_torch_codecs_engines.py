@@ -546,9 +546,16 @@ def test_refusals_in_dopts_words(case, devices):
 
 
 def test_cfg_comm_still_refused_for_the_bucket_codec():
+    """Since the scatter slice the bucket codec runs: ``cfg.comm`` takes a
+    ``CommConfig`` (on the scatter path) and refuses anything else."""
     cfg = _gcfg(T).replace(comm=object())
-    with pytest.raises(ValueError, match="'codecs' slice"):
+    with pytest.raises(ValueError, match="cfg.comm must be a dopt_torch"):
         GossipTrainer(cfg, device="cpu")
+    cfg = _gcfg(T, update_sharding="scatter").replace(
+        comm=T.CommConfig(codec="qsgd"))
+    tr = GossipTrainer(cfg, device="cpu")
+    assert tr.codec_plan.any_codec
+    assert len(tr.run(rounds=1).rows) == 1
 
 
 def test_unknown_wire_dtype_refused():

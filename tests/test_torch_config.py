@@ -75,8 +75,9 @@ BOTH = [
     # words (slice "dopt"), and the value runs on resnet18.
     ("model", "stage_sizes", (1, 1, 1, 1), "dopt"),
     (None, "seqlm", J.SeqLMConfig(), "seqlm"),
-    (None, "mesh_devices", 4, "scatter and multi-GPU"),
-    (None, "mesh_hosts", 2, "scatter and multi-GPU"),
+    # The scatter slice runs one GPU; more wait for the multi-GPU engines.
+    (None, "mesh_devices", 4, "multi-GPU engines"),
+    (None, "mesh_hosts", 2, "multi-GPU engines"),
 ]
 
 
@@ -156,6 +157,12 @@ def test_cli_set_of_an_unported_field_names_its_slice():
                  "1", "--set", "gossip.diagnostics=on", "--set",
                  "data.synthetic_train_size=160", "--set",
                  "data.synthetic_test_size=16"]) == 0
-    with pytest.raises(ValueError, match="'scatter and multi-GPU' slice"):
+    # Since the scatter slice --set gossip.update_sharding=scatter runs
+    # too; a mesh of more than one GPU is refused naming its slice.
+    assert main(["--preset", "baseline1", "--device", "cpu", "--rounds",
+                 "1", "--set", "gossip.update_sharding=scatter", "--set",
+                 "data.synthetic_train_size=160", "--set",
+                 "data.synthetic_test_size=16"]) == 0
+    with pytest.raises(ValueError, match="'multi-GPU engines' slice"):
         main(["--preset", "headline-dsgd-model1", "--device", "cpu",
-              "--set", "gossip.update_sharding=scatter"])
+              "--set", "mesh_devices=2"])

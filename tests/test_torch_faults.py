@@ -569,18 +569,20 @@ def test_refusals_match_dopt(case):
 
 def test_federated_engine_refuses_faults_naming_its_slice():
     """The federated engine runs the fault model now; what it still
-    refuses under faults names the slice that adds it: population mode
-    and the bucket codec (``cfg.comm``; ``comm_dtype`` runs since the
-    codecs slice)."""
+    refuses under faults names the slice that adds it: population mode.
+    ``cfg.comm`` (the scatter path's wire dtype) runs under the robust
+    layer's clip since the scatter slice."""
     fed = _cfg(T).replace(gossip=None, federated=T.FederatedConfig(
         frac=0.5, local_ep=1, local_bs=16))
-    for kw, slice_name in (
-            (dict(faults=T.FaultConfig(crash=0.1), population=object()),
-             "population"),
-            (dict(robust=T.RobustConfig(clip_radius=1.0), comm=object()),
-             "codecs")):
-        with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
-            FederatedTrainer(fed.replace(**kw), device="cpu")
+    with pytest.raises(ValueError, match="'population' slice"):
+        FederatedTrainer(fed.replace(faults=T.FaultConfig(crash=0.1),
+                                     population=object()), device="cpu")
+    scatter = fed.replace(federated=dataclasses.replace(
+        fed.federated, update_sharding="scatter"))
+    tr = FederatedTrainer(scatter.replace(
+        robust=T.RobustConfig(clip_radius=1.0),
+        comm=T.CommConfig(wire_dtype="bfloat16")), device="cpu")
+    assert len(tr.run(rounds=1).rows) == 1
 
 
 # -- presets and the CLI ------------------------------------------------------

@@ -250,7 +250,10 @@ def _opt(cfg, **kw):
     (lambda c: _fed(c, staleness_max=2, compact=True).replace(
         faults=T.FaultConfig(msg_delay=0.2, msg_delay_max=2)),
      "incompatible with staleness-aware aggregation"),
-    (lambda c: _fed(c, update_sharding="scatter"), "'scatter and multi-GPU'"),
+    # Lifted by the scatter slice: the scatter reduce now runs, and
+    # cfg.comm takes a CommConfig (match None).
+    pytest.param(lambda c: _fed(c, update_sharding="scatter"), None,
+                 id="<lambda>-'scatter and multi-GPU'"),
     # Lifted by the codecs slice: the narrowed wire now runs (match None).
     pytest.param(lambda c: _fed(c, comm_dtype="bfloat16"), None,
                  id="<lambda>-'codecs'0"),
@@ -272,7 +275,8 @@ def _opt(cfg, **kw):
         robust=T.RobustConfig(aggregator="median")),
      "only applies to the masked-mean"),
     (lambda c: c.replace(population=object()), "'population'"),
-    pytest.param(lambda c: c.replace(comm=object()), "'codecs'",
+    pytest.param(lambda c: c.replace(comm=object()),
+                 "cfg.comm must be a dopt_torch.config.CommConfig",
                  id="<lambda>-'codecs'1"),
     (lambda c: _fed(c, algorithm="scaffold", fused_update="on"),
      "companion state"),

@@ -148,11 +148,14 @@ def _replace(cfg, section, **kw):
     # (match None).
     pytest.param(lambda c: _replace(c, "gossip", algorithm="choco"), None,
                  id="<lambda>-codecs0"),
-    (lambda c: _replace(c, "gossip", update_sharding="scatter"),
-     "scatter and multi-GPU"),
+    # Lifted by the scatter slice: the scatter path and the shift path
+    # now run, and cfg.comm takes a CommConfig (match None).
+    pytest.param(lambda c: _replace(c, "gossip", update_sharding="scatter"),
+                 None, id="<lambda>-scatter and multi-GPU"),
     pytest.param(lambda c: _replace(c, "gossip", comm_dtype="bfloat16"),
                  None, id="<lambda>-codecs1"),
-    (lambda c: _replace(c, "gossip", comm_impl="shift"), "scatter"),
+    pytest.param(lambda c: _replace(c, "gossip", comm_impl="shift"), None,
+                 id="<lambda>-scatter"),
     # Lifted by the async slice: the option now runs (match None).
     pytest.param(lambda c: _replace(c, "gossip", mixing="async"), None,
                  id="<lambda>-async"),
@@ -170,7 +173,8 @@ def _replace(cfg, section, **kw):
     (lambda c: c.replace(faults=object()), "faults"),
     (lambda c: c.replace(robust=object()), "robust"),
     (lambda c: c.replace(population=object()), "population"),
-    pytest.param(lambda c: c.replace(comm=object()), "codecs",
+    pytest.param(lambda c: c.replace(comm=object()),
+                 "cfg.comm must be a dopt_torch.config.CommConfig",
                  id="<lambda>-codecs2"),
     (lambda c: c.replace(federated=object()), "federated engine"),
 ])
