@@ -224,6 +224,25 @@ also runs two small faulty configurations on the GPU against the CPU.
    15g the q8 run blocked and killed-and-resumed, bit for bit with the
    residuals.  Kernel 2 launches on no phase-15 path.
 
+16. the client population (``phase16``), f32 under the deterministic
+   mode, kernel 1 on and the fused epilogue off (dopt refuses it in
+   population mode): 16a ``baseline3-xclients`` at full width (1,000
+   clients, cohorts of 64, 16 lanes, 4 waves of 375 Model1 steps), 2
+   per-round rounds (walls, rate, peak, kernel 1 at 3,000 launches and
+   kernel 2 at none, the ``cohort`` rows); 16b the same with prefetch on
+   in a fresh trainer that restores 16a's round-0 checkpoint and runs
+   round 1: theta, the History, the ledger and the registry bit for bit
+   16a's, and round 2's inputs staged on the stager's thread equal to
+   the inline build; 16c a
+   host-only ``ClientRegistry`` draws 16a's cohorts (rows and state);
+   16d a faulted cohort of 16 (crash, over-selection, nan liars with the
+   client quarantine, churn), 2 rounds, its ledger and registry equal to
+   the host's recomputation and no benched client sampled in round 1;
+   16e the gossip binding on ``headline-dsgd-model1`` (600 clients,
+   cohorts of 6), per-round against one block of 2, bit for bit; 16f
+   the host side at 10,000 clients and cohorts of 256 (16 waves):
+   sample and bind, and the 16 wave plans, in ms.
+
 Every profile records the device activity only (phase 6's
 ``profile_round``), and every synthetic set is made once and shared by
 the trainers that ask for it (from phase 4 on).  Every phase prints the
@@ -2099,6 +2118,287 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     return {"launch": launch}
 
 
+def phase16(dev, smi: str, get_preset, ckdir: Path) -> dict:
+    """Phase 16, the client population on the card: f32 under the
+    deterministic mode, kernel 1 on, the fused epilogue off (dopt
+    refuses it in population mode).  No kernel is timed alone: the
+    kernels line takes phase 3's federated and gossip sites, whose
+    shapes these paths give kernel 1.  ``ckdir`` takes 16b's checkpoint.
+    Returns each path's launch counts (``launch``) for the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.config import FaultConfig, PopulationConfig, RobustConfig
+    from dopt_torch.data import PrefetchStager, ready
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.ops.fused_update import (MAX_TENSORS, fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.population import ClientRegistry
+
+    t16 = time.perf_counter()
+    rep = dataclasses.replace
+    launch: dict[str, dict] = {}
+    n = 2
+    xc = get_preset("baseline3-xclients")
+    xc = xc.replace(optim=rep(xc.optim, fused_update=True))
+
+    def pop_state(tr) -> dict:
+        """What a population run leaves behind, as host values: theta,
+        the History rows, the ledger (content and order) and the
+        registry's state."""
+        return {"theta": {k: v.copy() for k, v in
+                          tr.global_params().items()},
+                "rows": [dict(r) for r in tr.history.rows],
+                "ledger": [dict(r) for r in tr.history.faults],
+                "registry": [tr._registry.state_dict()]}
+
+    def k1_per_round(tr) -> int:
+        tensors = len(tr.params) if hasattr(tr, "params") else len(tr._names)
+        waves = tr._registry.waves if isinstance(tr, FederatedTrainer) else 1
+        return waves * tr.steps_per_round * -(-tensors // MAX_TENSORS)
+
+    def check_launches(label, tr, rounds) -> dict:
+        got = launch_counts()
+        want = {"fused_sgd_momentum": rounds * k1_per_round(tr),
+                "fused_mix_sgd": 0}
+        if got != want:
+            fail(f"16 {label}: launches {got}, expected {want} (kernel 1 "
+                 "every step of every wave, kernel 2 never)")
+        return got
+
+    # -- 16a. baseline3-xclients at full width: 1,000 clients, cohort 64,
+    # 16 lanes, 4 waves of 375 steps of Model1, 2 per-round rounds.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    tr = FederatedTrainer(xc, device=dev)
+    built = time.perf_counter() - t
+    reg = tr._registry
+    if (reg.clients, reg.cohort_size, reg.lanes, reg.waves) != (1000, 64,
+                                                                16, 4):
+        fail(f"16a: registry {reg.clients}/{reg.cohort_size}/{reg.lanes}/"
+             f"{reg.waves}, expected 1000/64/16/4")
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for r in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if r == 0:
+            tr.save(ckdir / "pop")   # for 16b, outside the timed round
+    got = check_launches("16a baseline3-xclients", tr, n)
+    if got["fused_sgd_momentum"] != 3000:
+        fail(f"16a: kernel 1 launched {got['fused_sgd_momentum']} times, "
+             "expected 3,000 (2 rounds x 4 waves x 375 steps)")
+    launch["baseline3-xclients"] = got
+    peak = torch.cuda.max_memory_allocated() - base
+    for row in tr.history.rows:
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"16a: non-finite History row {row}")
+        if row["cohort"] != 64 or row["population"] != 1000:
+            fail(f"16a: row {row} is not a full cohort of 64 of 1000")
+    cohort_rows = [r for r in tr.history.faults if r["kind"] == "cohort"]
+    if len(cohort_rows) != n or len(tr.history.faults) != n:
+        fail(f"16a: ledger {tr.history.faults}, expected one cohort row a "
+             "round")
+    want = pop_state(tr)
+    rate = n / sum(walls)
+    print(f"16a baseline3-xclients (1,000 clients, cohort 64, 16 lanes, 4 "
+          f"waves, Model1 f32): built in {built:.2f} s; round walls "
+          f"{[round(w, 3) for w in walls]} s; {rate:.4f} rounds/s; peak "
+          f"{peak} B over what was allocated before; launches {got}; "
+          f"{smi}")
+    print(f"16a cohort rows {cohort_rows}")
+    print(f"16a History {tr.history.rows}")
+    print(f"16a timers: {tr.timers.report()}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16b. prefetch on and resumed: a fresh trainer with prefetch on
+    # restores 16a's checkpoint of round 0 and runs round 1, bit for bit
+    # 16a; then round 2's inputs staged on the stager's thread (the side
+    # stream's upload) equal the inline build.
+    pcfg = xc.replace(federated=rep(xc.federated, prefetch="on"))
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    resumed = FederatedTrainer(pcfg, device=dev)
+    resumed.restore(ckdir / "pop")
+    if resumed.round != 1:
+        fail(f"16b: resumed at round {resumed.round}")
+    resumed.run(rounds=1)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t
+    same_state("16b prefetch on, restored from 16a's round-0 checkpoint, "
+               "round 1, against 16a", want, pop_state(resumed))
+    got_b = launch_counts()
+    if got_b != {"fused_sgd_momentum": k1_per_round(resumed),
+                 "fused_mix_sgd": 0}:
+        fail(f"16b: launches {got_b} for one round")
+    stager = PrefetchStager()
+    stager.stage(2, resumed._build_pop_round, resumed._draw_pop_round(2))
+    staged = ready(*stager.take(2)["dev"])
+    inline = ready(*resumed._build_pop_round(
+        resumed._draw_pop_round(2))["dev"])
+    for k, v in inline.items():
+        if not torch.equal(v, staged[k]):
+            fail(f"16b: round 2's staged {k} differs from the inline build")
+    print(f"16b: {wall_b:.2f} s for the restore and round 1; round 2's "
+          f"staged inputs ({', '.join(sorted(inline))}) equal the inline "
+          f"build; launches {got_b}; {smi}")
+    del resumed, staged, inline
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16c. the ledger against the host: a registry alone (no trainer)
+    # draws 16a's cohorts.
+    host = ClientRegistry(xc.population, num_shards=xc.data.num_users,
+                          seed=xc.seed)
+    rows = []
+    for t in range(n):
+        cohort = host.sample_cohort(t)
+        b = host.bind(t, cohort, cohort)
+        host.record_participation(t, b.survivors)
+        host.apply_screen_feedback(t, b.survivors,
+                                   np.zeros(len(b.survivors)), rows)
+        rows.append(b.ledger_row(host.clients))
+        if not (rows[-1]["action"].startswith("sampled_64_of_1000_")
+                and rows[-1]["action"].endswith("_waves_4")):
+            fail(f"16c: host row {rows[-1]}")
+    if rows != want["ledger"] or [host.state_dict()] != want["registry"]:
+        fail(f"16c: the host registry's rows {rows} or state differ from "
+             f"16a's {want['ledger']}")
+    print(f"16c: a host-only ClientRegistry draws 16a's cohorts: digests "
+          f"{[r['action'].split('_digest_')[1][:8] for r in rows]}; the "
+          "registry state equal")
+
+    # -- 16d. a faulted population round at cohort 16 (one wave): crash,
+    # over-selection, nan liars caught by the screen and quarantined,
+    # churn; then a second round that must not sample them.
+    fcfg = xc.replace(
+        population=PopulationConfig(clients=1000, cohort=16),
+        faults=FaultConfig(crash=0.1, over_select=0.5, corrupt=0.25,
+                           corrupt_mode="nan", churn=0.05, churn_span=2),
+        robust=RobustConfig(quarantine_after=1, quarantine_rounds=3))
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    tr = FederatedTrainer(fcfg, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.run(rounds=1)
+    reg = tr._registry
+    benched = np.nonzero(reg.quarantine_until > 1)[0]
+    tr.run(rounds=1)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t
+    got_d = check_launches("16d faulted cohort 16", tr, n)
+    if not len(benched):
+        fail("16d: no liar was screened and quarantined in round 0")
+    if (reg.last_sampled[benched] == 1).any():
+        fail(f"16d: quarantined clients {benched} were sampled in round 1")
+    for row in tr.history.rows:
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"16d: non-finite History row {row}")
+    # The host recomputation: the chain and the screen on the CPU side
+    # alone — a nan lie is always screened.
+    hostf = FederatedTrainer(fcfg, device="cpu")
+    ledger = []
+    for t in range(n):
+        b, _, _, r = hostf._cohort_participation(t)
+        hostf._registry.record_participation(t, b.survivors)
+        rf = hostf._registry.faults.for_round(t)
+        flags = rf.corrupt[b.survivors].astype(np.float32)
+        hostf._registry.apply_screen_feedback(t, b.survivors, flags, r)
+        ledger += r
+    if ledger != tr.history.faults:
+        fail(f"16d: ledger {tr.history.faults} != the host's {ledger}")
+    if hostf._registry.state_dict() != reg.state_dict():
+        fail("16d: the registry differs from the host's")
+    kinds = sorted({r["kind"] for r in ledger})
+    print(f"16d faulted cohort 16: {wall_d:.2f} s for 2 rounds; ledger of "
+          f"{len(ledger)} rows ({kinds}) equal to the host's; quarantined "
+          f"after round 0: {benched.tolist()}, none sampled in round 1; "
+          f"cohorts {[r['cohort'] for r in tr.history.rows]}; launches "
+          f"{got_d}; {smi}")
+    del tr, hostf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16e. the gossip binding on the gossip headline (fused epilogue
+    # off): 600 clients, cohorts of 6, per-round against one block of 2.
+    head = get_preset("headline-dsgd-model1")
+    gcfg = head.replace(
+        optim=rep(head.optim, fused_update=True),
+        gossip=rep(head.gossip, fused_update="off"),
+        population=PopulationConfig(clients=600, cohort=6))
+    g_res = {}
+    for block in (1, 2):
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = GossipTrainer(gcfg, device=dev, eval_every=10 ** 9)
+        walls = []
+        for _ in range(n if block == 1 else 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.run(rounds=1 if block == 1 else n, block=block)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        got = check_launches(f"16e gossip population block {block}", tr, n)
+        peak = torch.cuda.max_memory_allocated() - base
+        s = state(tr)
+        s["ledger"] = [dict(r) for r in tr.history.faults]
+        s["registry"] = [tr._registry.state_dict()]
+        g_res[block] = s
+        print(f"16e headline-dsgd-model1 + population 600/6, block {block}: "
+              f"walls {[round(w, 3) for w in walls]} s; "
+              f"{n / sum(walls):.4f} rounds/s; peak {peak} B; launches "
+              f"{got}; graphs {tr.graphs.captures}; cohort rows "
+              f"{s['ledger']}; {smi}")
+        launch["headline-dsgd-model1-population"] = got
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_state("16e gossip population blocked, against per-round", g_res[1],
+               g_res[2])
+    del g_res
+
+    # -- 16f. the host side at dopt's scale flag (--clients 10000 --cohort
+    # 256, 16 lanes): sample, bind and build the 16 wave plans of a round.
+    big = xc.replace(population=PopulationConfig(clients=10_000, cohort=256))
+    hostb = FederatedTrainer(big, device="cpu")
+    draws, builds = [], []
+    for t in range(3):
+        t0 = time.perf_counter()
+        meta = hostb._draw_pop_round(t)
+        t1 = time.perf_counter()
+        meta = hostb._build_pop_round(meta)
+        builds.append(1e3 * (time.perf_counter() - t1))
+        draws.append(1e3 * (t1 - t0))
+    shape = tuple(meta["dev"][0]["idx"].shape)
+    if shape != (16, 16, hostb.steps_per_round, 50):
+        fail(f"16f: plans {shape}")
+    print(f"16f host side at 10,000 clients, cohort 256, 16 lanes (16 "
+          f"waves, plans {shape}): sample + bind "
+          f"{[round(x, 2) for x in draws]} ms, the 16 wave plans "
+          f"{[round(x, 1) for x in builds]} ms a round (rounds 0-2; median "
+          f"{np.median(draws) + np.median(builds):.1f} ms); {smi}")
+    del hostb
+    gc.collect()
+    print(f"16: phase 16 in {time.perf_counter() - t16:.1f} s")
+    return {"launch": launch}
+
+
 def main() -> None:
     global T0
     T0 = time.perf_counter()
@@ -3532,6 +3832,14 @@ def main() -> None:
             flush=flush, f32wire=res14["f32wire"]), ckdir)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 16")
+
+    # -- 16. the client population ----------------------------------------
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        res16 = phase16(dev, smi, get_preset, ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
     del flush
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
@@ -3626,11 +3934,21 @@ def main() -> None:
             ("baseline5-scatter-q8", "baseline5 with scatter and the q8 "
              "bucket codec, bf16 compute, the fused epilogue off: kernel 1 "
              "in 4 launches over 62 tensors a step, kernel 2 never",
-             res13["site"]["k1"], None)):
+             res13["site"]["k1"], None),
+            ("baseline3-xclients", "baseline3-xclients with kernel 1: 1,000 "
+             "clients, cohorts of 64 in 4 waves of 16 Model1 lanes, kernel 1 "
+             "every step of every wave (the federated site's shapes), kernel "
+             "2 never (dopt refuses the fused epilogue in population mode)",
+             k1f, None),
+            ("headline-dsgd-model1-population", "headline-dsgd-model1 with "
+             "600 clients and cohorts of 6 bound onto its lanes, the fused "
+             "epilogue off: kernel 1 every step, kernel 2 never", k1,
+             None)):
         launched = {**slice_launch, **fault_launch,
                     "headline-fedavg-model1-faulty": fed11["launch"],
                     **obs12["launch"], "baseline5": res13["launch"],
-                    **res14["launch"], **res15["launch"]}[preset]
+                    **res14["launch"], **res15["launch"],
+                    **res16["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -31,7 +31,11 @@ Both run dopt's ``update_sharding="scatter"``, and the gossip engine
 ``comm_impl="shift"`` and the bucket codec (``CommConfig``: q8/q4 with
 error feedback), on one GPU; their collectives also run over a
 ``torch.distributed`` group of several ranks
-(``dopt_torch.parallel``).
+(``dopt_torch.parallel``).  Both run dopt's client population
+(``PopulationConfig``, ``dopt_torch.population``): cohorts sampled from
+a registry of up to thousands of clients, trained by the federated
+engine in waves of lanes with one reduce a round, and bound onto the
+gossip engine's lanes.
 """
 
 import os
@@ -45,7 +49,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from dopt_torch.config import (CommConfig, DataConfig, ExperimentConfig,
                                FaultConfig, FederatedConfig, GossipConfig,
-                               ModelConfig, OptimizerConfig, RobustConfig)
+                               ModelConfig, OptimizerConfig, PopulationConfig,
+                               RobustConfig)
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 from dopt_torch.presets import PRESETS, get_preset
 
@@ -58,6 +63,7 @@ __all__ = [
     "GossipConfig",
     "ModelConfig",
     "OptimizerConfig",
+    "PopulationConfig",
     "RobustConfig",
     "FederatedTrainer",
     "GossipTrainer",

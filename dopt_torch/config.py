@@ -4,9 +4,10 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``OptimizerConfig``, ``FederatedConfig``, ``GossipConfig`` and
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
-packages.  Fields and sections of later slices (population, seqlm,
-a mesh of more than one GPU) exist with dopt's defaults: the trainers
-refuse any other value, naming the slice that adds it.
+packages.  ``PopulationConfig`` is dopt's client population
+(``dopt_torch.population``).  Fields and sections of later slices
+(seqlm, a mesh of more than one GPU) exist with dopt's defaults: the
+trainers refuse any other value, naming the slice that adds it.
 """
 
 from __future__ import annotations
@@ -380,6 +381,30 @@ class CommConfig:
 
 
 @dataclass(frozen=True)
+class PopulationConfig:
+    """The client population (``dopt_torch.population``): each round a
+    seeded, stateless sampler draws ``cohort`` clients from the eligible
+    ones among ``clients`` host-side records, the cohort trains in
+    ceil(cohort / lanes) waves of fixed-width lanes (validity as data),
+    per-lane f32 partial sums accumulate across the waves and one
+    bucketed reduce forms the aggregate.  Per-client state (shard,
+    participation, staleness, screen streaks, quarantine) is keyed by
+    client id.  ``None`` on ExperimentConfig keeps every path as it
+    was."""
+
+    clients: int = 1000
+    # Population size P: the client records the registry holds.
+    cohort: int = 64
+    # Clients sampled a round (M); fewer when fewer are eligible — the
+    # cohort size is data (lane validity), never a shape.
+    seed: int | None = None
+    # Cohort-sampler seed; None = the experiment seed.  Draws are keyed
+    # by (seed, round) alone.
+    lanes: int | None = None
+    # Lane width of a wave; None = data.num_users (one lane a shard).
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """Top-level experiment description (the notebook form cell, typed)."""
 
@@ -399,9 +424,11 @@ class ExperimentConfig:
     comm: CommConfig | None = None
     # The scatter path's per-bucket wire schedule (codec, wire dtype,
     # byte budget); needs update_sharding="scatter".
-    # Sections of later slices; the trainers refuse any that is set.
+    population: PopulationConfig | None = None
+    # The client population: cohorts sampled from a client registry
+    # (federated: the wave loop; gossip: the cohort→lane binding).
+    # A section of a later slice; the trainers refuse it when set.
     seqlm: Any = None
-    population: Any = None
     backend: str = "jax"
     # dopt's engine switch: "jax" is dopt's engine, which the port takes
     # to mean its own; "torch" (dopt's sequential CPU oracle) is refused.

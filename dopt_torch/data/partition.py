@@ -94,6 +94,53 @@ def partition(labels: np.ndarray, num_users: int, *, iid: bool = True,
     return groups, matrix
 
 
+def assign_client_shards(population: int, num_shards: int, *,
+                         seed: int = 0,
+                         mode: str = "round_robin") -> np.ndarray:
+    """The client population's shard map (``dopt_torch.population``):
+    each of ``population`` client ids onto one of ``num_shards`` data
+    shards, as an int32 ``[population]`` vector.  'round_robin' gives
+    client c shard c % num_shards (the identity when the two counts are
+    equal, which makes the cohort-vs-flat comparison exact);
+    'random' permutes that assignment with a stream keyed by
+    (seed, 0x5A4D), still balanced to within one client a shard."""
+    if population < 1:
+        raise ValueError(f"population must be >= 1, got {population}")
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    base = (np.arange(population) % num_shards).astype(np.int32)
+    if mode == "round_robin":
+        return base
+    if mode == "random":
+        rng = np.random.default_rng(np.random.SeedSequence([seed, 0x5A4D]))
+        return base[rng.permutation(population)].astype(np.int32)
+    raise ValueError(
+        f"unknown client-shard assignment mode {mode!r}; "
+        "one of round_robin|random")
+
+
+def orphan_shard_adopters(assignment: np.ndarray, alive: np.ndarray,
+                          num_shards: int) -> dict[int, int]:
+    """Population churn's shard map: a shard whose assigned clients are
+    all away this round is adopted by the next shard id (mod S) that
+    still has an alive client (``reassign_shards`` then interleaves the
+    orphan's rows into the adopter's).  Empty when every shard, or none,
+    has an alive client."""
+    assignment = np.asarray(assignment)
+    alive = np.asarray(alive, bool)
+    covered = np.zeros(num_shards, bool)
+    np.logical_or.at(covered, assignment[alive], True)
+    if covered.all() or not covered.any():
+        return {}
+    out: dict[int, int] = {}
+    for s in np.nonzero(~covered)[0]:
+        a = (int(s) + 1) % num_shards
+        while not covered[a]:
+            a = (a + 1) % num_shards
+        out[int(s)] = a
+    return out
+
+
 def reassign_shards(index_matrix: np.ndarray,
                     adopters: dict[int, int]) -> np.ndarray:
     """Deterministic shard reassignment for elastic membership

@@ -32,31 +32,39 @@ class BatchPlan:
 def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
                     local_ep: int = 1, seed: int = 0, round_idx: int = 0,
                     workers: np.ndarray | None = None,
+                    rows: np.ndarray | None = None,
                     impl: str = "numpy") -> BatchPlan:
     """Build the shuffled batch plan for one round from the [W, L]
     per-worker index matrix; deterministic in (seed, round_idx, epoch,
     worker).  ``workers`` ([m] worker ids) plans only those rows, keyed
     by the TRUE worker id, so the [m, S, B] result is bit-identical to
-    those rows of the full plan (the compact federated path).
+    those rows of the full plan (the compact federated path).  ``rows``
+    ([m], needs ``workers``) decouples the gathered rows from the keys:
+    row ``rows[i]`` is shuffled under key ``workers[i]`` — the client
+    population binds client ids (the keys) onto their shards (the rows),
+    so two clients of one shard draw distinct batch streams.
     ``impl="native"`` fills the plan with the C++ planner (dopt's
     native plan bit for bit) and raises where it cannot be built: dopt
     falls back to numpy there, a different draw stream."""
     if impl not in ("numpy", "native"):
         raise ValueError(f"unknown plan_impl {impl!r}; one of numpy|native "
                          "(the native planner is the C++ one)")
-    if impl == "native":
-        from dopt_torch.native import fill_batch_plan_native
-
-        rows = (index_matrix if workers is None
-                else index_matrix[np.asarray(workers, dtype=np.int64)])
-        idx, weight = fill_batch_plan_native(
-            rows, batch_size=batch_size, local_ep=local_ep, seed=seed,
-            round_idx=round_idx, worker_ids=workers)
-        return BatchPlan(idx=idx, weight=weight)
+    if rows is not None and workers is None:
+        raise ValueError("make_batch_plan: rows= requires workers= "
+                         "(the RNG identity keys)")
     ids = (np.arange(index_matrix.shape[0]) if workers is None
            else np.asarray(workers, dtype=np.int64))
     if workers is not None:
-        index_matrix = index_matrix[ids]
+        index_matrix = index_matrix[ids if rows is None
+                                    else np.asarray(rows, dtype=np.int64)]
+    if impl == "native":
+        from dopt_torch.native import fill_batch_plan_native
+
+        idx, weight = fill_batch_plan_native(
+            index_matrix, batch_size=batch_size, local_ep=local_ep,
+            seed=seed, round_idx=round_idx,
+            worker_ids=None if workers is None else ids)
+        return BatchPlan(idx=idx, weight=weight)
     w, l = index_matrix.shape
     bs = min(batch_size, l)
     steps_per_epoch = -(-l // bs)

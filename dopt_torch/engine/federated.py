@@ -90,6 +90,22 @@ Telemetry and ``federated.diagnostics="on"`` as ``GossipTrainer``'s:
 the bundle after each round's fetch, the six gauges (the sixth the lane
 dispersion mean_i ||p_i − theta||) computed inside the round.
 
+Population mode (``cfg.population``, dopt :296-385, :1398-1500,
+:1841-2063): the clients are a host registry of P records
+(``dopt_torch.population.ClientRegistry``), not the lanes.  Each round
+samples a cohort from the eligible clients (stateless per (seed,
+round)), runs dopt's client-keyed participation chain
+(``_cohort_participation``), binds the survivors onto ceil(cohort /
+lanes) waves of ``population.lanes`` lanes, and trains the waves in
+order from theta with zero momentum (kernel 1 every step); each lane's
+f32 partial sum accumulates across the waves, the screened and padding
+lanes zeroed first, and one bucketed reduce (``masked_average_scatter``
+with the cohort weight as denominator) forms theta.  ``frac`` and
+``block`` do not apply; ``prefetch="on"`` stages the next round's draw
+and plans.  History rows gain dopt's ``cohort`` and ``population``
+columns (train_loss/train_acc are the cohort's local means), and the
+registry rides in the checkpoint (``population_registry``).
+
 The compact path pads the survivors to the static m lanes with a
 validity mask (``_fixed_width_sel``), so every faulted compact round has
 one shape.  Blocked runs with quarantine or staleness run the *chaos*
@@ -110,7 +126,8 @@ import numpy as np
 import torch
 
 from dopt_torch.config import ExperimentConfig
-from dopt_torch.data import make_batch_plan, stacked_eval_batches, upload
+from dopt_torch.data import (PrefetchStager, make_batch_plan, ready,
+                             stacked_eval_batches, upload)
 from dopt_torch.convert import port_layout
 from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
                                       checkpoint_meta, initial_params, later,
@@ -136,12 +153,15 @@ from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
                                              mean_weight_matrix, where_mask,
                                              wire_dtype)
 from dopt_torch.parallel.mesh import make_worker_group
+from dopt_torch.population import (ClientRegistry, population_gauges,
+                                   restore_registry,
+                                   validate_population_config)
 from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
                                global_norm_f32, lane_sq_norms,
                                make_aggregator, masked_mean,
                                validate_robust_config)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
-                                         save_checkpoint)
+                                         meta_expect, save_checkpoint)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import host_rng
 from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
@@ -326,6 +346,92 @@ def validate_federated(cfg: ExperimentConfig) -> None:
             "FederatedConfig.compact=True is incompatible with "
             "comm_dtype (the compact path has no cross-worker "
             "collective to compress)")
+    if cfg.population is not None:
+        validate_population_federated(cfg)
+
+
+def validate_population_federated(cfg: ExperimentConfig) -> None:
+    """dopt's refusals of population mode (dopt/engine/federated.py:
+    309-385, :412-428, :604-608), in dopt's words and order: a stateful
+    algorithm, the holdout, compact sampling, staleness, ``comm_dtype``,
+    scatter, a robust aggregator, a host axis, stale lies, lanes that
+    do not fold onto the ranks, diagnostics, prefetch with the client
+    quarantine and the fused epilogue."""
+    f, rc, pop = cfg.federated, cfg.robust, cfg.population
+    validate_population_config(pop)
+    aggregator = rc.aggregator if rc is not None else "mean"
+    has_corrupt = cfg.faults is not None and cfg.faults.corrupt > 0
+    if f.algorithm not in ("fedavg", "fedprox"):
+        raise ValueError(
+            "population mode needs a stateless-client algorithm "
+            f"(fedavg|fedprox): {f.algorithm!r} carries "
+            "per-client companion state no registry row can hold")
+    if cfg.data.local_holdout > 0:
+        raise ValueError(
+            "population mode is incompatible with the local "
+            "train/val holdout (per-epoch client history needs "
+            "persistent per-client state) — drop one of the two")
+    if f.compact:
+        raise ValueError(
+            "FederatedConfig.compact=True is incompatible with "
+            "population mode (the wave loop IS the compact "
+            "execution: fixed-width lanes, validity as data)")
+    if f.staleness_max > 0:
+        raise ValueError(
+            "population mode does not compose with staleness-"
+            "aware aggregation (the one-slot-per-WORKER buffer "
+            "has no per-client form) — drop one of the two")
+    if f.comm_dtype:
+        raise ValueError(
+            "population mode's hierarchical reduce is its own "
+            "wire path; comm_dtype applies to the plain masked-"
+            "mean reduce only — drop one of the two")
+    if f.update_sharding == "scatter":
+        raise ValueError(
+            "population mode always aggregates via the bucketed "
+            "scatter flat-tree path; keep update_sharding='off' "
+            "(the knob only retargets the lane engines)")
+    if aggregator != "mean":
+        raise ValueError(
+            "population mode streams per-wave partial SUMS; "
+            f"aggregator={aggregator!r} needs every update "
+            "materialised at once — drop one of the two")
+    if cfg.mesh_hosts:
+        raise ValueError(
+            "population mode runs its reduce over a flat 1-D "
+            "worker mesh; hybrid (hosts × ici) meshes are not "
+            "supported")
+    if has_corrupt and cfg.faults.corrupt_mode == "stale":
+        raise ValueError(
+            "corrupt_mode='stale' replays the worker's previous "
+            "update; population clients are stateless (no "
+            "previous update exists) — use nan|inf|scale|"
+            "signflip")
+    w = cfg.data.num_users
+    lanes = int(pop.lanes or w)
+    size = make_worker_group(lanes).size
+    if lanes % size or w % size:
+        raise ValueError(
+            f"population lanes={lanes} and data.num_users={w} "
+            f"must both divide the {size}-device mesh")
+    if f.diagnostics == "on":
+        raise ValueError(
+            "diagnostics='on' does not compose with population mode "
+            "(wave clients are stateless — there is no lane-carried "
+            "momentum/params for the convergence diagnostics to "
+            "measure) — drop one of the two")
+    if f.prefetch == "on" and rc is not None and rc.quarantine_after > 0:
+        raise ValueError(
+            "prefetch='on' does not compose with population-mode "
+            "client quarantine: round t+1's cohort eligibility "
+            "depends on round t's screen feedback, which only "
+            "exists after the fetch — drop one of the two")
+    if f.fused_update == "on":
+        raise ValueError(
+            "fused_update='on' does not compose with population "
+            "mode (waves accumulate into an f32 lane "
+            "accumulator, not a masked mean over the carried "
+            "slab) — drop one of the two")
 
 
 def round_diag(p_lanes: dict[str, torch.Tensor],
@@ -445,6 +551,7 @@ class FederatedTrainer:
         # The scatter path's worker group (one rank, no wire) and flat
         # bucket plan; comm.wire_dtype narrows its reduce.
         self.group = make_worker_group(w)
+        self._setup_population(p0)
         self.scatter_spec = (make_update_shard_spec(
             self.momentum, fold=self.group.size,
             bucket_bytes=int(f.update_bucket_mb * (1 << 20)))
@@ -506,7 +613,10 @@ class FederatedTrainer:
         self._agg_robust = (make_aggregator(
             aggregator, trim_frac=rc.trim_frac, krum_f=rc.krum_f,
             multi_krum_m=rc.multi_krum_m) if aggregator != "mean" else None)
-        self._quarantine_on = bool(rc is not None and rc.quarantine_after > 0)
+        # Population mode's quarantine is the registry's, keyed by
+        # client; the lane-keyed one stays off.
+        self._quarantine_on = bool(rc is not None and rc.quarantine_after > 0
+                                   and cfg.population is None)
         self._quarantine_after = rc.quarantine_after if rc else 0
         self._quarantine_rounds = rc.quarantine_rounds if rc else 0
         self._screen_streak = np.zeros(w, np.int64)
@@ -539,6 +649,29 @@ class FederatedTrainer:
                 [np.float32(float(f.staleness_decay) ** d)
                  for d in range(max(self._staleness_max, 1) + 1)],
                 dtype=torch.float32, device=dev)
+
+    def _setup_population(self, p0: dict[str, torch.Tensor]) -> None:
+        """Population mode (dopt :296-385, :502-515): the client registry
+        with its client-keyed fault plan and quarantine, the wave width
+        (``population.lanes``, default ``num_users``), the reduce's
+        worker group and the flat bucket plan of the f32 ``[lanes, ...]``
+        accumulator — the weighted sums accumulate at full precision
+        whatever ``param_dtype`` is."""
+        cfg, f = self.cfg, self.cfg.federated
+        self._registry = None
+        pop = cfg.population
+        if pop is None:
+            return
+        lanes = int(pop.lanes or self.num_workers)
+        self._registry = ClientRegistry(
+            pop, num_shards=self.num_workers, seed=cfg.seed,
+            faults=cfg.faults, robust=cfg.robust, lanes=lanes)
+        self._pop_group = make_worker_group(lanes)
+        self._pop_spec = make_update_shard_spec(
+            {k: torch.zeros((lanes,) + v.shape, dtype=torch.float32,
+                            device="meta") for k, v in p0.items()},
+            fold=self._pop_group.size,
+            bucket_bytes=int(f.update_bucket_mb * (1 << 20)))
 
     def _counters(self) -> list[torch.Tensor]:
         """The chaos round's device counters, in packing order."""
@@ -1339,6 +1472,242 @@ class FederatedTrainer:
         emit_device_resource(self, meta["ts"][-1], "chaos_block_fn"
                              if self._chaos else "block_fn")
 
+    # -- population mode (dopt :1398-1500, :1841-2063) -----------------
+    def _cohort_participation(self, t: int) -> tuple:
+        """Sample round t's cohort from the population and apply its
+        client-keyed faults (dopt's ``_cohort_participation``): returns
+        (the binding, the ``[K, lanes]`` straggler limits, the ``[K,
+        lanes]`` corrupt mask, the ledger rows).  Quarantine and churn
+        exclude clients at sampling (eligibility); then over the draw, in
+        draw order, crash > partition > ``drop`` straggler > uplink drop
+        > uplink delay (a delayed uplink is dropped: no staleness
+        buffer); the first m survivors stay and the surplus is released;
+        the ``cohort`` row goes in after the readmission and churn rows,
+        before the draw's rows; then the truncated stragglers and the
+        injected lies, in client order.  Stateless per (seed, round)
+        except the readmissions; participation is committed after the
+        round's fetch."""
+        reg = self._registry
+        rows = reg.begin_round(t)
+        away = reg.faults.away_for_round(t)
+        if reg.faults.has_churn:
+            rows.extend(reg.churn_ledger_rows(t, away))
+        eligible = ~(reg.quarantine_until > t) & ~away
+        c = reg.faults.cfg
+        m = reg.cohort_size
+        n_draw = m
+        if reg.faults.active and c.over_select > 0.0:
+            n_draw = int(np.ceil(m * (1.0 + c.over_select)))
+        cohort = reg.sample_cohort(t, n_draw=n_draw, eligible=eligible)
+        binding_row_at = len(rows)
+        rf = reg.faults.for_round(t)
+        limits_p = FaultPlan.limits_for(rf, self._straggle_units)
+        up_drop, up_delay = reg.faults.uplink_for_round(t)
+        drop_policy = c is not None and c.straggler_policy == "drop"
+        survivors: list[int] = []
+        for i in cohort:
+            i = int(i)
+            if rf.crashed[i]:
+                rows.append({"round": int(t), "worker": i, "kind": "crash",
+                             "action": "dropped_from_round"})
+            elif rf.partition is not None and rf.partition[i] != 0:
+                rows.append({
+                    "round": int(t), "worker": i, "kind": "partition",
+                    "action": f"unreachable_in_group_{int(rf.partition[i])}"})
+            elif rf.straggler[i] and drop_policy:
+                rows.append({
+                    "round": int(t), "worker": i, "kind": "straggler",
+                    "action": (f"deadline_dropped_after_{int(limits_p[i])}"
+                               f"_of_{self._straggle_units}")})
+            elif up_drop[i]:
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "msg_drop", "action": "uplink_dropped"})
+            elif up_delay[i] > 0:
+                rows.append({"round": int(t), "worker": i,
+                             "kind": "msg_delay",
+                             "action": f"uplink_dropped_stale_"
+                                       f"{int(up_delay[i])}"})
+            else:
+                survivors.append(i)
+        for i in survivors[m:]:
+            rows.append({"round": int(t), "worker": i, "kind": "overselect",
+                         "action": "released_surplus"})
+        survivors_a = np.asarray(survivors[:m], np.int64)
+        binding = reg.bind(t, cohort, survivors_a)
+        rows.insert(binding_row_at, binding.ledger_row(reg.clients))
+        if self._may_straggle:
+            for i in np.sort(survivors_a):
+                if rf.straggler[i]:
+                    rows.append({
+                        "round": int(t), "worker": int(i),
+                        "kind": "straggler",
+                        "action": (f"truncated_to_{int(limits_p[i])}"
+                                   f"_of_{self._straggle_units}")})
+        limits = limits_p[binding.lane_ids]
+        cmask = np.zeros((binding.waves, binding.lanes), np.float32)
+        if self._has_corrupt and rf.corrupt is not None:
+            cmask = (rf.corrupt[binding.lane_ids].astype(np.float32)
+                     * binding.valid)
+            mode = self.cfg.faults.corrupt_mode
+            for i in np.sort(survivors_a):
+                if rf.corrupt[i]:
+                    rows.append({"round": int(t), "worker": int(i),
+                                 "kind": "corrupt",
+                                 "action": f"injected_{mode}"})
+        return binding, limits, cmask, rows
+
+    def _draw_pop_round(self, t: int) -> dict:
+        """The stateful half of a population round's staging (the
+        participation chain, which reads and writes the registry): on
+        the caller's thread, in round order."""
+        binding, limits, cmask, rows = self._cohort_participation(t)
+        return {"t": t, "binding": binding, "rows": rows, "cmask": cmask,
+                "lim": limits}
+
+    def _build_pop_round(self, meta: dict) -> dict:
+        """The pure half: the K wave plans, keyed by client id and
+        gathering each client's shard (``rows=shard_of[ids]``), and the
+        round's device inputs, uploaded (safe on the stager's thread)."""
+        cfg, f, reg = self.cfg, self.cfg.federated, self._registry
+        t, binding = meta["t"], meta["binding"]
+        pm = reg.plan_matrix_for(t, self._train_matrix)
+        plans = [make_batch_plan(
+            pm, batch_size=f.local_bs, local_ep=f.local_ep, seed=cfg.seed,
+            round_idx=t, impl=cfg.data.plan_impl,
+            workers=binding.lane_ids[k],
+            rows=reg.shard_of[binding.lane_ids[k]])
+            for k in range(binding.waves)]
+        host = {"idx": np.stack([p.idx for p in plans]).astype(np.int64),
+                "bw": np.stack([p.weight for p in plans]),
+                "valid": binding.valid}
+        if self._may_straggle:
+            host["limit"] = self._limit_steps(meta["lim"])
+        if self._has_corrupt:
+            host["cmask"] = meta["cmask"]
+        meta["dev"] = upload(host, self.device)
+        return meta
+
+    def _pop_round(self, inp: dict[str, torch.Tensor]) -> torch.Tensor:
+        """One population round on the device (dopt's ``pop_round_fn``):
+        for each wave in order, theta into every lane with zero momentum,
+        the local phase (kernel 1 with ``optim.fused_update``), the
+        client-keyed lies, the screen times the validity mask, the ball
+        clip, then the screened and padding lanes ZEROED before the add
+        (a 0-weighted NaN still poisons a sum) into the per-lane f32
+        accumulator; then one bucketed reduce over the lanes with the
+        cohort weight as denominator (theta passes an empty round
+        through) and the global eval.  Returns the packed metrics:
+        [local loss, test acc, test loss, the cohort's train loss and
+        accuracy, the ``[K·lanes]`` screened flags]."""
+        reg, dev, fc = self._registry, self.device, self.cfg.faults
+        lanes = reg.lanes
+        theta = self.theta
+        acc = {k: torch.zeros((lanes,) + v.shape, dtype=torch.float32,
+                              device=dev) for k, v in theta.items()}
+        acc_w = torch.zeros(lanes, device=dev)
+        lsum = torch.zeros((), device=dev)
+        asum = torch.zeros((), device=dev)
+        screened = []
+        for k in range(reg.waves):
+            with torch.no_grad():
+                start = {n: v.requires_grad_(True)
+                         for n, v in _lanes(theta, lanes).items()}
+                moms = {n: torch.zeros_like(v) for n, v in start.items()}
+            losses, accs, _, _ = self._local(
+                theta, start, moms, None, inp["idx"][k], inp["bw"][k], None,
+                inp["limit"][k] if "limit" in inp else None)
+            with torch.no_grad():
+                p_t = {n: v.detach() for n, v in start.items()}
+                if "cmask" in inp:
+                    p_t = corrupt_update(p_t, inp["cmask"][k], fc.corrupt_mode,
+                                         fc.corrupt_scale, ref=theta,
+                                         prev=broadcast_to_workers(theta,
+                                                                   lanes))
+                fin_raw = finite_lane_mask(p_t)
+                fin = fin_raw * inp["valid"][k]
+                agg_in = (clip_to_ball(p_t, theta, self._clip)
+                          if self._clip > 0 else p_t)
+                zed = where_mask(fin, agg_in, {n: torch.zeros_like(v)
+                                               for n, v in agg_in.items()})
+                for n, a in acc.items():
+                    a.add_(zed[n].float())
+                acc_w += fin
+                lane_loss = losses.mean(1)
+                lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss,
+                                        0.0)
+                lane_acc = accs.mean(1)
+                lane_acc = torch.where(torch.isfinite(lane_acc), lane_acc, 0.0)
+                lsum = lsum + (lane_loss * fin).sum()
+                asum = asum + (lane_acc * fin).sum()
+                screened.append(inp["valid"][k] * (1.0 - fin_raw))
+        with torch.no_grad():
+            tot = acc_w.sum()
+            avg = masked_average_scatter(
+                acc, torch.ones(lanes, device=dev), self._pop_group,
+                self._pop_spec, denom=torch.where(tot > 0, tot, 1.0))
+            for n, v in theta.items():
+                v.copy_(torch.where(tot > 0, avg[n].to(v.dtype), v))
+            cnt = tot.clamp_min(1.0)
+            ev = self._global_eval()
+            parts = [lsum / cnt, ev["acc"], ev["loss_sum"], lsum / cnt,
+                     asum / cnt, torch.stack(screened)]
+            return torch.cat([x.reshape(-1).float() for x in parts])
+
+    def _record_pop(self, t: int, payload: dict, vals: np.ndarray) -> None:
+        """After round t's fetch — the commit: participation and the
+        screen feedback into the registry, the rows into the ledger, the
+        History row with dopt's ``cohort`` and ``population`` columns,
+        the telemetry."""
+        reg = self._registry
+        binding, rows = payload["binding"], payload["rows"]
+        ll, acc, loss_sum, t_loss, t_acc = (float(v) for v in vals[:5])
+        n = len(binding.survivors)
+        reg.record_participation(t, binding.survivors)
+        # The survivors hold the first n wave-major slots; the padding
+        # lanes' flags are discarded.
+        reg.apply_screen_feedback(t, binding.survivors, vals[5:][:n], rows)
+        self.history.faults.extend(rows)
+        self.history.append(round=t, test_acc=acc, test_loss=loss_sum,
+                            train_loss=t_loss, train_acc=t_acc,
+                            local_loss=ll, cohort=n, population=reg.clients)
+        self._round_telemetry(t, rows)
+
+    def _run_population(self, rounds: int, checkpoint_every: int,
+                        checkpoint_path) -> None:
+        """Population rounds, one at a time (dopt's ``_run_population``):
+        each is one device body and one fetch.  With ``prefetch="on"``
+        the loop runs dispatch → stage-next → fetch: round t+1's cohort
+        is drawn here and its plans built on the stager's thread while
+        round t runs; staging never crosses a scheduled checkpoint."""
+        stager = (PrefetchStager() if self.cfg.federated.prefetch == "on"
+                  else None)
+        try:
+            for r in range(rounds):
+                t = self.round
+                payload = stager.take(t) if stager is not None else None
+                if payload is None:
+                    with self.timers.phase("host_batch_plan"):
+                        payload = self._build_pop_round(
+                            self._draw_pop_round(t))
+                with self.timers.phase("round_step"):
+                    packed = self._pop_round(ready(*payload["dev"]))
+                    ckpt_next = (checkpoint_every
+                                 and (t + 1) % checkpoint_every == 0)
+                    if stager is not None and r + 1 < rounds \
+                            and not ckpt_next:
+                        with self.timers.phase("host_batch_plan"):
+                            meta = self._draw_pop_round(t + 1)
+                        stager.stage(t + 1, self._build_pop_round, meta)
+                    # ONE device→host fetch per round.
+                    vals = packed.cpu().numpy()
+                self._record_pop(t, payload, vals)
+                self.round += 1
+                if checkpoint_every and self.round % checkpoint_every == 0:
+                    self.save(checkpoint_path)
+        finally:
+            if stager is not None:
+                stager.discard()
+
     def run(self, rounds: int | None = None, block: int | None = None,
             checkpoint_every: int = 0, checkpoint_path=None) -> History:
         """Train ``rounds`` rounds (default ``cfg.federated.rounds``) at
@@ -1349,15 +1718,22 @@ class FederatedTrainer:
         whatever ``block`` says, as dopt's does (its gather depends on
         the quarantine state).  ``checkpoint_every``/``checkpoint_path``
         as ``GossipTrainer.run``: a killed run resumes bit for bit, the
-        client sample included."""
+        client sample included.  Population mode runs its rounds one at
+        a time through the wave loop, whatever ``frac`` and ``block``
+        say, as dopt's does."""
         f = self.cfg.federated
         rounds = f.rounds if rounds is None else rounds
         block = f.block_rounds if block is None else block
         check_checkpoint_args(checkpoint_every, checkpoint_path)
         t0 = time.perf_counter()
         with full_f32(self.device), deterministic(self.device):
-            if block > 1 and not (self._quarantine_on
-                                  and self._use_compact()):
+            if self._registry is not None:
+                # frac and block are the lane engines' knobs: the cohort
+                # comes from the registry, a round at a time.
+                self._run_population(rounds, checkpoint_every,
+                                     checkpoint_path)
+            elif block > 1 and not (self._quarantine_on
+                                    and self._use_compact()):
                 run_blocked(self, rounds, block, prefetch=f.prefetch == "on",
                             checkpoint_every=checkpoint_every,
                             checkpoint_path=checkpoint_path)
@@ -1404,6 +1780,8 @@ class FederatedTrainer:
         if self._has_stale:
             gauges["stale_pending"] = float((self._stale_weight > 0).sum())
             gauges["stale_weight_total"] = float(self._stale_weight.sum())
+        if self._registry is not None:
+            population_gauges(self._registry, t, gauges)
         tele.emit_round_bundle(t, engine=self.engine_kind,
                                metrics=self.history.rows[-1], faults=frows,
                                gauges=gauges)
@@ -1451,6 +1829,10 @@ class FederatedTrainer:
                     stale_weight=self._stale_weight.tolist(),
                     stale_origin=self._stale_origin.tolist(),
                     sample_rng_state=self._sample_rng.bit_generator.state)
+        if self._registry is not None:
+            # Everything but the stateless draws: with the round index,
+            # all a population run needs to resume bit for bit.
+            meta["population_registry"] = self._registry.state_dict()
         with self.timers.phase("checkpoint"):
             save_checkpoint(path, arrays=arrays, meta=meta)
         if self.telemetry is not None:
@@ -1520,6 +1902,9 @@ class FederatedTrainer:
         self._block_start()
         if meta.get("sample_rng_state"):
             self._sample_rng.bit_generator.state = meta["sample_rng_state"]
+        if self._registry is not None:
+            meta_expect(meta, what="population checkpoint", algorithm=algo)
+            restore_registry(self._registry, meta)
 
     # -- state ----------------------------------------------------------
     def _global_eval(self) -> dict[str, torch.Tensor]:

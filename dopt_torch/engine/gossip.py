@@ -63,6 +63,16 @@ The consensus wire (dopt :599-800), over a ``WorkerGroup``
   global lane) from ``key(seed ^ 0xC0DEC)``, with the round as device
   data, so a captured round replays with the next round's draws.
 
+Population mode (``cfg.population``, dopt :280-331, :2165-2189) binds a
+client cohort onto the lanes: each round ``num_users`` clients are
+sampled from the registry (``dopt_torch.population``) and lane i trains
+client c_i's shard under c_i's batch stream; the round's ``cohort`` row
+goes to the ledger and the participation to the registry at plan time,
+in round order (``_plan_inputs``; blocked runs bind in ``_draw_block``),
+so blocked ≡ per-round.  dopt's refusals hold (faults, the robust layer,
+the holdout, diagnostics, prefetch, the codec, async, the fused
+epilogue).
+
 ``gossip.eval_mode="sharded"`` evaluates each worker on its round-robin
 1/W shard of the test set during training (``evaluate`` stays the full
 test set, as dopt's).
@@ -156,7 +166,7 @@ import numpy as np
 import torch
 
 from dopt_torch.config import (CommConfig, ExperimentConfig, FaultConfig,
-                               RobustConfig)
+                               PopulationConfig, RobustConfig)
 from dopt_torch.convert import dopt_flat_order, params_from_jax, port_layout
 from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, sharded_eval_batches, upload)
@@ -182,6 +192,9 @@ from dopt_torch.parallel.collectives import (alloc_flat, buckets_to_stacked,
                                              stacked_to_buckets, where_mask,
                                              wire_dtype)
 from dopt_torch.parallel.mesh import make_worker_group
+from dopt_torch.population import (ClientRegistry, population_gauges,
+                                   restore_registry,
+                                   validate_population_config)
 from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
                                finite_lane_mask, lane_sq_norms,
                                validate_robust_config)
@@ -230,15 +243,14 @@ def validate_common(cfg: ExperimentConfig) -> None:
     """Refusals shared by both engines, each naming its later slice."""
     d, m = cfg.data, cfg.model
     for section, cls in (("faults", FaultConfig), ("robust", RobustConfig),
-                         ("comm", CommConfig)):
+                         ("comm", CommConfig),
+                         ("population", PopulationConfig)):
         sec = getattr(cfg, section)
         if sec is not None and not isinstance(sec, cls):
             raise ValueError(f"cfg.{section} must be a dopt_torch.config."
                              f"{cls.__name__}, got {type(sec).__name__}")
-    for section, slice_name in (("population", "population"),
-                                ("seqlm", "seqlm")):
-        if getattr(cfg, section) is not None:
-            raise later(f"cfg.{section}", slice_name)
+    if cfg.seqlm is not None:
+        raise later("cfg.seqlm", "seqlm")
     if cfg.backend == "torch":
         raise ValueError(
             "backend='torch' is dopt's sequential CPU oracle, which the port "
@@ -304,6 +316,8 @@ def validate_slice(cfg: ExperimentConfig) -> None:
     validate_fault_model(cfg)
     wire_dtype(g.comm_dtype)
     validate_wire(cfg)
+    if cfg.population is not None:
+        validate_population_gossip(cfg)
     if g.fused_update not in ("off", "on"):
         raise ValueError(f"unknown fused_update {g.fused_update!r}; "
                          "one of off|on")
@@ -317,6 +331,80 @@ def validate_slice(cfg: ExperimentConfig) -> None:
             "fuse (dsgd|gossip: fedlcon's eps sweeps re-enter the matrix, "
             "choco exchanges compressed deltas, nocons/centralized never "
             "mix)")
+
+
+def validate_population_gossip(cfg: ExperimentConfig) -> None:
+    """dopt's refusals of the gossip engine's population binding
+    (dopt/engine/gossip.py:292-375, :643-648, :841-845, :914-918), in
+    dopt's words: a cohort other than the fleet, another lane width,
+    faults or dropout, the robust layer, the holdout, diagnostics,
+    prefetch, the bucket codec, async mixing and the fused epilogue."""
+    g, pop, w = cfg.gossip, cfg.population, cfg.data.num_users
+    validate_population_config(pop)
+    if pop.cohort != w:
+        raise ValueError(
+            f"gossip population mode trains every lane every "
+            f"round: set cohort == data.num_users "
+            f"(cohort={pop.cohort}, num_users={w}); wave-looped "
+            "cohorts are a federated-engine feature")
+    if pop.lanes not in (None, w):
+        raise ValueError(
+            f"gossip population mode binds onto the fixed "
+            f"{w}-lane fleet; lanes={pop.lanes} is a federated-"
+            "engine knob")
+    if FaultPlan(w, cfg.faults, seed=cfg.seed).active or g.dropout > 0:
+        raise ValueError(
+            "gossip population mode does not compose with fault "
+            "injection (gossip fault identity is lane-keyed; a "
+            "per-round client rebinding would silently change "
+            "what 'worker i' means) — use the federated engine "
+            "for client-keyed faults")
+    if cfg.robust is not None and (cfg.robust.clip_radius > 0
+                                   or cfg.robust.quarantine_after > 0):
+        raise ValueError(
+            "gossip population mode does not compose with the "
+            "robust layer (screen/quarantine identity is lane-"
+            "keyed, and its ledger rows would interleave "
+            "differently under blocked execution) — the "
+            "federated engine is the client-keyed path")
+    if cfg.data.local_holdout > 0:
+        raise ValueError(
+            "gossip population mode is incompatible with the "
+            "local holdout (per-epoch client rows are lane-"
+            "keyed) — drop one of the two")
+    if g.diagnostics == "on":
+        raise ValueError(
+            "diagnostics='on' does not compose with population mode "
+            "(lanes rebind to a different client cohort every round, "
+            "so round-over-round lane diagnostics would mix cohort "
+            "resampling noise with actual contraction) — drop one of "
+            "the two")
+    if g.prefetch == "on":
+        raise ValueError(
+            "prefetch='on' does not compose with gossip population "
+            "mode (the cohort binding mutates the registry and "
+            "appends its ledger row at plan time, which a staged "
+            "build must not do) — the federated engine is the "
+            "prefetch-eligible population path")
+    if cfg.comm is not None and cfg.comm.codec != "none":
+        raise ValueError(
+            "comm.codec with population mode would hand lane "
+            "i's quantization residual to a different client "
+            "after a cohort rebinding; run the codec on the "
+            "classic worker==lane engines (population=None)")
+    if g.mixing == "async":
+        raise ValueError(
+            "mixing='async' does not compose with population "
+            "mode (a stale neighbor read would cross a cohort "
+            "rebinding — lane i's previous-round state belongs "
+            "to a different client) — drop one of the two")
+    if g.fused_update == "on":
+        raise ValueError(
+            "fused_update='on' does not compose with population "
+            "mode (the displacement buffer is lane state; a "
+            "per-round client rebinding would hand lane i's "
+            "displacement to a different client) — drop one of "
+            "the two")
 
 
 def validate_wire(cfg: ExperimentConfig) -> None:
@@ -740,6 +828,12 @@ class GossipTrainer:
         load_device_data(self, cfg, dev, local_bs=g.local_bs)
         self.steps_per_round = steps_per_round(self._train_matrix,
                                                g.local_bs, g.local_ep)
+        # The population binding (dopt :280-331): each round a cohort of
+        # num_users clients is sampled and bound onto the lanes, lane i
+        # training client c_i's shard under c_i's batch stream.
+        self._registry = (ClientRegistry(cfg.population, num_shards=w,
+                                         seed=cfg.seed, lanes=w)
+                          if cfg.population is not None else None)
         # Sharded eval: each worker's round-robin shard of the test rows,
         # gathered from the uploaded eval stack (its first n rows are the
         # test set in order).
@@ -1111,13 +1205,28 @@ class GossipTrainer:
         return out
 
     def _plan_inputs(self, t: int) -> dict[str, np.ndarray]:
-        """Round t's batch plan (pure): under churn a departed worker's
-        shard goes to its adopter for the round."""
-        g = self.cfg.gossip
+        """Round t's batch plan (dopt's ``_round_plan``): under churn a
+        departed worker's shard goes to its adopter for the round.  In
+        population mode the round's cohort is sampled and bound onto
+        the lanes — lane i trains client c_i's shard under c_i's batch
+        stream (dopt refuses faults there, so no shard is adopted) — and,
+        as side effects,
+        its participation is recorded and its ``cohort`` row appended to
+        the ledger; so this is pure only without a population, and a
+        blocked run calls it in ``_draw_block``, in round order."""
+        g, cfg, reg = self.cfg.gossip, self.cfg, self._registry
+        kw = {}
+        if reg is not None:
+            cohort = reg.sample_cohort(t)
+            binding = reg.bind(t, cohort, cohort)
+            ids = binding.lane_ids[0]
+            reg.record_participation(t, binding.survivors)
+            self.history.faults.append(binding.ledger_row(reg.clients))
+            kw = {"workers": ids, "rows": reg.shard_of[ids]}
         plan = make_batch_plan(
             self.faults.plan_matrix_for(t, self._train_matrix),
-            batch_size=g.local_bs, local_ep=g.local_ep, seed=self.cfg.seed,
-            round_idx=t, impl=self.cfg.data.plan_impl)
+            batch_size=g.local_bs, local_ep=g.local_ep, seed=cfg.seed,
+            round_idx=t, impl=cfg.data.plan_impl, **kw)
         return {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
 
     def _param_dict(self) -> dict[str, torch.Tensor]:
@@ -1504,6 +1613,9 @@ class GossipTrainer:
         ws = [self._matrix_for_round(t) for t in ts]
         meta = {"ts": ts, "kinds": [t % self.eval_every == 0 for t in ts],
                 "ws": ws}
+        if self._registry is not None:
+            # The cohort binding writes the registry and the ledger.
+            meta["plans"] = [self._plan_inputs(t) for t in ts]
         if self._fused_quar:
             meta["faults"] = [self._device_inputs(
                 t, *self._round_inputs_static(t, w_t))
@@ -1520,8 +1632,9 @@ class GossipTrainer:
         """The block's batch plans beside its drawn inputs, stacked and
         uploaded: pure, so the prefetch stager may run it on its
         background thread."""
-        rounds = [{**self._plan_inputs(t), **f}
-                  for t, f in zip(meta["ts"], meta["faults"])]
+        plans = meta.get("plans") or [self._plan_inputs(t)
+                                      for t in meta["ts"]]
+        rounds = [{**p, **f} for p, f in zip(plans, meta["faults"])]
         meta["dev"] = upload({k: np.stack([r[k] for r in rounds])
                               for k in rounds[0]}, self.device)
         return meta
@@ -1612,6 +1725,8 @@ class GossipTrainer:
                                                - quarantined)}
         if diag is not None:
             gauges.update(finite_diag_gauges(self._diag_keys, diag))
+        if self._registry is not None:
+            population_gauges(self._registry, t, gauges)
         tele.emit_round_bundle(t, engine=self.engine_kind,
                                metrics=self.history.rows[-1], faults=frows,
                                gauges=gauges)
@@ -1684,6 +1799,8 @@ class GossipTrainer:
                                        for i, r in enumerate(self._comm_res)}
         meta = checkpoint_meta(self, self.cfg.gossip.algorithm)
         meta["matching_rng_state"] = self._matching_rng.bit_generator.state
+        if self._registry is not None:
+            meta["population_registry"] = self._registry.state_dict()
         with self.timers.phase("checkpoint"):
             save_checkpoint(path, arrays=arrays, meta=meta)
         if self.telemetry is not None:
@@ -1802,6 +1919,8 @@ class GossipTrainer:
         if meta.get("matching_rng_state"):
             self._matching_rng.bit_generator.state = meta[
                 "matching_rng_state"]
+        if self._registry is not None:
+            restore_registry(self._registry, meta)
 
     # -- state ----------------------------------------------------------
     @torch.no_grad()

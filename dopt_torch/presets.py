@@ -42,7 +42,9 @@ staleness buffer); ``headline-fedavg-model1-faulty`` is the federated
 headline under ``baseline3-faulty``'s faults.  ``bench-topo-complete-sync``,
 ``bench-topo-one_peer_exp-sync`` and ``bench-topo-one_peer_exp-async`` are
 bench.py's topology-modes legs (dense, one-peer and async mixing at 32
-workers).
+workers).  ``baseline3-xclients`` is dopt's client-scale variant of
+``baseline3``: a 1,000-client population sampling a cohort of 64 a round
+onto the 16 shard lanes (4 waves, one reduce a round).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ import dataclasses
 
 from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
                                FederatedConfig, GossipConfig, ModelConfig,
-                               OptimizerConfig, RobustConfig)
+                               OptimizerConfig, PopulationConfig,
+                               RobustConfig)
 
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
 CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
@@ -326,6 +329,15 @@ def baseline_3_elastic() -> ExperimentConfig:
                            churn_span=3, crash=0.05))
 
 
+def baseline_3_xclients() -> ExperimentConfig:
+    """``baseline3`` with the worker == lane equation broken (dopt's
+    ``baseline3-xclients``): 1,000 clients, a cohort of 64 a round on the
+    16 shard lanes, 4 waves; scale it with ``--clients``/``--cohort``."""
+    return dataclasses.replace(
+        baseline_3_fedavg_noniid(), name="baseline3-fedavg-xclients-1k",
+        population=PopulationConfig(clients=1000, cohort=64))
+
+
 def headline_fedavg_model1_faulty() -> ExperimentConfig:
     """``headline-fedavg-model1`` (both fused switches on) under
     ``baseline3-faulty``'s fault config: kernel 1 gated by the straggler
@@ -385,6 +397,7 @@ PRESETS = {
     "baseline3-faulty": baseline_3_faulty,
     "baseline3-byzantine": baseline_3_byzantine,
     "baseline3-elastic": baseline_3_elastic,
+    "baseline3-xclients": baseline_3_xclients,
     "baseline1-faulty": baseline_1_faulty,
     "baseline1-byzantine": baseline_1_byzantine,
     "baseline1-lossy": baseline_1_lossy,

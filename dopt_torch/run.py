@@ -21,8 +21,10 @@ DIR`` writes a torch.profiler trace of the run (the counterpart of dopt's
 XLA trace).  Async mixing is ``--set gossip.mixing=async``, as in dopt.
 ``--num-users`` and ``--synthetic-scale`` resize the fleet and the
 synthetic sets after the overrides (dopt's order and floors), and
-``--timers`` prints the phase-timer report.  The config goes to stderr
-first as dopt's ``exp_details`` writes it.
+``--timers`` prints the phase-timer report.  ``--clients``, ``--cohort``
+and ``--cohort-seed`` install or resize the client population (dopt's
+flags and refusals).  The config goes to stderr first as dopt's
+``exp_details`` writes it.
 """
 
 from __future__ import annotations
@@ -129,6 +131,20 @@ def main(argv: list[str] | None = None) -> int:
                          "The gossip engine's defense is clipped gossip: "
                          "'--aggregator mean --set robust.clip_radius=R' "
                          "(the flag installs the robust section)")
+    ap.add_argument("--clients", type=int, default=None, metavar="N",
+                    help="client population registry: sample each round's "
+                         "cohort from N host-side client records instead "
+                         "of equating workers with lanes; the federated "
+                         "cohort trains in ceil(cohort/lanes) waves with "
+                         "one bucketed reduce a round.  Pair with "
+                         "--cohort/--cohort-seed; the lane width is --set "
+                         "population.lanes=W on a population preset")
+    ap.add_argument("--cohort", type=int, default=None, metavar="M",
+                    help="clients sampled per round (default 64; requires "
+                         "--clients or a population preset)")
+    ap.add_argument("--cohort-seed", type=int, default=None, metavar="S",
+                    help="cohort-sampler seed (default: the experiment "
+                         "seed); draws are stateless per (seed, round)")
     ap.add_argument("--faults-json", default=None, metavar="PATH",
                     help="write the run's fault ledger here as JSON")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -193,6 +209,28 @@ def main(argv: list[str] | None = None) -> int:
                 faults=parse_corrupt_spec(args.corrupt, base=cfg.faults))
         except ValueError as e:
             raise SystemExit(str(e))
+    if (args.clients is not None or args.cohort is not None
+            or args.cohort_seed is not None):
+        from dopt_torch.config import PopulationConfig
+        from dopt_torch.population import validate_population_config
+
+        base_pop = cfg.population
+        if args.clients is None and base_pop is None:
+            raise SystemExit("--cohort/--cohort-seed need --clients N (or "
+                             "a preset with a population section)")
+        pop_kw = {}
+        if args.clients is not None:
+            pop_kw["clients"] = args.clients
+        if args.cohort is not None:
+            pop_kw["cohort"] = args.cohort
+        if args.cohort_seed is not None:
+            pop_kw["seed"] = args.cohort_seed
+        pop = dataclasses.replace(base_pop or PopulationConfig(), **pop_kw)
+        try:
+            validate_population_config(pop)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        cfg = cfg.replace(population=pop)
     if args.diagnostics is not None:
         name = "federated" if cfg.federated is not None else "gossip"
         cfg = cfg.replace(**{name: dataclasses.replace(

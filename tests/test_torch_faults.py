@@ -568,15 +568,20 @@ def test_refusals_match_dopt(case):
 
 
 def test_federated_engine_refuses_faults_naming_its_slice():
-    """The federated engine runs the fault model now; what it still
-    refuses under faults names the slice that adds it: population mode.
-    ``cfg.comm`` (the scatter path's wire dtype) runs under the robust
-    layer's clip since the scatter slice."""
+    """The federated engine runs the fault model now, in population mode
+    too since the population slice; what it still refuses under faults
+    names the slice that adds it: more than one GPU.  ``cfg.comm`` (the
+    scatter path's wire dtype) runs under the robust layer's clip since
+    the scatter slice."""
     fed = _cfg(T).replace(gossip=None, federated=T.FederatedConfig(
         frac=0.5, local_ep=1, local_bs=16))
-    with pytest.raises(ValueError, match="'population' slice"):
+    with pytest.raises(ValueError, match="'multi-GPU engines' slice"):
         FederatedTrainer(fed.replace(faults=T.FaultConfig(crash=0.1),
-                                     population=object()), device="cpu")
+                                     mesh_devices=2), device="cpu")
+    pop = FederatedTrainer(fed.replace(
+        faults=T.FaultConfig(crash=0.1),
+        population=T.PopulationConfig(clients=20, cohort=6)), device="cpu")
+    assert len(pop.run(rounds=1).rows) == 1
     scatter = fed.replace(federated=dataclasses.replace(
         fed.federated, update_sharding="scatter"))
     tr = FederatedTrainer(scatter.replace(

@@ -269,12 +269,18 @@ def _opt(cfg, **kw):
         c.model, model="resnet18")), None, id="<lambda>-'ResNet-18'"),
     (lambda c: c.replace(faults=object()), "cfg.faults must be"),
     (lambda c: c.replace(robust=object()), "cfg.robust must be"),
-    (lambda c: c.replace(faults=T.FaultConfig(crash=0.1),
-                         population=object()), "'population' slice"),
+    # The population slice runs PopulationConfig; another object is
+    # refused by its type (the ids keep the old match strings).
+    pytest.param(lambda c: c.replace(faults=T.FaultConfig(crash=0.1),
+                                     population=object()),
+                 "cfg.population must be a dopt_torch.config."
+                 "PopulationConfig", id="<lambda>-'population' slice"),
     (lambda c: _fed(c, fused_update="on").replace(
         robust=T.RobustConfig(aggregator="median")),
      "only applies to the masked-mean"),
-    (lambda c: c.replace(population=object()), "'population'"),
+    pytest.param(lambda c: c.replace(population=object()),
+                 "cfg.population must be a dopt_torch.config."
+                 "PopulationConfig", id="<lambda>-'population'"),
     pytest.param(lambda c: c.replace(comm=object()),
                  "cfg.comm must be a dopt_torch.config.CommConfig",
                  id="<lambda>-'codecs'1"),

@@ -572,8 +572,12 @@ def test_compact_with_staleness_refused_as_dopt():
 
 
 def test_population_stays_refused_naming_its_slice():
+    """The population slice runs a ``PopulationConfig`` under faults
+    (tests/test_torch_population.py); any other object in the section
+    is refused by its type."""
     cfg = _cfg(T, faults=dict(crash=0.1)).replace(population=object())
-    with pytest.raises(ValueError, match="'population' slice"):
+    with pytest.raises(ValueError, match="cfg.population must be a "
+                                         "dopt_torch.config.PopulationConfig"):
         FederatedTrainer(cfg, device="cpu")
 
 
