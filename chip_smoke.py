@@ -243,6 +243,25 @@ also runs two small faulty configurations on the GPU against the CPU.
    the host side at 10,000 clients and cohorts of 256 (16 waves):
    sample and bind, and the 16 wave plans, in ms.
 
+17. the multi-GPU engines (``phase17``): the worker axis over 2 ranks,
+   spawned once (``phase17_rank``), f32 under the deterministic mode,
+   kernel 1 on and the fused epilogue off (dopt refuses it on a
+   multi-device mesh).  On one card the ranks share it over host-staged
+   gloo: 17a ``headline-dsgd-model1`` (3 lanes a rank; dopt's 'auto'
+   rule takes the shift path) and 17b ``headline-fedavg-model1`` (8
+   lanes a rank, full width), 2 rounds with eval each round: walls,
+   rates, per-rank peaks, kernel 1 every step on each rank and kernel 2
+   never, the History equal on both ranks, the bytes each rank handed to
+   the consensus wire (the meter) equal to the plan's, round 0 within
+   the multi-round bound of 14d's one-rank f32 runs (round 1 and the
+   params printed); 17m one mix (dense and shift) and one f32 masked
+   average at 2 ranks within 1e-6 of one rank; 17c 17a killed after
+   round 0 and resumed at 2 ranks, bit for bit with 17a, and rank 0's
+   checkpoint resumed at one rank for round 1 within the bound; 17d
+   with two cards or more, 17a and 17b over NCCL (one rank a card) bit
+   for bit the gloo runs, else one line saying so.  The kernel-1 sites
+   at rank width (3 and 8 Model1 lanes) are timed as phase 3 times them.
+
 Every profile records the device activity only (phase 6's
 ``profile_round``), and every synthetic set is made once and shared by
 the trainers that ask for it (from phase 4 on).  Every phase prints the
@@ -2399,6 +2418,385 @@ def phase16(dev, smi: str, get_preset, ckdir: Path) -> dict:
     return {"launch": launch}
 
 
+def _phase17_configs(ranks: int):
+    """Phase 17's two headlines at ``ranks`` ranks: kernel 1 on, the fused
+    epilogue off (dopt refuses it on a multi-device mesh), the federated
+    one at full width (compact is off across ranks, as in dopt)."""
+    from dopt_torch.presets import get_preset
+
+    rep = dataclasses.replace
+    head = get_preset("headline-dsgd-model1")
+    fhead = get_preset("headline-fedavg-model1")
+    return {
+        "a": ("gossip", head.replace(
+            optim=rep(head.optim, fused_update=True), mesh_devices=ranks,
+            gossip=rep(head.gossip, fused_update="off"))),
+        "b": ("federated", fhead.replace(
+            optim=rep(fhead.optim, fused_update=True), mesh_devices=ranks,
+            federated=rep(fhead.federated, fused_update="off",
+                          compact=False)))}
+
+
+def _phase17_inputs(dev) -> dict:
+    """Seeded Model1-shaped stacks for one mix (6 workers) and one masked
+    average (16), the same in every process on the card."""
+    import torch
+
+    from dopt_torch.models.zoo import param_shapes
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shapes = param_shapes("model1")
+    return {name: {k: torch.randn(n, *s, device=dev, generator=gen)
+                   for k, s in shapes.items()}
+            for name, n in (("x6", 6), ("x16", 16))}
+
+
+def _phase17_mixing(dev):
+    """The gossip headline's round-0 matrix (6-ring), its shift set and
+    coefficients, and a 16-lane mask of 8."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.presets import get_preset
+    from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
+                                     schedule_shift_decomposition)
+
+    g = get_preset("headline-dsgd-model1").gossip
+    sched = build_mixing_matrices(g.topology, g.mode, 6, seed=get_preset(
+        "headline-dsgd-model1").seed)
+    w = sched.for_round(0).astype(np.float32)
+    ids = schedule_shift_decomposition(sched)
+    return (torch.from_numpy(w).to(dev), ids,
+            torch.from_numpy(coeffs_for_matrix(w, ids)).to(dev),
+            (torch.arange(16, device=dev) % 2 == 0).float())
+
+
+def phase17_rank(wg, out_dir: str, parts: tuple, rounds: int) -> None:
+    """One spawned rank of phase 17: the sub-phases ``parts`` of
+    ``_phase17_configs``' runs on this rank's lanes, through the
+    trainers a user calls.  Per run: the walls of each round, the
+    launch counts (set to 0 just before the run, read just after), the
+    byte meter, the peak and the History; rank 0 also saves the gathered
+    worker params and theta.  17a saves its state after round 0 (what a
+    run killed then leaves); 17c resumes it at the same ranks, bit for
+    bit with 17a's rank-local state, and the parent restores rank 0's
+    file at one rank."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.ops.fused_update import (MAX_TENSORS, fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.parallel.collectives import (masked_average, mix_dense,
+                                                 mix_shifts, shift_comm_lanes)
+    from dopt_torch.parallel.mesh import gather_workers, make_worker_group
+
+    from dopt_torch.engine import gossip as gossip_engine
+
+    out = Path(out_dir)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfgs = _phase17_configs(wg.size)
+    # Each synthetic set is made once a process, as in main.
+    gossip_engine.load_dataset = functools.lru_cache(maxsize=4)(
+        gossip_engine.load_dataset)
+    rec: dict = {}
+
+    def local_state(tr) -> dict:
+        moms = (tr.momentum if isinstance(tr.momentum, dict)
+                else dict(zip(tr._names, tr.momentum)))
+        params = (tr.params if isinstance(tr, FederatedTrainer)
+                  else dict(zip(tr._names, tr._params)))
+        return {**{f"p.{k}": v.detach().clone() for k, v in params.items()},
+                **{f"m.{k}": v.clone() for k, v in moms.items()}}
+
+    def wire_bytes(tr) -> tuple[str, int] | None:
+        """The meter key and the bytes a round the consensus wire must
+        hand over: the shift plan's shipped lanes (dopt's 'auto' rule
+        takes the shift path where it ships fewer lanes than the dense
+        all-gather) or the all-gather of the rank's L lanes."""
+        ids = getattr(tr, "_shift_ids", None)
+        if not hasattr(tr, "_shift_ids"):
+            return None
+        p4 = tr.param_count * 4
+        if ids is None:
+            return "all_gather.dense", tr.lanes * p4
+        return "send.shift", shift_comm_lanes(ids, tr.lanes,
+                                              tr.group.size) * p4
+
+    def drive(label, cls, cfg, n, tr=None, ck=None):
+        """n timed rounds; with ``ck`` the state after round 0 is saved
+        there, outside the walls (what a run killed then leaves)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr = tr or cls(cfg, device=dev)
+        built = time.perf_counter() - t
+        tr.group.meter.clear()
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.run(rounds=1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if ck is not None and len(walls) == 1:
+                tr.save(ck)
+        got = launch_counts()
+        tensors = len(getattr(tr, "_names", None) or tr.params)
+        rec[label] = {
+            "walls": walls, "built": built, "launch": got,
+            "want": {"fused_sgd_momentum": n * tr.steps_per_round
+                     * -(-tensors // MAX_TENSORS), "fused_mix_sgd": 0},
+            "meter": {f"{op}.{kind}": b
+                      for (op, kind), b in tr.group.meter.items()},
+            "gather_bytes": tr.lanes * tr.param_count * 4,
+            "wire": wire_bytes(tr),
+            "peak": torch.cuda.max_memory_allocated(),
+            "rows": tr.history.rows, "lanes": tr.lanes,
+            "backend": tr.group.backend}
+        return tr
+
+    states = {}
+    for part in (p for p in parts if p in cfgs):
+        engine, cfg = cfgs[part]
+        cls = GossipTrainer if engine == "gossip" else FederatedTrainer
+        tr = drive(part, cls, cfg, rounds,
+                   ck=out / "17c.ck" if part == "a" and "c" in parts
+                   else None)
+        if part == "a":
+            states["a"] = local_state(tr)
+        full = {f"p.{k}": v for k, v in tr.worker_params().items()}
+        if cls is FederatedTrainer:
+            full.update({f"theta.{k}": v
+                         for k, v in tr.global_params().items()})
+        if wg.rank == 0:
+            np.savez(out / f"17{part}.npz", **full)
+        del tr, full
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "m" in parts:
+        # One mix and one masked average of the same inputs, across the
+        # ranks: the dense all-gather, the shift path and the f32 masked
+        # mean's partial sums (the parent holds them against one rank).
+        mix = {}
+        for name, x in _phase17_inputs(dev).items():
+            lanes = next(iter(x.values())).shape[0]
+            g = make_worker_group(lanes, wg.group)
+            mine = {k: g.local(v).contiguous() for k, v in x.items()}
+            w6, ids, coeffs, m16 = _phase17_mixing(dev)
+            if name == "x6":
+                got = {"dense": mix_dense(mine, w6, group=g),
+                       "shift": mix_shifts(mine, ids, coeffs, g)}
+                got = {f"{how}.{k}": v for how, tree in got.items()
+                       for k, v in gather_workers(tree, g).items()}
+            else:
+                got = {f"mean.{k}": v for k, v in
+                       masked_average(mine, m16, None, g).items()}
+            mix.update({k: v.cpu().numpy() for k, v in got.items()})
+        if wg.rank == 0:
+            np.savez(out / "17m.npz", **mix)
+    if "c" in parts:
+        _, cfg = cfgs["a"]
+        resumed = GossipTrainer(cfg, device=dev)
+        resumed.restore(out / "17c.ck")
+        drive("c", GossipTrainer, cfg, rounds - 1, tr=resumed)
+        got = local_state(resumed)
+        rec["c"]["same"] = (rec["c"]["rows"] == rec["a"]["rows"] and all(
+            torch.equal(got[k], v) for k, v in states["a"].items()))
+        del resumed
+    (out / f"17.r{wg.rank}.json").write_text(json.dumps(rec))
+
+
+def _spawn17(out: Path, ranks: int, backend: str, parts: tuple,
+             rounds: int, deadline_s: float) -> list[dict]:
+    """Spawn ``ranks`` processes of ``phase17_rank`` joined by a
+    ``file://`` rendezvous over ``backend`` and wait for them at most
+    ``deadline_s`` (a stuck rank is killed and the phase fails); returns
+    each rank's record."""
+    import torch.multiprocessing as mp
+
+    from dopt_torch.parallel.mesh import _rank_main
+
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(
+        _rank_main, args=(phase17_rank, ranks, str(out / "rendezvous"),
+                          backend, None, (str(out), parts, rounds)),
+        nprocs=ranks, join=False, start_method="spawn")
+    end = time.perf_counter() + deadline_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > end:
+                fail(f"17: {ranks} {backend} ranks still running after "
+                     f"{deadline_s:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [json.loads((out / f"17.r{r}.json").read_text())
+            for r in range(ranks)]
+
+
+def phase17(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
+    """Phase 17, the multi-GPU engines on the card: the worker axis over
+    2 ranks.  On one card the ranks share it over host-staged gloo (CUDA
+    lanes, host-staged collectives); with two cards or more 17d runs one
+    rank a card over NCCL.  ``kit`` holds phase 3's ``k1_site`` and 14d's
+    one-rank f32-wire runs (``f32wire``); ``ckdir`` takes the ranks'
+    files.  Returns the launch counts (``launch``) and the rank-width
+    kernel-1 sites (``site``) for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.engine import GossipTrainer
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.parallel import collectives as P
+
+    t17 = time.perf_counter()
+    ranks, n = 2, 2
+    shapes = param_shapes("model1")
+    # Kernel 1 at rank width, timed as phase 3 times it (25 cold-L2
+    # calls): 3 of the gossip headline's 6 lanes, 8 of the federated 16.
+    site = {"a": kit.k1_site("headline-dsgd-model1 at 2 ranks, L=3",
+                             shapes, 3),
+            "b": kit.k1_site("headline-fedavg-model1 at 2 ranks, L=8",
+                             shapes, 8)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    recs = _spawn17(ckdir / "gloo", ranks, "gloo", ("a", "b", "m", "c"), n,
+                    240)
+    spawn_s = time.perf_counter() - t
+    keys = {"a": ("avg_train_loss", "avg_test_loss", "avg_test_acc"),
+            "b": ("test_loss", "train_loss", "local_loss", "test_acc")}
+    launch = {}
+    for part, label, base in (("a", "17a headline-dsgd-model1", "gossip"),
+                              ("b", "17b headline-fedavg-model1",
+                               "federated")):
+        r0 = recs[0][part]
+        for r, rec in enumerate(recs):
+            got = rec[part]
+            if got["rows"] != r0["rows"]:
+                fail(f"{label}: rank {r}'s History differs from rank 0's")
+            if got["launch"] != got["want"]:
+                fail(f"{label} rank {r}: launches {got['launch']}, "
+                     f"expected {got['want']} (kernel 1 every step, "
+                     "kernel 2 never)")
+            if part == "a":
+                key, want = got["wire"]
+                sent = got["meter"].get(key, 0) / n
+                if sent != want:
+                    fail(f"{label} rank {r}: {sent} B a round handed to "
+                         f"{key}, expected {want} (the dense all-gather "
+                         f"would hand {got['gather_bytes']}, L·P·4)")
+        launch[f"headline-{'dsgd' if part == 'a' else 'fedavg'}-model1-"
+               "ranks2"] = r0["launch"]
+        one = kit.f32wire[base]
+        # Round 0 (one round from the same init) within slice 1's limits;
+        # round 1 printed: at 3 or 8 lanes a rank cuDNN's deterministic
+        # heuristics pick other conv algorithms than at 6 or 16, so each
+        # lane's steps round differently from the one-rank run's, and two
+        # rounds of training amplify it past the limits.
+        later = {}
+        for t, (ra, rb) in enumerate(zip(one["rows"], r0["rows"],
+                                         strict=True)):
+            for k in keys[part]:
+                if k not in ra:
+                    continue
+                tol = ACC_TOL if "acc" in k else LOSS_TOL
+                if t == 0 and abs(ra[k] - rb[k]) > tol:
+                    fail(f"{label}: round 0 {k} {ra[k]} at 2 ranks "
+                         f"{rb[k]} (limit {tol})")
+                if t > 0:
+                    later[k] = round(abs(ra[k] - rb[k]), 6)
+        arrays = dict(np.load(ckdir / "gloo" / f"17{part}.npz"))
+        prefix = "theta." if part == "b" else "p."
+        rel = max_rel(one["params"], {k[len(prefix):]: v
+                                      for k, v in arrays.items()
+                                      if k.startswith(prefix)})
+        walls = [[round(w, 4) for w in rec[part]["walls"]] for rec in recs]
+        rates = [n / sum(rec[part]["walls"]) for rec in recs]
+        wire = ("" if part == "b" else
+                f"consensus over {r0['wire'][0]} ({r0['wire'][1]} B a round "
+                f"a rank; the dense all-gather's {r0['gather_bytes']}); ")
+        print(f"{label} at {ranks} ranks sharing the card over host-staged "
+              f"gloo ({r0['lanes']} lanes a rank): {wire}walls {walls} s, "
+              f"{min(rates):.4f} rounds/s (one rank, 14d: "
+              f"{one['rate']:.4f}); round 0 within {LOSS_TOL}/{ACC_TOL} of "
+              f"14d's one-rank f32 run, round 1 off by {later}, "
+              f"{'theta' if part == 'b' else 'params'} max-rel {rel:.3e} "
+              f"(both printed, not bounded); launches a rank "
+              f"{[rec[part]['launch'] for rec in recs]}; bytes handed to "
+              "torch.distributed a rank "
+              f"{[rec[part]['meter'] for rec in recs]}; peak a rank "
+              f"{[rec[part]['peak'] for rec in recs]} B; {smi}")
+    mixed = dict(np.load(ckdir / "gloo" / "17m.npz"))
+    x = _phase17_inputs(dev)
+    w6, ids, coeffs, m16 = _phase17_mixing(dev)
+    want = {**{f"dense.{k}": v for k, v in P.mix_dense(x["x6"], w6).items()},
+            **{f"shift.{k}": v for k, v in P.mix_dense(x["x6"], w6).items()},
+            **{f"mean.{k}": v for k, v in P.masked_average(x["x16"],
+                                                         m16).items()}}
+    worst = {}
+    for k, v in want.items():
+        v = v.cpu().numpy()
+        how = k.split(".")[0]
+        worst[how] = max(worst.get(how, 0.0), float(
+            np.abs(mixed[k] - v).max() / max(np.abs(v).max(), 1e-12)))
+    if not max(worst.values()) <= 1e-6:
+        fail(f"17m: one mix / masked average at 2 ranks against one rank: "
+             f"{worst} (limit 1e-6)")
+    print(f"17m one mix at 2 ranks (dense all-gather; shift {tuple(ids)}) "
+          f"and one f32 masked average (partial sums gathered) against one "
+          f"rank: max-rel {worst} (limit 1e-6); {smi}")
+    del x, want
+    c = [rec["c"] for rec in recs]
+    if not all(x["same"] for x in c):
+        fail("17c: 17a killed after round 0 and resumed at 2 ranks differs "
+             "from 17a")
+    if any(x["launch"] != x["want"] for x in c):
+        fail(f"17c: launches {[x['launch'] for x in c]}")
+    one = GossipTrainer(_phase17_configs(1)["a"][1], device=dev)
+    one.restore(ckdir / "gloo" / "17c.ck")
+    one.run(rounds=1)
+    for ra, rb in zip(recs[0]["a"]["rows"], one.history.rows, strict=True):
+        for k in keys["a"]:
+            tol = ACC_TOL if "acc" in k else LOSS_TOL
+            if k in ra and abs(ra[k] - rb[k]) > tol:
+                fail(f"17c: rank 0's checkpoint resumed at 1 rank: {k} "
+                     f"{rb[k]} against 17a's {ra[k]}")
+    print(f"17c 17a killed after round 0 and resumed at 2 ranks: bit for bit "
+          f"17a (History, params, momentum on every rank); rank 0's "
+          f"checkpoint resumed at 1 rank for round 1 within {LOSS_TOL}/"
+          f"{ACC_TOL} of 17a; {smi}")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        nrecs = _spawn17(ckdir / "nccl", ranks, "nccl", ("a", "b"), n, 240)
+        for part in ("a", "b"):
+            want = dict(np.load(ckdir / "gloo" / f"17{part}.npz"))
+            got = dict(np.load(ckdir / "nccl" / f"17{part}.npz"))
+            if nrecs[0][part]["rows"] != recs[0][part]["rows"] or any(
+                    not np.array_equal(want[k], got[k]) for k in want):
+                fail(f"17d {part}: NCCL differs from gloo")
+            launch[f"headline-{'dsgd' if part == 'a' else 'fedavg'}-model1-"
+                   "ranks2-nccl"] = nrecs[0][part]["launch"]
+            rates = [n / sum(rec[part]["walls"]) for rec in nrecs]
+            print(f"17d {part} over NCCL, one rank a card: bit for bit the "
+                  f"gloo run; {min(rates):.4f} rounds/s; walls "
+                  f"{[rec[part]['walls'] for rec in nrecs]}; {smi}")
+    else:
+        print(f"17d: {cards} GPU visible: NCCL across cards (one rank a "
+              "card) not run")
+    print(f"17: phase 17 in {time.perf_counter() - t17:.1f} s (the spawn of "
+          f"17a-17c {spawn_s:.1f} s)")
+    return {"launch": launch, "site": site}
+
+
 def main() -> None:
     global T0
     T0 = time.perf_counter()
@@ -3840,6 +4238,15 @@ def main() -> None:
         res16 = phase16(dev, smi, get_preset, ckdir)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 17")
+
+    # -- 17. the multi-GPU engines ----------------------------------------
+    ckdir = Path(tempfile.mkdtemp(prefix="dopt-torch-ckpt-"))
+    try:
+        res17 = phase17(dev, smi, get_preset, types.SimpleNamespace(
+            k1_site=k1_site, f32wire=res14["f32wire"]), ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
     del flush
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
@@ -3943,12 +4350,21 @@ def main() -> None:
             ("headline-dsgd-model1-population", "headline-dsgd-model1 with "
              "600 clients and cohorts of 6 bound onto its lanes, the fused "
              "epilogue off: kernel 1 every step, kernel 2 never", k1,
-             None)):
+             None),
+            *((f"headline-{e}-model1-ranks2{s}", f"headline-{e}-model1 at 2 "
+               f"ranks{d}, kernel 1 on and the fused epilogue off (dopt "
+               f"refuses it across devices): {lanes} lanes a rank, kernel 1 "
+               "every step on each rank (launches: rank 0's), kernel 2 never",
+               res17["site"][part], None)
+              for e, part, lanes in (("dsgd", "a", 3), ("fedavg", "b", 8))
+              for s, d in (("", " sharing the card over host-staged gloo"),
+                           ("-nccl", " over NCCL, one rank a card"))
+              if f"headline-{e}-model1-ranks2{s}" in res17["launch"])):
         launched = {**slice_launch, **fault_launch,
                     "headline-fedavg-model1-faulty": fed11["launch"],
                     **obs12["launch"], "baseline5": res13["launch"],
                     **res14["launch"], **res15["launch"],
-                    **res16["launch"]}[preset]
+                    **res16["launch"], **res17["launch"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -29,9 +29,12 @@ narrow their consensus or aggregation wire (``comm_dtype``) and stream
 dopt's telemetry (``dopt_torch.obs``) with the on-card diagnostics.
 Both run dopt's ``update_sharding="scatter"``, and the gossip engine
 ``comm_impl="shift"`` and the bucket codec (``CommConfig``: q8/q4 with
-error feedback), on one GPU; their collectives also run over a
-``torch.distributed`` group of several ranks
-(``dopt_torch.parallel``).  Both run dopt's client population
+error feedback).  Both run the worker axis over ranks
+(``mesh_devices``, ``mesh_hosts``; ``dopt_torch.parallel``): each rank
+of a ``torch.distributed`` group holds W/R contiguous lanes, NCCL with
+one GPU a rank (``python -m torch.distributed.run --nproc-per-node R -m
+dopt_torch.run ...``) or gloo on the CPU or for ranks that share a card
+(``init_file_group``, ``spawn_ranks``).  Both run dopt's client population
 (``PopulationConfig``, ``dopt_torch.population``): cohorts sampled from
 a registry of up to thousands of clients, trained by the federated
 engine in waves of lanes with one reduce a round, and bound onto the
@@ -52,6 +55,8 @@ from dopt_torch.config import (CommConfig, DataConfig, ExperimentConfig,
                                ModelConfig, OptimizerConfig, PopulationConfig,
                                RobustConfig)
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
+from dopt_torch.parallel import (WorkerGroup, engine_group, init_file_group,
+                                 spawn_ranks)
 from dopt_torch.presets import PRESETS, get_preset
 
 __all__ = [
@@ -68,5 +73,9 @@ __all__ = [
     "FederatedTrainer",
     "GossipTrainer",
     "PRESETS",
+    "WorkerGroup",
+    "engine_group",
     "get_preset",
+    "init_file_group",
+    "spawn_ranks",
 ]

@@ -6,8 +6,8 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 dopt config or a ``--set`` override means the same thing in both
 packages.  ``PopulationConfig`` is dopt's client population
 (``dopt_torch.population``).  Fields and sections of later slices
-(seqlm, a mesh of more than one GPU) exist with dopt's defaults: the
-trainers refuse any other value, naming the slice that adds it.
+(seqlm) exist with dopt's defaults: the trainers refuse any other value,
+naming the slice that adds it.
 """
 
 from __future__ import annotations
@@ -434,8 +434,10 @@ class ExperimentConfig:
     # to mean its own; "torch" (dopt's sequential CPU oracle) is refused.
     mesh_devices: int | None = None
     mesh_hosts: int | None = None
-    # GPUs the worker axis spreads over, and dopt's hybrid host axis:
-    # None or 1 is one GPU; more arrives with the multi-GPU engines.
+    # Ranks the worker axis spreads over, and dopt's hybrid host axis
+    # (dopt_torch.parallel.engine_group): None takes the launched
+    # torch.distributed world (one rank without one), 1 one GPU; more
+    # must equal the world, which must divide the workers.
 
     def replace(self, **kw: Any) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

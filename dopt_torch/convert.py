@@ -148,6 +148,20 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
                              ("fc1", fc1), ("fc2", _dense))}
 
 
+def params_for_rank(tree, group, *, input_shape=(28, 28, 1)
+                    ) -> dict[str, np.ndarray]:
+    """dopt's stacked ``[W, ...]`` flax tree (or the port's ``[W, ...]``
+    dict) → this rank's ``[L, ...]`` rows in the port's layout, for a
+    ``dopt_torch.parallel.WorkerGroup``: every rank converts the whole
+    host tree and keeps its lanes (no collective).  One worker's tree,
+    which starts every lane of every rank, goes to a trainer's
+    ``init_params`` as it is."""
+    full = port_layout(tree, input_shape=input_shape)
+    if not group.wire:
+        return full
+    return {k: np.ascontiguousarray(group.local(v)) for k, v in full.items()}
+
+
 def port_layout(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     """A params-shaped checkpoint tree in either package's layout → the
     port's: dopt's flax tree (``{layer: {kernel, bias}}``, from a dopt

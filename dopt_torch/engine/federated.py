@@ -1,4 +1,4 @@
-"""Server-coordinated federated training on one GPU: the port's
+"""Server-coordinated federated training: the port's
 ``FederatedTrainer``.
 
 Counterpart of dopt/engine/federated.py (the reference's project 1):
@@ -40,6 +40,20 @@ all-gather — on one GPU no collective is issued), at the full width;
 ``comm.wire_dtype`` (``cfg.comm``, codec "none" only) narrows its
 partial sums.  It refuses the robust aggregators, the staleness buffer,
 ``compact=True`` and the fused epilogue, in dopt's words.
+
+Across ranks (``mesh_devices``; ``dopt_torch.parallel.engine_group``)
+each rank holds and trains its L = W/R lanes of the params, momentum,
+duals or controls and the staleness buffer; theta, SCAFFOLD's server
+control and the device counters are replicated; every host draw is
+dopt's whole ``[W]`` draw of which the rank takes its rows.  The screen's
+flags, the eval metrics and the local losses are all-gathered, the
+masked mean sums the ranks' partial sums in rank order, and the robust
+aggregators, the staleness sum and the diagnostics read the gathered
+updates, so theta and the History are the same on every rank.  The
+full width runs (compact sampling is off across ranks, as in dopt), the
+fused epilogue is refused in dopt's words, and a block's rounds run
+eagerly.  Population mode trains each rank's lanes of every wave and
+reduces over the same ranks.
 
 History rows are P1's: round, test_acc, test_loss (the global model on
 the test set, P1's summed loss), train_loss, train_acc (every client's
@@ -131,8 +145,10 @@ from dopt_torch.data import (PrefetchStager, make_batch_plan, ready,
 from dopt_torch.convert import port_layout
 from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
                                       checkpoint_meta, initial_params, later,
-                                      load_device_data, resolve_device,
-                                      restore_meta, steps_per_round,
+                                      load_device_data, rank_state,
+                                      refuse_fused_across_ranks,
+                                      resolve_device, restore_meta,
+                                      save_rank_checkpoint, steps_per_round,
                                       validate_common)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
@@ -146,13 +162,15 @@ from dopt_torch.ops.fused_update import fused_mix_update
 from dopt_torch.optim import (admm_dual_ascent, grad_edit, rounded,
                               scaffold_control_update, scaffold_scale)
 from dopt_torch.parallel.collectives import (alloc_flat, broadcast_to_workers,
-                                             flat_views,
+                                             flat_views, lane_sum,
                                              make_update_shard_spec,
                                              masked_average,
                                              masked_average_scatter,
                                              mean_weight_matrix, where_mask,
                                              wire_dtype)
-from dopt_torch.parallel.mesh import make_worker_group
+from dopt_torch.parallel.mesh import (engine_group, gather_workers,
+                                      launched_world, make_worker_group,
+                                      shard_worker_tree)
 from dopt_torch.population import (ClientRegistry, population_gauges,
                                    restore_registry,
                                    validate_population_config)
@@ -161,7 +179,7 @@ from dopt_torch.robust import (clip_to_ball, finite_lane_mask,
                                make_aggregator, masked_mean,
                                validate_robust_config)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
-                                         meta_expect, save_checkpoint)
+                                         meta_expect)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import host_rng
 from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
@@ -409,7 +427,7 @@ def validate_population_federated(cfg: ExperimentConfig) -> None:
             "signflip")
     w = cfg.data.num_users
     lanes = int(pop.lanes or w)
-    size = make_worker_group(lanes).size
+    size = 1 if cfg.mesh_devices == 1 else launched_world()
     if lanes % size or w % size:
         raise ValueError(
             f"population lanes={lanes} and data.num_users={w} "
@@ -484,7 +502,8 @@ def _pad_lanes(x: torch.Tensor, w: int) -> torch.Tensor:
 
 class FederatedTrainer:
     """FedAvg / FedProx / FedADMM / SCAFFOLD over ``cfg.data.num_users``
-    clients on one device, under dopt's fault model.
+    clients, under dopt's fault model, on one device or over the ranks
+    of a ``torch.distributed`` group (``mesh_devices``).
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
@@ -529,29 +548,44 @@ class FederatedTrainer:
         self._compile_watch = CompileWatcher()
         self._last_step_total = 0.0
 
-        load_device_data(self, cfg, dev, local_bs=f.local_bs)
+        # The worker axis over ranks (dopt's make_worker_mesh): this rank
+        # holds lanes [lane0, lane0 + L) of the W clients; theta and the
+        # server state are replicated, every host draw is dopt's whole
+        # [W] draw, of which the rank takes its rows.
+        self.group = engine_group(w, cfg.mesh_devices, cfg.mesh_hosts)
+        self.lanes = lanes = self.group.lanes
+        if f.fused_update == "on":
+            refuse_fused_across_ranks(self.group)
+        load_device_data(self, cfg, dev, local_bs=f.local_bs,
+                         group=self.group)
         self.steps_per_round = steps_per_round(self._train_matrix,
                                                f.local_bs, f.local_ep)
         ti, tw = stacked_eval_batches(self._train_matrix,
                                       batch_size=max(f.local_bs, 256))
-        self._train_eval = (torch.from_numpy(ti.astype(np.int64)).to(dev),
-                            torch.from_numpy(tw).to(dev))
+        ti, tw = shard_worker_tree((ti, tw), self.group)
+        self._train_eval = (
+            torch.from_numpy(np.ascontiguousarray(ti, np.int64)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(tw)).to(dev))
 
         p0 = {k: v.to(dev) for k, v in initial_params(cfg,
                                                       init_params).items()}
         self.param_count = sum(v.numel() for v in p0.values())
         self.params = {k: v.requires_grad_(True)
-                       for k, v in _lanes(p0, w).items()}
+                       for k, v in _lanes(p0, lanes).items()}
         zeros = {k: torch.zeros_like(v) for k, v in p0.items()}
-        self.momentum = _lanes(zeros, w)
-        self.duals = (_lanes(zeros, w)
+        self.momentum = _lanes(zeros, lanes)
+        self.duals = (_lanes(zeros, lanes)
                       if f.algorithm in ("fedadmm", "scaffold") else None)
         self.c_global = zeros if f.algorithm == "scaffold" else None
         self._setup_faults(zeros)
-        # The scatter path's worker group (one rank, no wire) and flat
-        # bucket plan; comm.wire_dtype narrows its reduce.
-        self.group = make_worker_group(w)
+        # The scatter path's flat bucket plan; comm.wire_dtype narrows
+        # its reduce.
         self._setup_population(p0)
+        if f.update_sharding == "scatter" and not self.group.flat:
+            raise ValueError(
+                "update_sharding='scatter' needs a flat 1-D worker "
+                f"mesh (got {self.group.shape}); hybrid (hosts × "
+                "ici) meshes keep the dense path")
         self.scatter_spec = (make_update_shard_spec(
             self.momentum, fold=self.group.size,
             bucket_bytes=int(f.update_bucket_mb * (1 << 20)))
@@ -592,7 +626,9 @@ class FederatedTrainer:
                  + len(self._counters()) * w
                  + (len(self._diag_keys) if self._diag else 0))
         self._slot = torch.zeros(width, device=dev)
-        self.graphs = RoundGraphs(self._body, self._slot)
+        # Across ranks the block's rounds run eagerly (see graphs.py).
+        self.graphs = RoundGraphs(self._body, self._slot,
+                                  eager=self.group.wire)
 
     def _setup_faults(self, zeros: dict[str, torch.Tensor]) -> None:
         """The fault plan, the robust layer and its host mirrors, the
@@ -633,8 +669,8 @@ class FederatedTrainer:
         self._straggle_units = (f.local_ep if self._val is not None
                                 else self.steps_per_round)
         self._chaos = self._quarantine_on or self._has_stale
-        self._stale_p = ({k: torch.zeros((w,) + v.shape, dtype=v.dtype,
-                                         device=dev)
+        self._stale_p = ({k: torch.zeros((self.lanes,) + v.shape,
+                                         dtype=v.dtype, device=dev)
                           for k, v in zeros.items()}
                          if self._has_stale else None)
         if self._chaos:
@@ -666,7 +702,10 @@ class FederatedTrainer:
         self._registry = ClientRegistry(
             pop, num_shards=self.num_workers, seed=cfg.seed,
             faults=cfg.faults, robust=cfg.robust, lanes=lanes)
-        self._pop_group = make_worker_group(lanes)
+        # Across ranks each rank trains its contiguous lanes of every
+        # wave, and the reduce runs over the same ranks.
+        self._pop_group = make_worker_group(lanes, self.group.group,
+                                            meter=self.group.meter)
         self._pop_spec = make_update_shard_spec(
             {k: torch.zeros((lanes,) + v.shape, dtype=torch.float32,
                             device="meta") for k, v in p0.items()},
@@ -724,6 +763,14 @@ class FederatedTrainer:
         # does the scatter path, a full-width reduce.
         if (self._fused_on or self._has_stale or self._comm_dtype is not None
                 or self.scatter_spec is not None):
+            return False
+        if self.group.size > 1:
+            # dopt's mesh rule: across ranks the lanes are parallel
+            # hardware, so the full width runs.
+            if self.cfg.federated.compact:
+                raise ValueError(
+                    "FederatedConfig.compact=True requires a single-device "
+                    f"mesh (have {self.group.size} devices)")
             return False
         if self._sampled_count() >= self.num_workers:
             return False
@@ -979,7 +1026,10 @@ class FederatedTrainer:
             self.faults.plan_matrix_for(t, self._train_matrix),
             batch_size=f.local_bs, local_ep=f.local_ep, seed=cfg.seed,
             round_idx=t, workers=workers, impl=cfg.data.plan_impl)
-        return {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
+        # Every rank plans the whole fleet and takes its lanes' rows (the
+        # compact path, whose plan is of ``workers``, runs one rank).
+        return shard_worker_tree({"idx": plan.idx.astype(np.int64),
+                                  "bw": plan.weight}, self.group)
 
     def _round_inputs(self, t: int, part: tuple
                       ) -> tuple[str, dict[str, np.ndarray]]:
@@ -1008,7 +1058,8 @@ class FederatedTrainer:
                            admit=admit.astype(np.float32), capture=cap)
             pick = slice(None)
         if self._may_straggle:
-            out["limit"] = self._limit_steps(limits[pick])
+            out["limit"] = shard_worker_tree(self._limit_steps(limits[pick]),
+                                             self.group)
         if self._has_corrupt:
             out["cmask"] = cmask[pick].astype(np.float32)
         return ("compact" if use_c else "full"), out
@@ -1024,7 +1075,8 @@ class FederatedTrainer:
                   "up_delay", "late_d"):
             out[k] = stat[k]
         if self._may_straggle:
-            out["limit"] = self._limit_steps(stat["limits"])
+            out["limit"] = shard_worker_tree(
+                self._limit_steps(stat["limits"]), self.group)
         if self._has_corrupt:
             out["craw"] = stat["corrupt"]
         return out
@@ -1079,18 +1131,23 @@ class FederatedTrainer:
         the aggregate sees.  Under staleness the ``load`` lanes (the
         sampled and the captured late senders) start from theta, the
         admitted buffer lanes join the weighted sum and the captured
-        lanes' updates land in the buffer.  Returns (local loss, [W]
-        screened flags, [W] screened-on-admission flags or None, epoch
-        rows)."""
-        w = self.num_workers
+        lanes' updates land in the buffer.  The masks are the global
+        ``[W]`` vectors; across ranks each rank trains its lanes, the
+        screen's flags are gathered, the masked mean reduces the ranks'
+        partial sums and the robust aggregators, the staleness sum and
+        the diagnostics read the gathered updates.  Returns (local loss,
+        [W] screened flags, [W] screened-on-admission flags or None,
+        epoch rows, diagnostics)."""
+        w, gr = self.num_workers, self.group
         scaffold = self.cfg.federated.algorithm == "scaffold"
         theta = self._theta()
         theta_b = (flat_views(self._theta_flat, self.fused_spec)
-                   if self._fused_on else broadcast_to_workers(theta, w))
+                   if self._fused_on else broadcast_to_workers(theta, w, gr))
         with torch.no_grad():
             prev_p = {k: v.detach().clone() for k, v in self.params.items()}
-            start = where_mask(mask if load is None else load, theta_b,
-                               prev_p)
+            start = where_mask(
+                shard_worker_tree(mask if load is None else load, gr),
+                theta_b, prev_p)
             for k, p in self.params.items():
                 p.copy_(start[k])
             prev_m = {k: v.clone() for k, v in self.momentum.items()}
@@ -1105,17 +1162,21 @@ class FederatedTrainer:
         with torch.no_grad():
             p_t = self.params
             if cmask is not None:
-                p_t, sub_new = self._corrupt(p_t, sub_new, cmask, theta,
-                                             prev_p, self.duals)
+                p_t, sub_new = self._corrupt(
+                    p_t, sub_new, shard_worker_tree(cmask, gr), theta,
+                    prev_p, self.duals)
             # The non-finite screen, always on.
-            fin = finite_lane_mask(p_t)
+            fin = gather_workers(finite_lane_mask(p_t), gr, "screen")
             agg = mask * fin
+            agg_l = shard_worker_tree(agg, gr)
             # Every carried state is written in place (RoundGraphs).
             if sub_new is not None:
-                new_duals = where_mask(agg, sub_new, self.duals)
+                new_duals = where_mask(agg_l, sub_new, self.duals)
                 if scaffold:
+                    inc = lane_sum({k: new_duals[k] - self.duals[k]
+                                    for k in self.c_global}, gr)
                     for k, c in self.c_global.items():
-                        c.copy_(c + (new_duals[k] - self.duals[k]).sum(0) / w)
+                        c.copy_(c + inc[k] / w)
                 for k, d in self.duals.items():
                     d.copy_(new_duals[k])
             if self._fused_on:
@@ -1132,25 +1193,28 @@ class FederatedTrainer:
                                  mean_weight_matrix(agg), self.fused_spec,
                                  lr=-1.0)
                 self._theta_flat.copy_(self._disp_flat)
-            new_p = where_mask(agg, p_t, prev_p)
+            new_p = where_mask(agg_l, p_t, prev_p)
             if not self._fused_on:
                 agg_in = (clip_to_ball(new_p, theta, self._clip)
                           if self._clip > 0 else new_p)
                 if self._has_stale:
                     avg, alive, stale_scr = self._stale_sum(
-                        agg_in, agg, theta, admit)
-                    new_stale = where_mask(capture, p_t, self._stale_p)
+                        gather_workers(agg_in, gr, "stale"), agg, theta,
+                        admit)
+                    new_stale = where_mask(shard_worker_tree(capture, gr), p_t,
+                                           self._stale_p)
                     for k, s in self._stale_p.items():
                         s.copy_(new_stale[k])
                 elif self.scatter_spec is not None:
                     avg = masked_average_scatter(
-                        agg_in, agg, self.group, self.scatter_spec,
+                        agg_in, agg, gr, self.scatter_spec,
                         comm_dtype=self._comm_dtype)
                     alive = agg.sum() > 0
                 else:
-                    avg = (masked_average(agg_in, agg, self._comm_dtype)
+                    avg = (masked_average(agg_in, agg, self._comm_dtype, gr)
                            if self._agg_robust is None
-                           else self._agg_robust(agg_in, agg))
+                           else self._agg_robust(
+                               gather_workers(agg_in, gr, "robust"), agg))
                     alive = agg.sum() > 0
                 # A round with no survivor keeps theta.
                 for k, v in theta.items():
@@ -1158,32 +1222,40 @@ class FederatedTrainer:
             for k, p in self.params.items():
                 p.copy_(new_p[k])
             if not scaffold:
-                new_m = where_mask(agg, self.momentum, prev_m)
+                new_m = where_mask(agg_l, self.momentum, prev_m)
                 for k, m in self.momentum.items():
                     m.copy_(new_m[k])
-            lane_loss = losses.mean(1)
+            lane_loss = gather_workers(losses.mean(1), gr, "metrics")
             lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss, 0.0)
             local_loss = (lane_loss * agg).sum() / agg.sum().clamp_min(1.0)
             # From the carried state: the lanes' displacement from their
-            # round-start load, the momentum, the new theta, the fleet.
-            diag = (round_diag(new_p, start, self.momentum, self._theta(),
-                               new_p, em["train_loss"] if em else losses,
-                               agg)
-                    if self._diag else None)
+            # round-start load, the momentum, the new theta, the fleet
+            # (gathered across ranks).
+            diag = None
+            if self._diag:
+                fleet = gather_workers(new_p, gr, "diag")
+                diag = round_diag(fleet, gather_workers(start, gr, "diag"),
+                                  gather_workers(self.momentum, gr, "diag"),
+                                  self._theta(), fleet,
+                                  gather_workers(em["train_loss"] if em
+                                                 else losses, gr, "diag"),
+                                  agg)
         return local_loss, mask * (1.0 - fin), stale_scr, em, diag
 
     def _stale_sum(self, agg_in, agg, theta, admit):
-        """The staleness-weighted aggregate (dopt :980-1017): the fresh
-        survivors at weight 1 and the admitted buffer lanes at their
-        decay weights, one normalised sum.  Buffer lanes that went
-        non-finite enter at weight 0 and are zeroed first (0·NaN would
-        poison the sum); the total weight is guarded only at zero.
-        Returns (aggregate, whether any weight, screened-on-admission)."""
-        fin_s = finite_lane_mask(self._stale_p)
+        """The staleness-weighted aggregate (dopt :980-1017) over the
+        whole fleet's ``[W, ...]`` updates: the fresh survivors at weight
+        1 and the admitted buffer lanes at their decay weights, one
+        normalised sum.  Buffer lanes that went non-finite enter at
+        weight 0 and are zeroed first (0·NaN would poison the sum); the
+        total weight is guarded only at zero.  Returns (aggregate,
+        whether any weight, screened-on-admission)."""
+        stale_p = gather_workers(self._stale_p, self.group, "stale")
+        fin_s = finite_lane_mask(stale_p)
         aw = admit * fin_s
-        stale_z = where_mask(fin_s, self._stale_p,
+        stale_z = where_mask(fin_s, stale_p,
                              {k: torch.zeros_like(v)
-                              for k, v in self._stale_p.items()})
+                              for k, v in stale_p.items()})
         agg_stale = (clip_to_ball(stale_z, theta, self._clip)
                      if self._clip > 0 else stale_z)
         tot_w = agg.sum() + aw.sum()
@@ -1366,12 +1438,15 @@ class FederatedTrainer:
                 cmask=inp.get("cmask"), admit=inp.get("admit"),
                 capture=inp.get("capture"))
         local_loss, screened, stale_scr, em, diag = out
+        # Across ranks every rank packs the same slot from the gathered
+        # lanes' rows.
+        em = gather_workers(em, self.group, "metrics")
         ev = self._global_eval()
         parts = [local_loss, ev["acc"], ev["loss_sum"]]
         if self.eval_train:
-            tm = stacked_eval_gathered(self._forward(self.params),
-                                       *self._train_eval, self._train_x,
-                                       self._train_y, self._sample_shape)
+            tm = gather_workers(stacked_eval_gathered(
+                self._forward(self.params), *self._train_eval, self._train_x,
+                self._train_y, self._sample_shape), self.group, "metrics")
             parts += [tm["loss_mean"].mean(), tm["acc"].mean()]
         else:
             parts += [local_loss.new_zeros(())] * 2
@@ -1584,6 +1659,12 @@ class FederatedTrainer:
             host["limit"] = self._limit_steps(meta["lim"])
         if self._has_corrupt:
             host["cmask"] = meta["cmask"]
+        # Every rank plans the whole cohort and takes its lanes of each
+        # wave (``valid`` stays whole: the reduce's weights are global).
+        gp = self._pop_group
+        host = {k: (np.ascontiguousarray(v[:, gp.lane0:gp.lane0 + gp.lanes])
+                    if gp.wire and k != "valid" else v)
+                for k, v in host.items()}
         meta["dev"] = upload(host, self.device)
         return meta
 
@@ -1600,9 +1681,10 @@ class FederatedTrainer:
         [local loss, test acc, test loss, the cohort's train loss and
         accuracy, the ``[K·lanes]`` screened flags]."""
         reg, dev, fc = self._registry, self.device, self.cfg.faults
-        lanes = reg.lanes
+        gp = self._pop_group
+        lanes, mine = reg.lanes, gp.lanes
         theta = self.theta
-        acc = {k: torch.zeros((lanes,) + v.shape, dtype=torch.float32,
+        acc = {k: torch.zeros((mine,) + v.shape, dtype=torch.float32,
                               device=dev) for k, v in theta.items()}
         acc_w = torch.zeros(lanes, device=dev)
         lsum = torch.zeros((), device=dev)
@@ -1611,7 +1693,7 @@ class FederatedTrainer:
         for k in range(reg.waves):
             with torch.no_grad():
                 start = {n: v.requires_grad_(True)
-                         for n, v in _lanes(theta, lanes).items()}
+                         for n, v in _lanes(theta, mine).items()}
                 moms = {n: torch.zeros_like(v) for n, v in start.items()}
             losses, accs, _, _ = self._local(
                 theta, start, moms, None, inp["idx"][k], inp["bw"][k], None,
@@ -1622,20 +1704,23 @@ class FederatedTrainer:
                     p_t = corrupt_update(p_t, inp["cmask"][k], fc.corrupt_mode,
                                          fc.corrupt_scale, ref=theta,
                                          prev=broadcast_to_workers(theta,
-                                                                   lanes))
-                fin_raw = finite_lane_mask(p_t)
+                                                                   mine))
+                # The wave's screen and lane metrics over every rank's
+                # lanes (gathered), so each rank weighs the whole wave.
+                fin_raw, lane_loss, lane_acc = gather_workers(
+                    (finite_lane_mask(p_t), losses.mean(1), accs.mean(1)),
+                    gp, "metrics")
                 fin = fin_raw * inp["valid"][k]
                 agg_in = (clip_to_ball(p_t, theta, self._clip)
                           if self._clip > 0 else p_t)
-                zed = where_mask(fin, agg_in, {n: torch.zeros_like(v)
-                                               for n, v in agg_in.items()})
+                zed = where_mask(shard_worker_tree(fin, gp), agg_in,
+                                 {n: torch.zeros_like(v)
+                                  for n, v in agg_in.items()})
                 for n, a in acc.items():
                     a.add_(zed[n].float())
                 acc_w += fin
-                lane_loss = losses.mean(1)
                 lane_loss = torch.where(torch.isfinite(lane_loss), lane_loss,
                                         0.0)
-                lane_acc = accs.mean(1)
                 lane_acc = torch.where(torch.isfinite(lane_acc), lane_acc, 0.0)
                 lsum = lsum + (lane_loss * fin).sum()
                 asum = asum + (lane_acc * fin).sum()
@@ -1643,7 +1728,7 @@ class FederatedTrainer:
         with torch.no_grad():
             tot = acc_w.sum()
             avg = masked_average_scatter(
-                acc, torch.ones(lanes, device=dev), self._pop_group,
+                acc, torch.ones(lanes, device=dev), gp,
                 self._pop_spec, denom=torch.where(tot > 0, tot, 1.0))
             for n, v in theta.items():
                 v.copy_(torch.where(tot > 0, avg[n].to(v.dtype), v))
@@ -1791,7 +1876,8 @@ class FederatedTrainer:
         a diverged fleet (dopt :2704-2722)."""
         if self.round == 0:
             return None
-        cd = consensus_distance(self.params, self._theta())
+        cd = consensus_distance(gather_workers(self.params, self.group),
+                                self._theta())
         return cd if math.isfinite(cd) else None
 
     def _run_summary_telemetry(self) -> None:
@@ -1834,7 +1920,8 @@ class FederatedTrainer:
             # all a population run needs to resume bit for bit.
             meta["population_registry"] = self._registry.state_dict()
         with self.timers.phase("checkpoint"):
-            save_checkpoint(path, arrays=arrays, meta=meta)
+            save_rank_checkpoint(self.group, path, arrays, meta,
+                                 replicated=("theta", "c_global"))
         if self.telemetry is not None:
             # After the atomic save landed, with the consensus snapshot.
             ev = {"round": int(self.round)}
@@ -1849,6 +1936,9 @@ class FederatedTrainer:
         carried tensor is written in place (the fused slab's every row
         from the saved theta), so captured graphs stay valid."""
         arrays, meta = load_checkpoint(path)
+        # Every rank reads the whole file and keeps its lanes' rows.
+        arrays = rank_state(self.group, arrays,
+                            replicated=("theta", "c_global"))
         algo = self.cfg.federated.algorithm
         if meta.get("algorithm") != algo:
             raise ValueError(
@@ -1928,6 +2018,7 @@ class FederatedTrainer:
 
     def worker_params(self) -> dict[str, np.ndarray]:
         """Host copy of every client's parameters ([W, ...] f32 arrays,
-        exact for bf16 storage)."""
+        exact for bf16 storage); across ranks the lanes are gathered, so
+        every rank must call it."""
         return {k: v.detach().float().cpu().numpy()
-                for k, v in self.params.items()}
+                for k, v in gather_workers(self.params, self.group).items()}

@@ -1,4 +1,4 @@
-"""Synchronous gossip on one GPU: the port's ``GossipTrainer``.
+"""Synchronous gossip: the port's ``GossipTrainer``.
 
 Counterpart of dopt/engine/gossip.py: N workers as one ``[W, ...]``
 stacked state, each round consensus → eval → local epochs (the
@@ -45,13 +45,28 @@ shared init) written in place and checkpointed.  The one-peer
 exponential schedule (``topology="one_peer_exp"``) mixes on the dense
 path unless ``comm_impl="shift"`` asks for the shift path.
 
-The consensus wire (dopt :599-800), over a ``WorkerGroup``
-(``dopt_torch.parallel.mesh``) of one rank with no wire:
+The worker axis over ranks (``mesh_devices``, ``mesh_hosts``; dopt's
+multi-device mesh): ``dopt_torch.parallel.engine_group`` gives the
+trainer its ``WorkerGroup`` — one rank with no wire unless the caller
+launched a ``torch.distributed`` group.  Each rank holds lanes [lane0,
+lane0 + L) of every per-lane state and trains them (kernel 1 per rank);
+every host draw (matrix, faults, batch plan, cohort) is dopt's whole
+``[W]`` draw, of which the rank takes its rows; the consensus mixes
+through the collectives below, and what reads every lane — the robust
+layer's pairwise screen, choco's compressor draws, the diagnostics and
+the round's metrics — reads the all-gathered fleet, so the History is
+the same on every rank.  ``worker_params``, ``evaluate``, ``save`` and
+the telemetry's consensus gauge are collectives there.  Across ranks a
+block's rounds run eagerly and the fused epilogue is refused, as dopt
+refuses it on a multi-device mesh.
+
+The consensus wire (dopt :599-800):
 
 * ``gossip.comm_impl="shift"`` mixes by the schedule's circulant
   diagonals (``mix_shifts``; the round's ``[k, n]`` coefficient table is
-  device data); ``"auto"`` takes the shift path only where a wire makes
-  it win, which one GPU never does.
+  device data); ``"auto"`` takes the shift path only where dopt's rule
+  says it wins: a wire, a sparse shift set and fewer shipped lanes than
+  the dense all-gather (never on one rank, nor on a hybrid layout).
 * ``gossip.update_sharding="scatter"`` mixes flat buckets as f32 partial
   contractions and a reduce-scatter (``mix_update_scatter``): W and the
   sum stay f32 whatever the storage dtype.
@@ -191,7 +206,8 @@ from dopt_torch.parallel.collectives import (alloc_flat, buckets_to_stacked,
                                              shift_comm_lanes,
                                              stacked_to_buckets, where_mask,
                                              wire_dtype)
-from dopt_torch.parallel.mesh import make_worker_group
+from dopt_torch.parallel.mesh import (engine_group, gather_workers,
+                                      shard_worker_tree)
 from dopt_torch.population import (ClientRegistry, population_gauges,
                                    restore_registry,
                                    validate_population_config)
@@ -204,7 +220,7 @@ from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
                                  repair_for_link_drop, repair_for_partition,
                                  schedule_shift_decomposition, split_by_delay)
 from dopt_torch.utils.checkpoint import (copy_into, load_checkpoint,
-                                         save_checkpoint)
+                                         rank_state, save_rank_checkpoint)
 from dopt_torch.utils.metrics import History
 from dopt_torch.utils.prng import fold_in, host_rng, jax_key
 from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
@@ -260,8 +276,9 @@ def validate_common(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown backend {cfg.backend!r}; dopt's default "
                          "'jax' selects the engine, here the port's own")
     for knob in ("mesh_devices", "mesh_hosts"):
-        if getattr(cfg, knob) not in (None, 1):
-            raise later(f"{knob}={getattr(cfg, knob)}", "multi-GPU engines")
+        v = getattr(cfg, knob)
+        if v is not None and (not isinstance(v, int) or v < 1):
+            raise ValueError(f"{knob}={v!r} must be a positive int or None")
     if m.stacked_impl == "vmap":
         raise ValueError(
             "stacked_impl='vmap' is dopt's oracle-parity mode (a vmapped "
@@ -677,12 +694,25 @@ def centralized_config(cfg: ExperimentConfig) -> ExperimentConfig:
                                    algorithm="nocons"))
 
 
+def refuse_fused_across_ranks(group) -> None:
+    """dopt's refusal of the fused epilogue on a multi-device mesh
+    (its gossip.py:921-926, federated.py:610-615), in its words."""
+    if group.size > 1:
+        raise ValueError(
+            "fused_update='on' needs a single-device worker "
+            f"mesh (got {group.shape}): the Pallas epilogue "
+            "contracts the full worker axis in one kernel call; "
+            "multi-device meshes keep the dense or scatter "
+            "paths")
+
+
 def load_device_data(trainer, cfg: ExperimentConfig, dev: torch.device, *,
-                     local_bs: int) -> None:
+                     local_bs: int, group) -> None:
     """Both engines' data setup: load, partition, apply the holdout and
     upload once — the train rows stay flat ``[N, F]`` on the device, the
     test set as a shared ``[S, B, ...]`` eval stack, the holdout's
-    local-val stacks (if any) per worker."""
+    local-val stacks (if any) per worker: this rank's rows of dopt's
+    whole host stacks on a worker ``group`` of several ranks."""
     mc = cfg.model
     trainer.dataset = ds = load_dataset(
         cfg.data.dataset, data_dir=cfg.data.data_dir,
@@ -694,8 +724,9 @@ def load_device_data(trainer, cfg: ExperimentConfig, dev: torch.device, *,
         shards_per_user=cfg.data.shards, seed=cfg.seed)
     trainer._train_matrix, val = prepare_holdout(
         cfg, trainer.index_matrix, batch_size=local_bs)
-    trainer._val = (None if val is None else
-                    tuple(torch.from_numpy(a).to(dev) for a in val))
+    trainer._val = (None if val is None else tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            shard_worker_tree(a, group))).to(dev) for a in val))
     trainer._sample_shape = tuple(ds.train_x.shape[1:])
     trainer._train_x = torch.from_numpy(
         ds.train_x.reshape(len(ds.train_x), -1)).to(dev)
@@ -776,8 +807,10 @@ def steps_per_round(train_matrix: np.ndarray, local_bs: int,
 
 
 class GossipTrainer:
-    """Synchronous gossip over ``cfg.data.num_users`` workers on one
-    device: dsgd, nocons, centralized, fedlcon or pairwise gossip.
+    """Synchronous gossip over ``cfg.data.num_users`` workers: dsgd,
+    nocons, centralized, fedlcon, pairwise gossip or choco, on one device
+    or over the ranks of a ``torch.distributed`` group
+    (``mesh_devices``).
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
@@ -824,8 +857,16 @@ class GossipTrainer:
         self._last_step_total = 0.0
         w = cfg.data.num_users
         self.num_workers = w
+        # The worker axis over ranks (dopt's make_worker_mesh): this rank
+        # holds lanes [lane0, lane0 + L) of the W workers; every host
+        # draw is dopt's whole [W] draw, of which the rank takes its rows.
+        self.group = engine_group(w, cfg.mesh_devices, cfg.mesh_hosts)
+        self.lanes = lanes = self.group.lanes
+        if g.fused_update == "on":
+            refuse_fused_across_ranks(self.group)
 
-        load_device_data(self, cfg, dev, local_bs=g.local_bs)
+        load_device_data(self, cfg, dev, local_bs=g.local_bs,
+                         group=self.group)
         self.steps_per_round = steps_per_round(self._train_matrix,
                                                g.local_bs, g.local_ep)
         # The population binding (dopt :280-331): each round a cohort of
@@ -841,8 +882,10 @@ class GossipTrainer:
         if g.eval_mode == "sharded":
             si, sw = sharded_eval_batches(len(self.dataset.test_y), w,
                                           batch_size=max(g.local_bs, 256))
-            self._eval_shards = (torch.from_numpy(si.astype(np.int64)).to(dev),
-                                 torch.from_numpy(sw).to(dev))
+            si, sw = shard_worker_tree((si, sw), self.group)
+            self._eval_shards = (
+                torch.from_numpy(np.ascontiguousarray(si, np.int64)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(sw)).to(dev))
         # Per-epoch per-worker rows, filled when the holdout is on (P2
         # Client.history {iter, train_loss, train_acc, val_acc, val_loss}
         # plus round and worker columns; val_loss is P2's mean flavour).
@@ -851,7 +894,7 @@ class GossipTrainer:
         # Model + stacked state: every worker starts from the same init.
         p0 = initial_params(cfg, init_params)
         self.param_count = sum(v.numel() for v in p0.values())
-        stacked = {k: v.expand(w, *v.shape).contiguous().to(dev)
+        stacked = {k: v.expand(lanes, *v.shape).contiguous().to(dev)
                    for k, v in p0.items()}
         self.model = StackedModel(mc.model.lower(), stacked,
                                   faithful=mc.faithful,
@@ -910,7 +953,10 @@ class GossipTrainer:
                  + (2 * w if self._fused_quar else 0)
                  + (len(self._diag_keys) if self._diag else 0))
         self._slot = torch.zeros(width, device=dev)
-        self.graphs = RoundGraphs(self._body, self._slot)
+        # Across ranks the block's rounds run eagerly: a captured graph
+        # cannot hold a collective staged through the host.
+        self.graphs = RoundGraphs(self._body, self._slot,
+                                  eager=self.group.wire)
 
     def _setup_faults(self, stacked: dict[str, torch.Tensor]) -> None:
         """The fault plan, the robust layer's switches and host mirrors,
@@ -999,7 +1045,6 @@ class GossipTrainer:
         ``[W, Fb]`` f32 zero buffer a bucket (round −1's residual is
         zero, so round 0 encodes v = x), written in place."""
         cfg, g, w = self.cfg, self.cfg.gossip, self.num_workers
-        self.group = make_worker_group(w)
         comm = cfg.comm
         self._codec_on = comm is not None and comm.codec != "none"
         if comm is not None and comm.wire_dtype:
@@ -1012,15 +1057,23 @@ class GossipTrainer:
                 and not self._link_mode and not self._codec_on
                 and self.mixing is not None and (self._do_mix or self._choco)):
             extra = (0,) if self.faults.affects_matrix else ()
-            ids = schedule_shift_decomposition(self.mixing, max_shifts=None,
-                                               extra_shifts=extra)
+            # A hybrid (hosts × ici) layout keeps the dense path.
+            ids = (schedule_shift_decomposition(self.mixing, max_shifts=None,
+                                                extra_shifts=extra)
+                   if self.group.flat else None)
             size = self.group.size
             lanes = w // size
-            shipped = shift_comm_lanes(ids, lanes, size)
-            if g.comm_impl == "auto" and (
-                    size == 1 or len(ids) > max(3, w // 2)
-                    or (shipped > 3 and 2 * shipped > max(w - lanes, 1))):
-                ids = None
+            if ids is not None and g.comm_impl == "auto":
+                shipped = shift_comm_lanes(ids, lanes, size)
+                if (size == 1 or len(ids) > max(3, w // 2)
+                        or (shipped > 3 and 2 * shipped > max(w - lanes, 1))):
+                    ids = None
+            if ids is None and g.comm_impl == "shift":
+                raise ValueError(
+                    "comm_impl='shift' requires a flat 1-D worker mesh "
+                    f"(workers={w}, mesh={self.group.shape}) and a mixing "
+                    "schedule that decomposes into circulant shifts "
+                    f"(topology={g.topology!r})")
             self._shift_ids = ids
         elif g.comm_impl == "shift":
             raise ValueError(
@@ -1028,6 +1081,11 @@ class GossipTrainer:
                 f"(dsgd|fedlcon|choco), not {g.algorithm!r}")
         self.scatter_spec = None
         if g.update_sharding == "scatter":
+            if not self.group.flat:
+                raise ValueError(
+                    "update_sharding='scatter' needs a flat 1-D worker "
+                    f"mesh (got {self.group.shape}); hybrid (hosts × ici) "
+                    "meshes keep the dense path")
             self.scatter_spec = make_update_shard_spec(
                 stacked, fold=self.group.size,
                 bucket_bytes=int(g.update_bucket_mb * (1 << 20)))
@@ -1047,7 +1105,8 @@ class GossipTrainer:
                 {k: tuple(v.shape[1:]) for k, v in stacked.items()},
                 input_shape=cfg.model.input_shape), self.device)
             b = self.scatter_spec.bounds
-            self._comm_res = [torch.zeros(w, hi - lo, device=self.device)
+            self._comm_res = [torch.zeros(self.lanes, hi - lo,
+                                          device=self.device)
                               for lo, hi in zip(b, b[1:])]
 
     # -- one round: host stage, device body -----------------------------
@@ -1196,7 +1255,8 @@ class GossipTrainer:
             out["alive"] = alive.astype(np.float32)
         if self._may_straggle:
             per = self._steps_per_epoch if self._val is not None else 1
-            out["limit"] = (limits.astype(np.int64) * per).astype(np.int32)
+            lim = (limits.astype(np.int64) * per).astype(np.int32)
+            out["limit"] = shard_worker_tree(lim, self.group)
         if self._has_corrupt:
             out["cmask"] = cmask.astype(np.float32)
         if self._fused_quar or self._choco or self._codec_on:
@@ -1227,7 +1287,9 @@ class GossipTrainer:
             self.faults.plan_matrix_for(t, self._train_matrix),
             batch_size=g.local_bs, local_ep=g.local_ep, seed=cfg.seed,
             round_idx=t, impl=cfg.data.plan_impl, **kw)
-        return {"idx": plan.idx.astype(np.int64), "bw": plan.weight}
+        # Every rank plans the whole fleet and takes its lanes' rows.
+        return shard_worker_tree({"idx": plan.idx.astype(np.int64),
+                                  "bw": plan.weight}, self.group)
 
     def _param_dict(self) -> dict[str, torch.Tensor]:
         return dict(zip(self._names, self._params))
@@ -1267,7 +1329,10 @@ class GossipTrainer:
             self._write_params(mixed)
             return None
         # A liar corrupts only what it broadcasts; its own state trains
-        # honestly.  The extra fedlcon sweeps re-mix honest states.
+        # honestly.  The extra fedlcon sweeps re-mix honest states.  The
+        # pairwise screen reads every send: across ranks each rank runs
+        # it on the gathered fleet and keeps its rows.
+        params = gather_workers(params, self.group, "robust")
         x_send = (corrupt_update(params, cmask, self.cfg.faults.corrupt_mode,
                                  self.cfg.faults.corrupt_scale)
                   if self._has_corrupt else params)
@@ -1282,7 +1347,7 @@ class GossipTrainer:
             mixed = byzantine_mix(params, x_send, w_t)
             for _ in range(self._sweeps - 1):
                 mixed = mix_dense(mixed, w_t)
-        self._write_params(mixed)
+        self._write_params(shard_worker_tree(mixed, self.group))
         return screened
 
     def _mix_once(self, x: dict[str, torch.Tensor], arg: torch.Tensor
@@ -1297,7 +1362,7 @@ class GossipTrainer:
         if self._shift_ids is not None:
             return mix_shifts(x, self._shift_ids, arg, self.group,
                               self._comm_dtype)
-        return mix_dense(x, arg, self._comm_dtype)
+        return mix_dense(x, arg, self._comm_dtype, self.group)
 
     def _codec_mix(self, params: dict[str, torch.Tensor], w_t: torch.Tensor,
                    t: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -1326,6 +1391,7 @@ class GossipTrainer:
         dtype.  The mix reads the old prev before this round's entry is
         copied into it (in place: a captured graph holds addresses)."""
         nb = self._mix_once(self._async_prev, w_off)
+        wdiag = shard_worker_tree(wdiag, self.group)
         mixed = {k: (wdiag.reshape((-1,) + (1,) * (p.dim() - 1)) * p.float()
                      + nb[k].float()).to(p.dtype)
                  for k, p in params.items()}
@@ -1342,10 +1408,14 @@ class GossipTrainer:
         in place, and x += γ·(W x̂ − x̂), each op in the storage dtype."""
         key = fold_in(self._choco_key, t)
         diff = {k: p - self.x_hat[k] for k, p in params.items()}
-        q = self._compressor(diff, key, self._choco_order)
+        # The draws cover the whole [W, n] fleet: across ranks each rank
+        # compresses the gathered differences and keeps its rows.
+        q = shard_worker_tree(self._compressor(
+            gather_workers(diff, self.group, "choco"), key,
+            self._choco_order), self.group)
         if self._has_faults:
-            q = where_mask(alive, q, {k: torch.zeros_like(v)
-                                      for k, v in q.items()})
+            q = where_mask(shard_worker_tree(alive, self.group), q,
+                           {k: torch.zeros_like(v) for k, v in q.items()})
         for k, xh in self.x_hat.items():
             xh.add_(q[k])
         mixed = self._mix_once(self.x_hat, w_t)
@@ -1364,17 +1434,19 @@ class GossipTrainer:
         estimate x/mass in the params.  Every buffer is written in
         place."""
         params = self._param_dict()
-        x_send = (corrupt_update(params, cmask, self.cfg.faults.corrupt_mode,
+        gr = self.group
+        x_send = (corrupt_update(params, shard_worker_tree(cmask, gr),
+                                 self.cfg.faults.corrupt_mode,
                                  self.cfg.faults.corrupt_scale)
                   if self._has_corrupt else params)
         d_max, buf = self._delay_max, self._link_buf
         if self._push_sum:
-            now_x = mix_dense(x_send, mats[0])
+            now_x = mix_dense(x_send, mats[0], group=gr)
             now_m = mats[0] @ self._mass
             if d_max > 0:
                 now_x = {k: v + buf[k][0] for k, v in now_x.items()}
                 now_m = now_m + self._link_buf_mass[0]
-                sends = [mix_dense(x_send, mats[d])
+                sends = [mix_dense(x_send, mats[d], group=gr)
                          for d in range(1, d_max + 1)]
                 sends_m = torch.stack([mats[d] @ self._mass
                                        for d in range(1, d_max + 1)])
@@ -1387,15 +1459,15 @@ class GossipTrainer:
                 for k, b in buf.items():
                     b.copy_(new_buf[k])
                 bm.copy_(new_bm)
-            safe = torch.clamp_min(now_m, 1e-12)
+            safe = shard_worker_tree(torch.clamp_min(now_m, 1e-12), gr)
             mixed = {k: (v.float() / safe.reshape((-1,) + (1,) * (v.dim() - 1))
                          ).to(v.dtype) for k, v in now_x.items()}
             self._mass.copy_(now_m)
         else:
-            mixed = mix_dense(x_send, mats[0])
+            mixed = mix_dense(x_send, mats[0], group=gr)
             for d in range(1, d_max + 1):
                 snap = mix_dense({k: b[d - 1] for k, b in buf.items()},
-                                 mats[d])
+                                 mats[d], group=gr)
                 mixed = {k: v + snap[k] for k, v in mixed.items()}
             if d_max > 0:
                 new_buf = {k: torch.cat([x_send[k][None], b[:-1]])
@@ -1444,12 +1516,14 @@ class GossipTrainer:
         """The in-training test eval: every worker on the whole test
         stack, or (sharded) each on its own shard of it."""
         if self._eval_shards is None:
-            return stacked_evaluate(self.model, self.num_workers, *self._eval)
-        ex, ey, _ = self._eval
-        return stacked_eval_gathered(
-            self.model, *self._eval_shards,
-            ex.reshape(-1, *self._sample_shape), ey.reshape(-1),
-            self._sample_shape)
+            ev = stacked_evaluate(self.model, self.lanes, *self._eval)
+        else:
+            ex, ey, _ = self._eval
+            ev = stacked_eval_gathered(
+                self.model, *self._eval_shards,
+                ex.reshape(-1, *self._sample_shape), ey.reshape(-1),
+                self._sample_shape)
+        return gather_workers(ev, self.group, "metrics")
 
     def _body(self, inp: dict[str, torch.Tensor], do_eval: bool) -> None:
         """The round on the device: (fault inputs) → consensus → eval
@@ -1469,6 +1543,7 @@ class GossipTrainer:
                                        alive, inp.get("t"))
         if self._robust_active and screened is None:
             screened = torch.zeros(self.num_workers, device=self.device)
+        gr = self.group
         # The post-consensus state: dead lanes fall back to it, and the
         # diagnostics measure the local displacement from it (on the
         # fused carry it is q, which the local phase leaves alone).
@@ -1491,9 +1566,10 @@ class GossipTrainer:
             if self._may_die:
                 # A down lane's local work is discarded: its params and
                 # momentum keep their post-consensus values.
+                mine = shard_worker_tree(alive, gr)
                 for cur, old in zip(self._params + self.momentum,
                                     p_pre + m_pre):
-                    up = alive.reshape((-1,) + (1,) * (cur.dim() - 1)) > 0
+                    up = mine.reshape((-1,) + (1,) * (cur.dim() - 1)) > 0
                     cur.copy_(torch.where(up, cur, old))
             diag = None
             if self._diag:
@@ -1501,15 +1577,22 @@ class GossipTrainer:
                 p_start = (flat_views(self._q, self.fused_spec)
                            if p_pre is None
                            else dict(zip(self._names, p_pre)))
+                # Across ranks on the gathered fleet (norms and the
+                # consensus distance reduce over every lane).
                 diag = round_diag(
-                    self._param_dict(), dict(zip(self._names, self.momentum)),
-                    p_start, em["train_loss"] if em else losses,
+                    gather_workers(self._param_dict(), gr, "diag"),
+                    gather_workers(dict(zip(self._names, self.momentum)), gr,
+                                   "diag"),
+                    gather_workers(p_start, gr, "diag"),
+                    gather_workers(em["train_loss"] if em else losses, gr,
+                                   "diag"),
                     torch.ones(self.num_workers, device=self.device)
                     if alive is None else alive)
             if self._push_sum:
                 # The carried state is the numerator: z · mass.
+                mass = shard_worker_tree(self._mass, gr)
                 for p in self._params:
-                    mm = self._mass.reshape((-1,) + (1,) * (p.dim() - 1))
+                    mm = mass.reshape((-1,) + (1,) * (p.dim() - 1))
                     p.copy_((p.float() * mm).to(p.dtype))
             if self._fused_on:
                 q = flat_views(self._q, self.fused_spec)
@@ -1520,6 +1603,11 @@ class GossipTrainer:
             # the steps' without; the alive workers' mean under faults.
             if em:
                 losses, accs = em["train_loss"], em["train_acc"]
+            # The round's metrics reduce over the whole fleet: across
+            # ranks every rank gathers the lanes' rows and packs the same
+            # slot.
+            losses, accs, em = gather_workers((losses, accs, em), gr,
+                                              "metrics")
             if self._has_faults:
                 denom = torch.clamp_min(alive.sum(), 1.0)
                 tl = (losses.mean(1) * alive).sum() / denom
@@ -1736,7 +1824,8 @@ class GossipTrainer:
         or None on round 0 or for a diverged fleet (dopt :1962-1982)."""
         if self.round == 0:
             return None
-        cd = consensus_distance(self._debiased_params())
+        cd = consensus_distance(gather_workers(self._debiased_params(),
+                                               self.group))
         return cd if math.isfinite(cd) else None
 
     def _run_summary_telemetry(self) -> None:
@@ -1802,7 +1891,9 @@ class GossipTrainer:
         if self._registry is not None:
             meta["population_registry"] = self._registry.state_dict()
         with self.timers.phase("checkpoint"):
-            save_checkpoint(path, arrays=arrays, meta=meta)
+            save_rank_checkpoint(self.group, path, arrays, meta,
+                                 replicated=("push_mass", "link_buf_mass"),
+                                 lane_axis={"link_buf": 1})
         if self.telemetry is not None:
             # After the atomic save landed, with the consensus snapshot.
             ev = {"round": int(self.round)}
@@ -1818,6 +1909,10 @@ class GossipTrainer:
         tensor is written in place, so graphs this trainer already
         captured replay the restored state."""
         arrays, meta = load_checkpoint(path)
+        # Every rank reads the whole file and keeps its lanes' rows.
+        arrays = rank_state(self.group, arrays,
+                            replicated=("push_mass", "link_buf_mass"),
+                            lane_axis={"link_buf": 1})
         if meta.get("algorithm") != self.cfg.gossip.algorithm:
             raise ValueError(
                 f"checkpoint is for algorithm {meta.get('algorithm')!r}, "
@@ -1932,7 +2027,8 @@ class GossipTrainer:
             fb = flat_views(self._fbuf, self.fused_spec)
             return {k: q[k] - fb[k] for k in self._names}
         if self._push_sum:
-            mm = torch.clamp_min(self._mass, 1e-12)
+            mm = shard_worker_tree(torch.clamp_min(self._mass, 1e-12),
+                                   self.group)
             return {k: (p.float() / mm.reshape((-1,) + (1,) * (p.dim() - 1))
                         ).to(p.dtype)
                     for k, p in zip(self._names, self._params)}
@@ -1941,13 +2037,16 @@ class GossipTrainer:
 
     def worker_params(self) -> dict[str, np.ndarray]:
         """Host copy of every worker's parameters ([W, ...] arrays in the
-        port's layout; ``dopt_torch.convert.params_to_jax`` gives dopt's)."""
+        port's layout; ``dopt_torch.convert.params_to_jax`` gives dopt's).
+        Across ranks the lanes are gathered: every rank must call it."""
         return {k: v.float().cpu().numpy()
-                for k, v in self._debiased_params().items()}
+                for k, v in gather_workers(self._debiased_params(),
+                                           self.group).items()}
 
     def evaluate(self) -> dict[str, np.ndarray]:
         """Reference-semantics eval: every worker on the full test set,
-        whatever ``eval_mode`` (which sets the in-training metric only)."""
+        whatever ``eval_mode`` (which sets the in-training metric only);
+        ``[W]`` arrays on every rank (a collective across ranks)."""
         params = self._debiased_params()
         mc = self.cfg.model
         with full_f32(self.device), deterministic(self.device):
@@ -1955,5 +2054,6 @@ class GossipTrainer:
                 lambda x: stacked_forward(
                     mc.model.lower(), params, x, faithful=mc.faithful,
                     dtype=DTYPES[mc.compute_dtype]),
-                self.num_workers, *self._eval)
+                self.lanes, *self._eval)
+        out = gather_workers(out, self.group)
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -34,8 +34,12 @@ increments move to the graph and come back at every replay
 
 On the CPU the same object runs the body eagerly on the same static
 buffers, so the CPU tests hold the staging, the order and the metric
-packing even though nothing is captured there.  On CUDA a capture error
-is an error: there is no eager fallback.
+packing even though nothing is captured there.  Across ranks
+(``eager=True``: a trainer whose worker group has a wire) the card
+runs the body eagerly too, bit for bit with the per-round run: a
+captured graph cannot hold a collective staged through host memory
+(gloo), and capture over NCCL waits for a later slice.  On CUDA a
+capture error is an error: there is no eager fallback.
 
 ``run_blocked`` is both engines' block loop (after dopt's
 ``_blocked_loop``, dopt/engine/gossip.py:1755-1874 and
@@ -86,12 +90,13 @@ class RoundGraphs:
     device until the garbage collector ran."""
 
     def __init__(self, body: Callable[[dict, Hashable], None],
-                 slot: torch.Tensor):
+                 slot: torch.Tensor, *, eager: bool = False):
         self._body = (weakref.WeakMethod(body) if inspect.ismethod(body)
                       else lambda: body)
         self.statics: dict[str, torch.Tensor] | None = None
         self.slot = slot
         self.device = slot.device
+        self.eager = eager
         self.captures: dict[Hashable, dict[str, float]] = {}
         self._graphs: dict[Hashable, tuple] = {}
         self._pool = None
@@ -116,7 +121,7 @@ class RoundGraphs:
         self._body()(statics, kind)
 
     def _round(self, kind: Hashable) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             self.body(self.statics, kind)
             return
         entry = self._graphs.get(kind)

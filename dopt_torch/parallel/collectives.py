@@ -7,7 +7,8 @@ tensor (dopt leaves it to XLA outside Pallas; here it is
 ``torch.matmul``).  The federated aggregation's helpers —
 ``where_mask``, ``masked_average``, ``mean_weight_matrix``,
 ``broadcast_to_workers`` — take and return dicts of tensors (dopt's
-pytrees), single-device (no mesh).
+pytrees); on a ``WorkerGroup`` with a wire each rank passes its own
+lanes and the global ``[W]`` mask.
 
 ``comm_dtype`` (``wire_dtype``: bfloat16, float16, float32) is dopt's
 wire narrowing in its one-device form.  ``mix_dense`` narrows each
@@ -35,11 +36,12 @@ parallel.mesh``; None is one rank): each rank passes its own lanes'
 * ``mix_dense_scatter`` (dopt :445): each rank contracts the f32 mixing
   matrix's columns of its lanes against its ``[L, Fb]`` slab into an
   ``[n, Fb]`` partial, optionally narrowed to ``comm_dtype``, and one
-  ``reduce_scatter_tensor`` over the row axis completes the sum and
-  hands each rank its own rows.
+  reduce-scatter over the row axis (an ``all_to_all_single`` and a
+  local sum in rank order) completes the sum and hands each rank its
+  own rows.
 * ``masked_average_scatter`` (dopt :512): the masked partial sum over a
-  rank's lanes, a ``reduce_scatter_tensor`` over the flat axis, the
-  divide on the rank's shard, one ``all_gather_into_tensor``.
+  rank's lanes, a reduce-scatter over the flat axis, the divide on the
+  rank's shard, one ``all_gather_into_tensor``.
 * ``mix_shifts`` (dopt :159): x_i ← Σ_s c_s[i]·x_{(i+s) mod n} as ring
   rotations of ranks plus a static lane slice; each nonzero rotation is
   one paired send/recv (``batch_isend_irecv``) carrying only the lanes
@@ -48,9 +50,19 @@ parallel.mesh``; None is one rank): each rank passes its own lanes'
   encode v = x + e (``qint_encode``), all-gather the packed payload and
   the f32 scales, decode, contract this rank's mixing rows; the
   residual v − decode(encode(v)) feeds the next round.
-* ``mix_dense`` and ``masked_average`` on a group are dopt's compressed
-  forms (:81, :301): the narrowed shards (or partial sums) are
-  all-gathered and contracted (summed) in f32.
+* ``mix_dense`` and ``masked_average`` on a group are dopt's dense
+  forms (:81, :301): the shards (narrowed to ``comm_dtype`` if set) are
+  all-gathered and this rank's matrix rows contract them; the ranks'
+  partial sums are all-gathered and summed in rank order in f32.
+
+Every reduction over the worker axis crosses ranks as an all-gather or
+an all-to-all followed by a local sum in rank order, never an
+``all_reduce``: a run repeats bit for bit whatever the library's
+algorithm, and NCCL and gloo give the same bits.  On a gloo group CUDA
+payloads are staged through pinned host memory (``WorkerGroup.staged``:
+gloo's all-gather, all-to-all and send/recv take host tensors), so
+ranks that share one card run over gloo while their compute stays on
+the card.
 
 With no wire every function does what dopt's one-device mesh compiles
 to, a narrowing cast included.  A group's ``meter`` counts the bytes
@@ -135,21 +147,23 @@ def masked_average(stacked: dict[str, torch.Tensor], mask: torch.Tensor,
     axis (reference ``average_weights`` with client sampling as data).
     With ``comm_dtype`` the sum runs in f32, the one partial sum is
     narrowed to the wire dtype and upcast, and the f32 divide is cast
-    to the tensor's dtype.  On a ``group`` with a wire (``comm_dtype``
-    required, as dopt's compressed form) ``mask`` is the global ``[W]``
-    mask and the tensors this rank's lanes: the ranks' narrowed partial
-    sums are all-gathered and summed in f32."""
+    to the tensor's dtype.  On a ``group`` with a wire ``mask`` is the
+    global ``[W]`` mask and the tensors this rank's lanes: each rank's
+    partial sum over its lanes (f32, narrowed with ``comm_dtype``; in
+    the tensor's dtype without) is all-gathered and the ranks' partials
+    summed in rank order in f32 — the same on every rank, whatever the
+    transport — then divided and cast to the tensor's dtype."""
     m = mask.float()
     denom = m.sum().clamp_min(1.0)
     if group is not None and group.wire:
-        if comm_dtype is None:
-            raise ValueError("a masked average over ranks narrows its "
-                             "partial sums: it needs comm_dtype")
         ml = group.local(m)
         out = {}
         for k, x in stacked.items():
-            part = (x.float() * _lane(ml, x)).sum(0)
-            parts = _all_gather(part.to(comm_dtype)[None], group, "mean")
+            if comm_dtype is None:
+                part = (x * _lane(ml, x).to(x.dtype)).sum(0)
+            else:
+                part = (x.float() * _lane(ml, x)).sum(0).to(comm_dtype)
+            parts = _all_gather(part[None], group, "mean")
             out[k] = (parts.float().sum(0) / denom).to(x.dtype)
         return out
     if comm_dtype is not None:
@@ -157,6 +171,17 @@ def masked_average(stacked: dict[str, torch.Tensor], mask: torch.Tensor,
                     / denom).to(x.dtype)
                 for k, x in stacked.items()}
     return {k: (x * _lane(m, x).to(x.dtype)).sum(0) / denom.to(x.dtype)
+            for k, x in stacked.items()}
+
+
+def lane_sum(stacked: dict[str, torch.Tensor], group=None
+             ) -> dict[str, torch.Tensor]:
+    """Σ_i x_i over the worker axis in the tensors' dtype: on a group
+    with a wire each rank's partial sum over its lanes, all-gathered and
+    summed in rank order (SCAFFOLD's control increment)."""
+    if group is None or not group.wire:
+        return {k: x.sum(0) for k, x in stacked.items()}
+    return {k: _all_gather(x.sum(0)[None], group, "sum").sum(0)
             for k, x in stacked.items()}
 
 
@@ -171,9 +196,14 @@ def mean_weight_matrix(mask: torch.Tensor) -> torch.Tensor:
 
 
 def broadcast_to_workers(tree: dict[str, torch.Tensor],
-                         num_workers: int) -> dict[str, torch.Tensor]:
+                         num_workers: int, group=None
+                         ) -> dict[str, torch.Tensor]:
     """theta → stacked ``[W, ...]`` views (the server handing every
-    client a copy of the global model; no copy is made)."""
+    client a copy of the global model; no copy is made).  On a group
+    with a wire theta is replicated on every rank and each rank takes
+    its ``[L, ...]`` lanes: no collective."""
+    if group is not None and group.wire:
+        num_workers = group.lanes
     return {k: x.expand(num_workers, *x.shape) for k, x in tree.items()}
 
 
@@ -299,40 +329,52 @@ def _dist():
     return dist
 
 
+def _host(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the collective hands it over: itself, or a pinned host
+    copy where the group stages CUDA payloads (gloo)."""
+    if not group.staged(x):
+        return x
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return h
+
+
+def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A collective's output back on ``like``'s device."""
+    return h if h.device == like.device else h.to(like.device)
+
+
 def _all_gather(x: torch.Tensor, group, kind: str) -> torch.Tensor:
     """``[L, ...]`` on each rank → ``[size·L, ...]`` in rank order."""
     dist = _dist()
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    x = x.contiguous()
-    out = x.new_empty((x.shape[0] * group.size,) + tuple(x.shape[1:]))
+    x = x.detach().contiguous()
     group.count("all_gather", kind, x)
-    gather(out, x, group=group.group)
-    return out
+    h = _host(x, group)
+    out = h.new_empty((x.shape[0] * group.size,) + tuple(x.shape[1:]))
+    gather(out, h, group=group.group)
+    return _back(out, x)
 
 
 def _reduce_scatter(x: torch.Tensor, group, kind: str) -> torch.Tensor:
     """Sum over ranks of ``[size·k, ...]``, rank r keeping rows
-    [r·k, (r+1)·k).  An f32 partial goes through
-    ``reduce_scatter_tensor``.  A narrowed one crosses by
-    ``all_to_all_single`` — the same bytes a reduce-scatter sends — and
-    its ``size`` pieces are summed in f32 and rounded once to the wire
-    dtype, as XLA reduces a bf16/f16 ``psum_scatter``; a library
-    reduce-scatter would round after every add."""
+    [r·k, (r+1)·k).  The partial crosses by ``all_to_all_single`` — the
+    same bytes a reduce-scatter sends — and its ``size`` pieces are
+    summed in f32 in rank order, so every run and every transport give
+    the same bits; a narrowed partial is rounded once to the wire dtype
+    after the sum, as XLA reduces a bf16/f16 ``psum_scatter`` (a library
+    reduce-scatter would round after every add)."""
     dist = _dist()
-    x = x.contiguous()
+    x = x.detach().contiguous()
     k = x.shape[0] // group.size
     group.count("reduce_scatter", kind, x)
-    if x.dtype != torch.float32:
-        pieces = torch.empty_like(x)
-        dist.all_to_all_single(pieces, x, group=group.group)
-        return pieces.view(group.size, k, *x.shape[1:]).float().sum(0).to(
-            x.dtype)
-    scatter = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    out = x.new_empty((k,) + tuple(x.shape[1:]))
-    scatter(out, x, group=group.group)
-    return out
+    h = _host(x, group)
+    pieces = torch.empty_like(h)
+    dist.all_to_all_single(pieces, h, group=group.group)
+    pieces = _back(pieces, x)
+    return pieces.view(group.size, k, *x.shape[1:]).float().sum(0).to(
+        x.dtype)
 
 
 def _wired(group) -> bool:
@@ -460,14 +502,15 @@ def _rotate(payload: torch.Tensor, q: int, group) -> torch.Tensor:
     """Rotation q: rank r receives rank (r + q)'s payload and sends its
     own to rank (r − q)."""
     dist = _dist()
-    recv = torch.empty_like(payload)
+    h = _host(payload.detach(), group)
+    recv = torch.empty_like(h)
     r, d = group.rank, group.size
     group.count("send", "shift", payload)
-    ops = [dist.P2POp(dist.isend, payload, (r - q) % d, group.group),
+    ops = [dist.P2POp(dist.isend, h, (r - q) % d, group.group),
            dist.P2POp(dist.irecv, recv, (r + q) % d, group.group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv
+    return _back(recv, payload)
 
 
 def mix_shifts(tree, shift_ids, coeff_table: torch.Tensor, group=None,

@@ -25,6 +25,21 @@ synthetic sets after the overrides (dopt's order and floors), and
 and ``--cohort-seed`` install or resize the client population (dopt's
 flags and refusals).  The config goes to stderr first as dopt's
 ``exp_details`` writes it.
+
+Across GPUs, one process a GPU under torchrun::
+
+    python -m torch.distributed.run --nproc-per-node N -m dopt_torch.run \
+        --preset P --set mesh_devices=N
+
+Each process joins the NCCL group from torchrun's variables
+(``dopt_torch.parallel.multihost.initialize_distributed``) on
+``cuda:LOCAL_RANK`` and holds W/N workers; with ``--device cpu`` the
+ranks join over gloo on the CPU.  A ``LOCAL_RANK`` with no GPU of its own
+raises: ranks that share one card run from Python over gloo
+(``dopt_torch.parallel.init_file_group(..., backend="gloo")``).  Rank 0
+alone prints the rows and writes the CSV, the ledger, the telemetry
+stream and the traces; every rank takes part in a checkpoint (rank 0
+writes it).
 """
 
 from __future__ import annotations
@@ -175,7 +190,6 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     from dopt_torch.config import exp_details
-    from dopt_torch.engine import FederatedTrainer, GossipTrainer
     from dopt_torch.presets import PRESETS, get_preset
 
     if args.preset == "list":
@@ -246,30 +260,80 @@ def main(argv: list[str] | None = None) -> int:
                 d.num_users * 8),
             synthetic_test_size=max(
                 int(d.synthetic_test_size * args.synthetic_scale), 64)))
-    print(exp_details(cfg), file=sys.stderr)
+    device, rank = _join_launch(args.device)
+    lead = rank in (None, 0)
+    if lead:
+        print(exp_details(cfg), file=sys.stderr)
+    try:
+        return _train(args, cfg, device, lead)
+    finally:
+        if rank is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_launch(device: str | None) -> tuple[str | None, int | None]:
+    """Under torchrun, join the default process group — NCCL on
+    ``cuda:LOCAL_RANK``, or gloo with ``--device cpu`` — and return
+    (this rank's device, its rank); otherwise (device, None)."""
+    from dopt_torch.parallel.multihost import (initialize_distributed,
+                                               launch_env)
+
+    env = launch_env()
+    if env is None or env["world_size"] <= 1:
+        return device, None
+    import torch
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if not on_cpu:
+        visible = torch.cuda.device_count()
+        if env["local_rank"] >= visible:
+            raise ValueError(
+                f"LOCAL_RANK={env['local_rank']} has no GPU of its own "
+                f"({visible} visible): NCCL runs one rank a GPU.  Ranks "
+                "that share a card run from Python over gloo: "
+                "dopt_torch.parallel.init_file_group(dir, rank, world, "
+                "backend='gloo', num_workers=W) in each process, or "
+                "dopt_torch.parallel.spawn_ranks(fn, world, dir)")
+        torch.cuda.set_device(env["local_rank"])
+        device = f"cuda:{env['local_rank']}"
+    initialize_distributed(backend="gloo" if on_cpu else "nccl")
+    return device, env["rank"]
+
+
+def _train(args, cfg, device, lead: bool) -> int:
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+
     if cfg.federated is not None:
-        trainer = FederatedTrainer(cfg, device=args.device)
+        trainer = FederatedTrainer(cfg, device=device)
         default_rounds = cfg.federated.rounds
     else:
-        trainer = GossipTrainer(cfg, device=args.device)
+        trainer = GossipTrainer(cfg, device=device)
         default_rounds = cfg.gossip.rounds
     rounds = default_rounds if args.rounds is None else args.rounds
     section = cfg.federated or cfg.gossip
-    print(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
-          f"compute {cfg.model.compute_dtype}, storage "
-          f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
-          f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
-          f"prefetch {section.prefetch}", file=sys.stderr)
+    # Rank 0 alone reports.
+    say = (functools.partial(print, file=sys.stderr) if lead
+           else lambda *a, **k: None)
+    say(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
+        f"compute {cfg.model.compute_dtype}, storage "
+        f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
+        f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
+        f"prefetch {section.prefetch}, {trainer.group.size} rank(s) of "
+        f"{trainer.lanes} lanes")
     if args.resume:
         trainer.restore(args.resume)
-        print(f"resumed at round {trainer.round}", file=sys.stderr)
+        say(f"resumed at round {trainer.round}")
     tele = None
     if args.metrics_out or args.trace_out:
         from dopt_torch.obs import Telemetry, attach
 
+        # Every rank emits (the stream's gauges may gather across ranks);
+        # rank 0 alone writes.
         tele = (Telemetry.to_jsonl(args.metrics_out,
                                    resume=bool(args.resume))
-                if args.metrics_out else Telemetry())
+                if args.metrics_out and lead else Telemetry())
         attach(trainer, tele,
                checkpoint_every=args.checkpoint_every or None)
     run = functools.partial(trainer.run, rounds=rounds,
@@ -283,39 +347,37 @@ def main(argv: list[str] | None = None) -> int:
                                          else [])
         with profile(activities=acts) as prof:
             run()
-        out = pathlib.Path(args.trace)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "trace.json"))
-        print(f"wrote torch.profiler trace to {out / 'trace.json'}",
-              file=sys.stderr)
+        if lead:
+            path = pathlib.Path(args.trace)
+            path.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(path / "trace.json"))
+            say(f"wrote torch.profiler trace to {path / 'trace.json'}")
     else:
         run()
-    for row in trainer.history.rows[-rounds:]:
-        print(json.dumps(row))
-    print(f"device={trainer.device} total_time_s={trainer.total_time:.2f}",
-          file=sys.stderr)
-    if args.timers:
-        print(trainer.timers.report(), file=sys.stderr)
-    if args.csv:
+    if lead:
+        for row in trainer.history.rows[-rounds:]:
+            print(json.dumps(row))
+    say(f"device={trainer.device} total_time_s={trainer.total_time:.2f}")
+    if args.timers and lead:
+        say(trainer.timers.report())
+    if args.csv and lead:
         trainer.history.to_csv(args.csv)
-        print(f"wrote {args.csv}", file=sys.stderr)
-    if args.faults_json:
+        say(f"wrote {args.csv}")
+    if args.faults_json and lead:
         trainer.history.faults_to_json(args.faults_json)
-        print(f"wrote {len(trainer.history.faults)} fault-ledger rows to "
-              f"{args.faults_json}", file=sys.stderr)
+        say(f"wrote {len(trainer.history.faults)} fault-ledger rows to "
+            f"{args.faults_json}")
     if args.checkpoint:
         trainer.save(args.checkpoint)
-        print(f"checkpointed to {args.checkpoint}", file=sys.stderr)
+        say(f"checkpointed to {args.checkpoint}")
     if tele is not None:
         # Closed after the last save: a save emits a checkpoint event.
         tele.close()
-        if args.metrics_out:
-            print(f"wrote telemetry stream to {args.metrics_out}",
-                  file=sys.stderr)
-        if args.trace_out:
+        if args.metrics_out and lead:
+            say(f"wrote telemetry stream to {args.metrics_out}")
+        if args.trace_out and lead:
             tele.write_trace(args.trace_out)
-            print(f"wrote host span trace to {args.trace_out}",
-                  file=sys.stderr)
+            say(f"wrote host span trace to {args.trace_out}")
     return 0
 
 

@@ -18,6 +18,12 @@ at any point leaves at least one complete checkpoint loadable —
 directory is missing or incomplete, and the size manifest rejects a
 truncated file.
 
+Across ranks (a ``WorkerGroup`` with a wire) ``save_rank_checkpoint``
+gathers every per-lane tree to the whole ``[W, ...]``, rank 0 writes the
+same format and every rank waits at a barrier; ``rank_state`` cuts a
+loaded checkpoint to a rank's lanes.  The file does not record the rank
+count: a checkpoint written at R ranks restores at one rank or at R'.
+
 numpy has no bf16, so ``host_tree`` brings bf16 tensors to the host as
 f32, which holds every bf16 value exactly (the ``dopt_torch.convert``
 convention); ``copy_into`` casts them back to the trainer's storage
@@ -34,6 +40,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from dopt_torch.parallel.mesh import barrier, gather_workers
 
 
 def host_tree(tree: dict) -> dict:
@@ -137,6 +145,46 @@ def save_checkpoint(path: str | Path, *, arrays: dict[str, Any],
     if old.exists():
         shutil.rmtree(old)
     return path
+
+
+def _lane_tree(tree, fn, axis: int):
+    """``fn`` over every leaf of a (nested) dict with its lane axis moved
+    to the front and back."""
+    if isinstance(tree, dict):
+        return {k: _lane_tree(v, fn, axis) for k, v in tree.items()}
+    if axis == 0:
+        return fn(tree)
+    return fn(tree.swapaxes(0, axis)).swapaxes(0, axis)
+
+
+def save_rank_checkpoint(group, path, arrays: dict, meta: dict, *,
+                         replicated=(), lane_axis=None) -> None:
+    """Both engines' save across ranks: every per-lane tree of
+    ``arrays`` is gathered to its whole ``[W, ...]`` (lane axis 0, or
+    ``lane_axis[name]``), the ``replicated`` ones are the same on every
+    rank, rank 0 writes dopt's format and every rank waits for the
+    write.  On one rank it is ``save_checkpoint``."""
+    if group.wire:
+        lane_axis = lane_axis or {}
+        arrays = {k: v if (k in replicated or v is None) else _lane_tree(
+            v, lambda x: gather_workers(x.contiguous(), group, "checkpoint"),
+            lane_axis.get(k, 0)) for k, v in arrays.items()}
+    if group.rank == 0:
+        save_checkpoint(path, arrays=arrays, meta=meta)
+    barrier(group)
+
+
+def rank_state(group, arrays: dict, *, replicated=(), lane_axis=None
+               ) -> dict:
+    """A loaded checkpoint's arrays cut to this rank's lanes (every rank
+    reads the whole file): the inverse of ``save_rank_checkpoint``, so a
+    checkpoint written at any rank count restores at any other."""
+    if not group.wire:
+        return arrays
+    lane_axis = lane_axis or {}
+    return {k: v if k in replicated else _lane_tree(
+        v, lambda x: group.local(np.asarray(x)), lane_axis.get(k, 0))
+        for k, v in arrays.items()}
 
 
 def _is_complete(path: Path) -> bool:

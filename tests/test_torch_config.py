@@ -75,9 +75,12 @@ BOTH = [
     # words (slice "dopt"), and the value runs on resnet18.
     ("model", "stage_sizes", (1, 1, 1, 1), "dopt"),
     (None, "seqlm", J.SeqLMConfig(), "seqlm"),
-    # The scatter slice runs one GPU; more wait for the multi-GPU engines.
-    (None, "mesh_devices", 4, "multi-GPU engines"),
-    (None, "mesh_hosts", 2, "multi-GPU engines"),
+    # Lifted by the multi-GPU engines slice: the worker axis runs over
+    # the launched ranks; without a process group the value names the
+    # launch it needs (slice "launch"; tests/test_torch_multigpu.py runs
+    # it over gloo ranks).
+    (None, "mesh_devices", 4, "launch"),
+    (None, "mesh_hosts", 2, "launch"),
 ]
 
 
@@ -108,6 +111,11 @@ def test_unported_values_refused_naming_their_slice(section, field, value,
                 cls(cfg, device="cpu")
             cfg = _set(cfg, "model", model="resnet18")
             assert len(cls(cfg, device="cpu").run(rounds=1).rows) == 1
+            continue
+        if slice_name == "launch":
+            with pytest.raises(ValueError, match="torch.distributed.run "
+                               "--nproc-per-node"):
+                cls(cfg, device="cpu")
             continue
         with pytest.raises(ValueError, match=f"'{slice_name}' slice"):
             cls(cfg, device="cpu")
@@ -158,11 +166,13 @@ def test_cli_set_of_an_unported_field_names_its_slice():
                  "data.synthetic_train_size=160", "--set",
                  "data.synthetic_test_size=16"]) == 0
     # Since the scatter slice --set gossip.update_sharding=scatter runs
-    # too; a mesh of more than one GPU is refused naming its slice.
+    # too; since the multi-GPU engines slice a mesh of more than one GPU
+    # runs over launched ranks, and without them names the launch.
     assert main(["--preset", "baseline1", "--device", "cpu", "--rounds",
                  "1", "--set", "gossip.update_sharding=scatter", "--set",
                  "data.synthetic_train_size=160", "--set",
                  "data.synthetic_test_size=16"]) == 0
-    with pytest.raises(ValueError, match="'multi-GPU engines' slice"):
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                       "--nproc-per-node 2"):
         main(["--preset", "headline-dsgd-model1", "--device", "cpu",
               "--set", "mesh_devices=2"])

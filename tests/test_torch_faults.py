@@ -569,13 +569,15 @@ def test_refusals_match_dopt(case):
 
 def test_federated_engine_refuses_faults_naming_its_slice():
     """The federated engine runs the fault model now, in population mode
-    too since the population slice; what it still refuses under faults
-    names the slice that adds it: more than one GPU.  ``cfg.comm`` (the
+    too since the population slice, and over several ranks since the
+    multi-GPU engines slice: without a process group more than one GPU
+    names the launch it needs.  ``cfg.comm`` (the
     scatter path's wire dtype) runs under the robust layer's clip since
     the scatter slice."""
     fed = _cfg(T).replace(gossip=None, federated=T.FederatedConfig(
         frac=0.5, local_ep=1, local_bs=16))
-    with pytest.raises(ValueError, match="'multi-GPU engines' slice"):
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                       "--nproc-per-node 2"):
         FederatedTrainer(fed.replace(faults=T.FaultConfig(crash=0.1),
                                      mesh_devices=2), device="cpu")
     pop = FederatedTrainer(fed.replace(

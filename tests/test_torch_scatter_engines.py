@@ -31,8 +31,8 @@ The port's own promises hold bit for bit on the CPU: scatter and codec
 blocked ≡ per-round, codec killed and resumed ≡ continuous (with
 ``comm_residual``), two runs equal, and ``update_sharding="off"`` with
 ``comm=None`` unchanged.  Every refusal dopt makes of these knobs the
-port makes in dopt's words; ``mesh_devices > 1`` names the multi-GPU
-engines slice.
+port makes in dopt's words; ``mesh_devices > 1`` without launched ranks
+names the launch it needs.
 """
 
 import dataclasses
@@ -432,8 +432,12 @@ def test_federated_refusals_in_dopts_words(case, devices):
 
 @pytest.mark.parametrize("knob", ["mesh_devices", "mesh_hosts"])
 def test_more_than_one_gpu_names_the_multi_gpu_slice(knob):
+    """Since the multi-GPU engines slice more than one GPU runs over the
+    launched ranks (tests/test_torch_multigpu.py); without a process
+    group the value names the launch it needs."""
     for cls, cfg in ((GossipTrainer, _gcfg(T)), (FederatedTrainer, _fcfg(T))):
-        with pytest.raises(ValueError, match="'multi-GPU engines' slice"):
+        with pytest.raises(ValueError, match="torch.distributed.run "
+                           "--nproc-per-node"):
             cls(cfg.replace(**{knob: 2}), device="cpu")
 
 
