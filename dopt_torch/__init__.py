@@ -38,7 +38,10 @@ dopt_torch.run ...``) or gloo on the CPU or for ranks that share a card
 (``PopulationConfig``, ``dopt_torch.population``): cohorts sampled from
 a registry of up to thousands of clients, trained by the federated
 engine in waves of lanes with one reduce a round, and bound onto the
-gossip engine's lanes.
+gossip engine's lanes.  ``SeqLMTrainer`` is dopt's sequence-parallel
+TransformerLM (``SeqLMConfig``, the ``seqlm`` preset): the sequence split
+over the launched ranks, ring or Ulysses attention
+(``dopt_torch.parallel.sequence``).
 """
 
 import os
@@ -53,8 +56,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 from dopt_torch.config import (CommConfig, DataConfig, ExperimentConfig,
                                FaultConfig, FederatedConfig, GossipConfig,
                                ModelConfig, OptimizerConfig, PopulationConfig,
-                               RobustConfig)
-from dopt_torch.engine import FederatedTrainer, GossipTrainer
+                               RobustConfig, SeqLMConfig)
+from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
 from dopt_torch.parallel import (WorkerGroup, engine_group, init_file_group,
                                  spawn_ranks)
 from dopt_torch.presets import PRESETS, get_preset
@@ -70,8 +73,10 @@ __all__ = [
     "OptimizerConfig",
     "PopulationConfig",
     "RobustConfig",
+    "SeqLMConfig",
     "FederatedTrainer",
     "GossipTrainer",
+    "SeqLMTrainer",
     "PRESETS",
     "WorkerGroup",
     "engine_group",

@@ -5,9 +5,9 @@ Every field of ``dopt.config``'s ``DataConfig``, ``ModelConfig``,
 ``ExperimentConfig``, with the same names and defaults, so a preset, a
 dopt config or a ``--set`` override means the same thing in both
 packages.  ``PopulationConfig`` is dopt's client population
-(``dopt_torch.population``).  Fields and sections of later slices
-(seqlm) exist with dopt's defaults: the trainers refuse any other value,
-naming the slice that adds it.
+(``dopt_torch.population``); ``SeqLMConfig`` is its sequence-parallel
+language model (``dopt_torch.engine.seqlm.SeqLMTrainer``), which the
+gossip and federated trainers refuse by naming that trainer.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ class DataConfig:
 class ModelConfig:
     """Model zoo selection (reference ``args.model`` string dispatch)."""
 
-    model: str = "model1"    # model1 | model3 | mlp | logistic | resnet18
+    model: str = "model1"
+    # model1 | model3 | mlp | logistic | resnet18 | transformer (the
+    # SeqLMTrainer's TransformerLM, built from the seqlm section)
     stage_sizes: tuple[int, ...] | None = None
     # resnet18 only: residual blocks a stage; None = (2, 2, 2, 2).
     faithful: bool = True
@@ -405,6 +407,30 @@ class PopulationConfig:
 
 
 @dataclass(frozen=True)
+class SeqLMConfig:
+    """Sequence-parallel language-model training (``SeqLMTrainer``):
+    a decoder-only TransformerLM on dopt's synthetic Markov corpus, the
+    sequence axis split over the ranks, attention as a ring (KV blocks
+    rotating rank to rank) or Ulysses (all-to-all head resharding) —
+    exact, not approximate."""
+
+    steps: int = 60
+    batch: int = 8
+    seq_len: int = 512       # divisible by the rank count
+    vocab: int = 64
+    dim: int = 128
+    depth: int = 2
+    heads: int = 4
+    attn: str = "ring"       # ring | ulysses | dense (one rank)
+    kv_chunk: int = 0
+    # ring only: each ring block's KV in chunks of this size (flash-
+    # style), so a rank's score memory is O(block·kv_chunk) instead of
+    # O(block²).  0 = the whole block at once; must divide
+    # seq_len / ranks.
+    log_every: int = 10
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     """Top-level experiment description (the notebook form cell, typed)."""
 
@@ -427,8 +453,9 @@ class ExperimentConfig:
     population: PopulationConfig | None = None
     # The client population: cohorts sampled from a client registry
     # (federated: the wave loop; gossip: the cohort→lane binding).
-    # A section of a later slice; the trainers refuse it when set.
-    seqlm: Any = None
+    seqlm: SeqLMConfig | None = None
+    # The sequence-parallel LM (SeqLMTrainer); the gossip and federated
+    # trainers refuse it.
     backend: str = "jax"
     # dopt's engine switch: "jax" is dopt's engine, which the port takes
     # to mean its own; "torch" (dopt's sequential CPU oracle) is refused.

@@ -9,7 +9,10 @@ Model1/Model3 (the worker axis is there when ``conv1``'s kernel has
 rank 5); ``Conv_0`` marks ResNet-18, whose nested tree (``Conv_0``,
 ``GroupNorm_0``, ``ResidualBlock_k/{Conv_i, GroupNorm_i}``, ``head``)
 maps to dotted names (``ResidualBlock_0.Conv_0.weight``), GroupNorm's
-``scale`` and ``bias`` as they are; any other tree is dense — the MLP's
+``scale`` and ``bias`` as they are; ``tok_emb`` marks the TransformerLM
+(``tok_emb/embedding`` ↔ ``tok_emb.weight``, ``pos_emb`` as it is,
+LayerNorms' ``scale``/``bias`` as they are, each Dense kernel
+transposed); any other tree is dense — the MLP's
 ``{fc1, fc2, head}`` or the logistic model's ``{linear}`` (the worker
 axis is there when a kernel has rank 3).
 
@@ -90,10 +93,43 @@ def _resnet_to_jax(p: dict[str, np.ndarray]) -> dict:
     return out
 
 
+def _transformer_from_jax(tree: dict) -> dict[str, np.ndarray]:
+    out = {"pos_emb": np.array(_host(tree["pos_emb"]))}
+    for layer, leaves in tree.items():
+        if layer == "pos_emb":
+            continue
+        for key, v in leaves.items():
+            v = _host(v)
+            if key == "embedding":
+                out[f"{layer}.weight"] = np.array(v)
+            elif key == "kernel":
+                out[f"{layer}.weight"] = _dense(v)
+            else:
+                out[f"{layer}.{key}"] = np.array(v)
+    return out
+
+
+def _transformer_to_jax(p: dict[str, np.ndarray]) -> dict:
+    out: dict = {"pos_emb": p["pos_emb"].copy()}
+    for name, v in p.items():
+        if name == "pos_emb":
+            continue
+        layer, key = name.split(".")
+        if name == "tok_emb.weight":
+            out[layer] = {"embedding": v.copy()}
+        elif key == "weight":
+            out.setdefault(layer, {})["kernel"] = _dense(v)
+        else:
+            out.setdefault(layer, {})[key] = v.copy()
+    return out
+
+
 def params_from_jax(tree, *, input_shape=(28, 28, 1)) -> dict[str, np.ndarray]:
     """dopt flax tree (numpy leaves) → port parameter dict."""
     if "Conv_0" in tree:
         return _resnet_from_jax(tree)
+    if "tok_emb" in tree:
+        return _transformer_from_jax(tree)
     tree = {layer: {k: _host(v) for k, v in leaves.items()}
             for layer, leaves in tree.items()}
     if "conv1" not in tree:
@@ -127,6 +163,8 @@ def params_to_jax(params, *, input_shape=(28, 28, 1)) -> dict:
              else np.asarray(v)) for k, v in params.items()}
     if "Conv_0.weight" in p:
         return _resnet_to_jax(p)
+    if "tok_emb.weight" in p:
+        return _transformer_to_jax(p)
     if "conv1.weight" not in p:
         layers = dict.fromkeys(k.rsplit(".", 1)[0] for k in p)
         return {layer: {"kernel": _dense(p[f"{layer}.weight"]),

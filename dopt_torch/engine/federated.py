@@ -144,7 +144,7 @@ from dopt_torch.data import (PrefetchStager, make_batch_plan, ready,
                              stacked_eval_batches, upload)
 from dopt_torch.convert import port_layout
 from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
-                                      checkpoint_meta, initial_params, later,
+                                      checkpoint_meta, initial_params,
                                       load_device_data, rank_state,
                                       refuse_fused_across_ranks,
                                       resolve_device, restore_meta,
@@ -199,8 +199,8 @@ def produces_late(cfg: ExperimentConfig) -> bool:
 
 
 def validate_federated(cfg: ExperimentConfig) -> None:
-    """Refuse every configuration the federated engine does not run yet,
-    naming the later slice that adds it, and make dopt's own refusals
+    """Refuse every configuration the federated engine does not run, and
+    make dopt's own refusals
     (dopt/engine/federated.py:126-300, :551-600, :1783-1792) in dopt's
     words: a robust aggregator, staleness or compact sampling with
     ``comm_dtype``, staleness with a stateful algorithm or a robust

@@ -190,9 +190,10 @@ from dopt_torch.engine.local import (local_steps, prepare_holdout,
                                      stacked_eval_gathered, stacked_evaluate)
 from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
                                validate_fault_config)
-from dopt_torch.models.zoo import (MODELS, StackedModel, deterministic,
-                                   full_f32, init_worker_params,
-                                   param_shapes, stacked_forward)
+from dopt_torch.models.zoo import (MODELS, STACKED, StackedModel,
+                                   deterministic, full_f32,
+                                   init_worker_params, param_shapes,
+                                   stacked_forward)
 from dopt_torch.obs import consensus_distance
 from dopt_torch.obs.events import DIAG_GAUGES, finite_diag_gauges
 from dopt_torch.ops.compression import device_order, make_compressor
@@ -248,15 +249,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def later(what: str, slice_name: str) -> ValueError:
-    """The refusal of an option a later slice of the port adds."""
-    return ValueError(
-        f"{what} is not in the PyTorch port yet; it arrives with the "
-        f"'{slice_name}' slice (ROADMAP.md, queue 1)")
-
-
 def validate_common(cfg: ExperimentConfig) -> None:
-    """Refusals shared by both engines, each naming its later slice."""
+    """Refusals shared by both engines."""
     d, m = cfg.data, cfg.model
     for section, cls in (("faults", FaultConfig), ("robust", RobustConfig),
                          ("comm", CommConfig),
@@ -266,7 +260,9 @@ def validate_common(cfg: ExperimentConfig) -> None:
             raise ValueError(f"cfg.{section} must be a dopt_torch.config."
                              f"{cls.__name__}, got {type(sec).__name__}")
     if cfg.seqlm is not None:
-        raise later("cfg.seqlm", "seqlm")
+        raise ValueError("cfg.seqlm is set: the sequence-parallel LM trains "
+                         "with dopt_torch.engine.SeqLMTrainer, not the "
+                         "gossip or federated engines")
     if cfg.backend == "torch":
         raise ValueError(
             "backend='torch' is dopt's sequential CPU oracle, which the port "
@@ -291,10 +287,12 @@ def validate_common(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown plan_impl {d.plan_impl!r}; one of "
                          "numpy|native (the C++ native planner)")
     if m.model.lower() == "transformer":
-        raise later("the sequence model", "seqlm")
-    if m.model.lower() not in MODELS:
+        raise ValueError("model 'transformer' is the sequence-parallel LM: "
+                         "it trains with dopt_torch.engine.SeqLMTrainer "
+                         "(cfg.seqlm), not the gossip or federated engines")
+    if m.model.lower() not in STACKED:
         raise ValueError(f"unknown model {m.model!r}; one of "
-                         f"{sorted([*MODELS, 'transformer'])}")
+                         f"{sorted(MODELS)}")
     if m.stage_sizes is not None and m.model.lower() != "resnet18":
         raise ValueError("stage_sizes applies to resnet18 only")
     for knob in ("compute_dtype", "param_dtype"):
@@ -307,8 +305,7 @@ def validate_common(cfg: ExperimentConfig) -> None:
 
 
 def validate_slice(cfg: ExperimentConfig) -> None:
-    """Refuse every configuration the gossip engine does not run yet,
-    naming the later slice that adds it."""
+    """Refuse every configuration the gossip engine does not run."""
     g = cfg.gossip
     if cfg.federated is not None:
         raise ValueError("cfg.federated is set: the federated engine is "

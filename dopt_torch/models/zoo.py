@@ -1,5 +1,5 @@
 """The reference CNNs, the dense models and the GroupNorm ResNet-18 as
-worker-stacked PyTorch modules.
+worker-stacked PyTorch modules, and dopt's sequence model.
 
 Counterpart of dopt's Model1/Model3, MLP, LogisticRegression and
 ResNet18 (``dopt/models/zoo.py``) in the form its engines run them: the
@@ -41,6 +41,16 @@ softmax.  The 2×2 max pool routes tie gradients to the FIRST window
 element in scan order — ``F.max_pool2d``'s backward already does, which
 is what dopt's custom VJP reproduces (ties are common: zero-background
 pixels under the no-ReLU conv give exact 4-way ties).
+
+On CUDA a differentiated f32 conv of Model1 or Model3 is
+``_RoundedConv``: its output and weight gradient are summed in f64 by
+GEMMs and rounded once, so the card's step stays within 1e-6 of the
+CPU's (the CPU, and the eval forward, keep the library's f32 conv).
+
+``TransformerLM`` is dopt's decoder-only LM (zoo.py:249-308), the model
+of ``SeqLMTrainer``: one model with no worker axis, fed one rank's slice
+of the sequence, its attention injected (``dopt_torch.parallel.
+sequence``).  ``count_params`` counts any of them.
 """
 
 from __future__ import annotations
@@ -59,8 +69,11 @@ LAYERS = {"model1": ("conv1", "conv2", "fc1", "fc2"),
           "model3": ("conv1", "conv2", "fc1", "fc2"),
           "mlp": ("fc1", "fc2", "head"), "logistic": ("linear",)}
 RESNET_STAGES = (2, 2, 2, 2)   # ResNet18.stage_sizes' default
-# Every model the port runs.
-MODELS = (*LAYERS, "resnet18")
+# The worker-stacked models the gossip and federated engines run.
+STACKED = (*LAYERS, "resnet18")
+# Every model of the zoo (dopt's ``_ZOO``): the stacked ones and the
+# SeqLMTrainer's TransformerLM.
+MODELS = (*STACKED, "transformer")
 
 
 def _resnet_shapes(num_classes: int, channels: int, stage_sizes
@@ -94,8 +107,8 @@ def param_shapes(name: str, *, num_classes: int = 10,
     """Per-worker parameter shapes of a zoo model, in PyTorch layout
     (ResNet-18's in sorted name order; ``stage_sizes`` is its block
     count a stage, None for the default (2, 2, 2, 2))."""
-    if name not in MODELS:
-        raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")
+    if name not in STACKED:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(STACKED)}")
     if name == "resnet18":
         return _resnet_shapes(num_classes, input_shape[-1],
                               tuple(stage_sizes or RESNET_STAGES))
@@ -205,13 +218,83 @@ def deterministic(device: torch.device):
         torch.use_deterministic_algorithms(on, warn_only=warn_only)
 
 
+def _patches(z: torch.Tensor, k: int, padding: int) -> torch.Tensor:
+    """im2col of a stride-1 'SAME' conv as one strided copy:
+    ``[B, C·k·k, H·W]``, rows in (c, kh, kw) order (``F.unfold``'s)."""
+    b, c, h, w = z.shape
+    zp = F.pad(z, (padding,) * 4)
+    s = zp.stride()
+    return zp.as_strided((b, c, k, k, h, w),
+                         (s[0], s[1], s[2], s[3], s[2], s[3])).reshape(
+        b, c * k * k, h * w)
+
+
+class _RoundedConv(torch.autograd.Function):
+    """The card's f32 'SAME' grouped conv, its output and weight gradient
+    summed in f64 (GEMMs over one im2col copy, kept for the backward) and
+    rounded once to f32; the input gradient is the library's (cuDNN's
+    dgrad).
+
+    The faithful Model1 max-pools its conv outputs with no ReLU between,
+    and a pool routes its gradient to one element: where two elements of
+    a window lie within the conv's rounding of each other, two devices
+    that sum the conv in different orders route it differently.  At
+    ``headline-dsgd-model1``'s full size (batch 128 a lane) the card's
+    f32 conv2 was 1.05e-5 from f64 where the CPU's was 2.0e-6, one of
+    2,408,448 windows routed apart, and the step's conv weight gradients
+    landed 0.8-1.8e-4 relative L2 from the CPU's; with an f64 output the
+    routing was the CPU's, and then cuDNN's Winograd weight gradient (its
+    deterministic pick for conv2 at 6 lanes) was still 1.25e-3 off.  With
+    both in f64 every tensor of the step is within 1e-6 of the CPU's
+    (``chip_smoke.py`` phase 4c)."""
+
+    @staticmethod
+    def forward(ctx, z, weight, bias, padding, groups):
+        b, (h, w) = z.shape[0], z.shape[2:]
+        cout = weight.shape[0] // groups
+        cols = _patches(z.double(), weight.shape[-1], padding).view(
+            b, groups, -1, h * w)                          # [B, G, CKK, L]
+        out = torch.matmul(weight.double().view(1, groups, cout, -1), cols)
+        out = out + bias.double().view(1, groups, cout, 1)
+        ctx.save_for_backward(z, weight, cols)
+        ctx.padding, ctx.groups = padding, groups
+        return out.view(b, groups * cout, h, w).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, weight, cols = ctx.saved_tensors
+        b, groups = z.shape[0], ctx.groups
+        gz = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gz = torch.nn.grad.conv2d_input(z.shape, weight, grad,
+                                            padding=ctx.padding,
+                                            groups=groups)
+        if ctx.needs_input_grad[1]:
+            # One GEMM a (sample, group) — its positions — then the
+            # samples' partial sums.
+            g = grad.double().reshape(b * groups, weight.shape[0] // groups,
+                                      -1)
+            part = torch.bmm(g, cols.view(b * groups, *cols.shape[2:])
+                             .transpose(1, 2))
+            gw = part.view(b, *weight.shape).sum(0).float()
+        if ctx.needs_input_grad[2]:
+            gb = grad.sum((0, 2, 3))
+        return gz, gw, gb, None, None
+
+
 def _grouped_conv(z, weight, bias, groups, dtype):
     """'SAME' conv of worker-major channels with [W, Cout, Cin, k, k]
-    kernels as one grouped conv, in ``dtype``."""
+    kernels as one grouped conv, in ``dtype``: a differentiated f32 conv
+    on CUDA through ``_RoundedConv``.  The CPU's own f32 conv sums within
+    2e-6 of f64, and it is the one held against dopt; an eval forward
+    routes no gradient, and its f64 patches would hold 2-5 GB at the
+    headlines' eval batches."""
     k = weight.shape[-1]
-    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]).to(dtype),
-                    bias.reshape(-1).to(dtype), padding=k // 2,
-                    groups=groups)
+    w = weight.reshape(-1, *weight.shape[2:]).to(dtype)
+    b = bias.reshape(-1).to(dtype)
+    if dtype == torch.float32 and z.is_cuda and torch.is_grad_enabled():
+        return _RoundedConv.apply(z, w, b, k // 2, groups)
+    return F.conv2d(z, w, b, padding=k // 2, groups=groups)
 
 
 def _stacked_linear(zt, weight, bias, dtype):
@@ -380,9 +463,9 @@ def _resnet_forward(params, x, *, faithful, dtype):
 def stacked_forward(name: str, params: dict[str, torch.Tensor],
                     x: torch.Tensor, *, faithful: bool,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fleet's forward of zoo model ``name`` (``MODELS``)."""
-    if name not in MODELS:
-        raise ValueError(f"unknown model {name!r}; one of {sorted(MODELS)}")
+    """The fleet's forward of zoo model ``name`` (``STACKED``)."""
+    if name not in STACKED:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(STACKED)}")
     if name == "resnet18":
         return stacked_resnet_forward(params, x, faithful=faithful,
                                       dtype=dtype)
@@ -390,6 +473,20 @@ def stacked_forward(name: str, params: dict[str, torch.Tensor],
         return stacked_cnn_forward(params, x, faithful=faithful, dtype=dtype)
     return stacked_dense_forward(params, x, layers=LAYERS[name],
                                  faithful=faithful, dtype=dtype)
+
+
+def _register_nested(module: nn.Module, params: dict[str, torch.Tensor]
+                     ) -> None:
+    """Register each ``a.b.leaf`` tensor of ``params`` as a parameter of
+    nested submodules, in sorted name order (dopt's flatten order)."""
+    for key in sorted(params):
+        *path, leaf = key.split(".")
+        mod = module
+        for part in path:
+            if not hasattr(mod, part):
+                mod.add_module(part, nn.Module())
+            mod = getattr(mod, part)
+        mod.register_parameter(leaf, nn.Parameter(params[key]))
 
 
 class _Layer(nn.Module):
@@ -416,14 +513,7 @@ class StackedModel(nn.Module):
         self.faithful = faithful
         self.compute_dtype = dtype
         if name == "resnet18":
-            for key in sorted(params):
-                *path, leaf = key.split(".")
-                mod = self
-                for part in path:
-                    if not hasattr(mod, part):
-                        mod.add_module(part, nn.Module())
-                    mod = getattr(mod, part)
-                mod.register_parameter(leaf, nn.Parameter(params[key]))
+            _register_nested(self, params)
             return
         for layer in LAYERS[name]:
             setattr(self, layer, _Layer(params[f"{layer}.weight"],
@@ -442,3 +532,147 @@ class StackedCNN(StackedModel):
     def __init__(self, params: dict[str, torch.Tensor], *, faithful: bool,
                  dtype: torch.dtype = torch.float32):
         super().__init__("model1", params, faithful=faithful, dtype=dtype)
+
+
+# -- the sequence model -----------------------------------------------------
+def transformer_shapes(*, vocab: int, dim: int = 128, depth: int = 2,
+                       max_len: int = 2048) -> dict[str, tuple[int, ...]]:
+    """TransformerLM's parameter shapes in sorted name order: the
+    embedding table ``tok_emb.weight`` [vocab, dim] (also the tied output
+    head), ``pos_emb`` [max_len, dim], and per block i the LayerNorms
+    ``ln1_i``/``ln2_i`` (``scale``, ``bias``), the bias-free ``qkv_i``
+    [3·dim, dim] and ``proj_i`` [dim, dim], the MLP's ``up_i`` [4·dim,
+    dim] and ``down_i`` [dim, 4·dim] with biases, and ``ln_f``.  Dense
+    weights are torch's ``[out, in]``."""
+    shapes = {"tok_emb.weight": (vocab, dim), "pos_emb": (max_len, dim),
+              "ln_f.scale": (dim,), "ln_f.bias": (dim,)}
+    for i in range(depth):
+        for ln in (f"ln1_{i}", f"ln2_{i}"):
+            shapes[f"{ln}.scale"] = (dim,)
+            shapes[f"{ln}.bias"] = (dim,)
+        shapes[f"qkv_{i}.weight"] = (3 * dim, dim)
+        shapes[f"proj_{i}.weight"] = (dim, dim)
+        shapes[f"up_{i}.weight"] = (4 * dim, dim)
+        shapes[f"up_{i}.bias"] = (4 * dim,)
+        shapes[f"down_{i}.weight"] = (dim, 4 * dim)
+        shapes[f"down_{i}.bias"] = (dim,)
+    return {k: shapes[k] for k in sorted(shapes)}
+
+
+def init_transformer_params(*, vocab: int, dim: int = 128, depth: int = 2,
+                            max_len: int = 2048,
+                            generator: torch.Generator | None = None
+                            ) -> dict[str, torch.Tensor]:
+    """TransformerLM's init with flax's defaults, drawn on the CPU in
+    sorted name order: dense weights LeCun-normal (normal truncated at
+    ±2σ, σ = √(1/fan_in)/0.8796…), the embedding table normal with σ =
+    √(1/dim) (flax's ``Embed`` default), ``pos_emb`` normal(0.02),
+    LayerNorm scales one and every bias zero."""
+    out = {}
+    for key, shape in transformer_shapes(vocab=vocab, dim=dim, depth=depth,
+                                         max_len=max_len).items():
+        t = torch.zeros(shape, dtype=torch.float32)
+        if key.endswith("scale"):
+            t.fill_(1.0)
+        elif key == "tok_emb.weight":
+            t.normal_(0.0, math.sqrt(1.0 / dim), generator=generator)
+        elif key == "pos_emb":
+            t.normal_(0.0, 0.02, generator=generator)
+        elif key.endswith("weight"):
+            std = math.sqrt(1.0 / shape[1]) / 0.87962566103423978
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        out[key] = t
+    return out
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """flax ``LayerNorm`` over the last axis: the statistics in f32 (var =
+    max(E[x²] − E[x]², 0)), y = (x − mean)·(rsqrt(var + eps)·scale) +
+    bias in f32, cast to ``x``'s dtype.  flax's epsilon is 1e-6
+    (``nn.LayerNorm``'s is 1e-5)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    return ((xf - mean) * mul + bias.float()).to(x.dtype)
+
+
+class TransformerLM(nn.Module):
+    """dopt's decoder-only TransformerLM (pre-LN blocks, learned
+    positional embeddings, weight-tied output head) as one model with no
+    worker axis, built from a ``transformer_shapes`` dict of f32 tensors
+    registered in sorted name order.  ``forward(tokens, attn_fn,
+    offset)`` takes this rank's ``[B, Lb]`` int tokens, whose first
+    position is global position ``offset`` (its ``pos_emb`` rows are
+    ``[offset, offset + Lb)``), and returns ``[B, Lb, vocab]`` logits in
+    the compute dtype.  ``attn_fn(q, k, v)`` on ``[B, Lb, H, Dh]`` is the
+    attention (``dopt_torch.parallel.sequence``); None is one rank's
+    dense causal attention.
+
+    As in dopt: qkv is split in three along the head axis of
+    ``[B, L, 3·H, Dh]`` (q is the first H heads), qkv and proj have no
+    bias, GELU is the tanh approximation (flax's ``nn.gelu`` default),
+    and LayerNorm's epsilon is flax's 1e-6.  bf16 compute casts where
+    dopt's ``dtype=`` casts: the table and every weight and bias go to
+    bf16, the LayerNorms compute in f32 and return bf16, and the logits
+    are bf16; the parameters stay f32.  The token lookup is a one-hot
+    product with the table: on CUDA its backward is a GEMM, which the
+    deterministic mode allows, where the embedding's backward would
+    accumulate rows by atomics."""
+
+    def __init__(self, params: dict[str, torch.Tensor], *, heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.vocab, self.dim = params["tok_emb.weight"].shape
+        self.max_len = params["pos_emb"].shape[0]
+        self.depth = sum(k.startswith("qkv_") for k in params)
+        self.heads = heads
+        self.compute_dtype = dtype
+        _register_nested(self, params)
+
+    def forward(self, tokens: torch.Tensor, attn_fn=None,
+                offset: int = 0) -> torch.Tensor:
+        from dopt_torch.parallel.sequence import dense_attention
+
+        attn = attn_fn or (lambda q, k, v: dense_attention(q, k, v,
+                                                           causal=True))
+        b, l = tokens.shape
+        if offset + l > self.max_len:
+            raise ValueError(f"sequence length {offset + l} > max_len "
+                             f"{self.max_len}")
+        if self.dim % self.heads:
+            raise ValueError(f"dim {self.dim} not divisible by "
+                             f"heads {self.heads}")
+        dt, hd = self.compute_dtype, self.dim // self.heads
+        p = dict(self.named_parameters())
+        emb = p["tok_emb.weight"].to(dt)
+        hot = tokens[..., None] == torch.arange(self.vocab,
+                                                device=tokens.device)
+        x = hot.to(dt) @ emb
+        x = x + p["pos_emb"][offset:offset + l].to(dt)
+        for i in range(self.depth):
+            y = layer_norm(x, p[f"ln1_{i}.scale"], p[f"ln1_{i}.bias"])
+            qkv = F.linear(y, p[f"qkv_{i}.weight"].to(dt))
+            q, k, v = qkv.view(b, l, 3 * self.heads, hd).split(self.heads,
+                                                               dim=2)
+            o = attn(q, k, v).reshape(b, l, self.dim)
+            x = x + F.linear(o, p[f"proj_{i}.weight"].to(dt))
+            y = layer_norm(x, p[f"ln2_{i}.scale"], p[f"ln2_{i}.bias"])
+            y = F.linear(y, p[f"up_{i}.weight"].to(dt),
+                         p[f"up_{i}.bias"].to(dt))
+            y = F.gelu(y, approximate="tanh")
+            x = x + F.linear(y, p[f"down_{i}.weight"].to(dt),
+                             p[f"down_{i}.bias"].to(dt))
+        x = layer_norm(x, p["ln_f.scale"], p["ln_f.bias"])
+        return x @ emb.t()
+
+
+def count_params(params) -> int:
+    """The number of parameters of a dict of tensors or arrays (nested
+    dicts too, as dopt's flax trees) or of a module."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(count_params(v) if isinstance(v, dict) else math.prod(v.shape)
+               for v in params.values())

@@ -377,6 +377,18 @@ def _reduce_scatter(x: torch.Tensor, group, kind: str) -> torch.Tensor:
         x.dtype)
 
 
+def _all_to_all(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """``[size, ...]`` on each rank: piece j goes to rank j, and piece i
+    of the result came from rank i (``all_to_all_single``)."""
+    dist = _dist()
+    x = x.detach().contiguous()
+    group.count("all_to_all", kind, x)
+    h = _host(x, group)
+    out = torch.empty_like(h)
+    dist.all_to_all_single(out, h, group=group.group)
+    return _back(out, x)
+
+
 def _wired(group) -> bool:
     return group is not None and group.wire
 
@@ -498,14 +510,15 @@ def shift_comm_lanes(shift_ids, lanes: int, num_devices: int) -> int:
     return sum(len(v) for v in ship.values())
 
 
-def _rotate(payload: torch.Tensor, q: int, group) -> torch.Tensor:
+def _rotate(payload: torch.Tensor, q: int, group,
+            kind: str = "shift") -> torch.Tensor:
     """Rotation q: rank r receives rank (r + q)'s payload and sends its
     own to rank (r − q)."""
     dist = _dist()
-    h = _host(payload.detach(), group)
+    h = _host(payload.detach().contiguous(), group)
     recv = torch.empty_like(h)
     r, d = group.rank, group.size
-    group.count("send", "shift", payload)
+    group.count("send", kind, payload)
     ops = [dist.P2POp(dist.isend, h, (r - q) % d, group.group),
            dist.P2POp(dist.irecv, recv, (r + q) % d, group.group)]
     for req in dist.batch_isend_irecv(ops):

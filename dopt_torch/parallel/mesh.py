@@ -24,6 +24,8 @@ mesh axes.
   pinned host memory: ``WorkerGroup.staged``).  The caller picks the
   backend when it starts the group; nothing switches it.
 
+``make_seq_group`` is the sequence-parallel LM's group (dopt's
+``make_seq_mesh``): the launched ranks, one block of the sequence each.
 ``engine_group`` is the engines' factory (dopt's ``make_worker_mesh``):
 ``mesh_devices`` ranks of the launched world, which must divide the
 worker count — where dopt would quietly leave devices idle, the port
@@ -165,6 +167,43 @@ def make_worker_group(num_workers: int, group: Any = None, *,
                        hosts=hosts, backend=str(dist.get_backend(group)))
 
 
+def _launched_ranks(mesh_devices: int | None, axis: str) -> int:
+    """The ranks ``mesh_devices`` asks the ``axis`` axis to run over: 1
+    where it is 1, or None without a process group; else the launched
+    world, which a value > 1 must equal (the message names the launch)."""
+    world = launched_world()
+    if mesh_devices == 1 or (mesh_devices is None and world == 1):
+        return 1
+    ranks = world if mesh_devices is None else mesh_devices
+    if world != ranks:
+        up = ("no torch.distributed process group is initialized"
+              if world == 1 else f"the process group has {world} ranks")
+        raise ValueError(
+            f"mesh_devices={ranks} runs the {axis} axis over {ranks} ranks, "
+            f"but {up}: launch one process a GPU (python -m "
+            f"torch.distributed.run --nproc-per-node {ranks} -m "
+            "dopt_torch.run ...), or join the ranks from Python with "
+            "dopt_torch.parallel.init_file_group / spawn_ranks")
+    return ranks
+
+
+def make_seq_group(mesh_devices: int | None = None) -> WorkerGroup:
+    """The sequence-parallel group (dopt's ``make_seq_mesh``): the
+    launched ``torch.distributed`` world, or one rank where none is up or
+    ``mesh_devices=1``; a value > 1 must equal the world.  Rank r holds
+    the r-th contiguous block of the sequence (one lane a rank).  A
+    group of more than one rank carries a byte meter."""
+    if mesh_devices is not None and (not isinstance(mesh_devices, int)
+                                     or mesh_devices < 1):
+        raise ValueError(f"mesh_devices={mesh_devices!r} must be a positive "
+                         "int or None")
+    ranks = _launched_ranks(mesh_devices, "sequence")
+    if ranks == 1:
+        return make_worker_group(1)
+    return make_worker_group(ranks, _dist().group.WORLD,
+                             meter=collections.Counter())
+
+
 def engine_group(num_workers: int, mesh_devices: int | None = None,
                  mesh_hosts: int | None = None) -> WorkerGroup:
     """The engines' worker group (dopt's ``make_worker_mesh``): the
@@ -178,8 +217,8 @@ def engine_group(num_workers: int, mesh_devices: int | None = None,
                     ("mesh_hosts", mesh_hosts)):
         if v is not None and (not isinstance(v, int) or v < 1):
             raise ValueError(f"{name}={v!r} must be a positive int or None")
-    world = launched_world()
-    if mesh_devices == 1 or (mesh_devices is None and world == 1):
+    ranks = _launched_ranks(mesh_devices, "worker")
+    if ranks == 1:
         if mesh_hosts not in (None, 1):
             raise ValueError(
                 f"no device count <= 1 folds {num_workers} workers onto "
@@ -187,16 +226,6 @@ def engine_group(num_workers: int, mesh_devices: int | None = None,
                 f"of {mesh_hosts}·k ranks (python -m torch.distributed.run "
                 "--nproc-per-node N, or dopt_torch.parallel.init_file_group)")
         return make_worker_group(num_workers)
-    ranks = world if mesh_devices is None else mesh_devices
-    if world != ranks:
-        up = ("no torch.distributed process group is initialized"
-              if world == 1 else f"the process group has {world} ranks")
-        raise ValueError(
-            f"mesh_devices={ranks} runs the worker axis over {ranks} ranks, "
-            f"but {up}: launch one process a GPU (python -m "
-            f"torch.distributed.run --nproc-per-node {ranks} -m "
-            "dopt_torch.run ...), or join the ranks from Python with "
-            "dopt_torch.parallel.init_file_group / spawn_ranks")
     if num_workers % ranks:
         fit = fit_mesh_devices(num_workers, ranks)
         raise ValueError(

@@ -44,7 +44,10 @@ headline under ``baseline3-faulty``'s faults.  ``bench-topo-complete-sync``,
 bench.py's topology-modes legs (dense, one-peer and async mixing at 32
 workers).  ``baseline3-xclients`` is dopt's client-scale variant of
 ``baseline3``: a 1,000-client population sampling a cohort of 64 a round
-onto the 16 shard lanes (4 waves, one reduce a round).
+onto the 16 shard lanes (4 waves, one reduce a round).  ``seqlm`` is
+dopt's sequence-parallel TransformerLM (``SeqLMTrainer``: ring attention
+with the sequence split over the launched ranks; one rank runs a
+one-block ring).
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ import dataclasses
 from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
                                FederatedConfig, GossipConfig, ModelConfig,
                                OptimizerConfig, PopulationConfig,
-                               RobustConfig)
+                               RobustConfig, SeqLMConfig)
 
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
 CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
@@ -356,6 +359,21 @@ def headline_dsgd_model1_faulty() -> ExperimentConfig:
                                faults=BASELINE1_FAULTS)
 
 
+def seqlm_ring() -> ExperimentConfig:
+    """dopt's ``seqlm``: a TransformerLM (vocab 64, dim 128, depth 2, 4
+    heads, ~469.5K params) on 8 × 512-token windows of the synthetic
+    Markov corpus, 60 steps of lr 0.3 and momentum 0.9, ring attention
+    over the launched ranks.  The loss falls from log(vocab) toward
+    log(branching) as the model learns the transitions."""
+    return ExperimentConfig(
+        name="seqlm-ring", seed=7,
+        model=ModelConfig(model="transformer"),
+        optim=OptimizerConfig(lr=0.3, momentum=0.9),
+        seqlm=SeqLMConfig(steps=60, batch=8, seq_len=512, vocab=64,
+                          dim=128, depth=2, heads=4, attn="ring"),
+    )
+
+
 PRESETS = {
     "reference-fedavg": lambda: reference_federated("fedavg"),
     "reference-fedprox": lambda: reference_federated("fedprox"),
@@ -371,6 +389,7 @@ PRESETS = {
     "baseline3": baseline_3_fedavg_noniid,
     "baseline4": baseline_4_admm_a9a,
     "baseline5": baseline_5_gossip32_resnet,
+    "seqlm": seqlm_ring,
     "reference-dsgd-star": lambda: reference_gossip("dsgd", "star"),
     "reference-dsgd-circle": lambda: reference_gossip("dsgd", "circle"),
     "reference-dsgd-complete": lambda: reference_gossip("dsgd", "complete"),

@@ -1,8 +1,10 @@
 """CLI runner for the port: ``python -m dopt_torch.run --preset P``.
 
 Picks a preset, applies ``--set path.to.field=value`` overrides, trains
-it with ``FederatedTrainer`` when the preset has a ``federated`` section
-and with ``GossipTrainer`` otherwise, on the GPU (or on the CPU with
+it with ``SeqLMTrainer`` when the preset has a ``seqlm`` section (``--rounds``
+then counts steps, default ``seqlm.steps``), with ``FederatedTrainer``
+when it has a ``federated`` section and with ``GossipTrainer`` otherwise,
+on the GPU (or on the CPU with
 ``--device cpu``), in blocks of the section's ``block_rounds``, prints
 one JSON history row per round and optionally writes the History CSV in
 the reference's results layout.  ``--checkpoint``, ``--checkpoint-every``
@@ -24,14 +26,18 @@ synthetic sets after the overrides (dopt's order and floors), and
 ``--timers`` prints the phase-timer report.  ``--clients``, ``--cohort``
 and ``--cohort-seed`` install or resize the client population (dopt's
 flags and refusals).  The config goes to stderr first as dopt's
-``exp_details`` writes it.
+``exp_details`` writes it.  seqlm refuses ``--faults``, ``--clients``,
+``--diagnostics``, ``--metrics-out``/``--trace-out`` and
+``--checkpoint-every`` in dopt's words: its engine carries none of them.
 
 Across GPUs, one process a GPU under torchrun::
 
     python -m torch.distributed.run --nproc-per-node N -m dopt_torch.run \
         --preset P --set mesh_devices=N
 
-Each process joins the NCCL group from torchrun's variables
+(for seqlm the launched world is the sequence group: drop the
+``mesh_devices`` override or set it to N).  Each process joins the NCCL
+group from torchrun's variables
 (``dopt_torch.parallel.multihost.initialize_distributed``) on
 ``cuda:LOCAL_RANK`` and holds W/N workers; with ``--device cpu`` the
 ranks join over gloo on the CPU.  A ``LOCAL_RANK`` with no GPU of its own
@@ -100,7 +106,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="preset name (see dopt_torch.presets) or 'list'")
     ap.add_argument("--rounds", type=int, default=None,
                     help="override the round count (default: the preset's "
-                         "gossip.rounds or federated.rounds)")
+                         "gossip.rounds or federated.rounds; seqlm: its "
+                         "steps)")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without one)")
     ap.add_argument("--num-users", type=int, default=None)
@@ -223,6 +230,10 @@ def main(argv: list[str] | None = None) -> int:
                 faults=parse_corrupt_spec(args.corrupt, base=cfg.faults))
         except ValueError as e:
             raise SystemExit(str(e))
+    if cfg.faults is not None and cfg.seqlm is not None:
+        # dopt's words: the seqlm engine never reads cfg.faults.
+        raise SystemExit("fault injection is supported by the "
+                         "federated/gossip jax engines only")
     if (args.clients is not None or args.cohort is not None
             or args.cohort_seed is not None):
         from dopt_torch.config import PopulationConfig
@@ -245,8 +256,15 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError as e:
             raise SystemExit(str(e))
         cfg = cfg.replace(population=pop)
+    if cfg.population is not None and cfg.seqlm is not None:
+        raise SystemExit("the client population registry is supported by "
+                         "the federated/gossip jax engines only")
     if args.diagnostics is not None:
-        name = "federated" if cfg.federated is not None else "gossip"
+        name = ("federated" if cfg.federated is not None else
+                "gossip" if cfg.gossip is not None else None)
+        if name is None:
+            raise SystemExit("--diagnostics is supported by the "
+                             "federated/gossip jax engines only")
         cfg = cfg.replace(**{name: dataclasses.replace(
             getattr(cfg, name), diagnostics=args.diagnostics)})
     if args.num_users is not None:
@@ -303,28 +321,51 @@ def _join_launch(device: str | None) -> tuple[str | None, int | None]:
 
 
 def _train(args, cfg, device, lead: bool) -> int:
-    from dopt_torch.engine import FederatedTrainer, GossipTrainer
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
 
-    if cfg.federated is not None:
-        trainer = FederatedTrainer(cfg, device=device)
-        default_rounds = cfg.federated.rounds
-    else:
-        trainer = GossipTrainer(cfg, device=device)
-        default_rounds = cfg.gossip.rounds
-    rounds = default_rounds if args.rounds is None else args.rounds
-    section = cfg.federated or cfg.gossip
     # Rank 0 alone reports.
     say = (functools.partial(print, file=sys.stderr) if lead
            else lambda *a, **k: None)
-    say(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
-        f"compute {cfg.model.compute_dtype}, storage "
-        f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
-        f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
-        f"prefetch {section.prefetch}, {trainer.group.size} rank(s) of "
-        f"{trainer.lanes} lanes")
+    if cfg.seqlm is not None:
+        # dopt's refusals: its seqlm engine carries no telemetry and no
+        # in-run checkpoints.
+        if args.metrics_out or args.trace_out:
+            raise SystemExit("--metrics-out/--trace-out are supported by "
+                             "the federated/gossip jax engines only")
+        if args.checkpoint_every:
+            raise SystemExit("--checkpoint-every is supported by the "
+                             "federated/gossip jax engines only")
+        trainer = SeqLMTrainer(cfg, device=device)
+        s = cfg.seqlm
+        rounds = s.steps if args.rounds is None else args.rounds
+        say(f"{cfg.name}: SeqLMTrainer on {trainer.device}, "
+            f"{trainer.param_count} params, {s.attn} attention over "
+            f"{trainer.group.size} rank(s) of {trainer.block} positions, "
+            f"compute {cfg.model.compute_dtype}, {rounds} steps of "
+            f"{s.batch}×{s.seq_len} tokens")
+        run = functools.partial(trainer.run, rounds=rounds)
+    else:
+        if cfg.federated is not None:
+            trainer = FederatedTrainer(cfg, device=device)
+            default_rounds = cfg.federated.rounds
+        else:
+            trainer = GossipTrainer(cfg, device=device)
+            default_rounds = cfg.gossip.rounds
+        rounds = default_rounds if args.rounds is None else args.rounds
+        section = cfg.federated or cfg.gossip
+        say(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
+            f"compute {cfg.model.compute_dtype}, storage "
+            f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
+            f"{rounds} rounds in blocks of {max(section.block_rounds, 1)}, "
+            f"prefetch {section.prefetch}, {trainer.group.size} rank(s) of "
+            f"{trainer.lanes} lanes")
+        run = functools.partial(trainer.run, rounds=rounds,
+                                checkpoint_every=args.checkpoint_every,
+                                checkpoint_path=args.checkpoint)
     if args.resume:
         trainer.restore(args.resume)
         say(f"resumed at round {trainer.round}")
+    before = len(trainer.history.rows)
     tele = None
     if args.metrics_out or args.trace_out:
         from dopt_torch.obs import Telemetry, attach
@@ -336,9 +377,6 @@ def _train(args, cfg, device, lead: bool) -> int:
                 if args.metrics_out and lead else Telemetry())
         attach(trainer, tele,
                checkpoint_every=args.checkpoint_every or None)
-    run = functools.partial(trainer.run, rounds=rounds,
-                            checkpoint_every=args.checkpoint_every,
-                            checkpoint_path=args.checkpoint)
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
 
@@ -355,7 +393,7 @@ def _train(args, cfg, device, lead: bool) -> int:
     else:
         run()
     if lead:
-        for row in trainer.history.rows[-rounds:]:
+        for row in trainer.history.rows[before:]:
             print(json.dumps(row))
     say(f"device={trainer.device} total_time_s={trainer.total_time:.2f}")
     if args.timers and lead:

@@ -1,8 +1,10 @@
 """Structured metrics sink (the reference's ``history`` pattern, typed).
 
-The port's copy of ``dopt.utils.metrics``: the same row schema and the
-same CSV layout (the reference's results/*.csv columns), so a History
-from either package diffs cleanly against the other.
+The port's copy of ``dopt.utils.metrics``: the same row schema, the
+same CSV layout (the reference's results/*.csv columns) and the same
+``History`` surface (rows and columns, the fault ledger, CSV and JSON
+export and the CSV read-back), so a History from either package diffs
+cleanly against the other.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import json
 import os
 import statistics
 from pathlib import Path
-from typing import Any
+from typing import Any, Iterator
 
 
 def atomic_write_text(path: str | Path, text: str,
@@ -51,6 +53,37 @@ class History:
     def append(self, **row: Any) -> None:
         self.rows.append({k: _scalar(v) for k, v in row.items()})
 
+    def log_fault(self, *, round: int, worker: int, kind: str,
+                  action: str) -> None:
+        """Record one injected fault in the ledger (round, worker, kind,
+        the action taken)."""
+        self.faults.append({"round": int(round), "worker": int(worker),
+                            "kind": str(kind), "action": str(action)})
+
+    @staticmethod
+    def faults_from_json(path: str | Path) -> list[dict[str, Any]]:
+        """Re-load a ``--faults-json`` export, row for row."""
+        with open(path) as f:
+            rows = json.load(f)
+        if not isinstance(rows, list) or any(
+                not isinstance(r, dict) for r in rows):
+            raise ValueError(f"{path}: not a fault-ledger export "
+                             "(expected a JSON list of row objects)")
+        return rows
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        return iter(self.rows)
+
+    def __getitem__(self, key: str) -> list[Any]:
+        """Column access: history['avg_test_acc'] -> list over rounds."""
+        return [r.get(key) for r in self.rows]
+
+    def last(self) -> dict[str, Any]:
+        return self.rows[-1] if self.rows else {}
+
     def to_csv(self, path: str | Path) -> Path:
         """Write rows in the reference results/*.csv layout (leading
         unnamed index column, then the union of the rows' columns)."""
@@ -66,6 +99,20 @@ class History:
         for i, r in enumerate(self.rows):
             w.writerow([i] + [r.get(c, "") for c in cols])
         return atomic_write_text(path, buf.getvalue(), newline="")
+
+    def to_json(self, path: str | Path) -> Path:
+        return atomic_write_text(path, json.dumps(self.rows, indent=2))
+
+    @classmethod
+    def from_csv(cls, path: str | Path, name: str = "history") -> "History":
+        """Read a ``to_csv`` file back: blank cells are absent keys (the
+        layout fills the union of the rows' columns with "")."""
+        h = cls(name)
+        with open(path, newline="") as f:
+            for row in csv.DictReader(f):
+                h.rows.append({k: _maybe_num(v) for k, v in row.items()
+                               if k not in ("", None) and v != ""})
+        return h
 
     def merge_resumed(self, rows, *, key: str = "round") -> int:
         """Fold the rows of a RESUMED run into this history under the
@@ -125,6 +172,16 @@ def _scalar(v: Any) -> Any:
     if hasattr(v, "item") and getattr(v, "ndim", 0) == 0:
         return v.item()
     return v
+
+
+def _maybe_num(v: str) -> Any:
+    """A CSV cell as dopt reads it: an int where it has no '.', a float
+    where it parses, else the string."""
+    try:
+        f = float(v)
+        return int(f) if f.is_integer() and "." not in v else f
+    except (TypeError, ValueError):
+        return v
 
 
 def trimmed_stats(values) -> tuple[float, float, list[float]]:

@@ -16,7 +16,7 @@ import dopt_torch.config as T
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 
 CLASSES = ["DataConfig", "ModelConfig", "OptimizerConfig", "GossipConfig",
-           "FederatedConfig", "FaultConfig", "RobustConfig",
+           "FederatedConfig", "FaultConfig", "RobustConfig", "SeqLMConfig",
            "ExperimentConfig"]
 
 
@@ -74,7 +74,9 @@ BOTH = [
     # Lifted by the ResNet-18 slice: refused on another model in dopt's
     # words (slice "dopt"), and the value runs on resnet18.
     ("model", "stage_sizes", (1, 1, 1, 1), "dopt"),
-    (None, "seqlm", J.SeqLMConfig(), "seqlm"),
+    # Since the seqlm slice the section trains with SeqLMTrainer, and the
+    # gossip and federated engines refuse it naming that trainer.
+    (None, "seqlm", T.SeqLMConfig(), "SeqLMTrainer"),
     # Lifted by the multi-GPU engines slice: the worker axis runs over
     # the launched ranks; without a process group the value names the
     # launch it needs (slice "launch"; tests/test_torch_multigpu.py runs
@@ -111,6 +113,11 @@ def test_unported_values_refused_naming_their_slice(section, field, value,
                 cls(cfg, device="cpu")
             cfg = _set(cfg, "model", model="resnet18")
             assert len(cls(cfg, device="cpu").run(rounds=1).rows) == 1
+            continue
+        if slice_name == "SeqLMTrainer":
+            with pytest.raises(ValueError, match="trains with dopt_torch."
+                               "engine.SeqLMTrainer"):
+                cls(cfg, device="cpu")
             continue
         if slice_name == "launch":
             with pytest.raises(ValueError, match="torch.distributed.run "

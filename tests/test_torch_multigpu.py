@@ -27,6 +27,12 @@ checkpoint of an R-rank run restores at one rank bit for bit.  Every
 refusal is dopt's, in dopt's words: the fused epilogue on a multi-rank
 group, shift and scatter and population on a hybrid layout, population
 lanes that do not divide the ranks, compact sampling across ranks.
+
+The sequence-parallel LM rides the same spawn: ``SeqLMTrainer`` with the
+sequence split over the R ranks (ring, ring with ``kv_chunk``, Ulysses
+with 8 heads) against dopt's ``SeqLMTrainer(mesh_devices=R)`` — one step
+within 1e-5, three within the trainer bound (loss 1e-4, params 1e-4
+max-relative) — and dopt's rank-count refusals in dopt's words.
 """
 
 import json
@@ -44,7 +50,8 @@ import dopt_torch.config as T
 import torch_engine_rank_body as body
 from dopt.engine import FederatedTrainer as JaxFederatedTrainer
 from dopt.engine import GossipTrainer as JaxGossipTrainer
-from dopt_torch.convert import params_to_jax
+from dopt.engine import SeqLMTrainer as JaxSeqLMTrainer
+from dopt_torch.convert import params_from_jax, params_to_jax
 from dopt_torch.engine import FederatedTrainer, GossipTrainer
 from dopt_torch.parallel import spawn_ranks
 
@@ -61,8 +68,8 @@ def _one_torch_thread():
 
 
 def _names(ranks: int) -> list[str]:
-    return ([n for n in body.CONFIGS if body.runs_at(n, ranks)]
-            + list(body.PROMISES))
+    return ([n for n in [*body.CONFIGS, *body.SEQLM, *body.SEQLM_REFUSED]
+             if body.runs_at(n, ranks)] + list(body.PROMISES))
 
 
 def _jax_cls(name: str):
@@ -78,6 +85,8 @@ def _prepare(out) -> None:
         body.save_tree(out / f"init.{model}.npz",
                        jax.device_get(jax.tree.map(lambda x: x[0],
                                                    jt.params)))
+    jt = JaxSeqLMTrainer(body.build_seqlm(J, "seqlm-ring", 1))
+    body.save_tree(out / "init.transformer.npz", jax.device_get(jt.params))
     init = body.load_tree(out / "init.mlp.npz")
     for cfg in ("dsgd-dense", "fedavg"):
         tr = body.trainer(cfg, 1, init)
@@ -299,6 +308,67 @@ def test_port_promises_across_ranks(ranks, name, spawned):
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+SEQLM_CASES = [pytest.param(r, n, id=f"r{r}-{n}") for r in RANKS
+               for n in body.SEQLM if body.runs_at(n, r)]
+
+
+@pytest.mark.parametrize("ranks,name", SEQLM_CASES)
+def test_seqlm_ranks_match_dopt_mesh(ranks, name, spawned, devices):
+    """dopt's SeqLMTrainer at ``mesh_devices = R`` against the port's
+    over R gloo ranks, from dopt's init: the History equal on every rank,
+    one step within 1e-5 (relative L2, a tensor), three steps within the
+    trainer bound (loss rows 1e-4, params 1e-4 max-relative), and the
+    bytes each rank hands to torch.distributed: the ring's hops (a KV
+    pair a hop, forward and backward), Ulysses' two all-to-alls a layer
+    (q, k, v stacked, then the output; again in the backward), and the
+    gradients with the NLL sum, all-gathered once a step."""
+    out = spawned(ranks)
+    recs = _records(out, name, ranks)
+    for rec in recs:
+        assert rec == recs[0]
+    cfg = body.build_seqlm(J, name, ranks)
+    jt = JaxSeqLMTrainer(cfg)
+    assert jt.mesh.size == ranks
+    arrays = _arrays(out, name)
+    jt.run(steps=1)
+    for k, v in params_from_jax(jax.device_get(jt.params)).items():
+        got = arrays[f"one.{k}"]
+        assert np.linalg.norm(got - v) <= 1e-5 * np.linalg.norm(v), k
+    jt.run(steps=body.SEQ["steps"] - 1)
+    rows = recs[0]["rows"]
+    assert [r["step"] for r in rows] == [r["step"] for r in jt.history.rows]
+    for a, b in zip(jt.history.rows, rows):
+        assert abs(a["loss"] - b["loss"]) <= PARAM_TOL, (a, b)
+    _close({k: np.asarray(v) for k, v in params_from_jax(
+        jax.device_get(jt.params)).items()},
+        {k[4:]: v for k, v in arrays.items() if k.startswith("end.")})
+    s = cfg.seqlm
+    block, steps = s.seq_len // ranks, s.steps
+    p = sum(v.size for k, v in arrays.items() if k.startswith("end."))
+    want = {"all_gather.grad": steps * (p + 1) * 4}
+    if s.attn == "ring":
+        kv = 2 * s.batch * block * s.dim * 4
+        want["send.ring"] = steps * 2 * s.depth * (ranks - 1) * kv
+    else:
+        want["all_to_all.ulysses"] = steps * 2 * s.depth * (
+            4 * s.batch * block * s.dim * 4)
+    assert recs[0]["meter"] == want
+
+
+SEQLM_REFUSALS = [pytest.param(r, n, id=f"r{r}-{n}") for r in RANKS
+                  for n in body.SEQLM_REFUSED if body.runs_at(n, r)]
+
+
+@pytest.mark.parametrize("ranks,name", SEQLM_REFUSALS)
+def test_seqlm_refusals_across_ranks_in_dopts_words(ranks, name, spawned,
+                                                     devices):
+    recs = _records(spawned(ranks), name, ranks)
+    with pytest.raises(ValueError) as want:
+        JaxSeqLMTrainer(body.build_seqlm(J, name, ranks))
+    for rec in recs:
+        assert rec["error"] == str(want.value)
 
 
 @pytest.mark.parametrize("ranks", RANKS)

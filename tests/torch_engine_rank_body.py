@@ -10,8 +10,10 @@ dopt's init (``init.npz``, written by the test), and writes per rank
 the History rows, client rows, fault ledger and the trainer's path
 choices (``<name>.r<rank>.json``) and, on rank 0, the gathered worker
 params and theta (``<name>.npz``); a config the port refuses writes its
-message instead.  The self-consistency configs (``repeat``, ``blocked``,
-``resumed``, ``from1``) write what they compare.
+message instead.  The seqlm configs (``SEQLM``) run ``SeqLMTrainer``
+with the sequence split over the ranks, from dopt's init.  The
+self-consistency configs (``repeat``, ``blocked``, ``resumed``,
+``from1``) write what they compare.
 """
 
 from __future__ import annotations
@@ -135,11 +137,55 @@ PROMISES = {"repeat": "dsgd-dense", "blocked-gossip": "faults",
             "from1-fed": "fedavg", "stream-gossip": "diag-holdout",
             "stream-fed": "fed-faults"}
 ROUNDS = 2
+# The sequence-parallel LM: name -> (SeqLMConfig fields, the rank counts
+# it runs at); every one from dopt's tiny-width init.  The refused ones
+# break a rank-count rule in dopt's words.
+SEQ = dict(seq_len=32, batch=2, dim=32, heads=4, vocab=16, steps=3,
+           log_every=1)
+SEQLM = {"seqlm-ring": (dict(attn="ring"), (2, 4)),
+         "seqlm-ring-chunk": (dict(attn="ring", kv_chunk=4), (2, 4)),
+         "seqlm-ulysses": (dict(attn="ulysses", heads=8), (2, 4))}
+SEQLM_REFUSED = {"seqlm-refuse-dense": (dict(attn="dense"), (2, 4)),
+                 "seqlm-refuse-seqlen": (dict(seq_len=30), (4,)),
+                 "seqlm-refuse-heads": (dict(attn="ulysses", heads=6), (4,))}
 
 
 def runs_at(name: str, ranks: int) -> bool:
+    if name in SEQLM or name in SEQLM_REFUSED:
+        return ranks in {**SEQLM, **SEQLM_REFUSED}[name][1]
     spec = CONFIGS[name][1]
     return ranks in spec.get("ranks", (2, 4))
+
+
+def build_seqlm(mod, name: str, ranks: int | None):
+    """The seqlm config ``name`` (dopt's ``seqlm`` preset at SEQ's
+    widths) from a config module, for ``ranks`` ranks."""
+    fields = {**SEQ, **{**SEQLM, **SEQLM_REFUSED}[name][0]}
+    return mod.ExperimentConfig(
+        name=name, seed=7, model=mod.ModelConfig(model="transformer"),
+        optim=mod.OptimizerConfig(lr=0.3, momentum=0.9),
+        seqlm=mod.SeqLMConfig(**fields), mesh_devices=ranks)
+
+
+def _seqlm(name: str, wg, init: dict) -> tuple[dict, dict]:
+    """One seqlm config at ``wg.size`` ranks: a first step (its params
+    kept), then the other two; the rows, the byte meter and the params
+    after one and after three steps."""
+    import dopt_torch.config as T
+    from dopt_torch.engine import SeqLMTrainer
+
+    tr = SeqLMTrainer(build_seqlm(T, name, wg.size), device="cpu",
+                      init_params=init)
+    tr.run(steps=1)
+    arrays = {f"one.{k}": v.detach().numpy().copy()
+              for k, v in tr.params.items()}
+    tr.run(steps=SEQ["steps"] - 1)
+    arrays.update({f"end.{k}": v.detach().numpy().copy()
+                   for k, v in tr.params.items()})
+    rec = {"rows": tr.history.rows,
+           "meter": {f"{op}.{kind}": n
+                     for (op, kind), n in tr.group.meter.items()}}
+    return rec, arrays
 
 
 def build(mod, name: str, ranks: int | None):
@@ -296,11 +342,14 @@ def _streams(cfg: str, ranks: int, init: dict) -> tuple[dict, dict]:
 def body(wg, out_dir: str, names: list[str]) -> None:
     """One rank: every config in ``names`` at ``wg.size`` ranks."""
     out = Path(out_dir)
-    init = {k: load_tree(out / f"init.{k}.npz") for k in ("mlp", "model1")}
+    init = {k: load_tree(out / f"init.{k}.npz")
+            for k in ("mlp", "model1", "transformer")}
     torch.manual_seed(0)
     for name in names:
         try:
-            if name in PROMISES:
+            if name in SEQLM or name in SEQLM_REFUSED:
+                rec, arrays = _seqlm(name, wg, init["transformer"])
+            elif name in PROMISES:
                 rec, arrays = _promise(name, wg, out, init)
             else:
                 tr = trainer(name, wg.size, init[init_key(name)])
@@ -310,7 +359,7 @@ def body(wg, out_dir: str, names: list[str]) -> None:
                     # Rank 0's checkpoint, for the test to resume at 1.
                     tr.save(out / f"{name}.r{wg.size}.ck")
         except ValueError as e:
-            if name not in REFUSED and name not in PORT_REFUSED:
+            if name not in {**REFUSED, **PORT_REFUSED, **SEQLM_REFUSED}:
                 raise
             rec, arrays = {"error": str(e)}, {}
         except Exception:
