@@ -142,12 +142,14 @@ also runs two small faulty configurations on the GPU against the CPU.
    host stage's, killed after round 0 and resumed, and in blocks of 2,
    each bit for bit; 11b baseline3-faulty as typed (compact, fixed-width
    lanes, no kernel), 2 rounds per-round and in one block; 11c
-   baseline3-byzantine (signflip liars, trimmed mean) 2 rounds, then one
+   baseline3-byzantine (signflip liars, trimmed mean) at 15,000/2,500
+   samples 2 rounds, then one
    round each under the mean, median, Krum, multi-Krum and the mean with
    clip_radius 1.0, and each aggregation call timed alone on 8 Model1
    lanes with its peak memory (the five one-round runs at one local
    epoch, the preset's five in the trimmed-mean run); 11d baseline3-elastic (drop stragglers,
-   lossy and delayed uplinks, churn, the staleness buffer) 4 rounds
+   lossy and delayed uplinks, churn, the staleness buffer) at
+   15,000/2,500 samples 4 rounds
    per-round and in blocks of 2 through the chaos round (History,
    ledger, theta, the buffer and the counters bit for bit); 11e baseline3 with two
    pinned nan liars and the quarantine (after 2, for 3 rounds) at
@@ -183,7 +185,7 @@ also runs two small faulty configurations on the GPU against the CPU.
    library calls; 13c 13a in blocks of 2, bit for bit, with the graphs'
    memory; 13d bf16 compute, round 1 (no eval); 13e baseline5 as typed,
    one round with no eval and no kernel; 13g a killed-and-resumed run at
-   stage sizes (1, 1, 1, 1), 8 workers and 6,000/1,000 samples, blocks of 2 with prefetch
+   stage sizes (1, 1, 1, 1), 8 workers and 3,000/500 samples, blocks of 2 with prefetch
    and checkpoint_every=2, bit for bit the continuous run.  Phase 4 also runs
    a baseline5-shaped gossip and a fedavg ResNet-18 (stage sizes (1, 1),
    8×8×3) on the GPU against the CPU.
@@ -279,6 +281,30 @@ also runs two small faulty configurations on the GPU against the CPU.
    score block lower; 18f neither kernel launches on the path (the plain
    ``sgd_step``).
 
+19. the resident serve daemon (``phase19``, ``dopt_torch.serve``): 19a
+   an in-process ``ServeDaemon`` on ``headline-dsgd-model1`` as typed
+   (6 workers, Model1, both fused switches, full width), 4 rounds with
+   checkpoint_every 2 and the commands leave worker 3 at round 1,
+   ``optim.lr`` at 2 (the rebuild: checkpoint, new trainer, restore)
+   and join at 3: the control and churn rows, a clean ``check_stream``,
+   ``final.json`` healthy, kernel 1 at 316 and kernel 2 at 2 launches a
+   round; the served round walls against phase 5's scripted round, the
+   save and restore seconds, the peak over held; 19b 19a's state dir as
+   it stood after boundary 3 (what a stop there leaves) resumed in a
+   fresh daemon: History, fault ledger and canonical stream bit for bit
+   19a's; 19c ``headline-fedavg-model1`` served in-process (a leave at
+   1, 2 rounds, the launches), then ``python -m dopt_torch.serve
+   --preset headline-fedavg-model1 --synthetic-scale 0.1`` (full width,
+   6,000/1,000 rows) as a subprocess with the admin on port 0 (GET
+   /healthz and /metrics, POST a leave, a real SIGTERM once it applied,
+   the re-exec in place, resume, drain at round 3); 19d a 2-process fleet
+   sharing the card over gloo (``baseline1 --synthetic-scale 0.05``,
+   drains at round 3, the two processes' deterministic streams equal);
+   19e CUDA graphs under ``run_served``: ``baseline1`` served in blocks
+   of 2 with a leave and a join, each kind captured once and replayed,
+   bit for bit the per-round served run.  19c's CLI leg, 19d and 19e
+   run at once, after every phase-19 number is taken.
+
 Phase 4c holds one full-size Model1 step (headline-dsgd-model1's model:
 28×28×1, batch 128 a lane, f32, deterministic, ``full_f32``) at 6 and at
 3 lanes on the card against the port's CPU step at 6 lanes (lanes 0-2
@@ -306,6 +332,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -686,7 +713,7 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
     # -- 11b. baseline3-faulty as typed: compact, fixed-width lanes.
     b3f = get_preset("baseline3-faulty")
     tr, b3f_state, got = fed_run("11b baseline3-faulty per-round", b3f,
-                                 rounds, 1, prof=True)
+                                 rounds, 1)
     if not tr._use_compact() or any(got.values()):
         fail(f"11b: baseline3-faulty must run compact with no kernel: "
              f"{got}")
@@ -698,7 +725,14 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
     torch.cuda.empty_cache()
 
     # -- 11c. baseline3-byzantine: signflip liars against each defense.
-    byz = get_preset("baseline3-byzantine")
+    # 11c and 11d at a quarter of MNIST's rows (their liars, faults and
+    # admissions are host draws, independent of the data's size).
+    def quarter(cfg):
+        return cfg.replace(data=dataclasses.replace(
+            cfg.data, synthetic_train_size=15_000,
+            synthetic_test_size=2_500))
+
+    byz = quarter(get_preset("baseline3-byzantine"))
     tr, byz_state, _ = fed_run("11c baseline3-byzantine (trimmed mean)", byz,
                                rounds, 1)
     check_ledger("11c", byz_state["ledger"], byz, rounds)
@@ -764,7 +798,7 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
 
     # -- 11d. baseline3-elastic: drop stragglers and delayed uplinks
     # through the staleness buffer, per-round and through the chaos block.
-    el = get_preset("baseline3-elastic")
+    el = quarter(get_preset("baseline3-elastic"))
     tr, el_state, got = fed_run("11d baseline3-elastic per-round", el, 4, 1)
     if tr._use_compact() or not tr._has_stale:
         fail("11d: baseline3-elastic must run full width with the buffer")
@@ -1290,19 +1324,21 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     torch.cuda.empty_cache()
 
     # -- 13g. kill and resume at reduced depth: stage sizes (1, 1, 1, 1),
-    # 8 workers, 6,000/1,000 samples, 4 rounds in blocks of 2 with
+    # 8 workers, 3,000/500 samples, 4 rounds in blocks of 2 with
     # prefetch and checkpoint_every=2, killed right after the round-2
     # save; a fresh trainer restores it and runs rounds 2-3.
     small = fused.replace(
         data=dataclasses.replace(fused.data, num_users=8,
-                                 synthetic_train_size=6_000,
-                                 synthetic_test_size=1_000),
+                                 synthetic_train_size=3_000,
+                                 synthetic_test_size=500),
         model=dataclasses.replace(fused.model, stage_sizes=(1, 1, 1, 1)),
         gossip=dataclasses.replace(fused.gossip, prefetch="on"))
+    t = time.perf_counter()
     cont = GossipTrainer(small, device=dev)
     cont.run(rounds=4, block=2)
     want = state(cont)
     del cont
+    print(f"13g continuous run: {time.perf_counter() - t:.1f} s")
 
     class Killed(Exception):
         pass
@@ -1327,6 +1363,8 @@ def phase13(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     if resumed.round != 2:
         fail(f"13g: restored at round {resumed.round}, expected 2")
     resumed.run(rounds=2, block=2)
+    print(f"13g victim and resumed runs: {time.perf_counter() - t:.1f} s "
+          "since the continuous run began")
     same_state("13g baseline5 at stage sizes (1, 1, 1, 1), 8 workers, both "
                "fused switches, blocks of 2, killed after round 1's "
                "checkpoint and resumed, against the continuous run", want,
@@ -3359,6 +3397,502 @@ def phase17(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     return {"launch": launch, "site": site}
 
 
+def _serve_schedule(state: Path, at: dict) -> None:
+    """Phase 19's commands, queued before the daemon starts: worker 3
+    leaves at ``at["leave"]``, ``optim.lr`` changes at ``at["lr"]`` (the
+    rebuild) and worker 3 joins at ``at["join"]`` (keys left out are not
+    queued)."""
+    from dopt_torch.serve import CommandQueue, make_command
+
+    q = CommandQueue(state / "commands.jsonl")
+    if "leave" in at:
+        q.submit(make_command("membership", worker=3, action="leave",
+                              at_round=at["leave"], id="leave"))
+    if "lr" in at:
+        q.submit(make_command("config", key="optim.lr", value=0.005,
+                              at_round=at["lr"], id="lr"))
+    if "join" in at:
+        q.submit(make_command("membership", worker=3, action="join",
+                              at_round=at["join"], id="join"))
+
+
+def _timed_daemon(cls):
+    """``cls`` (a ``ServeDaemon``) recording each boundary visit's
+    entry and exit on the host clock after a device synchronize: a
+    served round's wall is the gap from one round's boundary exit to the
+    next round's entry.  ``snapshot_at`` copies the state dir as it
+    stands right after that boundary (its checkpoint written): what a
+    process stopped there leaves on disk."""
+    import shutil
+
+    import torch
+
+    class Timed(cls):
+        def __init__(self, *a, snapshot_at=None, snapshot_dir=None, **kw):
+            super().__init__(*a, **kw)
+            self.visits: list[tuple[int, float, float, str]] = []
+            self._snap = (snapshot_at, snapshot_dir)
+
+        def boundary(self, trainer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            verdict = super().boundary(trainer)
+            torch.cuda.synchronize()
+            self.visits.append((int(trainer.round), t0,
+                                time.perf_counter(), verdict))
+            at, dst = self._snap
+            if at is not None and int(trainer.round) == at \
+                    and verdict == "run" and not dst.exists():
+                shutil.copytree(self.state_dir, dst)
+            return verdict
+
+        def round_walls(self) -> list[float]:
+            out = []
+            for (r0, _, e0, v0), (r1, s1, _, _) in zip(self.visits,
+                                                      self.visits[1:]):
+                if v0 == "run" and r1 == r0 + 1:
+                    out.append(s1 - e0)
+            return out
+    return Timed
+
+
+def _served_latency(events, name: str) -> list[float]:
+    return [e["seconds"] for e in events
+            if e["kind"] == "latency" and e["name"] == name]
+
+
+def phase19(dev, smi: str, get_preset, kit) -> dict:
+    """Phase 19, the resident serve daemon (``dopt_torch.serve``) on the
+    card.  ``kit`` holds phase 3's ``k2_site`` and phase 5's scripted
+    walls (``rounds``, ``gwall``, ``fwall``).  Returns the served paths'
+    launch counts (``launch``) and the served gossip kernel-2 site on the
+    churn-repaired matrix (``site``) for the kernels line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dopt_torch.models.zoo import param_shapes
+    from dopt_torch.obs import JsonlSink, canonical, check_stream
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum)
+    from dopt_torch.serve import ServeDaemon
+    from dopt_torch.topology import build_mixing_matrices, repair_for_dropout
+
+    t19 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="dopt-torch-serve-"))
+    launch: dict[str, dict] = {}
+    Timed = _timed_daemon(ServeDaemon)
+
+    def counts() -> dict:
+        return {"fused_sgd_momentum": fused_sgd_momentum.launches,
+                "fused_mix_sgd": fused_mix_sgd.launches}
+
+    def zero() -> None:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+
+    def rows_of(d: Path) -> tuple[list, list, list]:
+        final = json.loads((d / "final.json").read_text())
+        return final, JsonlSink.read(d / "metrics.jsonl"), \
+            final["fault_ledger"]
+
+    try:
+        # -- 19a: the gossip headline served, as typed --------------------
+        cfg = get_preset("headline-dsgd-model1")
+        d_a = root / "a"
+        _serve_schedule(d_a, {"leave": 1, "lr": 2, "join": 3})
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        da = Timed(cfg, d_a, checkpoint_every=2, max_rounds=4,
+                   admin_port=None, snapshot_at=3,
+                   snapshot_dir=root / "b").start()
+        built = time.perf_counter() - t
+        torch.cuda.synchronize()
+        zero()
+        t = time.perf_counter()
+        rc = da.serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launch["served-gossip"] = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        if rc != 0:
+            fail(f"19a: the daemon returned {rc}, expected a drain (0)")
+        final, ev_a, ledger = rows_of(d_a)
+        ctl = [(r["round"], r["action"]) for r in ledger
+               if r["kind"] == "control"]
+        churn = [(r["round"], r["worker"], r["action"]) for r in ledger
+                 if r["kind"] == "churn"]
+        want_ctl = [(1, "applied_membership_leave"),
+                    (2, "applied_config_optim.lr=0.005"),
+                    (3, "applied_membership_join")]
+        if ctl != want_ctl:
+            fail(f"19a: control rows {ctl}, expected {want_ctl}")
+        if churn[0] != (1, 3, "left") or churn[-1] != (3, 3, "rejoined") \
+                or not any(a.startswith("shard_adopted") for _, _, a in churn):
+            fail(f"19a: churn rows {churn}")
+        summary = check_stream(ev_a)
+        if summary["rounds"] != 4 or summary["kinds"].get("control") != 3:
+            fail(f"19a: stream summary {summary}")
+        if final["report"]["verdict"] != "healthy" or final["round"] != 4:
+            fail(f"19a: final.json verdict {final['report']['verdict']}, "
+                 f"round {final['round']}")
+        if da.trainer.cfg.optim.lr != 0.005:
+            fail("19a: the rebuild did not take optim.lr")
+        steps = da.trainer.steps_per_round
+        spec = da.trainer.fused_spec
+        want = {"fused_sgd_momentum": 4 * steps,
+                "fused_mix_sgd": 4 * spec.num_buckets}
+        if launch["served-gossip"] != want:
+            fail(f"19a: launches {launch['served-gossip']}, expected {want}")
+        for row in final["history"]:
+            for k in ("avg_train_loss", "avg_test_loss", "avg_test_acc"):
+                if not math.isfinite(row[k]):
+                    fail(f"19a: non-finite {k} in {row}")
+        walls = da.round_walls()
+        saves = _served_latency(ev_a, "checkpoint_save")
+        restores = _served_latency(ev_a, "checkpoint_restore")
+        ticks = _served_latency(ev_a, "boundary_tick")
+        scripted = kit.gwall / kit.rounds
+        print(f"19a served headline-dsgd-model1: built in {built:.2f} s, 4 "
+              f"rounds (leave w3 @1, optim.lr 0.005 @2 by rebuild, join w3 "
+              f"@3, checkpoint_every 2) in {wall:.3f} s; round walls "
+              f"{[round(w, 4) for w in walls]} s (round 2 after the "
+              f"rebuild's restore); scripted round {scripted:.4f} s (phase "
+              f"5): served/scripted {np.median(walls) / scripted:.4f} "
+              f"(median); saves {saves} s; restore {restores} s; boundary "
+              f"ticks {ticks} s; peak {peak} B over the {base} B held; "
+              f"launches {launch['served-gossip']} ({steps} + "
+              f"{spec.num_buckets} a round); {smi}")
+        for row in final["history"]:
+            print(f"19a history {json.dumps(row)}")
+
+        # -- 19b: stopped at boundary 3, resumed in a fresh daemon --------
+        d_b = root / "b"
+        if not (d_b / "ckpt").exists():
+            fail("19b: no snapshot of 19a's state after boundary 3")
+        t = time.perf_counter()
+        db = ServeDaemon(cfg, d_b, checkpoint_every=2, max_rounds=4,
+                         admin_port=None).start()
+        resume_s = time.perf_counter() - t
+        if not db._resumed or db.trainer.round != 3 \
+                or db.trainer.cfg.optim.lr != 0.005:
+            fail(f"19b: resumed {db._resumed} at round {db.trainer.round}, "
+                 f"lr {db.trainer.cfg.optim.lr}")
+        zero()
+        t = time.perf_counter()
+        if db.serve() != 0:
+            fail("19b: the resumed daemon did not drain")
+        torch.cuda.synchronize()
+        resumed_wall = time.perf_counter() - t
+        launch["served-gossip-resumed"] = counts()
+        final_b, ev_b, ledger_b = rows_of(d_b)
+        if final_b["history"] != final["history"]:
+            fail("19b: the resumed History differs from 19a's")
+        if ledger_b != ledger:
+            fail("19b: the resumed fault ledger differs from 19a's")
+        if canonical(ev_b) != canonical(ev_a):
+            fail("19b: the resumed canonical stream differs from 19a's")
+        check_stream(ev_b)
+        if final_b["restarts"] != 1:
+            fail(f"19b: restarts {final_b['restarts']}")
+        if launch["served-gossip-resumed"] != {
+                "fused_sgd_momentum": steps,
+                "fused_mix_sgd": spec.num_buckets}:
+            fail(f"19b: launches {launch['served-gossip-resumed']}")
+        print(f"19b resumed at boundary 3 in a fresh daemon: start "
+              f"(build + restore) {resume_s:.2f} s, restore "
+              f"{_served_latency(ev_b, 'checkpoint_restore')[-1]} s, round "
+              f"3 + drain {resumed_wall:.3f} s; History, fault ledger and "
+              f"canonical stream bit for bit 19a's; {smi}")
+        del da, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 19c: the federated headline, in-process and by the CLI ------
+        fcfg = get_preset("headline-fedavg-model1")
+        d_f = root / "f"
+        _serve_schedule(d_f, {"leave": 1})
+        df = Timed(fcfg, d_f, checkpoint_every=0, max_rounds=2,
+                   admin_port=None).start()
+        zero()
+        t = time.perf_counter()
+        if df.serve() != 0:
+            fail("19c: the federated daemon did not drain")
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t
+        launch["served-fedavg"] = counts()
+        fsteps = df.trainer.steps_per_round
+        want = {"fused_sgd_momentum": 2 * fsteps,
+                "fused_mix_sgd": 2 * df.trainer.fused_spec.num_buckets}
+        if launch["served-fedavg"] != want:
+            fail(f"19c: launches {launch['served-fedavg']}, expected {want}")
+        ffinal, _, fledger = rows_of(d_f)
+        if [(r["round"], r["worker"], r["action"]) for r in fledger
+                if r["kind"] in ("control", "churn")][:2] != [
+                (1, 3, "applied_membership_leave"), (1, 3, "left")]:
+            fail(f"19c: ledger {fledger}")
+        if ffinal["report"]["verdict"] != "healthy":
+            fail(f"19c: verdict {ffinal['report']['verdict']}")
+        print(f"19c served headline-fedavg-model1 in-process: 2 rounds "
+              f"(leave w3 @1) in {fwall:.3f} s, round walls "
+              f"{[round(w, 4) for w in df.round_walls()]} s against the "
+              f"scripted {kit.fwall / kit.rounds:.4f} s; launches "
+              f"{launch['served-fedavg']}; {smi}")
+        del df
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The served gossip kernel-2 site: the churn-repaired matrix of
+        # rounds 1-2 (worker 3 away), timed before anything else shares
+        # the card.
+        w = build_mixing_matrices("circle", "stochastic", 6,
+                                  seed=2028).for_round(1)
+        alive = np.ones(6, np.float32)
+        alive[3] = 0.0
+        site = kit.k2_site(
+            "served headline model1 n=6, churn-repaired W (w3 away), lr 1",
+            param_shapes("model1"),
+            torch.tensor(repair_for_dropout(w, alive).astype(np.float32),
+                         device=dev), 1.0)
+
+        # -- 19c's CLI leg and 19d's fleet, at once: their processes
+        # share the card with each other and with 19e (no phase-19 time
+        # or kernel row is measured from here on).
+        fleet = root / "fleet"
+        t = time.perf_counter()
+        fleet_proc = subprocess.Popen(
+            [sys.executable, "-m", "dopt_torch.serve", "--preset",
+             "baseline1", "--synthetic-scale", "0.05", "--state-dir",
+             str(fleet), "--max-rounds", "3", "--checkpoint-every", "2",
+             "--num-processes", "2", "--collectives", "gloo",
+             "--fleet-port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        cli = _CliLeg(root / "cli", smi)
+        cli.start()
+        try:
+            graphs_under_serve(root, get_preset)
+            try:
+                out = fleet_proc.communicate(timeout=300)[0]
+            except subprocess.TimeoutExpired:
+                fail("19d: the fleet still runs after 300 s")
+            fleet_s = time.perf_counter() - t
+            cli.join(timeout=max(330 - fleet_s, 1))
+        finally:
+            if fleet_proc.poll() is None:
+                fleet_proc.kill()
+                fleet_proc.communicate()
+        if cli.is_alive() or not cli.ok:
+            fail("19c CLI: the leg failed or did not end (above)")
+        if fleet_proc.returncode != 0:
+            logs = "".join(p.read_text()[-2000:]
+                           for p in sorted((fleet / "logs").glob("*.log")))
+            fail(f"19d: the fleet exited {fleet_proc.returncode}: "
+                 f"{out[-2000:]}\n{logs}")
+        ff = json.loads((fleet / "final.json").read_text())
+        from dopt_torch.obs.aggregate import FleetAggregator
+
+        agg = FleetAggregator(fleet)
+        agg.poll()
+        agg.flush_trailing()
+        if agg.divergence is not None or agg.processes != [0, 1] \
+                or ff["round"] != 3 or ff["report"]["verdict"] != "healthy":
+            fail(f"19d: fleet final {ff['round']} "
+                 f"{ff['report']['verdict']}, processes {agg.processes}, "
+                 f"divergence {agg.divergence}")
+        print(f"19d 2-process fleet (baseline1 at 0.05 scale, gloo, one "
+              f"card): drained at round 3 in {fleet_s:.1f} s of command "
+              f"time (beside 19c's CLI leg and 19e), {agg.rounds_merged} "
+              f"rounds verified equal across the two streams; {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"19: phase 19 in {time.perf_counter() - t19:.1f} s")
+    return {"launch": launch, "site": site}
+
+
+def graphs_under_serve(root: Path, get_preset) -> None:
+    """19e, CUDA graphs under ``run_served``: ``baseline1`` at 3,000/500
+    samples served in blocks of 2 (a served round is ``run(rounds=1)``,
+    so one round through the captured graph) with a leave at 1 and a
+    join at 3: each kind is captured once and replayed after the leave
+    and the join (the lane mask is data), and History and ledger equal
+    the per-round served run's bit for bit."""
+    from dopt_torch.serve import ServeDaemon
+
+    gb = get_preset("baseline1")
+    gb = gb.replace(data=dataclasses.replace(
+        gb.data, synthetic_train_size=3000, synthetic_test_size=500))
+    legs = {}
+    for block in (2, 1):
+        d_g = root / f"graphs{block}"
+        _serve_schedule(d_g, {"leave": 1, "join": 3})
+        c = gb.replace(gossip=dataclasses.replace(gb.gossip,
+                                                  block_rounds=block))
+        dg = ServeDaemon(c, d_g, checkpoint_every=0, max_rounds=4,
+                         admin_port=None).start()
+        captures = []
+        cap = dg.trainer.graphs._capture
+
+        def counted(kind, cap=cap, captures=captures):
+            captures.append(kind)
+            cap(kind)
+        dg.trainer.graphs._capture = counted
+        if dg.serve() != 0:
+            fail(f"19e: block {block} did not drain")
+        legs[block] = (json.loads((d_g / "final.json").read_text()),
+                       captures)
+    (g2, caps), (g1, caps1) = legs[2], legs[1]
+    if sorted(caps) != sorted(set(caps)) or not caps or caps1:
+        fail(f"19e: captures {caps} (blocked), {caps1} (per-round)")
+    if g2["history"] != g1["history"] \
+            or g2["fault_ledger"] != g1["fault_ledger"]:
+        fail("19e: the served blocked run differs from the per-round")
+    print(f"19e baseline1 (3,000/500) served in blocks of 2 (leave w3 @1, "
+          f"join @3, 4 rounds): {len(caps)} capture(s) {caps}, each kind "
+          "once, replayed after the leave and the join; History and "
+          "ledger bit for bit the per-round served run")
+
+
+class _CliLeg(threading.Thread):
+    """``cli_serve`` on a thread: ``ok`` is False when it failed (its
+    message printed by ``fail``)."""
+
+    def __init__(self, state: Path, smi: str):
+        super().__init__(daemon=True)
+        self.args = (state, smi)
+        self.ok = False
+
+    def run(self) -> None:
+        try:
+            cli_serve(*self.args)
+            self.ok = True
+        except SystemExit:
+            pass
+        except Exception as e:   # reported; the phase fails on ``ok``
+            print(f"FAIL: 19c CLI: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+
+
+def cli_serve(state: Path, smi: str) -> None:
+    """19c's CLI leg: ``python -m dopt_torch.serve --preset
+    headline-fedavg-model1 --synthetic-scale 0.1`` on the card (full
+    width, 6,000/1,000 rows: the process's control plane is under test,
+    19c's in-process run serves the preset at its size) with the admin
+    on port 0: GET /healthz and /metrics, POST a leave, a real SIGTERM
+    once the leave is applied (the daemon drains to the next boundary,
+    checkpoints and re-execs in place), the resumed process trains on
+    and drains at --max-rounds."""
+    import signal
+    import urllib.request
+
+    from dopt_torch.obs import JsonlSink, check_stream
+    from dopt_torch.serve import ControlLedger
+
+    def applied_leave(deadline) -> int:
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                fail(f"19c CLI: exited {proc.returncode}: "
+                     f"{proc.communicate()[0][-3000:]}")
+            for rec in ControlLedger.replay(state / "applied.jsonl"):
+                if rec.get("cmd") == "membership" \
+                        and rec.get("status") == "applied":
+                    return int(rec["round"])
+            time.sleep(0.05)
+        fail("19c CLI: the leave was never applied")
+
+    def status(pred, deadline):
+        while time.perf_counter() < deadline:
+            if proc.poll() is not None:
+                fail(f"19c CLI: exited {proc.returncode}: "
+                     f"{proc.communicate()[0][-3000:]}")
+            try:
+                st = json.loads((state / "serve.json").read_text())
+                if pred(st):
+                    return st
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.05)
+        fail("19c CLI: timed out")
+
+    def http(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read().decode()
+
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dopt_torch.serve", "--preset",
+         "headline-fedavg-model1", "--synthetic-scale", "0.1",
+         "--state-dir", str(state), "--admin-port", "0", "--max-rounds", "3",
+         "--checkpoint-every", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        deadline = time.perf_counter() + 300
+        st = status(lambda s: s["status"] == "serving"
+                    and s["admin_port"], deadline)
+        up = time.perf_counter() - t
+        port = st["admin_port"]
+        code, body = http("/healthz")
+        if code != 200:
+            fail(f"19c CLI: /healthz {code} {body}")
+        code, _ = http("/metrics")
+        if code != 200:
+            fail(f"19c CLI: /metrics {code}")
+        code, body = http("/admin/membership",
+                          {"worker": 5, "action": "leave"})
+        if code != 202:
+            fail(f"19c CLI: POST leave {code} {body}")
+        leave_round = applied_leave(deadline)
+        pid = st["pid"]
+        t_term = time.perf_counter()
+        os.kill(pid, signal.SIGTERM)
+        st = status(lambda s: s["restarts"] == 1
+                    and s["status"] == "serving", deadline)
+        back = time.perf_counter() - t_term
+        if st["pid"] != pid:
+            fail(f"19c CLI: re-exec changed the pid {pid} -> {st['pid']}")
+        port = st["admin_port"]
+        code, body = http("/healthz")
+        if code != 200:
+            fail(f"19c CLI: /healthz after the re-exec {code} {body}")
+        out = proc.communicate(timeout=max(deadline - time.perf_counter(),
+                                           1))[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0 or "re-exec for rolling restart" not in out:
+        fail(f"19c CLI: exit {proc.returncode}: {out[-3000:]}")
+    final = json.loads((state / "final.json").read_text())
+    events = JsonlSink.read(state / "metrics.jsonl")
+    summary = check_stream(events)
+    ctl = [r for r in final["fault_ledger"] if r["kind"] == "control"]
+    if final["restarts"] != 1 or final["round"] != 3 \
+            or final["report"]["verdict"] != "healthy" \
+            or [(r["worker"], r["action"]) for r in ctl] != [
+                (5, "applied_membership_leave")] \
+            or summary["rounds"] != 3:
+        fail(f"19c CLI: final {final['round']} restarts "
+             f"{final['restarts']}, control {ctl}, stream {summary}")
+    for row in final["history"]:
+        if not math.isfinite(row["train_loss"]):
+            fail(f"19c CLI: non-finite loss {row}")
+    print(f"19c CLI python -m dopt_torch.serve --preset "
+          f"headline-fedavg-model1 --synthetic-scale 0.1: serving in "
+          f"{up:.1f} s, leave over POST applied at round {leave_round}, "
+          f"SIGTERM then -> re-exec (same pid) serving again in "
+          f"{back:.1f} s, drained at round 3 (restarts 1, healthy, "
+          f"{summary['rounds']} rounds in a clean stream) in "
+          f"{time.perf_counter() - t:.1f} s; {smi}")
+
+
 def main() -> None:
     global T0
     T0 = time.perf_counter()
@@ -4822,6 +5356,13 @@ def main() -> None:
 
     # -- 18. the sequence-parallel LM --------------------------------------
     phase18(dev, smi)
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 19")
+
+    # -- 19. the resident serve daemon -------------------------------------
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    res19 = phase19(dev, smi, get_preset, types.SimpleNamespace(
+        k2_site=k2_site, rounds=rounds, gwall=gwall, fwall=fwall))
+    del flush
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
     source = "dopt_torch/csrc/fused_update.cu"
@@ -4925,6 +5466,16 @@ def main() -> None:
              "600 clients and cohorts of 6 bound onto its lanes, the fused "
              "epilogue off: kernel 1 every step, kernel 2 never", k1,
              None),
+            ("served-headline-dsgd-model1", "headline-dsgd-model1 served by "
+             "dopt_torch.serve (19a: leave w3 @1, optim.lr by rebuild @2, "
+             "join @3; 4 rounds): Model1, 6 workers, kernel 2 on the "
+             "churn-repaired W", k1, res19["site"]),
+            ("served-headline-dsgd-model1-resumed", "19b: 19a's state after "
+             "boundary 3 resumed in a fresh daemon (round 3)", k1,
+             res19["site"]),
+            ("served-headline-fedavg-model1", "headline-fedavg-model1 served "
+             "(19c: leave w3 @1; 2 rounds): 16 lanes, kernel 2 at lr -1 over "
+             "the present sampled lanes", k1f, k2f),
             *((f"headline-{e}-model1-ranks2{s}", f"headline-{e}-model1 at 2 "
                f"ranks{d}, kernel 1 on and the fused epilogue off (dopt "
                f"refuses it across devices): {lanes} lanes a rank, kernel 1 "
@@ -4938,7 +5489,13 @@ def main() -> None:
                     "headline-fedavg-model1-faulty": fed11["launch"],
                     **obs12["launch"], "baseline5": res13["launch"],
                     **res14["launch"], **res15["launch"],
-                    **res16["launch"], **res17["launch"]}[preset]
+                    **res16["launch"], **res17["launch"],
+                    "served-headline-dsgd-model1":
+                        res19["launch"]["served-gossip"],
+                    "served-headline-dsgd-model1-resumed":
+                        res19["launch"]["served-gossip-resumed"],
+                    "served-headline-fedavg-model1":
+                        res19["launch"]["served-fedavg"]}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

@@ -147,9 +147,10 @@ from dopt_torch.engine.gossip import (DTYPES, check_checkpoint_args,
                                       checkpoint_meta, initial_params,
                                       load_device_data, rank_state,
                                       refuse_fused_across_ranks,
+                                      refuse_membership_population,
                                       resolve_device, restore_meta,
-                                      save_rank_checkpoint, steps_per_round,
-                                      validate_common)
+                                      save_rank_checkpoint, serve_rounds,
+                                      steps_per_round, validate_common)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, stacked_eval_gathered,
                                      stacked_evaluate)
@@ -526,7 +527,9 @@ class FederatedTrainer:
     engine_kind = "federated"
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
-                 init_params=None, eval_train: bool = True):
+                 init_params=None, eval_train: bool = True,
+                 membership=None):
+        refuse_membership_population(cfg, membership)
         validate_federated(cfg)
         self.device = dev = resolve_device(device)
         f = cfg.federated
@@ -540,9 +543,13 @@ class FederatedTrainer:
         # the round's surviving sampled clients only.
         self.client_history = History(cfg.name + "-clients")
         w = self.num_workers = cfg.data.num_users
-        # Telemetry (``dopt_torch.obs.attach``), as GossipTrainer's.
+        # Telemetry (``dopt_torch.obs.attach``) and the serve-mode hooks
+        # (``dopt_torch.serve``), as GossipTrainer's.
         self.timers = PhaseTimers()
         self.telemetry = None
+        self._suppress_run_summary = False
+        self.checkpoint_writer = True
+        self._membership = membership
         self._diag = f.diagnostics == "on"
         self._diag_keys = DIAG_GAUGES + ("lane_dispersion",)
         self._compile_watch = CompileWatcher()
@@ -638,7 +645,8 @@ class FederatedTrainer:
         all written in place."""
         cfg, f, w, dev = self.cfg, self.cfg.federated, self.num_workers, \
             self.device
-        self.faults = FaultPlan(w, cfg.faults, seed=cfg.seed)
+        self.faults = FaultPlan(w, cfg.faults, seed=cfg.seed,
+                                membership=self._membership)
         fc = cfg.faults
         self._may_straggle = (self.faults.may_straggle
                               and fc.straggler_policy == "partial")
@@ -1885,13 +1893,21 @@ class FederatedTrainer:
         under ``diagnostics="on"`` (its ``lane_dispersion`` gauge is the
         same meter every round)."""
         tele = self.telemetry
-        if tele is None or self._diag:
+        if tele is None or self._diag or self._suppress_run_summary:
             return
         cd = self._consensus_value()
         if cd is not None:
             tele.emit("gauge", round=self.round - 1,
                       name="consensus_distance", value=cd,
                       engine=self.engine_kind)
+
+    def run_served(self, controller) -> str:
+        """Resident serve-mode entry (``dopt_torch.serve``; dopt
+        :2506-2525), ``GossipTrainer.run_served``'s contract: the
+        controller's boundary before every round, ``"run"`` | ``"drain"``
+        | ``"restart"`` | ``"rebuild"``, the summary gauge once, at the
+        drain."""
+        return serve_rounds(self, controller)
 
     # -- checkpoint -----------------------------------------------------
     def save(self, path) -> None:
@@ -1921,7 +1937,8 @@ class FederatedTrainer:
             meta["population_registry"] = self._registry.state_dict()
         with self.timers.phase("checkpoint"):
             save_rank_checkpoint(self.group, path, arrays, meta,
-                                 replicated=("theta", "c_global"))
+                                 replicated=("theta", "c_global"),
+                                 write=self.checkpoint_writer)
         if self.telemetry is not None:
             # After the atomic save landed, with the consensus snapshot.
             ev = {"round": int(self.round)}

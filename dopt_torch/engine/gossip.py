@@ -771,6 +771,37 @@ def check_checkpoint_args(checkpoint_every: int, checkpoint_path) -> None:
         raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 0")
 
 
+def refuse_membership_population(cfg: ExperimentConfig, membership) -> None:
+    """dopt's refusal (gossip.py:122-128, federated.py:85-91), in its
+    words: the serve membership overlay and the client population do
+    not compose."""
+    if membership is not None and cfg.population is not None:
+        raise ValueError(
+            "the serve membership overlay does not compose with the "
+            "client population registry (cohort sampling already "
+            "models client join/leave; a lane-level overlay would "
+            "silently fight the registry's shard assignment) — drop "
+            "one of the two")
+
+
+def serve_rounds(trainer, controller) -> str:
+    """Both engines' ``run_served`` loop: ``controller.boundary`` before
+    every round, one ``run(rounds=1)`` a ``"run"`` verdict, the summary
+    gauge at a drain only."""
+    trainer._suppress_run_summary = True
+    try:
+        while True:
+            verdict = controller.boundary(trainer)
+            if verdict != "run":
+                if verdict == "drain":
+                    trainer._suppress_run_summary = False
+                    trainer._run_summary_telemetry()
+                return verdict
+            trainer.run(rounds=1)
+    finally:
+        trainer._suppress_run_summary = False
+
+
 def checkpoint_meta(trainer, algorithm: str) -> dict:
     """Both engines' checkpoint meta, under dopt's keys: the round, the
     History and client rows, the fault ledger and the screen's host
@@ -832,7 +863,8 @@ class GossipTrainer:
     engine_kind = "gossip"
 
     def __init__(self, cfg: ExperimentConfig, *, eval_every: int = 1,
-                 device=None, init_params=None):
+                 device=None, init_params=None, membership=None):
+        refuse_membership_population(cfg, membership)
         validate_slice(cfg)
         if eval_every < 1:
             raise ValueError(f"eval_every={eval_every} must be >= 1")
@@ -848,6 +880,12 @@ class GossipTrainer:
         # no emission; every site is host code after a fetch.
         self.timers = PhaseTimers()
         self.telemetry = None
+        # Serve-mode hooks (``dopt_torch.serve``): ``run_served`` defers
+        # the end-of-run summary gauge to the drain boundary; a follower
+        # of a serve fleet takes part in a save but does not write it.
+        self._suppress_run_summary = False
+        self.checkpoint_writer = True
+        self._membership = membership
         self._diag = g.diagnostics == "on"
         self._diag_keys = DIAG_GAUGES + ("consensus_distance",)
         self._compile_watch = CompileWatcher()
@@ -963,7 +1001,8 @@ class GossipTrainer:
         history buffer at the common init, the in-flight buffer zero)."""
         cfg, w, dev = self.cfg, self.num_workers, self.device
         self.faults = f = FaultPlan(w, cfg.faults, seed=cfg.seed,
-                                    dropout=cfg.gossip.dropout)
+                                    dropout=cfg.gossip.dropout,
+                                    membership=self._membership)
         self._has_faults = f.active
         self._may_straggle = f.may_straggle
         self._has_corrupt = f.has_corrupt
@@ -981,9 +1020,10 @@ class GossipTrainer:
         self._link_mode = self._has_link or self._push_sum
         self._delay_max = f.delay_max
         self._fused_quar = self._quarantine_on and not self._link_mode
-        # Lanes that can be down for a round (crash, churn, quarantine):
-        # their local work is discarded (dopt does so under faults only).
-        self._may_die = f.active and (f.cfg.crash > 0 or f.cfg.churn > 0
+        # Lanes that can be down for a round (crash, churn or the serve
+        # membership overlay, quarantine): their local work is discarded
+        # (dopt does so under faults only).
+        self._may_die = f.active and (f.cfg.crash > 0 or f.has_churn
                                       or self._quarantine_on)
         self._steps_per_epoch = self.steps_per_round // cfg.gossip.local_ep
         self._straggle_units = (cfg.gossip.local_ep if self._val is not None
@@ -1831,7 +1871,7 @@ class GossipTrainer:
         carries it (an extra one mid-stream would break a resumed
         stream's equality)."""
         tele = self.telemetry
-        if tele is None or self._diag:
+        if tele is None or self._diag or self._suppress_run_summary:
             return
         cd = self._consensus_value()
         if cd is not None:
@@ -1839,7 +1879,18 @@ class GossipTrainer:
                       name="consensus_distance", value=cd,
                       engine=self.engine_kind)
 
-
+    def run_served(self, controller) -> str:
+        """Resident serve-mode entry (``dopt_torch.serve``; dopt
+        :2295-2324): train one round at a time until the round-boundary
+        ``controller`` says otherwise.  ``controller.boundary(trainer)``
+        runs before each round with the trainer at a consistent boundary
+        and returns ``"run"`` (one more round), ``"drain"`` (stop; the
+        one end-of-run summary gauge is emitted here, as a scripted
+        ``run()`` emits it), ``"restart"`` (stop with no summary gauge:
+        the resumed daemon's drain emits it, so an interrupted and an
+        uninterrupted serve emit equal streams) or ``"rebuild"`` (the
+        daemon rebuilds the trainer from an updated config)."""
+        return serve_rounds(self, controller)
 
     # -- checkpoint -----------------------------------------------------
     def save(self, path) -> None:
@@ -1890,7 +1941,8 @@ class GossipTrainer:
         with self.timers.phase("checkpoint"):
             save_rank_checkpoint(self.group, path, arrays, meta,
                                  replicated=("push_mass", "link_buf_mass"),
-                                 lane_axis={"link_buf": 1})
+                                 lane_axis={"link_buf": 1},
+                                 write=self.checkpoint_writer)
         if self.telemetry is not None:
             # After the atomic save landed, with the consensus snapshot.
             ev = {"round": int(self.round)}

@@ -1,18 +1,29 @@
-"""dopt_torch.obs — the port's telemetry: event stream, sinks, spans.
+"""dopt_torch.obs — the port's telemetry: event stream, sinks, spans,
+health monitor and fleet aggregation.
 
-The port's copy of dopt's ``dopt.obs`` core:
+The port's copy of dopt's ``dopt.obs``:
 
 * a JSONL **event stream** with dopt's versioned schema
   (``dopt_torch.obs.events``): per-round ``round`` events, host-mirror
   and diagnostics ``gauge`` events, the fault ledger as typed ``fault``
-  events, ``checkpoint`` events, and under ``diagnostics="on"`` the
-  ``resource`` (CUDA caching-allocator memory) and ``compile`` (round
-  graph captures) channel;
+  events, ``checkpoint`` events, the serve daemon's ``control`` and
+  ``latency`` events, and under ``diagnostics="on"`` the ``resource``
+  (CUDA caching-allocator memory) and ``compile`` (round graph
+  captures) channel;
 * host **span tracing** (``dopt_torch.obs.spans``) with a Chrome-trace
   export, hooked into the engines' ``PhaseTimers`` sites;
 * the **sinks** (``dopt_torch.obs.sinks``): JSONL file, in-memory ring,
   Prometheus text;
-* the stream **checker**, ``python -m dopt_torch.obs.check PATH``.
+* the streaming **health monitor** (``dopt_torch.obs.monitor`` over the
+  rules of ``dopt_torch.obs.rules`` and the SLO latency histograms of
+  ``dopt_torch.obs.latency``): ``alert`` events and an end-of-run
+  ``HealthReport`` verdict, served by ``python -m dopt_torch.obs.serve``
+  (/metrics and /healthz over a metrics file);
+* **fleet aggregation** (``dopt_torch.obs.aggregate``): a serve fleet's
+  per-process streams merged and checked for cross-process equality,
+  ``python -m dopt_torch.obs.aggregate --state-dir D``;
+* the stream **checker**, ``python -m dopt_torch.obs.check PATH`` (or
+  ``--state-dir D`` for every stream of a served run).
 
 The contracts are dopt's.  Off path: ``trainer.telemetry`` is None by
 default and every emission site is host code gated on it after the
@@ -33,15 +44,33 @@ from dopt_torch.obs.events import (DETERMINISTIC_KINDS, KINDS,
                                    SCHEMA_VERSION, canonical, check_stream,
                                    make_event, sanitize_metrics,
                                    validate_event)
+from dopt_torch.obs.latency import (SLO_LATENCIES, LatencyHistogram,
+                                    summarize_latency_events)
+from dopt_torch.obs.monitor import HealthMonitor, HealthReport, JsonlTail
+from dopt_torch.obs.rules import RULES, build_rules, default_rules
 from dopt_torch.obs.sinks import JsonlSink, MemorySink, PrometheusSink, Sink
 from dopt_torch.obs.spans import SpanTracer
 
 __all__ = [
-    "DETERMINISTIC_KINDS", "KINDS", "SCHEMA_VERSION", "JsonlSink",
-    "MemorySink", "PrometheusSink", "Sink", "SpanTracer", "Telemetry",
-    "attach", "canonical", "check_stream", "consensus_distance",
-    "make_event", "sanitize_metrics", "validate_event",
+    "DETERMINISTIC_KINDS", "KINDS", "RULES", "SCHEMA_VERSION",
+    "SLO_LATENCIES", "FleetAggregator", "FleetMetricsServer",
+    "HealthMonitor", "HealthReport", "JsonlSink", "JsonlTail",
+    "LatencyHistogram", "MemorySink", "PrometheusSink", "Sink",
+    "SpanTracer", "Telemetry", "attach", "build_rules", "canonical",
+    "check_stream", "consensus_distance", "default_rules", "make_event",
+    "sanitize_metrics", "summarize_latency_events", "validate_event",
 ]
+
+
+def __getattr__(name: str):
+    # The fleet aggregation layer is imported lazily: it carries its own
+    # http.server and argparse surface, which the engines' per-round
+    # emission path does not need.
+    if name in ("FleetAggregator", "FleetMetricsServer"):
+        from dopt_torch.obs import aggregate
+
+        return getattr(aggregate, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class Telemetry:
@@ -54,15 +83,20 @@ class Telemetry:
         self.watermark = int(watermark)
 
     @classmethod
-    def to_jsonl(cls, path, *, resume: bool = False) -> "Telemetry":
+    def to_jsonl(cls, path, *, resume: bool = False,
+                 ring: int = 0) -> "Telemetry":
         """JSONL-file telemetry.  ``resume=True`` appends and recovers
         the round watermark from the file, so a resumed run continues the
-        stream."""
+        stream; ``ring`` > 0 also keeps the last N events in memory
+        (``.sinks[-1].events``)."""
         wm = 0
         if resume:
             prev = JsonlSink.scan_watermark(path)
             wm = 0 if prev is None else prev + 1
-        return cls([JsonlSink(path, append=resume)], watermark=wm)
+        sinks: list[Sink] = [JsonlSink(path, append=resume)]
+        if ring:
+            sinks.append(MemorySink(capacity=ring))
+        return cls(sinks, watermark=wm)
 
     def emit(self, kind: str, **fields: Any) -> dict[str, Any]:
         ev = make_event(kind, **fields)

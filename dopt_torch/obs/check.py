@@ -8,8 +8,9 @@ nor repeated a round — and prints one line per file.  ``--summary``
 adds an inventory (events per kind, each segment's rounds, the gauges,
 the fault kinds); ``--json`` prints one machine-readable report.  Exit
 code 0 when every stream is clean, 1 on any violation, 2 on a usage
-error.  dopt's ``--state-dir`` (a serve daemon's fleet of streams)
-arrives with the port's serve slice.
+error.  ``--state-dir DIR`` also checks every metrics stream of a
+served run (``python -m dopt_torch.serve``): the leader's and each
+follower's, in the dir and one level of subdirectories down.
 """
 
 from __future__ import annotations
@@ -101,17 +102,51 @@ def print_summary(path: str, inv: dict[str, Any]) -> None:
             f"{k}={v}" for k, v in sorted(inv["alerts"].items())))
 
 
+def fleet_stream_paths(state_dir: str) -> list[str]:
+    """Every metrics stream under a serve state dir (or a root holding
+    several): the leader's and the followers' streams as
+    ``dopt_torch.obs.aggregate.fleet_metric_paths`` names them, in the
+    dir itself and one directory level down."""
+    from pathlib import Path
+
+    from dopt_torch.obs.aggregate import fleet_metric_paths
+
+    root = Path(state_dir)
+    dirs = [root] + (sorted(d for d in root.iterdir() if d.is_dir())
+                     if root.is_dir() else [])
+    found: list[str] = []
+    for d in dirs:
+        for _, path in sorted(fleet_metric_paths(d).items()):
+            if path.exists():
+                found.append(str(path))
+    return found
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("paths", nargs="+", metavar="METRICS_JSONL")
+    ap.add_argument("paths", nargs="*", metavar="METRICS_JSONL")
+    ap.add_argument("--state-dir", default=None, metavar="DIR",
+                    help="also check every metrics*.jsonl under this "
+                         "serve state dir (one level of subdirectories "
+                         "included)")
     ap.add_argument("--summary", action="store_true",
                     help="print a per-file inventory after validating")
     ap.add_argument("--json", action="store_true",
                     help="one machine-readable report on stdout")
     args = ap.parse_args(argv)
+    paths = list(args.paths)
+    if args.state_dir is not None:
+        found = fleet_stream_paths(args.state_dir)
+        if not found and not paths:
+            print(f"{args.state_dir}: FAIL no metrics*.jsonl streams "
+                  "found", file=sys.stderr)
+            return 1
+        paths.extend(p for p in found if p not in paths)
+    if not paths:
+        ap.error("give METRICS_JSONL paths and/or --state-dir")
     rc = 0
     report: list[dict[str, Any]] = []
-    for path in args.paths:
+    for path in paths:
         try:
             events = JsonlSink.read(path)
             if not events:
@@ -136,7 +171,7 @@ def main(argv: list[str] | None = None) -> int:
         if args.summary:
             print_summary(path, summarize(events))
     if args.json:
-        json.dump({"tool": "dopt_torch.obs.check", "checked": len(args.paths),
+        json.dump({"tool": "dopt_torch.obs.check", "checked": len(paths),
                    "files": report, "clean": rc == 0},
                   sys.stdout, indent=2, sort_keys=True)
         sys.stdout.write("\n")

@@ -11,6 +11,9 @@ dopt/parallel/multihost.py over ``torch.distributed``.
   explicit arguments, and is a no-op without either.  The backend is
   the caller's: NCCL with one GPU a rank, or gloo (the CPU, or ranks
   that share a card).
+* ``bootstrap_child_backend`` is the one fleet-child bootstrap of
+  ``python -m dopt_torch.serve``: the handoff rendezvous, then the
+  process group over the caller's backend.
 * ``make_hybrid_mesh`` is dopt's ``(hosts × ici)`` layout as rank
   coordinates, and ``dcn_edge_count`` its diagnostic, a numpy copy.
 """
@@ -118,6 +121,54 @@ def initialize_distributed(coordinator_address: str | None = None,
         backend, init_method=f"tcp://{coordinator_address}",
         rank=int(process_id), world_size=int(num_processes))
     return True
+
+
+def bootstrap_child_backend(handoff_path: str | Path, process_id: int,
+                            num_processes: int, devices_per_proc: int = 1,
+                            *, host: str = "127.0.0.1",
+                            collectives: str = "gloo") -> str:
+    """The one fleet-child bootstrap (dopt's, over ``torch.distributed``):
+    rendezvous on the port-0 handoff coordinator, join the default
+    process group over ``collectives`` and check the world it joined.
+    Returns the coordinator address.
+
+    A port child is one rank on one device, so ``devices_per_proc`` must
+    be 1: dopt's virtual CPU devices a process have no counterpart on a
+    card, and more ranks come from more processes.  ``collectives`` is
+    the caller's: "gloo" (the CPU, or children that share one card,
+    staged through host memory) or "nccl" (a card each: child i runs on
+    ``cuda:i``); nothing switches it."""
+    import torch.distributed as dist
+
+    if int(devices_per_proc) != 1:
+        raise ValueError(
+            f"devices_per_proc={devices_per_proc}: a port fleet process "
+            "is one torch.distributed rank on one device, so it takes "
+            "devices_per_proc=1; for "
+            f"{int(num_processes) * int(devices_per_proc)} ranks run "
+            f"num_processes={int(num_processes) * int(devices_per_proc)}")
+    if collectives not in ("gloo", "nccl"):
+        raise ValueError(f"collectives={collectives!r}: one of gloo|nccl")
+    if collectives == "nccl":
+        import torch
+
+        if int(process_id) >= torch.cuda.device_count():
+            raise ValueError(
+                f"process {process_id} has no GPU of its own "
+                f"({torch.cuda.device_count()} visible): NCCL runs one "
+                "process a GPU; processes that share a card take "
+                "collectives='gloo'")
+        torch.cuda.set_device(int(process_id))
+    address = coordinator_handoff(handoff_path, process_id, host=host)
+    if not initialize_distributed(address, num_processes, process_id,
+                                  backend=collectives):
+        raise RuntimeError(
+            "initialize_distributed returned False with explicit args")
+    if dist.get_world_size() != int(num_processes):
+        raise RuntimeError(
+            f"expected {num_processes} processes, the group has "
+            f"{dist.get_world_size()}")
+    return address
 
 
 def make_hybrid_mesh(num_hosts: int, size: int) -> np.ndarray:

@@ -158,18 +158,21 @@ def _lane_tree(tree, fn, axis: int):
 
 
 def save_rank_checkpoint(group, path, arrays: dict, meta: dict, *,
-                         replicated=(), lane_axis=None) -> None:
+                         replicated=(), lane_axis=None,
+                         write: bool = True) -> None:
     """Both engines' save across ranks: every per-lane tree of
     ``arrays`` is gathered to its whole ``[W, ...]`` (lane axis 0, or
     ``lane_axis[name]``), the ``replicated`` ones are the same on every
     rank, rank 0 writes dopt's format and every rank waits for the
-    write.  On one rank it is ``save_checkpoint``."""
+    write.  On one rank it is ``save_checkpoint``.  ``write=False`` (a
+    serve fleet's follower, the trainers' ``checkpoint_writer``) takes
+    part in the gather and the barrier and writes nothing."""
     if group.wire:
         lane_axis = lane_axis or {}
         arrays = {k: v if (k in replicated or v is None) else _lane_tree(
             v, lambda x: gather_workers(x.contiguous(), group, "checkpoint"),
             lane_axis.get(k, 0)) for k, v in arrays.items()}
-    if group.rank == 0:
+    if group.rank == 0 and write:
         save_checkpoint(path, arrays=arrays, meta=meta)
     barrier(group)
 
