@@ -48,8 +48,12 @@ the final line:
 5f. bf16 storage — headline-fedavg-model1 and headline-dsgd-model1 with
    bf16 compute and storage, two rounds each, with the launch counts
    and the dtype every kernel launch received;
-6. profile — one more round of the gossip path under torch.profiler
-   (the device activity): device time by kernel, busy time, idle share;
+6. profile — one more round of the gossip path under
+   ``dopt_torch.utils.profiling.device_stats_of`` (torch.profiler, the
+   device activity): device time by kernel and by phase (conv, comm,
+   update, other, from the kernel names alone), every kernel that fell
+   to other, busy time, idle share; each hand kernel's occurrences in
+   the trace equal its launches in the round (316 and 2);
 7a. determinism — the trainers run in the deterministic mode on the card
    (dopt_torch.models.deterministic; the flags are printed):
    headline-dsgd-model1 runs two rounds again and must equal phase 5's
@@ -68,8 +72,8 @@ the final line:
    warm-up block) on headline-dsgd-model1-bf16 and headline-dsgd-model1
    with eval_every beyond the run (dopt bench's shape): rounds/s, peak
    memory, each graph's capture and instantiate time and node count,
-   and one blocked bf16 round under the profiler (idle share, as phase
-   6);
+   and one blocked f32 round under the profiler, as phase 6 (the
+   kernels of a graph replay, named and counted one by one);
 8. checkpoint and resume — 8a/8b/8c: headline-dsgd-model1 (f32),
    headline-fedavg-model1 and headline-dsgd-model1 with bf16 compute and
    storage: a trainer runs round 0 with checkpoint_every=1 (the kill), a
@@ -303,7 +307,26 @@ also runs two small faulty configurations on the GPU against the CPU.
    19e CUDA graphs under ``run_served``: ``baseline1`` served in blocks
    of 2 with a leave and a join, each kind captured once and replayed,
    bit for bit the per-round served run.  19c's CLI leg, 19d and 19e
-   run at once, after every phase-19 number is taken.
+   run at once, after every phase-19 number is taken, beside phase 20d's
+   wire probe; phase 20c's watch runs over 19a's and 19d's state dirs.
+
+20. the meters and the stream tools (``phase20``): 20a the headlines'
+   MFU — ``train_flops_per_sample`` of Model1 (dopt's convention, counted
+   on the CPU) times phase 5's and 5b's samples a round (lanes × steps ×
+   batch) over their round walls, and over phase 6's busy time, against
+   ``device_peak_flops()`` (the card's bf16 dense peak; fails on None),
+   beside the card's name and power limit; 20b ``first_divergence``
+   between phase 5's per-round and 7b's blocked headline streams (None),
+   and one gauge changed is reported at its index, kind and round; 20c
+   ``python -m dopt_torch.obs.watch --once`` over 19a's served stream and
+   19d's fleet dir (exit 0, the gauges and the fleet columns rendered),
+   and ``obs.regress`` on a copy of results/bench_history.jsonl: the
+   card's entries keyed apart from the TPU rows (no baseline until
+   three), then a seeded 20% slowdown flagged; 20d ``python -m
+   dopt_torch.analysis.comm_bytes --ranks 2 --device cuda`` (gloo, the
+   ranks sharing the card) equal in every field to the CPU's 2-rank
+   figures (``WIRE_2_RANKS``): q4 at 112,068 bytes a lane,
+   wire_compression 7.109.
 
 Phase 4c holds one full-size Model1 step (headline-dsgd-model1's model:
 28×28×1, batch 128 a lane, f32, deterministic, ``full_f32``) at 6 and at
@@ -313,7 +336,7 @@ for 3): every gradient and updated tensor within 1e-5 relative L2
 profiler's names.
 
 Every profile records the device activity only (phase 6's
-``profile_round``), and every synthetic set is made once and shared by
+``profile_round`` over ``device_stats_of``), and every synthetic set is made once and shared by
 the trainers that ask for it (from phase 4 on).  Every phase prints the
 script's elapsed time as it starts.
 
@@ -345,6 +368,38 @@ MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 REPS = 25
 T0 = 0.0   # the script's start (main), for the per-phase elapsed lines
+# ``python -m dopt_torch.analysis.comm_bytes --ranks 2 --device cpu``
+# (tests/test_torch_obs_tools.py holds the CLI to these).  At 2 ranks the
+# MLP's 199,210 f32 a lane need no pad (796,840 dense bytes, a 69,113-byte
+# budget), where 4 pad to 199,212 (796,848 and 69,114, dopt's figures);
+# the round's metrics ride the all-gather, 256 bytes.
+WIRE_2_RANKS = {
+    "budget_bytes": 69_113, "plan_kinds": ["q4"], "plan_chunk": 64,
+    "plan_dense_bytes": 796_840, "plan_wire_bytes": 112_068,
+    "wire_compression": 7.109,
+    "dense": {"all-gather": 6_374_976, "all-reduce": 0, "reduce-scatter": 0,
+              "collective-permute": 0, "all-to-all": 0, "total": 6_374_976,
+              "by_dtype": {"f32": 6_374_976},
+              "by_op_dtype": {"all-gather": {"f32": 6_374_976}},
+              "by_kind": {"all_gather/dense": 6_374_720,
+                          "all_gather/metrics": 256}},
+    "scatter": {"all-gather": 256, "all-reduce": 0,
+                "reduce-scatter": 3_187_360, "collective-permute": 0,
+                "all-to-all": 0, "total": 3_187_616,
+                "by_dtype": {"f32": 3_187_616},
+                "by_op_dtype": {"all-gather": {"f32": 256},
+                                "reduce-scatter": {"f32": 3_187_360}},
+                "by_kind": {"all_gather/metrics": 256,
+                            "reduce_scatter/raw": 3_187_360}},
+    "codec": {"all-gather": 896_800, "all-reduce": 0, "reduce-scatter": 0,
+              "collective-permute": 0, "all-to-all": 0, "total": 896_800,
+              "by_dtype": {"f32": 99_872, "u8": 796_928},
+              "by_op_dtype": {"all-gather": {"f32": 99_872, "u8": 796_928}},
+              "by_kind": {"all_gather/metrics": 256,
+                          "all_gather/q4": 796_928,
+                          "all_gather/q4-scale": 99_616}},
+}
+
 # The port's own agreement limits (tests/test_torch_*.py, PARITY.md:90).
 LOSS_TOL, ACC_TOL, PARAM_REL_TOL = 1e-3, 1e-4, 1e-4
 
@@ -938,15 +993,20 @@ def phase12(dev, smi: str, get_preset, kit) -> dict:
         timed_run(tr, block, block)            # warm-up: round 0 and captures
         samples = [block / timed_run(tr, block, block) for _ in range(reps)]
         peak = torch.cuda.max_memory_allocated() - base
-        idle = kit.profile_round(f"12a {name}, {block} replayed rounds",
-                                 functools.partial(tr.run, rounds=block,
-                                                   block=block))
+        # The first leg's block only is profiled (the one-peer legs' cost
+        # ~7 s each on a slow host).
+        idle = (kit.profile_round(f"12a {name}, {block} replayed rounds",
+                                  functools.partial(tr.run, rounds=block,
+                                                    block=block))
+                if name == legs[0] else None)
         rate = float(np.median(samples))
         rates[f"12a {name}"] = (per_rate, rate, idle, peak)
         print(f"12a {name}: per-round {per_rate:.4f} rounds/s; blocked "
               f"{rate:.4f} rounds/s (median of {reps} blocks of {block} "
               f"replayed rounds: {[round(s, 4) for s in samples]}); idle "
-              f"{100 * idle:.1f}% of a profiled block; peak {peak} B over "
+              + (f"{100 * idle:.1f}% of a profiled block"
+                 if idle is not None else "not profiled")
+              + f"; peak {peak} B over "
               f"what was allocated before; graphs {tr.graphs.captures}; "
               f"{smi}")
         del tr
@@ -1764,7 +1824,8 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                                              fused_sgd_momentum,
                                              launch_counts)
     from dopt_torch.parallel import collectives as P
-    from dopt_torch.parallel.mesh import WorkerGroup, init_file_group
+    from dopt_torch.parallel.mesh import (WorkerGroup, init_file_group,
+                                          meter_by_kind)
     from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
                                      schedule_shift_decomposition)
     from dopt_torch.utils import prng
@@ -2105,7 +2166,7 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
             print(f"15f {site} ({lanes} lanes, buckets {list(wd)}): "
                   f"{', '.join(pairs)} on a world-size-1 NCCL group equal "
                   f"the group-None forms bit for bit; bytes handed to "
-                  f"torch.distributed {dict(sorted(meter.items()))}")
+                  f"torch.distributed {dict(sorted(meter_by_kind(meter).items()))}")
             # The card's encodes against the CPU's on two lanes.
             v = bk[0][:2] + res[0][:2]
             for bits in (8, 4):
@@ -2916,6 +2977,7 @@ def _phase17_seqlm(wg, out: Path, dev) -> dict:
     from dopt_torch.ops.fused_update import (fused_mix_sgd,
                                              fused_sgd_momentum,
                                              launch_counts)
+    from dopt_torch.parallel.mesh import meter_by_kind
 
     rec = {}
     for attn in ("ring", "ulysses"):
@@ -2926,8 +2988,8 @@ def _phase17_seqlm(wg, out: Path, dev) -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         tr.run(steps=1)
-        step_bytes = {f"{op}.{kind}": n
-                      for (op, kind), n in tr.group.meter.items()}
+        step_bytes = {f"{op}.{kind}": n for (op, kind), n
+                      in meter_by_kind(tr.group.meter).items()}
         first = {k: v.detach().cpu().numpy().copy()
                  for k, v in tr.params.items()}
         tr.run(steps=cfg.seqlm.steps - 1)
@@ -3024,7 +3086,8 @@ def phase17_rank(wg, out_dir: str, parts: tuple, rounds: int) -> None:
                                              launch_counts)
     from dopt_torch.parallel.collectives import (masked_average, mix_dense,
                                                  mix_shifts, shift_comm_lanes)
-    from dopt_torch.parallel.mesh import gather_workers, make_worker_group
+    from dopt_torch.parallel.mesh import (gather_workers, make_worker_group,
+                                          meter_by_kind)
 
     from dopt_torch.engine import gossip as gossip_engine
 
@@ -3084,8 +3147,8 @@ def phase17_rank(wg, out_dir: str, parts: tuple, rounds: int) -> None:
             "walls": walls, "built": built, "launch": got,
             "want": {"fused_sgd_momentum": n * tr.steps_per_round
                      * -(-tensors // MAX_TENSORS), "fused_mix_sgd": 0},
-            "meter": {f"{op}.{kind}": b
-                      for (op, kind), b in tr.group.meter.items()},
+            "meter": {f"{op}.{kind}": b for (op, kind), b
+                      in meter_by_kind(tr.group.meter).items()},
             "gather_bytes": tr.lanes * tr.param_count * 4,
             "wire": wire_bytes(tr),
             "peak": torch.cuda.max_memory_allocated(),
@@ -3662,6 +3725,13 @@ def phase19(dev, smi: str, get_preset, kit) -> dict:
         # share the card with each other and with 19e (no phase-19 time
         # or kernel row is measured from here on).
         fleet = root / "fleet"
+        # Phase 20d's wire probe: 2 gloo ranks sharing the card, beside
+        # the CLI leg and the fleet.
+        t_comm = time.perf_counter()
+        comm_procs = {"cuda": subprocess.Popen(
+            [sys.executable, "-m", "dopt_torch.analysis.comm_bytes",
+             "--ranks", "2", "--device", "cuda"], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
         t = time.perf_counter()
         fleet_proc = subprocess.Popen(
             [sys.executable, "-m", "dopt_torch.serve", "--preset",
@@ -3681,10 +3751,21 @@ def phase19(dev, smi: str, get_preset, kit) -> dict:
                 fail("19d: the fleet still runs after 300 s")
             fleet_s = time.perf_counter() - t
             cli.join(timeout=max(330 - fleet_s, 1))
+            comm = {}
+            for dev_, proc in comm_procs.items():
+                try:
+                    out_, err_ = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    fail(f"20d: comm_bytes --device {dev_} still runs")
+                comm[dev_] = (proc.returncode, out_, err_)
+            print(f"20d: the wire probe was collected "
+                  f"{time.perf_counter() - t_comm:.1f} s after it started, "
+                  f"beside 19c's CLI leg, 19d and 19e")
         finally:
-            if fleet_proc.poll() is None:
-                fleet_proc.kill()
-                fleet_proc.communicate()
+            for proc in (fleet_proc, *comm_procs.values()):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
         if cli.is_alive() or not cli.ok:
             fail("19c CLI: the leg failed or did not end (above)")
         if fleet_proc.returncode != 0:
@@ -3707,10 +3788,176 @@ def phase19(dev, smi: str, get_preset, kit) -> dict:
               f"card): drained at round 3 in {fleet_s:.1f} s of command "
               f"time (beside 19c's CLI leg and 19e), {agg.rounds_merged} "
               f"rounds verified equal across the two streams; {smi}")
+        # Phase 20c's watch, over 19a's served stream and 19d's fleet,
+        # before the state dirs go.
+        watch_procs = {label: subprocess.Popen(
+            [sys.executable, "-m", "dopt_torch.obs.watch", *args, "--once"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for label, args in (
+                ("19a", [str(d_a / "metrics.jsonl")]),
+                ("19d", ["--state-dir", str(fleet)]))}
+        watch = {}
+        for label, proc in watch_procs.items():
+            try:
+                watch[label] = (proc.communicate(timeout=120)[0],
+                                proc.returncode)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                fail(f"20c: the watch over {label} did not end")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"19: phase 19 in {time.perf_counter() - t19:.1f} s")
-    return {"launch": launch, "site": site}
+    return {"launch": launch, "site": site, "comm": comm, "watch": watch}
+
+
+def phase20(dev, smi: str, kit) -> None:
+    """Phase 20, the meters and the stream tools on the card.  ``kit``
+    holds phase 5's walls and samples a round, 5d's bf16 wall, phase 6's
+    profiled round (``prof6``), the telemetry streams of phase 5's and
+    7b's headline runs, and phase 19's results (the wire probe's and the
+    watch's outputs, run there beside the CLI leg and over its state
+    dirs)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dopt_torch.models.zoo import init_worker_params, stacked_forward
+    from dopt_torch.obs import canonical, first_divergence
+    from dopt_torch.obs.regress import (append_entry, check_regression,
+                                        format_report, read_ledger)
+    from dopt_torch.utils.metrics import trimmed_stats
+    from dopt_torch.utils.profiling import (device_peak_flops,
+                                            train_flops_per_sample)
+
+    # -- 20a. MFU of the headlines from phase 5's walls ------------------
+    kind, peak = device_peak_flops()
+    if kind != torch.cuda.get_device_name(0) or peak is None:
+        fail(f"20a: device_peak_flops() gave ({kind!r}, {peak}) on the card")
+    params = {k: v[None] for k, v in init_worker_params(
+        "model1", generator=torch.Generator().manual_seed(0)).items()}
+    t = time.perf_counter()
+    flops = train_flops_per_sample(
+        lambda p, x: stacked_forward("model1", p, x[None], faithful=True),
+        params, (28, 28, 1))
+    count_s = time.perf_counter() - t
+    if not math.isfinite(flops) or flops <= 0:
+        fail(f"20a: train_flops_per_sample(Model1) gave {flops}")
+    print(f"20a Model1: {flops:.0f} train FLOPs a sample (3 × forward, "
+          f"dopt's convention, counted on the CPU in {count_s:.2f} s); "
+          f"peak {peak / 1e12:.0f} TFLOP/s (bf16 dense) for {kind}")
+    for label, wall in (("gossip", kit.gwall), ("federated", kit.fwall)):
+        per_round = wall / kit.rounds
+        rate = flops * kit.samples[label] / per_round
+        print(f"20a MFU {label} headline (phase {'5' if label == 'gossip' else '5b'}, "
+              f"f32, eval every round): {kit.samples[label]} samples a round "
+              f"(lanes × steps × batch) in {per_round:.4f} s a round = "
+              f"{rate / 1e12:.4f} model TFLOP/s, mfu_vs_bf16_peak "
+              f"{rate / peak:.6f}; {smi}")
+    st = kit.prof6["stats"]
+    busy = st["device_busy_us"] * 1e-6
+    rate = flops * kit.samples["gossip"] / busy
+    print(f"20a MFU gossip headline on the device basis (phase 6's "
+          f"profiled round, {busy:.4f} s busy): {rate / 1e12:.4f} model "
+          f"TFLOP/s, mfu_vs_bf16_peak {rate / peak:.6f}; {smi}")
+
+    # -- 20b. the stream differ on two full-width runs -------------------
+    a, b = kit.g_events, kit.b_events
+    ca = canonical(a)
+    if sum(e["kind"] == "round" for e in ca) != kit.rounds or not any(
+            e["kind"] == "gauge" for e in ca):
+        fail(f"20b: phase 5's stream holds {[e['kind'] for e in ca]}")
+    div = first_divergence(a, b)
+    if div is not None:
+        fail(f"20b: phase 5's per-round stream and 7b's blocked stream "
+             f"diverge: {div}")
+    nth = 1
+    gauge_at = [i for i, e in enumerate(ca) if e["kind"] == "gauge"][nth]
+    mut = json.loads(json.dumps(b))
+    [e for e in mut if e["kind"] == "gauge"][nth]["value"] += 1.0
+    div = first_divergence(a, mut)
+    if div is None or (div["index"], div["kind"], div["round"]) != (
+            gauge_at, "gauge", ca[gauge_at]["round"]):
+        fail(f"20b: the mutated gauge (canonical event {gauge_at}) was "
+             f"reported as {div}")
+    print(f"20b first_divergence: phase 5's per-round and 7b's blocked "
+          f"headline-dsgd-model1 streams ({len(ca)} canonical events) "
+          f"equal; one gauge changed is reported at canonical event "
+          f"{div['index']} ({div['kind']} {div['a']['name']}, round "
+          f"{div['round']})")
+
+    # -- 20c. watch over 19a's stream and 19d's fleet; the ledger --------
+    for label, (out, rc) in kit.res19["watch"].items():
+        want = (("gauges  ", "dopt_torch watch") if label == "19a"
+                else ("p0", "p1", "consistency ok"))
+        if rc != 0 or not all(w in out for w in want):
+            fail(f"20c: python -m dopt_torch.obs.watch --once over {label} "
+                 f"exited {rc} with:\n{out[-2000:]}")
+        print(f"20c watch --once over {label}: exit 0")
+        for line in out.strip().splitlines():
+            print(f"  {line}")
+    tmp = Path(tempfile.mkdtemp(prefix="dopt-torch-ledger-"))
+    try:
+        led = tmp / "bench_history.jsonl"
+        shutil.copy(ROOT / "results" / "bench_history.jsonl", led)
+        card = torch.cuda.get_device_name(0)
+        gmetric = "gossip_rounds_per_sec_dsgd_mnist_6workers_model1_bf16"
+        tpu_rows = sum(e["bench"].get("metric") == gmetric
+                       for e in read_ledger(led))
+        gossip = {"metric": gmetric,
+                  "value": kit.rounds / kit.bf16_wall, "unit": "rounds/sec",
+                  "faithful_f32_rounds_per_sec": kit.rounds / kit.gwall,
+                  "device_kind": card}
+        fed = {"metric": "fedavg_rounds_per_sec_mnist_16lanes_model1",
+               "value": kit.rounds / kit.fwall, "unit": "rounds/sec",
+               "device_kind": card}
+        for i, head in enumerate((gossip, fed)):
+            append_entry(led, head, run_id=f"chip-smoke-{i}", sha=None)
+            res = check_regression(read_ledger(led))
+            if res["status"] != "no_baseline" or res["key"] != [
+                    head["metric"], card] or res["n_baseline"] != 0:
+                fail(f"20c: the card's first {head['metric']} entry was "
+                     f"judged: {res}")
+        for i in range(2):
+            append_entry(led, gossip, run_id=f"chip-smoke-again-{i}",
+                         sha=None)
+        base = [e["bench"]["value"] for e in read_ledger(led)
+                if e["bench"].get("metric") == gmetric
+                and e["device_kind"] == card]
+        slow = dict(gossip, value=0.8 * trimmed_stats(base)[0])
+        append_entry(led, slow, run_id="chip-smoke-slow", sha=None)
+        res = check_regression(read_ledger(led))
+        if res["status"] != "regression" or res["checks"][0][
+                "n_baseline"] != 3:
+            fail(f"20c: the seeded 20% slowdown was not flagged: {res}")
+        print(f"20c regress: the card's entries keyed ({gmetric!r}, "
+              f"{card!r}) apart from the {tpu_rows} TPU rows of that metric "
+              f"(no_baseline until three), then the seeded -20% entry:")
+        for line in format_report(res).splitlines():
+            print(f"  {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 20d. the wire probe on the card against the CPU's figures --------
+    rc, out, err = kit.res19["comm"]["cuda"]
+    if rc != 0:
+        fail(f"20d: comm_bytes --ranks 2 --device cuda exited {rc}:\n"
+             f"{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    diff = {k: (got[k], v) for k, v in WIRE_2_RANKS.items() if got[k] != v}
+    if diff or got["device"] == "cpu" or got["ranks"] != 2:
+        fail(f"20d: the card's wire probe differs from the CPU's figures "
+             f"(got, want): {diff} (device {got['device']}, ranks "
+             f"{got['ranks']})")
+    print(f"20d comm_bytes --ranks 2 --device cuda ({got['backend']}, "
+          f"{got['device']}): equal to the CPU's 2-rank figures; plan "
+          f"{got['plan_kinds']} chunk {got['plan_chunk']}, "
+          f"{got['plan_dense_bytes']} dense / {got['plan_wire_bytes']} "
+          f"wire B a lane, budget {got['budget_bytes']} B; all-gather "
+          f"dense {got['dense']['all-gather']} B, codec "
+          f"{got['codec']['by_op_dtype']['all-gather']}, scatter "
+          f"reduce-scatter {got['scatter']['reduce-scatter']} B; "
+          f"wire_compression {got['wire_compression']}")
 
 
 def graphs_under_serve(root: Path, get_preset) -> None:
@@ -3917,7 +4164,9 @@ def main() -> None:
         from dopt_torch.presets import get_preset
         from dopt_torch.topology import (build_mixing_matrices,
                                          random_matching_matrix)
+        from dopt_torch.obs import MemorySink, Telemetry, attach
         from dopt_torch.utils.metrics import trimmed_stats
+        from dopt_torch.utils.profiling import device_stats_of
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
     if not torch.cuda.is_available():
@@ -4520,7 +4769,8 @@ def main() -> None:
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5")
     # -- 5. main paths ----------------------------------------------------
-    def main_path(name, cls, rounds, loss_keys, acc_keys, workers, cfg=None):
+    def main_path(name, cls, rounds, loss_keys, acc_keys, workers, cfg=None,
+                  tele=None):
         cfg = get_preset(name) if cfg is None else cfg
         base = torch.cuda.memory_allocated()
         t = time.perf_counter()
@@ -4529,6 +4779,8 @@ def main() -> None:
               f"{trainer.param_count} params a worker, "
               f"{len(trainer.dataset.train_y)}/{len(trainer.dataset.test_y)} "
               f"samples, built in {time.perf_counter() - t:.2f} s")
+        if tele is not None:
+            attach(trainer, tele)
         fused_sgd_momentum.launches = 0
         fused_mix_sgd.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -4576,11 +4828,18 @@ def main() -> None:
         return trainer, launches, wall
 
     rounds = 2
+    # Phase 20b holds this run's telemetry stream against 7b's blocked run.
+    g_stream = MemorySink()
     gtr, glaunch, gwall = main_path(
         "headline-dsgd-model1", GossipTrainer, rounds,
         ("avg_train_loss", "avg_test_loss"),
-        ("avg_train_acc", "avg_test_acc"), gw)
+        ("avg_train_acc", "avg_test_acc"), gw, tele=Telemetry([g_stream]))
     g_state = state(gtr)
+    # The stream of these 2 rounds (phase 6 runs this trainer once more).
+    g_events = g_stream.events
+    # Phase 20a's samples a round: lanes × steps × batch.
+    samples = {"gossip": (gtr.num_workers * gtr.steps_per_round
+                          * gtr.cfg.gossip.local_bs)}
     share = (k1["ms"] * glaunch["fused_sgd_momentum"]
              + k2["ms"] * rounds) / (1e3 * gwall)
     print(f"kernel share of the gossip main path's wall time (event times "
@@ -4592,6 +4851,8 @@ def main() -> None:
     if ftr._use_compact():
         fail("the federated main path must run at full width")
     f_state = state(ftr)
+    samples["federated"] = (ftr.lanes * ftr.steps_per_round
+                            * ftr.cfg.federated.local_bs)
     theta = ftr.global_params()
     for k, s in shapes.items():
         if theta[k].shape != s or not np.isfinite(theta[k]).all():
@@ -4615,7 +4876,7 @@ def main() -> None:
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5d/5e")
     # -- 5d/5e. the JAX bench's fast legs: bf16 compute, f32 storage -----
-    fast = {}
+    fast, fast_walls = {}, {}
     for name in ("headline-dsgd-model1-bf16",
                  "headline-dsgd-model1-idiomatic-bf16"):
         tr, launch, wall = main_path(
@@ -4625,6 +4886,7 @@ def main() -> None:
               f"headline's {rounds / gwall:.4f} in this run: "
               f"{gwall / wall:.3f}x")
         fast[name] = (tr, launch, state(tr))
+        fast_walls[name] = wall
         del tr
     btr_bf16, b_launch, b_state = fast.pop("headline-dsgd-model1-bf16")
     del fast
@@ -4677,46 +4939,94 @@ def main() -> None:
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 6")
     # -- 6. profile one more round of each path ---------------------------
-    from torch.profiler import ProfilerActivity, profile
+    def profile_round(label, run_round, stats_out=None) -> float:
+        """One round under ``device_stats_of`` (the device activity only:
+        recording the host ops too doubled the profiler's own cost after
+        the round, 23.2 s against 10.8 s on a headline round, and moved
+        the idle share by 0.7 points): device time by kernel and by
+        phase (conv, comm, update, other, from the kernel names alone),
+        busy time and idle share of the profiled wall; returns the share.
+        Fails on a degraded profile, and unless each hand kernel's
+        occurrences in the trace equal its wrapper's launches in the
+        round (a graph replay's kernels too).  ``stats_out`` (a dict)
+        receives the stats, the wall and the launches."""
+        before = launch_counts()
+        wall = {}
 
-    def profile_round(label, run_round) -> float:
-        """One round under torch.profiler: device time by kernel, busy
-        time and idle share of the profiled wall; returns the share.
-        The device activity only: recording the host ops too doubled the
-        profiler's own cost after the round (23.2 s against 10.8 s on a
-        headline round) and moved the idle share by 0.7 points."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        def timed():
             t = time.perf_counter()
             run_round()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        evs = [e for e in prof.key_averages()
-               if getattr(e, "device_time_total", 0) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.device_time_total for e in evs)
-        # Busy time: the union of the kernels' device intervals (µs), so
-        # any overlap or double count in the per-name sums shows.
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy, end = 0.0, -math.inf
-        for s, e in spans:
-            busy += max(0.0, e - max(s, end))
-            end = max(end, e)
-        idle = max(0.0, 1 - busy / (wall * 1e6))
-        print(f"profile ({label}, 1 round, {wall * 1e3:.1f} ms wall under "
-              f"the profiler): device kernel time {total / 1e3:.1f} ms "
-              f"summed over {len(evs)} kernel names, {busy / 1e3:.1f} ms "
-              f"busy (union of {len(spans)} device intervals), idle share "
-              f"{100 * idle:.1f}% of the profiled wall")
-        for e in sorted(evs, key=lambda e: -e.device_time_total)[:12]:
-            print(f"  {e.device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
-                  f"{e.key[:90]}")
+            wall["s"] = time.perf_counter() - t
+
+        st = device_stats_of(timed)
+        if "warning" in st or not math.isfinite(st["device_self_time_us"]):
+            fail(f"profile ({label}): the profiler degraded: "
+                 f"{st.get('warning')}")
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        cats = st["device_categories"]
+        seen = {"fused_sgd_momentum": sum(
+            c["occurrences"] for c in cats
+            if "sgd_momentum_kernel" in c["op_type"]),
+            "fused_mix_sgd": sum(c["occurrences"] for c in cats
+                                 if "mix_sgd_" in c["op_type"])}
+        if seen != launched:
+            fail(f"profile ({label}): the trace holds the hand kernels "
+                 f"{seen} times, the wrappers launched them {launched}")
+        total, busy = st["device_self_time_us"], st["device_busy_us"]
+        idle = max(0.0, 1 - busy / (wall["s"] * 1e6))
+        print(f"profile ({label}, 1 round, {wall['s'] * 1e3:.1f} ms wall "
+              f"under the profiler): device kernel time {total / 1e3:.1f} "
+              f"ms summed over {len(cats)} kernel names, {busy / 1e3:.1f} "
+              f"ms busy (union of the device intervals), idle share "
+              f"{100 * idle:.1f}% of the profiled wall; hand kernels in the "
+              f"trace {seen} = launches; guard records kept (start, end) "
+              f"{st['guard_records']}")
+        ph, pb = st["device_phases"], st["device_phases_busy"]
+        print(f"profile ({label}) phases, summed basis (kernel time, share "
+              f"of {total / 1e3:.1f} ms summed): " + ", ".join(
+                  f"{k} {ph[k + '_us'] / 1e3:.1f} ms "
+                  f"({ph[k + '_fraction']:.4f})"
+                  for k in ("conv", "comm", "update", "other")))
+        print(f"profile ({label}) phases, busy basis (each phase's union "
+              f"of intervals, share of {busy / 1e3:.1f} ms busy): "
+              + ", ".join(f"{k} {pb[k + '_us'] / 1e3:.1f} ms "
+                          f"({pb[k + '_fraction']:.4f})"
+                          for k in ("conv", "comm", "update", "other")))
+        ov = st["device_overlap"]
+        print(f"profile ({label}) overlap, summed − busy "
+              f"{ov['overlap_us'] / 1e3:.1f} ms: "
+              f"{ov['same_stream_us'] / 1e3:.1f} ms within a stream, "
+              f"{ov['streams']} streams, {ov['duplicate_records']} duplicate "
+              f"records; by the later kernel's phase " + ", ".join(
+                  f"{k} {v / 1e3:.1f} ms"
+                  for k, v in ov["by_phase_us"].items()))
+        for name, us in ov["top_names"]:
+            print(f"  overlap {us / 1e3:9.3f} ms  {name[:160]}")
+        for c in cats[:12]:
+            print(f"  {c['self_time_us'] / 1e3:9.2f} ms  "
+                  f"{c['occurrences']:6d}x  {c['phase']:6s} "
+                  f"{c['op_type'][:90]}")
+        others = [c for c in cats if c["phase"] == "other"]
+        print(f"profile ({label}): {len(others)} kernel names fell to other "
+              f"({sum(c['self_time_us'] for c in others) / 1e3:.1f} ms):")
+        for c in others:
+            print(f"  other {c['self_time_us'] / 1e3:9.3f} ms  "
+                  f"{c['occurrences']:6d}x  {c['op_type'][:160]}")
+        if stats_out is not None:
+            stats_out.update(stats=st, wall=wall["s"], launches=launched,
+                             idle=idle)
         return idle
 
     # The gossip headline only: 7c profiles the bf16 and f32 gossip
     # rounds as graph replays, and 11b a federated Model1 round.
-    profile_round("gossip", functools.partial(gtr.run, rounds=1))
+    prof6: dict = {}
+    profile_round("gossip", functools.partial(gtr.run, rounds=1), prof6)
+    want = {"fused_sgd_momentum": gtr.steps_per_round,
+            "fused_mix_sgd": gtr.fused_spec.num_buckets}
+    if prof6["launches"] != want:
+        fail(f"6: the profiled round launched {prof6['launches']}, "
+             f"expected {want}")
     del gtr, ftr, btr_bf16
     torch.cuda.empty_cache()
 
@@ -4733,10 +5043,12 @@ def main() -> None:
               f"CUBLAS_WORKSPACE_CONFIG "
               f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
 
-    def counted_run(cls, cfg, rounds, block, **kw):
+    def counted_run(cls, cfg, rounds, block, tele=None, **kw):
         """A fresh trainer's run on the card, with the launch counts of
-        that run alone."""
+        that run alone; ``tele`` is attached before it runs."""
         tr = cls(cfg, device="cuda", **kw)
+        if tele is not None:
+            attach(tr, tele)
         fused_sgd_momentum.launches = 0
         fused_mix_sgd.launches = 0
         tr.run(rounds=rounds, block=block)
@@ -4754,8 +5066,8 @@ def main() -> None:
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 7b")
     # -- 7b. blocked (CUDA-graph replays) against per-round ----------------
     def blocked(label, cls, cfg, want_state, want_launch, n, block,
-                phase="7b", **kw):
-        tr, got = counted_run(cls, cfg, n, block, **kw)
+                phase="7b", tele=None, **kw):
+        tr, got = counted_run(cls, cfg, n, block, tele, **kw)
         caps = tr.graphs.captures
         if not caps:
             fail(f"{label}: the blocked run captured no graph")
@@ -4767,8 +5079,10 @@ def main() -> None:
             fail(f"{label}: blocked launch counts {got} != per-round "
                  f"{want_launch}")
 
+    b_stream = MemorySink()
     blocked("headline-dsgd-model1", GossipTrainer,
-            get_preset("headline-dsgd-model1"), g_state, glaunch, rounds, 2)
+            get_preset("headline-dsgd-model1"), g_state, glaunch, rounds, 2,
+            tele=Telemetry([b_stream]))
     blocked("headline-dsgd-model1-bf16", GossipTrainer,
             get_preset("headline-dsgd-model1-bf16"), b_state, b_launch,
             rounds, 2)
@@ -4800,6 +5114,7 @@ def main() -> None:
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 7c")
     # -- 7c. rates: per-round against blocked -----------------------------
     every = 10 ** 6   # eval_every beyond the run: only round 0 evaluates
+    prof7c: dict = {}
     for name in ("headline-dsgd-model1-bf16", "headline-dsgd-model1"):
         got = {}
         for mode, block in (("per-round", 1), ("blocked", 2)):
@@ -4827,10 +5142,22 @@ def main() -> None:
                   f"max_memory_reserved {torch.cuda.max_memory_reserved()} "
                   f"B (from before the trainer's construction); graphs "
                   f"{caps}")
-            if mode == "blocked" and name.endswith("bf16"):
-                # Phase 6 profiles the f32 round.
+            if mode == "blocked" and not name.endswith("bf16"):
+                # One more round through the eval-free graph: the
+                # kernels of a replay, named and counted from the trace
+                # (the f32 headline's; the bf16 replay is not profiled).
+                prof7c[name] = {}
                 profile_round(f"{name}, one blocked round (graph replay)",
-                              functools.partial(tr.run, rounds=1, block=2))
+                              functools.partial(tr.run, rounds=1, block=2),
+                              prof7c[name])
+                spec = tr.fused_spec
+                want = {"fused_sgd_momentum": (tr.steps_per_round
+                                               if tr.cfg.optim.fused_update
+                                               else 0),
+                        "fused_mix_sgd": spec.num_buckets if spec else 0}
+                if prof7c[name]["launches"] != want:
+                    fail(f"7c {name}: the profiled replay launched "
+                         f"{prof7c[name]['launches']}, expected {want}")
             del tr
         print(f"7c {name}: blocked {got['blocked']:.4f} against per-round "
               f"{got['per-round']:.4f} rounds/s: "
@@ -5363,6 +5690,14 @@ def main() -> None:
     res19 = phase19(dev, smi, get_preset, types.SimpleNamespace(
         k2_site=k2_site, rounds=rounds, gwall=gwall, fwall=fwall))
     del flush
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 20")
+
+    # -- 20. the meters and the stream tools -------------------------------
+    phase20(dev, smi, types.SimpleNamespace(
+        rounds=rounds, gwall=gwall, fwall=fwall,
+        bf16_wall=fast_walls["headline-dsgd-model1-bf16"], samples=samples,
+        prof6=prof6, g_events=g_events, b_events=b_stream.events,
+        res19=res19))
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
     source = "dopt_torch/csrc/fused_update.cu"
@@ -5379,7 +5714,12 @@ def main() -> None:
             (":federated-resume", "federated, killed and resumed",
              resume["federated"]["launches"], k1f, k2f),
             (":gossip-bf16-resume", "gossip, bf16 storage, killed and "
-             "resumed", resume["gossip-bf16"]["launches"], k1b, k2b)):
+             "resumed", resume["gossip-bf16"]["launches"], k1b, k2b),
+            (":gossip-profiled", "gossip, one round under the profiler "
+             "(phase 6)", prof6["launches"], k1, k2),
+            (":gossip-profiled-replay", "gossip, one blocked round (graph "
+             "replay) under the profiler (7c)",
+             prof7c["headline-dsgd-model1"]["launches"], k1, k2)):
         kernels.append({"name": "fused_sgd_momentum" + suffix, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

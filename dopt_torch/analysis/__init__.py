@@ -1,1 +1,2 @@
-"""Host-side analyses of the port's runs (``comm_bytes``)."""
+"""Host-side analyses of the port's runs: ``comm_bytes``, the bytes on
+the consensus wire (``python -m dopt_torch.analysis.comm_bytes``)."""

@@ -23,7 +23,14 @@ The port's copy of dopt's ``dopt.obs``:
   per-process streams merged and checked for cross-process equality,
   ``python -m dopt_torch.obs.aggregate --state-dir D``;
 * the stream **checker**, ``python -m dopt_torch.obs.check PATH`` (or
-  ``--state-dir D`` for every stream of a served run).
+  ``--state-dir D`` for every stream of a served run);
+* the stream **differ** (``dopt_torch.obs.diff``: ``first_divergence``,
+  ``python -m dopt_torch.obs.diff A B``), which names the first canonical
+  event where two streams part;
+* the live terminal **watch** over a stream or a fleet's state dir,
+  ``python -m dopt_torch.obs.watch PATH`` (``--state-dir D``);
+* the bench **regression ledger** (``dopt_torch.obs.regress`` over
+  ``results/bench_history.jsonl``), keyed on metric and device kind.
 
 The contracts are dopt's.  Off path: ``trainer.telemetry`` is None by
 default and every emission site is host code gated on it after the
@@ -57,19 +64,24 @@ __all__ = [
     "HealthMonitor", "HealthReport", "JsonlSink", "JsonlTail",
     "LatencyHistogram", "MemorySink", "PrometheusSink", "Sink",
     "SpanTracer", "Telemetry", "attach", "build_rules", "canonical",
-    "check_stream", "consensus_distance", "default_rules", "make_event",
-    "sanitize_metrics", "summarize_latency_events", "validate_event",
+    "check_stream", "consensus_distance", "default_rules",
+    "first_divergence", "make_event", "sanitize_metrics",
+    "summarize_latency_events", "validate_event",
 ]
 
 
 def __getattr__(name: str):
-    # The fleet aggregation layer is imported lazily: it carries its own
-    # http.server and argparse surface, which the engines' per-round
-    # emission path does not need.
+    # The fleet aggregation layer and the stream differ are imported
+    # lazily: they carry their own http.server and argparse surface,
+    # which the engines' per-round emission path does not need.
     if name in ("FleetAggregator", "FleetMetricsServer"):
         from dopt_torch.obs import aggregate
 
         return getattr(aggregate, name)
+    if name == "first_divergence":
+        from dopt_torch.obs.diff import first_divergence
+
+        return first_divergence
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

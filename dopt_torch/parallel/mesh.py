@@ -7,7 +7,8 @@ A ``WorkerGroup`` is ``size`` ranks, this process's ``rank``, the
 ``lanes`` workers each rank holds, a ``torch.distributed`` process
 group or None, the group's ``backend``, the ``hosts`` the ranks split
 into, and an optional ``meter``: a Counter to which every collective
-adds the bytes it hands to ``torch.distributed``.  The workers fold onto
+adds the bytes it hands to ``torch.distributed``, keyed by operation,
+kind and dtype (``meter_by_kind`` sums over the dtypes).  The workers fold onto
 ranks contiguously, as dopt's ``shard_worker_tree`` lays them out over a
 1-D mesh: worker i lives on rank i // lanes, lane i % lanes.  With
 ``hosts`` > 1 the ranks are dopt's hybrid ``(hosts × ici)`` grid, rank r
@@ -75,9 +76,11 @@ class WorkerGroup:
 
     def count(self, op: str, kind: str, t: torch.Tensor) -> None:
         """Add the bytes of ``t``, handed to ``torch.distributed`` by
-        operation ``op``, to the meter under ``(op, kind)``."""
+        operation ``op``, to the meter under ``(op, kind, dtype)``, the
+        dtype by its torch name (``float32``, ``uint8``)."""
         if self.meter is not None:
-            self.meter[(op, kind)] += t.numel() * t.element_size()
+            dtype = str(t.dtype).removeprefix("torch.")
+            self.meter[(op, kind, dtype)] += t.numel() * t.element_size()
 
     def staged(self, t: torch.Tensor) -> bool:
         """Whether a collective on ``t`` stages it through host memory:
@@ -118,6 +121,15 @@ class WorkerGroup:
     def flat(self) -> bool:
         """A flat 1-D layout (dopt's ``len(mesh.axis_names) == 1``)."""
         return self.hosts == 1
+
+
+def meter_by_kind(meter) -> dict[tuple[str, str], int]:
+    """A meter's bytes by ``(op, kind)``, summed over the dtypes (empty
+    for None: a group with no meter)."""
+    out: dict[tuple[str, str], int] = {}
+    for (op, kind, _), b in (meter or {}).items():
+        out[(op, kind)] = out.get((op, kind), 0) + b
+    return out
 
 
 def fit_mesh_devices(num_workers: int, requested: int | None = None) -> int:
@@ -204,6 +216,15 @@ def make_seq_group(mesh_devices: int | None = None) -> WorkerGroup:
                              meter=collections.Counter())
 
 
+def fold_error(num_workers: int, ranks: int) -> str:
+    """The refusal of a rank count that does not divide the workers."""
+    fit = fit_mesh_devices(num_workers, ranks)
+    return (f"{num_workers} workers do not fold onto {ranks} ranks in equal "
+            f"lanes; dopt would run them on {fit} of its devices and leave "
+            f"the rest idle, the port refuses: launch {fit} ranks "
+            f"(mesh_devices={fit})")
+
+
 def engine_group(num_workers: int, mesh_devices: int | None = None,
                  mesh_hosts: int | None = None) -> WorkerGroup:
     """The engines' worker group (dopt's ``make_worker_mesh``): the
@@ -227,12 +248,7 @@ def engine_group(num_workers: int, mesh_devices: int | None = None,
                 "--nproc-per-node N, or dopt_torch.parallel.init_file_group)")
         return make_worker_group(num_workers)
     if num_workers % ranks:
-        fit = fit_mesh_devices(num_workers, ranks)
-        raise ValueError(
-            f"{num_workers} workers do not fold onto {ranks} ranks in equal "
-            f"lanes; dopt would run them on {fit} of its devices and leave "
-            f"the rest idle, the port refuses: launch {fit} ranks "
-            f"(mesh_devices={fit})")
+        raise ValueError(fold_error(num_workers, ranks))
     if mesh_hosts and ranks % mesh_hosts:
         raise ValueError(
             f"no device count <= {ranks} folds {num_workers} workers onto "

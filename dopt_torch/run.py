@@ -51,6 +51,7 @@ writes it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -98,6 +99,30 @@ def apply_override(cfg, spec: str):
     for obj, name in zip(reversed(objs[:-1]), reversed(parts[:-1])):
         new = dataclasses.replace(obj, **{name: new})
     return new
+
+
+def build_trainer(cfg, device=None):
+    """The engine ``cfg`` asks for (dopt's ``build_trainer``):
+    ``SeqLMTrainer`` when it has a ``seqlm`` section, ``FederatedTrainer``
+    when it has a ``federated`` one, else ``GossipTrainer``, on
+    ``device`` (the GPU when None).  ``backend="torch"`` selects dopt's
+    sequential CPU oracle, which the port does not copy."""
+    if cfg.backend not in ("jax", "torch"):
+        raise ValueError(
+            f"unknown backend {cfg.backend!r}; 'jax' (TPU/mesh engines) or "
+            "'torch' (the sequential reference oracle)")
+    if cfg.backend == "torch":
+        raise ValueError(
+            "backend='torch' is dopt's sequential CPU oracle, which the port "
+            "does not copy: the port is itself a torch engine — run it with "
+            "device='cpu' for the CPU")
+    from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
+
+    if cfg.seqlm is not None:
+        return SeqLMTrainer(cfg, device=device)
+    if cfg.federated is not None:
+        return FederatedTrainer(cfg, device=device)
+    return GossipTrainer(cfg, device=device)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -321,8 +346,6 @@ def _join_launch(device: str | None) -> tuple[str | None, int | None]:
 
 
 def _train(args, cfg, device, lead: bool) -> int:
-    from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
-
     # Rank 0 alone reports.
     say = (functools.partial(print, file=sys.stderr) if lead
            else lambda *a, **k: None)
@@ -335,7 +358,7 @@ def _train(args, cfg, device, lead: bool) -> int:
         if args.checkpoint_every:
             raise SystemExit("--checkpoint-every is supported by the "
                              "federated/gossip jax engines only")
-        trainer = SeqLMTrainer(cfg, device=device)
+        trainer = build_trainer(cfg, device)
         s = cfg.seqlm
         rounds = s.steps if args.rounds is None else args.rounds
         say(f"{cfg.name}: SeqLMTrainer on {trainer.device}, "
@@ -345,14 +368,9 @@ def _train(args, cfg, device, lead: bool) -> int:
             f"{s.batch}×{s.seq_len} tokens")
         run = functools.partial(trainer.run, rounds=rounds)
     else:
-        if cfg.federated is not None:
-            trainer = FederatedTrainer(cfg, device=device)
-            default_rounds = cfg.federated.rounds
-        else:
-            trainer = GossipTrainer(cfg, device=device)
-            default_rounds = cfg.gossip.rounds
-        rounds = default_rounds if args.rounds is None else args.rounds
+        trainer = build_trainer(cfg, device)
         section = cfg.federated or cfg.gossip
+        rounds = section.rounds if args.rounds is None else args.rounds
         say(f"{cfg.name}: {type(trainer).__name__} on {trainer.device}, "
             f"compute {cfg.model.compute_dtype}, storage "
             f"{cfg.model.param_dtype}, clip_norm {cfg.optim.clip_norm}, "
@@ -378,18 +396,14 @@ def _train(args, cfg, device, lead: bool) -> int:
         attach(trainer, tele,
                checkpoint_every=args.checkpoint_every or None)
     if args.trace:
-        from torch.profiler import ProfilerActivity, profile
+        from dopt_torch.utils.profiling import trace
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                         if trainer.device.type == "cuda"
-                                         else [])
-        with profile(activities=acts) as prof:
+        # Rank 0 alone traces.
+        with trace(args.trace) if lead else contextlib.nullcontext():
             run()
         if lead:
-            path = pathlib.Path(args.trace)
-            path.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(path / "trace.json"))
-            say(f"wrote torch.profiler trace to {path / 'trace.json'}")
+            say(f"wrote torch.profiler trace to "
+                f"{pathlib.Path(args.trace) / 'trace.json'}")
     else:
         run()
     if lead:

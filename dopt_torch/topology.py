@@ -245,6 +245,45 @@ class MixingMatrices:
     def n(self) -> int:
         return self.matrices[0].shape[0]
 
+    def stacked(self) -> np.ndarray:
+        """The schedule as one ``[T, n, n]`` array."""
+        return np.stack(self.matrices, axis=0)
+
+    # --- diagnostics (dopt's, dopt/topology.py:291-330) ----------------
+    def is_row_stochastic(self, tol: float = 1e-9) -> bool:
+        return all(np.all(np.abs(m.sum(1) - 1) < tol) and np.all(m >= -tol)
+                   for m in self.matrices)
+
+    def is_doubly_stochastic(self, tol: float = 1e-9) -> bool:
+        return self.is_row_stochastic(tol) and all(
+            np.all(np.abs(m.sum(0) - 1) < tol) for m in self.matrices)
+
+    @staticmethod
+    def _gap_of(m: np.ndarray) -> float:
+        ev = np.sort(np.abs(np.linalg.eigvals(m)))[::-1]
+        lam2 = ev[1] if len(ev) > 1 else 0.0
+        return float(1.0 - lam2)
+
+    def spectral_gap(self, kind: str = "product") -> float:
+        """Consensus-rate diagnostic: 1 - |λ₂|.
+
+        kind='product' (default): the gap of the per-period product
+        ``∏_{t=T-1..0} W_t``, which governs how fast a time-varying
+        schedule contracts the consensus error over one period; for a
+        static schedule it is the single matrix's gap.  kind='mean': the
+        gap of the round-averaged matrix, the classical static
+        diagnostic, which can over- or under-state a dynamic schedule's
+        rate.  To compare schedules of different lengths per round, use
+        ``1 - (1 - gap)**(1/T)``."""
+        if kind == "mean":
+            return self._gap_of(np.mean(self.stacked(), axis=0))
+        if kind != "product":
+            raise ValueError(f"kind must be 'product' or 'mean', got {kind!r}")
+        prod = np.eye(self.n)
+        for m in self.matrices:
+            prod = m @ prod
+        return self._gap_of(prod)
+
 
 def build_mixing_matrices(
     topology: str,

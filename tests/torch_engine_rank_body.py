@@ -173,6 +173,7 @@ def _seqlm(name: str, wg, init: dict) -> tuple[dict, dict]:
     after one and after three steps."""
     import dopt_torch.config as T
     from dopt_torch.engine import SeqLMTrainer
+    from dopt_torch.parallel.mesh import meter_by_kind
 
     tr = SeqLMTrainer(build_seqlm(T, name, wg.size), device="cpu",
                       init_params=init)
@@ -183,8 +184,8 @@ def _seqlm(name: str, wg, init: dict) -> tuple[dict, dict]:
     arrays.update({f"end.{k}": v.detach().numpy().copy()
                    for k, v in tr.params.items()})
     rec = {"rows": tr.history.rows,
-           "meter": {f"{op}.{kind}": n
-                     for (op, kind), n in tr.group.meter.items()}}
+           "meter": {f"{op}.{kind}": n for (op, kind), n
+                     in meter_by_kind(tr.group.meter).items()}}
     return rec, arrays
 
 
@@ -237,6 +238,8 @@ def trainer(name: str, ranks: int | None, init: dict, **kw):
 def outputs(tr) -> tuple[dict, dict]:
     """(the rank's json record, rank 0's arrays): History, client rows,
     the ledger and the path choices; the gathered params (and theta)."""
+    from dopt_torch.parallel.mesh import meter_by_kind
+
     rec = {"rows": tr.history.rows, "faults": tr.history.faults,
            "clients": tr.client_history.rows,
            "shift_ids": (None if getattr(tr, "_shift_ids", None) is None
@@ -247,8 +250,8 @@ def outputs(tr) -> tuple[dict, dict]:
         arrays.update({f"theta.{k}": v
                        for k, v in tr.global_params().items()})
     if tr.group.meter is not None:
-        rec["meter"] = {f"{op}.{kind}": n
-                        for (op, kind), n in tr.group.meter.items()}
+        rec["meter"] = {f"{op}.{kind}": n for (op, kind), n
+                        in meter_by_kind(tr.group.meter).items()}
     return rec, arrays
 
 

@@ -20,6 +20,7 @@ import torch
 
 from dopt_torch.ops.compression import qint_encode
 from dopt_torch.parallel import collectives as C
+from dopt_torch.parallel.mesh import meter_by_kind
 from dopt_torch.utils.prng import fold_in, jax_key
 
 N = 8                 # workers
@@ -108,6 +109,6 @@ def body(wg, out_dir: str, seed: int) -> None:
                                 chunk=CHUNK, bits=8 if kind == "q8" else 4)
             out[f"encode.{i}.payload"] = p.numpy()
             out[f"encode.{i}.scale"] = sc.numpy()
-    for (op, kind), b in meter.items():
+    for (op, kind), b in meter_by_kind(meter).items():
         out[f"wire.{op}.{kind}"] = np.array(b / wg.lanes)
     np.savez(Path(out_dir) / f"rank{wg.rank}.npz", **out)
