@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch port (dopt_torch) on one CUDA GPU.
 
     python3 chip_smoke.py        # from the repo root; one GPU, nvcc
-    python3 chip_smoke.py --conv-ab   # only the training-conv A/B
+    python3 chip_smoke.py --conv-ab   # only the rounded-layer A/B
 
 Phases, each printing its own lines; any failure exits non-zero before
 the final line:
@@ -119,8 +119,8 @@ Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
 10. the gossip fault model at full width (MNIST-sized synthetic sets):
    10a bench-chaos-baseline1-lossy as typed (bench.py's chaos cocktail:
    4-worker MLP, bf16 compute, native plans, lossy links, stragglers,
-   scale lies, quarantine armed), 4 rounds per-round and then in blocks
-   of 2 (CUDA-graph replays): History, ledger (content and order) and
+   scale lies, quarantine armed), 2 rounds per-round and then as one
+   block of 2 (CUDA-graph replays): History, ledger (content and order) and
    final state bit-identical, the ledger equal to the one the host
    stage computes with no device run, rounds/s, peak memory and the
    idle share of a profiled blocked round and the steady rate of 4
@@ -197,7 +197,8 @@ also runs two small faulty configurations on the GPU against the CPU.
 14. choco and the narrowed wire (``phase14``), f32 under the
    deterministic mode unless said: 14a headline-dsgd-model1 with choco
    (γ = 0.1; top-k 0.1, rand-k 0.1, QSGD 16 levels), kernel 1 on and the
-   fused epilogue off, 2 rounds each with eval in round 0 (round walls,
+   fused epilogue off, rand-k 2 rounds, top-k and QSGD one, with eval
+   in round 0 (round walls,
    the exchange's time, rates beside phase 5's dsgd, the peak, kernel 1
    every step and kernel 2 never); 14b dopt's keyed draws on the card
    against the CPU — uniform at [6, 1,663,370] and the top-k and rand-k
@@ -327,6 +328,21 @@ also runs two small faulty configurations on the GPU against the CPU.
    ranks sharing the card) equal in every field to the CPU's 2-rank
    figures (``WIRE_2_RANKS``): q4 at 112,068 bytes a lane,
    wire_compression 7.109.
+
+21. ``backend="torch"`` and ``stacked_impl="vmap"`` (``phase21``), in
+   the deterministic mode: 21a ``baseline1`` as typed (MLP, 4 workers,
+   dopt's full synthetic sizes) one round on the sequential oracle
+   (``build_trainer`` with ``backend="torch"``: no hand kernel) and one
+   round of ``GossipTrainer`` with both fused switches (kernel 1 every
+   step, kernel 2 once a round), from one init, held to dopt's bars for
+   its engine against the oracle (test accuracy 1e-4, train loss 1e-3,
+   params 1e-4 max-relative), both rates and the launches printed; 21b
+   ``headline-dsgd-model1`` one round on the oracle: finite, its seconds
+   a round beside phase 5's and its distance from phase 5's round 0
+   printed, not bounded (the oracle's convs are cuDNN's f32 convs); 21c
+   one full-width step of the gossip headline's model (6 lanes, batch
+   128, f32), ``"vmap"`` against ``"auto"``, every tensor within 1e-5
+   relative L2.  The kernels line gains 21a's launches.
 
 Phase 4c holds one full-size Model1 step (headline-dsgd-model1's model:
 28×28×1, batch 128 a lane, f32, deterministic, ``full_f32``) at 6 and at
@@ -706,7 +722,8 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
                     fail(f"11 {label}: device counters differ from the "
                          "host mirrors")
         idle = (kit.profile_round(f"11 {label}", functools.partial(
-            tr.run, rounds=1, block=block)) if prof else None)
+            tr.run, rounds=1, block=block), model=tr.cfg.model.model)
+                if prof else None)
         rates[label] = (n_rounds / wall, peak, idle)
         return tr, st, got
 
@@ -997,7 +1014,8 @@ def phase12(dev, smi: str, get_preset, kit) -> dict:
         # ~7 s each on a slow host).
         idle = (kit.profile_round(f"12a {name}, {block} replayed rounds",
                                   functools.partial(tr.run, rounds=block,
-                                                    block=block))
+                                                    block=block),
+                                  model=tr.cfg.model.model)
                 if name == legs[0] else None)
         rate = float(np.median(samples))
         rates[f"12a {name}"] = (per_rate, rate, idle, peak)
@@ -1538,12 +1556,14 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         return tr, got, walls, peak, mix_s
 
     # -- 14a. choco on the gossip headline: top-k 0.1, rand-k 0.1 and
-    # QSGD with 16 levels, γ = 0.1, 2 rounds each.
-    n = 2
+    # QSGD with 16 levels, γ = 0.1; rand-k 2 rounds (14c holds them
+    # blocked and resumed), top-k and QSGD one round each (cut from 2
+    # for the budget).
     cfgs = {"topk": choco(head, "topk"), "randk": choco(head, "randk"),
             "qsgd": choco(head, "qsgd", levels=16)}
     a_state = {}
     for name, cfg in cfgs.items():
+        n = 2 if name == "randk" else 1
         tr, got, walls, peak, mix_s = run14(f"14a choco {name}", GossipTrainer,
                                             cfg, n)
         launch[f"headline-dsgd-model1-choco-{name}"] = got
@@ -1643,7 +1663,7 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
 
     # -- 14c. 14a's rand-k run in blocks of 2, and killed and resumed.
     tr, got, _, c_peak, _ = run14("14c choco randk, blocks of 2",
-                                  GossipTrainer, cfgs["randk"], n, block=2)
+                                  GossipTrainer, cfgs["randk"], 2, block=2)
     same_state("14c choco randk blocked, against 14a", a_state,
                choco_state(tr))
     if got != a_launch:
@@ -1667,7 +1687,9 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 14d. the narrowed wire on both headlines, beside the f32 wire.
+    # -- 14d. the narrowed wire on both headlines, beside the f32 wire,
+    # 2 rounds each.
+    n = 2
     f32wire: dict[str, dict] = {}
     g32 = head.replace(gossip=rep(head.gossip, fused_update="off"))
     f32 = fhead.replace(federated=rep(fhead.federated, fused_update="off",
@@ -2578,15 +2600,21 @@ def _model1_grads_f64(p0: dict, x, y, *, faithful: bool) -> dict:
 
 
 def conv_ab() -> None:
-    """``python3 chip_smoke.py --conv-ab``: the card's training conv,
-    ``_RoundedConv`` (f64 GEMMs rounded once), against the library's f32
-    conv in one call, on the cells whose training convs it takes: the
-    gossip and fedavg Model1 headlines, ``baseline3`` as typed (Model1,
-    compact) and ``baseline2`` (Model3).  Each cell runs library,
-    rounded, rounded, library, each a fresh trainer's 2 rounds with its
-    eval (phase 5's rate) and its peak over what was held before it;
-    the eval forwards take the library conv in both arms.  Prints the
-    rates, the peaks and each cell's rounded/library time ratio."""
+    """``python3 chip_smoke.py --conv-ab``: the card's rounded training
+    layers against the library's f32 ones in one call.  The convs:
+    ``_RoundedConv`` (f64 GEMMs rounded once) against the library's f32
+    conv on the cells whose training convs it takes — the gossip and
+    fedavg Model1 headlines, ``baseline3`` as typed (Model1, compact)
+    and ``baseline2`` (Model3) — where no dense layer is rounded (each
+    run fails if ``_RoundedLinear`` is called).  The MLP's hidden
+    layers: ``_RoundedLinear`` (the f64 ``baddbmm`` rounded once)
+    against the library's f32 ``baddbmm`` on ``baseline1`` as typed and
+    with both fused switches (phase 21a's cell).  Each cell runs
+    library, rounded, rounded, library, each a fresh trainer's 2 rounds
+    with its eval (phase 5's rate) and its peak over what was held
+    before it; the eval forwards take the library layers in both arms.
+    Prints the rates, the peaks and each cell's rounded/library time
+    ratio, with the card's name and power limit."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2610,35 +2638,63 @@ def conv_ab() -> None:
     _build.load_library()
     gossip_engine.load_dataset = functools.lru_cache(maxsize=4)(
         gossip_engine.load_dataset)
-    rounded = zoo._RoundedConv
-    calls = {"library": 0, "rounded": 0}
+    rounded_conv, rounded_linear = zoo._RoundedConv, zoo._RoundedLinear
+    calls = {"library": 0, "rounded": 0, "library linear": 0,
+             "rounded linear": 0}
 
     class LibraryConv:   # _grouped_conv's CUDA arm on the library conv
+        Fn = rounded_conv.Fn
+
         @staticmethod
         def apply(z, w, b, pad, groups):
             calls["library"] += 1
             return F.conv2d(z, w, b, padding=pad, groups=groups)
 
     class CountedConv:
+        Fn = rounded_conv.Fn   # the real apply reads zoo._RoundedConv.Fn
+
         @staticmethod
         def apply(*args):
             calls["rounded"] += 1
-            return rounded.apply(*args)
+            return rounded_conv.apply(*args)
 
-    arms = {"library": LibraryConv, "rounded": CountedConv}
-    cells = (("headline-dsgd-model1", GossipTrainer),
-             ("headline-fedavg-model1", FederatedTrainer),
-             ("baseline3", FederatedTrainer),
-             ("baseline2", GossipTrainer))
+    class LibraryLinear:   # _mlp_hidden's CUDA arm on the library GEMM
+        @staticmethod
+        def apply(bias, weight, zt):
+            calls["library linear"] += 1
+            return torch.baddbmm(bias.unsqueeze(2), weight, zt)
+
+    class CountedLinear:
+        @staticmethod
+        def apply(*args):
+            calls["rounded linear"] += 1
+            return rounded_linear.apply(*args)
+
+    # Each arm: (the conv, the dense layer) it patches in.
+    arms = {"library": (LibraryConv, CountedLinear),
+            "rounded": (CountedConv, CountedLinear),
+            "library linear": (CountedConv, LibraryLinear),
+            "rounded linear": (CountedConv, CountedLinear)}
+    fused = get_preset("baseline1")
+    fused = fused.replace(
+        gossip=dataclasses.replace(fused.gossip, fused_update="on"),
+        optim=dataclasses.replace(fused.optim, fused_update=True))
+    cells = (("headline-dsgd-model1", GossipTrainer, "conv"),
+             ("headline-fedavg-model1", FederatedTrainer, "conv"),
+             ("baseline3", FederatedTrainer, "conv"),
+             ("baseline2", GossipTrainer, "conv"),
+             ("baseline1", GossipTrainer, "linear"),
+             ("baseline1, both fused switches", GossipTrainer, "linear"))
 
     def once(name, cls, arm):
-        zoo._RoundedConv = arms[arm]
+        zoo._RoundedConv, zoo._RoundedLinear = arms[arm]
         before = dict(calls)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
-        tr = cls(get_preset(name), device="cuda")
+        cfg = fused if name.endswith("switches") else get_preset(name)
+        tr = cls(cfg, device="cuda")
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2646,38 +2702,41 @@ def conv_ab() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated() - held
-        other = "rounded" if arm == "library" else "library"
-        if calls[arm] == before[arm] or calls[other] != before[other]:
-            fail(f"conv A/B {name}: the {arm} arm ran {calls} "
-                 f"(before {before})")
+        ran = {k for k in calls if calls[k] != before[k]}
+        if ran != {arm}:
+            fail(f"rounding A/B {name}: the {arm} arm ran {ran} ({calls}, "
+                 f"before {before})")
         loss = [v for r in tr.history.rows for k, v in r.items()
                 if k.endswith("train_loss")]
         if not loss or not np.isfinite(loss).all():
-            fail(f"conv A/B {name} {arm}: train losses {loss}")
+            fail(f"rounding A/B {name} {arm}: train losses {loss}")
         del tr
-        print(f"conv A/B {name} {arm}: 2 rounds in {wall:.3f} s = "
+        print(f"rounding A/B {name} {arm}: 2 rounds in {wall:.3f} s = "
               f"{2 / wall:.4f} rounds/s; peak {peak} B over what was held; "
               f"{smi}", flush=True)
         return wall, peak
 
     t0 = time.perf_counter()
-    for arm in arms:   # warm both arms' kernels once, untimed
+    for arm in ("library", "rounded"):   # warm both convs once, untimed
         once("baseline2", GossipTrainer, arm)
     try:
-        for name, cls in cells:
-            got = {arm: [] for arm in arms}
-            for arm in ("library", "rounded", "rounded", "library"):
+        for name, cls, layer in cells:
+            lib, rnd = (("library", "rounded") if layer == "conv"
+                        else ("library linear", "rounded linear"))
+            got = {lib: [], rnd: []}
+            for arm in (lib, rnd, rnd, lib):
                 got[arm].append(once(name, cls, arm))
-            lib = sum(w for w, _ in got["library"])
-            rnd = sum(w for w, _ in got["rounded"])
+            ratio = (sum(w for w, _ in got[rnd])
+                     / sum(w for w, _ in got[lib]))
             rates = {a: [round(2 / w, 4) for w, _ in v]
                      for a, v in got.items()}
             peaks = {a: [p for _, p in v] for a, v in got.items()}
-            print(f"conv A/B {name}: rounded/library time {rnd / lib:.4f} "
-                  f"(rounds/s {rates}; peaks {peaks} B); {smi}", flush=True)
+            print(f"rounding A/B {name} ({layer}): rounded/library time "
+                  f"{ratio:.4f} (rounds/s {rates}; peaks {peaks} B); {smi}",
+                  flush=True)
     finally:
-        zoo._RoundedConv = rounded
-    print(f"conv A/B in {time.perf_counter() - t0:.1f} s")
+        zoo._RoundedConv, zoo._RoundedLinear = rounded_conv, rounded_linear
+    print(f"rounding A/B in {time.perf_counter() - t0:.1f} s")
 
 
 def phase4c(dev, smi: str, get_preset) -> None:
@@ -3960,6 +4019,151 @@ def phase20(dev, smi: str, kit) -> None:
           f"wire_compression {got['wire_compression']}")
 
 
+def phase21(dev, smi: str, get_preset, kit) -> dict:
+    """Phase 21, ``backend="torch"`` and ``stacked_impl="vmap"`` on the
+    card, in the deterministic mode.  ``kit`` holds phase 5's headline
+    wall and rounds and its gossip headline's History rows.  21a:
+    ``baseline1`` as typed (MLP, 4 workers, dopt's full synthetic sizes)
+    one round through ``build_trainer`` with ``backend="torch"`` (the
+    sequential oracle: ``torch.optim.SGD`` a worker, state-dict
+    consensus, no hand kernel) and one round of ``GossipTrainer`` with
+    both fused switches (kernel 1 every step, kernel 2 once a round),
+    from one init: History within 1e-4 test accuracy and 1e-3 train loss
+    and the params within 1e-4 max-relative (dopt's own bar for its
+    engine against this oracle).  21b: ``headline-dsgd-model1`` one round
+    on the oracle: finite metrics, its seconds a round beside phase 5's
+    and its distance from phase 5's round 0, printed unbounded (the
+    oracle's convs are cuDNN's f32 convs, whose max-pool routing PR 16's
+    phase 4c found apart from the CPU's).  21c: one full-width step of
+    the gossip headline's model (6 lanes, batch 128, f32), ``"vmap"``
+    against ``"auto"``: every gradient and updated tensor within 1e-5
+    relative L2.  Returns 21a's stacked launches."""
+    import numpy as np
+    import torch
+
+    from dopt_torch.engine import GossipTrainer
+    from dopt_torch.engine import gossip as gossip_engine
+    from dopt_torch.engine.local import stacked_step
+    from dopt_torch.models.zoo import (deterministic, full_f32,
+                                       init_worker_params, stacked_forward)
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum)
+    from dopt_torch.run import build_trainer
+
+    t21 = time.perf_counter()
+
+    def counts() -> dict:
+        return {"fused_sgd_momentum": fused_sgd_momentum.launches,
+                "fused_mix_sgd": fused_mix_sgd.launches}
+
+    def timed(tr, rounds=1) -> tuple[float, dict]:
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=rounds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, counts()
+
+    # -- 21a. the oracle against the stacked engine on baseline1 ---------
+    cfg = get_preset("baseline1")
+    oracle = build_trainer(cfg.replace(backend="torch"), device="cuda")
+    if type(oracle).__name__ != "OracleGossipTrainer" or \
+            oracle.device.type != "cuda":
+        fail(f"21a: build_trainer(backend='torch') gave "
+             f"{type(oracle).__name__} on {oracle.device}")
+    owall, olaunch = timed(oracle)
+    stacked = GossipTrainer(cfg.replace(
+        optim=dataclasses.replace(cfg.optim, fused_update=True),
+        gossip=dataclasses.replace(cfg.gossip, fused_update="on")),
+        device="cuda")
+    swall, launch = timed(stacked)
+    want = {"fused_sgd_momentum": stacked.steps_per_round,
+            "fused_mix_sgd": stacked.fused_spec.num_buckets}
+    print(f"21a launches: oracle {olaunch} (expected none), stacked "
+          f"{launch} (expected {want}: one kernel-1 launch a step over "
+          f"{stacked.steps_per_round} steps of 4 lanes, one kernel-2 "
+          f"launch a bucket a round)")
+    if olaunch != {k: 0 for k in olaunch} or launch != want:
+        fail(f"21a: launches oracle {olaunch}, stacked {launch} != {want}")
+    (orow,), (srow,) = oracle.history.rows, stacked.history.rows
+    gaps = {k: abs(orow[k] - srow[k]) for k in orow if k != "round"}
+    rel = max_rel(oracle.worker_params(), stacked.worker_params())
+    print(f"21a baseline1 round 0: oracle {json.dumps(orow)}; stacked "
+          f"{json.dumps(srow)}; gaps {gaps}; params max-rel {rel:.3e} "
+          f"(limits: test acc {ACC_TOL}, train loss {LOSS_TOL}, params "
+          f"{PARAM_REL_TOL})")
+    print(f"21a rates: oracle {1 / owall:.4f} rounds/s ({owall:.3f} s a "
+          f"round, {len(oracle.workers)} workers stepped one after the "
+          f"other), stacked {1 / swall:.4f} rounds/s ({swall:.3f} s, its "
+          f"first round); {smi}")
+    if not (gaps["avg_test_acc"] <= ACC_TOL
+            and gaps["avg_train_loss"] <= LOSS_TOL
+            and rel <= PARAM_REL_TOL):
+        fail(f"21a: the oracle and the stacked engine differ: {gaps}, "
+             f"params {rel:.3e}")
+    del oracle, stacked
+
+    # -- 21b. the oracle on the Model1 headline --------------------------
+    cfg = get_preset("headline-dsgd-model1")
+    oracle = build_trainer(cfg.replace(backend="torch"), device="cuda")
+    owall, olaunch = timed(oracle)
+    (orow,) = oracle.history.rows
+    if any(not math.isfinite(v) for v in orow.values()) or any(
+            olaunch.values()):
+        fail(f"21b: {orow}, launches {olaunch}")
+    ref = kit.g_rows[0]
+    dist = {k: abs(orow[k] - ref[k]) for k in orow if k != "round"}
+    print(f"21b headline-dsgd-model1 on the oracle: {json.dumps(orow)}; "
+          f"{owall:.3f} s a round against phase 5's "
+          f"{kit.gwall / kit.rounds:.3f} (both fused switches, 2 rounds); "
+          f"distance from phase 5's round 0 {dist} (not bounded: the "
+          f"oracle's cuDNN f32 convs route a max-pool near-tie apart, "
+          f"phase 4c); {smi}")
+    del oracle
+
+    # -- 21c. stacked_impl vmap against auto, one full-width step --------
+    mc, d = cfg.model, cfg.data
+    lanes, bs = d.num_users, cfg.gossip.local_bs
+    ds = gossip_engine.load_dataset(
+        d.dataset, data_dir=d.data_dir, train_size=d.synthetic_train_size,
+        test_size=d.synthetic_test_size, seed=cfg.seed,
+        input_shape=mc.input_shape, num_classes=mc.num_classes)
+    x = torch.from_numpy(ds.train_x[:lanes * bs]).view(
+        lanes, bs, *mc.input_shape).to(dev)
+    y = torch.from_numpy(ds.train_y[:lanes * bs].astype(np.int64)).view(
+        lanes, bs).to(dev)
+    p0 = init_worker_params("model1", input_shape=mc.input_shape,
+                            generator=torch.Generator().manual_seed(
+                                cfg.seed))
+    out = {}
+    for impl in ("auto", "vmap"):
+        params = {k: v.expand(lanes, *v.shape).contiguous().to(dev)
+                  .requires_grad_() for k, v in p0.items()}
+        moms = {k: torch.zeros_like(v) for k, v in params.items()}
+        with deterministic(dev), full_f32(dev):
+            stacked_step(lambda z: stacked_forward(
+                "model1", params, z, faithful=mc.faithful, impl=impl),
+                params, moms, x, y, torch.ones(lanes, bs, device=dev),
+                lr=cfg.optim.lr, momentum=cfg.optim.momentum, fused=False)
+        torch.cuda.synchronize()
+        out[impl] = {**{f"grad {k}": m.cpu().numpy()
+                        for k, m in moms.items()},
+                     **{f"param {k}": v.detach().cpu().numpy()
+                        for k, v in params.items()}}
+    worst = {k: _rel_l2(out["auto"][k], out["vmap"][k]) for k in out["auto"]}
+    top = max(worst.values())
+    print(f"21c one Model1 step at {lanes} lanes, batch {bs}, f32: vmap "
+          f"against auto, worst relative L2 {top:.3e} (limit 1e-5; "
+          f"bit-identical tensors "
+          f"{sum(np.array_equal(out['auto'][k], out['vmap'][k]) for k in worst)}"
+          f" of {len(worst)}); {smi}")
+    if not top <= 1e-5:
+        fail(f"21c: vmap is beyond 1e-5 relative L2 of auto: {worst}")
+    print(f"21: phase 21 in {time.perf_counter() - t21:.1f} s")
+    return launch
+
+
 def graphs_under_serve(root: Path, get_preset) -> None:
     """19e, CUDA graphs under ``run_served``: ``baseline1`` at 3,000/500
     samples served in blocks of 2 (a served round is ``run(rounds=1)``,
@@ -4574,9 +4778,11 @@ def main() -> None:
     # seed, shape, classes); each set is made once and shared read-only
     # (the trainers copy it to the card, and read it on the CPU).
     from dopt_torch.engine import gossip as gossip_engine
+    from dopt_torch.engine import torch_backend as oracle_backend
 
     gossip_engine.load_dataset = functools.lru_cache(maxsize=4)(
         gossip_engine.load_dataset)
+    oracle_backend.load_dataset = gossip_engine.load_dataset
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 4")
     # -- 4. small-input agreement: GPU runs vs CPU runs --------------------
@@ -4939,7 +5145,7 @@ def main() -> None:
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 6")
     # -- 6. profile one more round of each path ---------------------------
-    def profile_round(label, run_round, stats_out=None) -> float:
+    def profile_round(label, run_round, stats_out=None, model=None) -> float:
         """One round under ``device_stats_of`` (the device activity only:
         recording the host ops too doubled the profiler's own cost after
         the round, 23.2 s against 10.8 s on a headline round, and moved
@@ -4949,7 +5155,9 @@ def main() -> None:
         Fails on a degraded profile, and unless each hand kernel's
         occurrences in the trace equal its wrapper's launches in the
         round (a graph replay's kernels too).  ``stats_out`` (a dict)
-        receives the stats, the wall and the launches."""
+        receives the stats, the wall and the launches; ``model`` (the zoo
+        model the round trains) files its f64 kernels by its rounded
+        layer (``device_stats_of``)."""
         before = launch_counts()
         wall = {}
 
@@ -4959,7 +5167,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall["s"] = time.perf_counter() - t
 
-        st = device_stats_of(timed)
+        st = device_stats_of(timed, model=model)
         if "warning" in st or not math.isfinite(st["device_self_time_us"]):
             fail(f"profile ({label}): the profiler degraded: "
                  f"{st.get('warning')}")
@@ -5021,7 +5229,8 @@ def main() -> None:
     # The gossip headline only: 7c profiles the bf16 and f32 gossip
     # rounds as graph replays, and 11b a federated Model1 round.
     prof6: dict = {}
-    profile_round("gossip", functools.partial(gtr.run, rounds=1), prof6)
+    profile_round("gossip", functools.partial(gtr.run, rounds=1), prof6,
+                  model=gtr.cfg.model.model)
     want = {"fused_sgd_momentum": gtr.steps_per_round,
             "fused_mix_sgd": gtr.fused_spec.num_buckets}
     if prof6["launches"] != want:
@@ -5149,7 +5358,7 @@ def main() -> None:
                 prof7c[name] = {}
                 profile_round(f"{name}, one blocked round (graph replay)",
                               functools.partial(tr.run, rounds=1, block=2),
-                              prof7c[name])
+                              prof7c[name], model=tr.cfg.model.model)
                 spec = tr.fused_spec
                 want = {"fused_sgd_momentum": (tr.steps_per_round
                                                if tr.cfg.optim.fused_update
@@ -5407,12 +5616,13 @@ def main() -> None:
             if got != want_launch:
                 fail(f"10 {label}: launches {got} != {want_launch}")
         idle = (profile_round(f"10 {label}", functools.partial(
-            tr.run, rounds=1, block=block)) if prof else None)
+            tr.run, rounds=1, block=block), model=tr.cfg.model.model)
+                if prof else None)
         return tr, st, got, n_rounds / wall, peak, idle
 
     # 10a/10b: the chaos cocktail as typed, then with kernel 1 (gated).
     chaos = get_preset("bench-chaos-baseline1-lossy")
-    chaos_rows = host_ledger(chaos, 4)
+    chaos_rows = host_ledger(chaos, 2)
     fault_rate, fault_launch = {}, {}
     # The cocktail's scale lies reach the receivers undefended (the link
     # path screens nothing, in dopt as here), so its losses may grow past
@@ -5421,9 +5631,10 @@ def main() -> None:
     for key, cfg in (("10a", chaos),
                      ("10b", chaos.replace(optim=dataclasses.replace(
                          chaos.optim, fused_update=True)))):
+        # 2 rounds (one block), cut from 4 for the budget.
         tr, ref, got, rate, peak, _ = fault_run(
-            f"{key} {cfg.name} per-round", cfg, 4, 1, finite=False)
-        steps_chaos = 4 * tr.steps_per_round
+            f"{key} {cfg.name} per-round", cfg, 2, 1, finite=False)
+        steps_chaos = 2 * tr.steps_per_round
         del tr
         if ref["ledger"] != chaos_rows:
             fail(f"{key}: the card's ledger differs from the host's: "
@@ -5432,7 +5643,7 @@ def main() -> None:
         print(f"{key} ledger: {len(chaos_rows)} rows ({kinds}) equal to "
               "the host's dopt_torch.faults ledger")
         tr, _, _, brate, bpeak, idle = fault_run(
-            f"{key} {cfg.name} blocked", cfg, 4, 2, ref, got,
+            f"{key} {cfg.name} blocked", cfg, 2, 2, ref, got,
             prof=key == "10a", finite=False)
         steady = None
         if key == "10a":
@@ -5698,6 +5909,11 @@ def main() -> None:
         bf16_wall=fast_walls["headline-dsgd-model1-bf16"], samples=samples,
         prof6=prof6, g_events=g_events, b_events=b_stream.events,
         res19=res19))
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 21")
+
+    # -- 21. backend="torch" and stacked_impl="vmap" -----------------------
+    launch21 = phase21(dev, smi, get_preset, types.SimpleNamespace(
+        rounds=rounds, gwall=gwall, g_rows=g_state["rows"]))
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
     source = "dopt_torch/csrc/fused_update.cu"
@@ -5735,6 +5951,11 @@ def main() -> None:
              "kernel 2's ring at lr +1", site["k1 baseline2"],
              site["k2 baseline2"]),
             ("baseline1", "baseline1: MLP, 4 workers", site["k1 baseline1"],
+             site["k2 baseline1"]),
+            ("baseline1-oracle-check", "21a: baseline1 as typed with both "
+             "fused switches, one round from the oracle's init and held "
+             "to backend='torch': MLP, 4 workers, kernel 1 every step, "
+             "kernel 2 once a round", site["k1 baseline1"],
              site["k2 baseline1"]),
             ("baseline4", "baseline4: logistic fedadmm, 16 lanes",
              site["k1 baseline4"], None),
@@ -5835,7 +6056,8 @@ def main() -> None:
                     "served-headline-dsgd-model1-resumed":
                         res19["launch"]["served-gossip-resumed"],
                     "served-headline-fedavg-model1":
-                        res19["launch"]["served-fedavg"]}[preset]
+                        res19["launch"]["served-fedavg"],
+                    "baseline1-oracle-check": launch21}[preset]
         kernels.append({"name": "fused_sgd_momentum:" + preset, "path": path,
                         "route": "cuda", "source": source,
                         "replaces": "dopt/ops/fused_update.py:57",

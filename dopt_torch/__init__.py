@@ -41,7 +41,12 @@ engine in waves of lanes with one reduce a round, and bound onto the
 gossip engine's lanes.  ``SeqLMTrainer`` is dopt's sequence-parallel
 TransformerLM (``SeqLMConfig``, the ``seqlm`` preset): the sequence split
 over the launched ranks, ring or Ulysses attention
-(``dopt_torch.parallel.sequence``).
+(``dopt_torch.parallel.sequence``).  ``backend="torch"`` trains on dopt's
+sequential reference oracle (``dopt_torch.engine.torch_backend``: one
+torch model and optimizer a worker, state-dict consensus) and
+``model.stacked_impl="vmap"`` runs the engines' forward as a
+``torch.func.vmap`` over the worker's model; ``dopt_torch.analysis``
+holds dopt's static gates (lint, eligibility, fingerprint).
 """
 
 import os

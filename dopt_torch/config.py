@@ -58,8 +58,9 @@ class ModelConfig:
     param_dtype: str = "float32"     # storage: float32 | bfloat16
     compute_dtype: str = "float32"   # forward/backward: float32 | bfloat16
     stacked_impl: str = "auto"
-    # "auto": the worker-stacked grouped-conv forward, the port's only
-    # one.  dopt's "vmap" (its oracle-parity mode) is refused.
+    # "auto": the worker-stacked grouped-conv forward; "vmap": dopt's
+    # oracle-parity mode, the worker's model vmapped over the workers
+    # (dopt_torch.models.zoo.vmap_forward).
 
 
 @dataclass(frozen=True)

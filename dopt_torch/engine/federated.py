@@ -795,9 +795,9 @@ class FederatedTrainer:
     def _forward(self, params: dict[str, torch.Tensor]):
         mc = self.cfg.model
         name, faithful = mc.model.lower(), mc.faithful
-        dtype = DTYPES[mc.compute_dtype]
+        dtype, impl = DTYPES[mc.compute_dtype], mc.stacked_impl
         return lambda x: stacked_forward(name, params, x, faithful=faithful,
-                                         dtype=dtype)
+                                         dtype=dtype, impl=impl)
 
     # -- host participation (dopt :1526-1840) ---------------------------
     def _participation_static(self, t: int) -> dict:
@@ -1818,7 +1818,7 @@ class FederatedTrainer:
         rounds = f.rounds if rounds is None else rounds
         block = f.block_rounds if block is None else block
         check_checkpoint_args(checkpoint_every, checkpoint_path)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- total_time wall meter, reporting only
         with full_f32(self.device), deterministic(self.device):
             if self._registry is not None:
                 # frac and block are the lane engines' knobs: the cohort
@@ -1849,7 +1849,7 @@ class FederatedTrainer:
                     self.round += 1
                     if checkpoint_every and self.round % checkpoint_every == 0:
                         self.save(checkpoint_path)
-        self.total_time = time.perf_counter() - t0
+        self.total_time = time.perf_counter() - t0  # dopt: allow-wallclock -- total_time wall meter, reporting only
         self._run_summary_telemetry()
         return self.history
 
@@ -1945,7 +1945,7 @@ class FederatedTrainer:
             cd = self._consensus_value()
             if cd is not None:
                 ev["consensus_distance"] = cd
-            self.telemetry.emit("checkpoint", **ev)
+            self.telemetry.emit("checkpoint", **ev)  # dopt: allow-nondet-event -- checkpoint cadence is an execution-path property, documented non-deterministic
 
     def restore(self, path) -> None:
         """Resume from a checkpoint written by ``save`` (same config), or

@@ -228,7 +228,7 @@ class SeqLMTrainer:
         s = self.cfg.seqlm
         n = steps if steps is not None else (rounds if rounds is not None
                                              else s.steps)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- total_time wall meter, reporting only
         logged: list[tuple[int, torch.Tensor]] = []
         with deterministic(self.device), full_f32(self.device):
             for i in range(n):
@@ -243,7 +243,7 @@ class SeqLMTrainer:
                     logged.append((self.step, loss))
                 self.step += 1
         self._sync()
-        self.total_time = time.perf_counter() - t0
+        self.total_time = time.perf_counter() - t0  # dopt: allow-wallclock -- total_time wall meter, reporting only
         if logged:
             vals = torch.stack([v for _, v in logged]).cpu().numpy()
             for (st, _), v in zip(logged, vals):

@@ -45,7 +45,10 @@ pixels under the no-ReLU conv give exact 4-way ties).
 On CUDA a differentiated f32 conv of Model1 or Model3 is
 ``_RoundedConv``: its output and weight gradient are summed in f64 by
 GEMMs and rounded once, so the card's step stays within 1e-6 of the
-CPU's (the CPU, and the eval forward, keep the library's f32 conv).
+CPU's (the CPU, and the eval forward, keep the library's f32 conv); a
+differentiated f32 hidden layer of the MLP is ``_RoundedLinear``, its
+output summed in f64 and rounded once, so its ReLU routes as the exact
+sum does (``ROUNDED_F64``: a model rounds one kind of layer).
 
 ``TransformerLM`` is dopt's decoder-only LM (zoo.py:249-308), the model
 of ``SeqLMTrainer``: one model with no worker axis, fed one rank's slice
@@ -229,7 +232,7 @@ def _patches(z: torch.Tensor, k: int, padding: int) -> torch.Tensor:
         b, c * k * k, h * w)
 
 
-class _RoundedConv(torch.autograd.Function):
+class _RoundedConv:
     """The card's f32 'SAME' grouped conv, its output and weight gradient
     summed in f64 (GEMMs over one im2col copy, kept for the backward) and
     rounded once to f32; the input gradient is the library's (cuDNN's
@@ -246,40 +249,78 @@ class _RoundedConv(torch.autograd.Function):
     routing was the CPU's, and then cuDNN's Winograd weight gradient (its
     deterministic pick for conv2 at 6 lanes) was still 1.25e-3 off.  With
     both in f64 every tensor of the step is within 1e-6 of the CPU's
-    (``chip_smoke.py`` phase 4c)."""
+    (``chip_smoke.py`` phase 4c).
+
+    ``apply(z, weight, bias, padding, groups)`` returns the output; the
+    autograd function under it also returns the im2col copy (as an
+    output, so ``torch.func`` can take it: ``setup_context`` saves it),
+    and its ``vmap`` rule folds a vmapped worker axis into the conv's
+    groups — the same grouped conv the stacked forward calls, so dopt's
+    ``stacked_impl="vmap"`` takes the same arithmetic on the card."""
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(z, weight, bias, padding, groups):
+            b, (h, w) = z.shape[0], z.shape[2:]
+            cout = weight.shape[0] // groups
+            cols = _patches(z.double(), weight.shape[-1], padding).view(
+                b, groups, -1, h * w)                      # [B, G, CKK, L]
+            out = torch.matmul(weight.double().view(1, groups, cout, -1),
+                               cols)
+            out = out + bias.double().view(1, groups, cout, 1)
+            return out.view(b, groups * cout, h, w).float(), cols
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            z, weight, _, padding, groups = inputs
+            cols = output[1]
+            ctx.mark_non_differentiable(cols)
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(z, weight, cols)
+            ctx.padding, ctx.groups = padding, groups
+
+        @staticmethod
+        def backward(ctx, grad, _cols_grad):
+            z, weight, cols = ctx.saved_tensors
+            b, groups = z.shape[0], ctx.groups
+            gz = gw = gb = None
+            if ctx.needs_input_grad[0]:
+                gz = torch.nn.grad.conv2d_input(z.shape, weight, grad,
+                                                padding=ctx.padding,
+                                                groups=groups)
+            if ctx.needs_input_grad[1]:
+                # One GEMM a (sample, group) — its positions — then the
+                # samples' partial sums.
+                g = grad.double().reshape(b * groups,
+                                          weight.shape[0] // groups, -1)
+                part = torch.bmm(g, cols.view(b * groups, *cols.shape[2:])
+                                 .transpose(1, 2))
+                gw = part.view(b, *weight.shape).sum(0).float()
+            if ctx.needs_input_grad[2]:
+                gb = grad.sum((0, 2, 3))
+            return gz, gw, gb, None, None
+
+        @staticmethod
+        def vmap(info, in_dims, z, weight, bias, padding, groups):
+            """V vmapped workers' convs as one conv of V·groups groups:
+            the workers' channels side by side, sample-major, as the
+            stacked forward lays them out."""
+            v = info.batch_size
+            z, weight, bias = (
+                t.movedim(d, 0) if d is not None else t.expand(v, *t.shape)
+                for t, d in zip((z, weight, bias), in_dims[:3]))
+            b = z.shape[1]
+            out, cols = _RoundedConv.Fn.apply(
+                z.transpose(0, 1).reshape(b, -1, *z.shape[3:]),
+                weight.reshape(-1, *weight.shape[2:]), bias.reshape(-1),
+                padding, v * groups)
+            return ((out.view(b, v, -1, *out.shape[2:]),
+                     cols.view(cols.shape[0], v, groups, *cols.shape[2:])),
+                    (1, 1))
 
     @staticmethod
-    def forward(ctx, z, weight, bias, padding, groups):
-        b, (h, w) = z.shape[0], z.shape[2:]
-        cout = weight.shape[0] // groups
-        cols = _patches(z.double(), weight.shape[-1], padding).view(
-            b, groups, -1, h * w)                          # [B, G, CKK, L]
-        out = torch.matmul(weight.double().view(1, groups, cout, -1), cols)
-        out = out + bias.double().view(1, groups, cout, 1)
-        ctx.save_for_backward(z, weight, cols)
-        ctx.padding, ctx.groups = padding, groups
-        return out.view(b, groups * cout, h, w).float()
-
-    @staticmethod
-    def backward(ctx, grad):
-        z, weight, cols = ctx.saved_tensors
-        b, groups = z.shape[0], ctx.groups
-        gz = gw = gb = None
-        if ctx.needs_input_grad[0]:
-            gz = torch.nn.grad.conv2d_input(z.shape, weight, grad,
-                                            padding=ctx.padding,
-                                            groups=groups)
-        if ctx.needs_input_grad[1]:
-            # One GEMM a (sample, group) — its positions — then the
-            # samples' partial sums.
-            g = grad.double().reshape(b * groups, weight.shape[0] // groups,
-                                      -1)
-            part = torch.bmm(g, cols.view(b * groups, *cols.shape[2:])
-                             .transpose(1, 2))
-            gw = part.view(b, *weight.shape).sum(0).float()
-        if ctx.needs_input_grad[2]:
-            gb = grad.sum((0, 2, 3))
-        return gz, gw, gb, None, None
+    def apply(z, weight, bias, padding, groups) -> torch.Tensor:
+        return _RoundedConv.Fn.apply(z, weight, bias, padding, groups)[0]
 
 
 def _grouped_conv(z, weight, bias, groups, dtype):
@@ -297,12 +338,78 @@ def _grouped_conv(z, weight, bias, groups, dtype):
     return F.conv2d(z, w, b, padding=k // 2, groups=groups)
 
 
+class _RoundedLinear(torch.autograd.Function):
+    """The card's f32 hidden layer of the MLP in training:
+    ``_RoundedLinear.apply(bias, weight, zt)`` on ``[W, out]``, ``[W,
+    out, in]`` and ``[W, in, B]`` gives W·z + b summed in f64 and
+    rounded once to f32 (the input and weight gradients are the
+    library's f32 GEMMs, the bias gradient a sum over the batch).
+
+    A ReLU after a dense layer routes each sample's gradient by the sign
+    of its pre-activation, and where that lies within the sum's rounding
+    of zero two devices that sum in different orders route it apart.  At
+    ``baseline1``'s full size (the MLP, 4 lanes, batch 64, 470 steps a
+    round) the card's batched f32 GEMM put one of the first step's
+    51,200 fc2 pre-activations at −1.2e-9 where f64 gives +5.8e-7 and the
+    CPU's f32 +3.4e-7; that one sample moved its lane's fc2 gradient by
+    1.1e-2 (max-relative), and after the round the card's params were
+    9.3e-3 from the CPU's, the reference oracle's on either device
+    within 3.8e-5 (``chip_smoke.py`` phase 21a).  Rounded once from f64,
+    the card routes by the sign the exact sum has.  The CNNs' fc1 keeps
+    the library's f32 GEMM: a model rounds one kind of layer
+    (``ROUNDED_F64``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(bias, weight, zt):
+        return torch.baddbmm(bias.double().unsqueeze(2), weight.double(),
+                             zt.double()).float()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, weight, zt = inputs
+        ctx.save_for_backward(weight, zt)
+
+    @staticmethod
+    def backward(ctx, grad):
+        weight, zt = ctx.saved_tensors
+        gb = grad.sum(2) if ctx.needs_input_grad[0] else None
+        gw = (torch.bmm(grad, zt.transpose(1, 2))
+              if ctx.needs_input_grad[1] else None)
+        gz = (torch.bmm(weight.transpose(1, 2), grad)
+              if ctx.needs_input_grad[2] else None)
+        return gb, gw, gz
+
+
+# The port's f64 tensor work: each model's layer that the card sums in
+# f64 and rounds once in f32 training, and the device-time phase its f64
+# kernels belong to.  A kernel's name cannot tell a conv's f64 GEMM from
+# a dense layer's, so a model rounds one kind of layer, and
+# ``utils.profiling.device_stats_of(model=...)`` files the f64 kernels of
+# a window by this table (tests/test_torch_profiling.py holds the
+# package's f64 sites to its classes).
+ROUNDED_F64 = {"model1": ("_RoundedConv", "conv"),
+               "model3": ("_RoundedConv", "conv"),
+               "mlp": ("_RoundedLinear", "other")}
+
+
 def _stacked_linear(zt, weight, bias, dtype):
     """Feature-major [W, in, B] → [W, out, B]: W @ zt + b, in ``dtype``.
     Kept feature-major so autograd hands back CONTIGUOUS [W, out, in]
     weight gradients (the fused update kernel takes contiguous
     tensors)."""
     return torch.baddbmm(bias.to(dtype).unsqueeze(2), weight.to(dtype), zt)
+
+
+def _mlp_hidden(zt, weight, bias, dtype):
+    """A hidden layer of the MLP and its ReLU: a differentiated f32
+    layer on CUDA sums through ``_RoundedLinear``, as ``_grouped_conv``
+    takes ``_RoundedConv``."""
+    if dtype == torch.float32 and zt.is_cuda and torch.is_grad_enabled():
+        return F.relu(_RoundedLinear.apply(bias.to(dtype), weight.to(dtype),
+                                           zt))
+    return F.relu(_stacked_linear(zt, weight, bias, dtype))
 
 
 def stacked_cnn_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
@@ -345,10 +452,9 @@ def stacked_dense_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
     w, b = x.shape[:2]
     z = x.to(dtype).reshape(w, b, -1).transpose(1, 2)    # [W, D, B]
     for i, layer in enumerate(layers):
-        z = _stacked_linear(z, params[f"{layer}.weight"],
-                            params[f"{layer}.bias"], dtype)
-        if i < len(layers) - 1:
-            z = F.relu(z)
+        dense = _mlp_hidden if i < len(layers) - 1 else _stacked_linear
+        z = dense(z, params[f"{layer}.weight"], params[f"{layer}.bias"],
+                  dtype)
     z = z.transpose(1, 2).float()             # [W, B, num_classes]
     return torch.softmax(z, dim=-1) if faithful else z
 
@@ -462,10 +568,17 @@ def _resnet_forward(params, x, *, faithful, dtype):
 
 def stacked_forward(name: str, params: dict[str, torch.Tensor],
                     x: torch.Tensor, *, faithful: bool,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fleet's forward of zoo model ``name`` (``STACKED``)."""
+                    dtype: torch.dtype = torch.float32,
+                    impl: str = "auto") -> torch.Tensor:
+    """The fleet's forward of zoo model ``name`` (``STACKED``):
+    ``impl="auto"`` the worker-stacked program, ``"vmap"`` dopt's
+    oracle-parity mode (``vmap_forward``)."""
     if name not in STACKED:
         raise ValueError(f"unknown model {name!r}; one of {sorted(STACKED)}")
+    if impl == "vmap":
+        return vmap_forward(name, params, x, faithful=faithful, dtype=dtype)
+    if impl != "auto":
+        raise ValueError(f"unknown stacked_impl {impl!r}; one of auto|vmap")
     if name == "resnet18":
         return stacked_resnet_forward(params, x, faithful=faithful,
                                       dtype=dtype)
@@ -473,6 +586,31 @@ def stacked_forward(name: str, params: dict[str, torch.Tensor],
         return stacked_cnn_forward(params, x, faithful=faithful, dtype=dtype)
     return stacked_dense_forward(params, x, layers=LAYERS[name],
                                  faithful=faithful, dtype=dtype)
+
+
+def vmap_forward(name: str, params: dict[str, torch.Tensor],
+                 x: torch.Tensor, *, faithful: bool,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dopt's ``stacked_impl="vmap"`` (its ``vmap(model.apply)``): the
+    worker's model — zoo model ``name`` for one worker, its parameters on
+    the meta device — run by ``torch.func.functional_call`` on one
+    worker's parameters and inputs, and ``torch.func.vmap`` over the
+    worker axis of ``params`` and ``x``.  It computes what the stacked
+    forward computes: vmap's batching rules fold the worker axis of a
+    conv into its groups and of a dense layer into its batch, and on
+    CUDA an f32 training conv and MLP hidden layer keep the card's rule
+    (``_RoundedConv``, whose vmap rule folds it the same way;
+    ``_RoundedLinear``, whose generated rule batches it)."""
+    worker = StackedModel(name, {k: torch.empty((1, *v.shape[1:]),
+                                                dtype=v.dtype, device="meta")
+                                 for k, v in params.items()},
+                          faithful=faithful, dtype=dtype)
+
+    def one(p: dict[str, torch.Tensor], xi: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(
+            worker, {k: v[None] for k, v in p.items()}, (xi[None],))[0]
+
+    return torch.func.vmap(one)(dict(params), x)
 
 
 def _register_nested(module: nn.Module, params: dict[str, torch.Tensor]
@@ -501,17 +639,20 @@ class StackedModel(nn.Module):
     ``[W, ...]`` tensors in ``param_shapes`` layout (stored in their own
     dtype) and computing in ``dtype``; its parameters are registered in
     ``LAYERS[name]`` order, ResNet-18's in sorted name order as nested
-    modules (``ResidualBlock_0.Conv_0.weight``).  Model1 has 1,663,370
+    modules (``ResidualBlock_0.Conv_0.weight``); ``impl`` is
+    ``stacked_forward``'s (``ModelConfig.stacked_impl``).  Model1 has 1,663,370
     params a worker on 28×28×1, Model3 1,105,098 on 32×32×3, the MLP
     199,210 on 28×28×1, the logistic model 248 on a9a's 123 features and
     ResNet-18 11,173,962 on 32×32×3 (62 tensors)."""
 
     def __init__(self, name: str, params: dict[str, torch.Tensor], *,
-                 faithful: bool, dtype: torch.dtype = torch.float32):
+                 faithful: bool, dtype: torch.dtype = torch.float32,
+                 impl: str = "auto"):
         super().__init__()
         self.model_name = name
         self.faithful = faithful
         self.compute_dtype = dtype
+        self.impl = impl
         if name == "resnet18":
             _register_nested(self, params)
             return
@@ -522,7 +663,7 @@ class StackedModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stacked_forward(self.model_name, dict(self.named_parameters()),
                                x, faithful=self.faithful,
-                               dtype=self.compute_dtype)
+                               dtype=self.compute_dtype, impl=self.impl)
 
 
 class StackedCNN(StackedModel):

@@ -66,7 +66,7 @@ def finite_diag_gauges(keys: Iterable[str], block) -> dict[str, float]:
 def make_event(kind: str, **fields: Any) -> dict[str, Any]:
     """One schema-stamped event; top-level ``None`` fields are dropped."""
     ev: dict[str, Any] = {"v": SCHEMA_VERSION, "kind": kind,
-                          "ts": round(time.time(), 6)}
+                          "ts": round(time.time(), 6)}  # dopt: allow-wallclock -- the schema ts stamp; canonical() drops it before any replay comparison
     ev.update({k: v for k, v in fields.items() if v is not None})
     return ev
 

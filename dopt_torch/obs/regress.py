@@ -97,7 +97,7 @@ def make_entry(headline: dict[str, Any], *, run_id: str | None = None,
         raise ValueError(f"not a bench headline line: {headline!r}")
     if ts is None:
         # The entry's timestamp; the regression math never reads it.
-        ts = round(time.time(), 3)
+        ts = round(time.time(), 3)  # dopt: allow-wallclock -- ledger entry timestamp, never judged by the regression math
     if run_id is None:
         run_id = (sha[:9] if sha else "run") + f"-{int(ts)}"
     return {"v": LEDGER_VERSION, "run_id": run_id, "git_sha": sha,

@@ -31,7 +31,7 @@ class SpanTracer:
     """Accumulates nested host spans; cheap enough to leave attached."""
 
     def __init__(self):
-        self._t0 = time.perf_counter()
+        self._t0 = time.perf_counter()  # dopt: allow-wallclock -- span timing only, never training math
         self._depth = 0
         self._ring: deque[dict[str, Any]] = deque(maxlen=SPAN_CAPACITY)
         self._totals: dict[str, float] = {}
@@ -42,14 +42,14 @@ class SpanTracer:
 
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- span timing only, never training math
         self._depth += 1
         depth = self._depth - 1
         try:
             yield
         finally:
             self._depth -= 1
-            t1 = time.perf_counter()
+            t1 = time.perf_counter()  # dopt: allow-wallclock -- span timing only, never training math
             name = str(name)
             self._ring.append({"name": name, "ts_us": (t0 - self._t0) * 1e6,
                                "dur_us": (t1 - t0) * 1e6, "depth": depth})

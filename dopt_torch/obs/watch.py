@@ -266,7 +266,7 @@ class FleetWatchState:
         from dopt_torch.obs.aggregate import format_fleet_divergence
 
         # The lag column against the events' ts stamps; display only.
-        now = time.time()
+        now = time.time()  # dopt: allow-wallclock -- lag column vs event ts stamps, display only
         stats = self.agg.stats(now)
         status = self.status
         head = f"dopt_torch fleet watch — {self.state_dir}"

@@ -402,6 +402,16 @@ def _kind_of(comm_dtype) -> str:
             torch.float32: "raw"}[comm_dtype]
 
 
+def _require_flat_group(group, what: str) -> None:
+    """dopt's ``_require_flat_mesh`` (collectives.py:435-442), in its
+    words: the scatter and codec collectives run over one worker axis
+    (the engines refuse a hybrid layout first)."""
+    if group is not None and not group.flat:
+        raise ValueError(
+            f"{what} runs psum_scatter over ONE worker axis; hybrid "
+            f"(hosts × ici) meshes are not supported — got {group.shape}")
+
+
 # -- scatter ---------------------------------------------------------------
 def mix_dense_scatter(buckets: list[torch.Tensor], w_matrix: torch.Tensor,
                       group=None, comm_dtype: torch.dtype | None = None
@@ -413,6 +423,7 @@ def mix_dense_scatter(buckets: list[torch.Tensor], w_matrix: torch.Tensor,
     rows, cast back to the bucket dtype.  W and the accumulation stay
     f32 whatever the bucket dtype (dopt :455-461); across ranks the sum
     runs at the wire dtype."""
+    _require_flat_group(group, "update_sharding='scatter'")
     out = []
     for x in buckets:
         w = w_matrix.to(x.device, torch.float32)
@@ -453,6 +464,7 @@ def masked_average_scatter(stacked: dict[str, torch.Tensor],
     1), the global ``[W]`` mask's) on the shard in f32 cast to the
     bucket dtype, and one ``all_gather_into_tensor``.  Returns θ (no
     worker axis)."""
+    _require_flat_group(group, "update_sharding='scatter'")
     m = mask.float()
     denom = (m.sum().clamp_min(1.0) if denom is None
              else torch.as_tensor(denom, dtype=torch.float32,
@@ -705,6 +717,7 @@ def mix_codec_gather(buckets: list[torch.Tensor],
     round-folded key; bucket i draws from ``fold_in(key, i)`` and then
     per global lane.  Returns (mixed, residuals), the residuals of
     codec buckets updated and the others passed through."""
+    _require_flat_group(group, "comm codec")
     w = w_matrix.to(buckets[0].device, torch.float32)
     lane0 = group.lane0 if _wired(group) else 0
     w_rows = w[lane0:lane0 + buckets[0].shape[0]]

@@ -29,6 +29,11 @@ flags and refusals).  The config goes to stderr first as dopt's
 ``exp_details`` writes it.  seqlm refuses ``--faults``, ``--clients``,
 ``--diagnostics``, ``--metrics-out``/``--trace-out`` and
 ``--checkpoint-every`` in dopt's words: its engine carries none of them.
+``--set backend=torch`` trains the preset on the sequential reference
+oracle (``dopt_torch.engine.torch_backend``), which refuses
+``--faults``, ``--clients``, ``--metrics-out``/``--trace-out`` and
+``--checkpoint-every`` in dopt's words, and ``--checkpoint`` raises
+(the oracle does not save).
 
 Across GPUs, one process a GPU under torchrun::
 
@@ -102,20 +107,20 @@ def apply_override(cfg, spec: str):
 
 
 def build_trainer(cfg, device=None):
-    """The engine ``cfg`` asks for (dopt's ``build_trainer``):
-    ``SeqLMTrainer`` when it has a ``seqlm`` section, ``FederatedTrainer``
-    when it has a ``federated`` one, else ``GossipTrainer``, on
-    ``device`` (the GPU when None).  ``backend="torch"`` selects dopt's
-    sequential CPU oracle, which the port does not copy."""
+    """The engine ``cfg`` asks for (dopt's ``build_trainer``), on
+    ``device`` (the GPU when None): with ``backend="torch"`` the
+    sequential reference oracle (``dopt_torch.engine.torch_backend``),
+    else ``SeqLMTrainer`` when it has a ``seqlm`` section,
+    ``FederatedTrainer`` when it has a ``federated`` one and
+    ``GossipTrainer`` otherwise."""
     if cfg.backend not in ("jax", "torch"):
         raise ValueError(
             f"unknown backend {cfg.backend!r}; 'jax' (TPU/mesh engines) or "
             "'torch' (the sequential reference oracle)")
     if cfg.backend == "torch":
-        raise ValueError(
-            "backend='torch' is dopt's sequential CPU oracle, which the port "
-            "does not copy: the port is itself a torch engine — run it with "
-            "device='cpu' for the CPU")
+        from dopt_torch.engine.torch_backend import build_torch_trainer
+
+        return build_torch_trainer(cfg, device=device)
     from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
 
     if cfg.seqlm is not None:
@@ -255,8 +260,10 @@ def main(argv: list[str] | None = None) -> int:
                 faults=parse_corrupt_spec(args.corrupt, base=cfg.faults))
         except ValueError as e:
             raise SystemExit(str(e))
-    if cfg.faults is not None and cfg.seqlm is not None:
-        # dopt's words: the seqlm engine never reads cfg.faults.
+    if cfg.faults is not None and (cfg.seqlm is not None
+                                   or cfg.backend == "torch"):
+        # dopt's words: the oracle and the seqlm engine never read
+        # cfg.faults.
         raise SystemExit("fault injection is supported by the "
                          "federated/gossip jax engines only")
     if (args.clients is not None or args.cohort is not None
@@ -281,7 +288,8 @@ def main(argv: list[str] | None = None) -> int:
         except ValueError as e:
             raise SystemExit(str(e))
         cfg = cfg.replace(population=pop)
-    if cfg.population is not None and cfg.seqlm is not None:
+    if cfg.population is not None and (cfg.seqlm is not None
+                                       or cfg.backend == "torch"):
         raise SystemExit("the client population registry is supported by "
                          "the federated/gossip jax engines only")
     if args.diagnostics is not None:
@@ -349,7 +357,23 @@ def _train(args, cfg, device, lead: bool) -> int:
     # Rank 0 alone reports.
     say = (functools.partial(print, file=sys.stderr) if lead
            else lambda *a, **k: None)
-    if cfg.seqlm is not None:
+    if cfg.backend == "torch" and cfg.seqlm is None:
+        # dopt's refusals: the oracle carries no telemetry and no
+        # in-run checkpoints.
+        if args.metrics_out or args.trace_out:
+            raise SystemExit("--metrics-out/--trace-out are supported by "
+                             "the federated/gossip jax engines only")
+        if args.checkpoint_every:
+            raise SystemExit("--checkpoint-every is supported by the "
+                             "federated/gossip jax engines only")
+        trainer = build_trainer(cfg, device)
+        section = cfg.federated or cfg.gossip
+        rounds = section.rounds if args.rounds is None else args.rounds
+        say(f"{cfg.name}: {type(trainer).__name__} (backend='torch', the "
+            f"sequential reference oracle) on {trainer.device}, "
+            f"{trainer.num_workers} workers, {rounds} rounds")
+        run = functools.partial(trainer.run, rounds=rounds)
+    elif cfg.seqlm is not None:
         # dopt's refusals: its seqlm engine carries no telemetry and no
         # in-run checkpoints.
         if args.metrics_out or args.trace_out:

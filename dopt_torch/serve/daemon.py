@@ -297,9 +297,9 @@ class ServeDaemon:
             self.trainer.checkpoint_writer = False
         restore_s: float | None = None
         if resume_round is not None:
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # dopt: allow-wallclock -- checkpoint_restore SLO latency meter, reporting only
             self.trainer.restore(self.ckpt_path)
-            restore_s = time.perf_counter() - t0
+            restore_s = time.perf_counter() - t0  # dopt: allow-wallclock -- checkpoint_restore SLO latency meter, reporting only
             self._resumed = True
             self.restarts += 1
         self._last_ckpt = int(self.trainer.round) if self._resumed else -1
@@ -426,7 +426,7 @@ class ServeDaemon:
 
     # -- the run_served controller ------------------------------------
     def boundary(self, trainer) -> str:
-        tick0 = time.perf_counter()
+        tick0 = time.perf_counter()  # dopt: allow-wallclock -- boundary_tick SLO latency meter, reporting only
         t = int(trainer.round)
         self._boundary_seq += 1
         if self.num_processes > 1 and not self.is_leader:
@@ -442,7 +442,7 @@ class ServeDaemon:
         # skews the SLO.
         self._observe_latency(
             "boundary_tick",
-            time.perf_counter() - tick0, t)
+            time.perf_counter() - tick0, t)  # dopt: allow-wallclock -- boundary_tick SLO latency meter, reporting only
         self._write_liveness(t)
         self._profile_tick(t, verdict)
         return verdict
@@ -456,7 +456,7 @@ class ServeDaemon:
         the HealthReport and ``final.json`` summarize."""
         if self.telemetry is None:
             return
-        self.telemetry.emit(
+        self.telemetry.emit(  # dopt: allow-nondet-event -- SLO latency channel, documented non-deterministic like resource/compile
             "latency", round=max(int(round_idx), 0), name=str(name),
             seconds=round(max(float(seconds), 0.0), 6))
 
@@ -586,7 +586,7 @@ class ServeDaemon:
                 # waits on a command (the queue stamps `ts` at submit).
                 self._observe_latency(
                     "command_apply",
-                    time.time() - float(ets), t)
+                    time.time() - float(ets), t)  # dopt: allow-wallclock -- command_apply SLO latency vs the queue ts stamp, reporting only
             done_ids.add(str(c.get("id")))
         if done_ids:
             self._pending = [c for c in self._pending
@@ -622,7 +622,7 @@ class ServeDaemon:
         # checkpoint/drain effects are carried by the directive itself.
 
     def _checkpoint(self, trainer, t: int) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- checkpoint_save SLO latency meter, reporting only
         trainer.save(self.ckpt_path)
         if self.num_processes > 1:
             # The save's gather is collective; the barrier on the
@@ -634,7 +634,7 @@ class ServeDaemon:
             barrier(trainer.group)
         self._observe_latency(
             "checkpoint_save",
-            time.perf_counter() - t0, t)
+            time.perf_counter() - t0, t)  # dopt: allow-wallclock -- checkpoint_save SLO latency meter, reporting only
         if self.is_leader and self.monitor is not None:
             from dopt_torch.utils.metrics import atomic_write_text
 
@@ -678,7 +678,7 @@ class ServeDaemon:
                                   "rank": self._liveness_rank,
                                   "round": int(round_),
                                   "status": self.status,
-                                  "ts": time.time(),
+                                  "ts": time.time(),  # dopt: allow-wallclock -- liveness heartbeat stamp, operational file only
                               }))
         except OSError:
             pass   # a missed heartbeat is survivable; a crash here is not
@@ -701,7 +701,7 @@ class ServeDaemon:
         if str(info.get("status")) in ("draining", "drained",
                                        "restarting"):
             return "gone"   # explicit departure stamp: no timeout wait
-        age = time.time() - float(info.get("ts", 0.0))
+        age = time.time() - float(info.get("ts", 0.0))  # dopt: allow-wallclock -- peer staleness vs heartbeat stamp, liveness only
         return "gone" if age > self.peer_timeout_s else "live"
 
     def _peer_transitions(self, t: int) -> list[dict[str, Any]]:
@@ -756,7 +756,7 @@ class ServeDaemon:
         # deployments keep their timeout.
         path = self._directive_path(seq, t)
         budget = self._directive_poll_s * self._directive_max_polls
-        deadline = time.monotonic() + budget
+        deadline = time.monotonic() + budget  # dopt: allow-wallclock -- follower directive-barrier timeout, control plane only
         delay = self._directive_poll_s
         while True:
             if path.exists():
@@ -764,7 +764,7 @@ class ServeDaemon:
                     return json.loads(path.read_text())
                 except ValueError:
                     pass   # racing the rename: retry
-            left = deadline - time.monotonic()
+            left = deadline - time.monotonic()  # dopt: allow-wallclock -- follower directive-barrier timeout, control plane only
             if left <= 0:
                 break
             time.sleep(min(delay, left))
@@ -785,7 +785,7 @@ class ServeDaemon:
         p = self._liveness_path(0)
         try:
             info = json.loads(p.read_text())
-            age = time.time() - float(info["ts"])
+            age = time.time() - float(info["ts"])  # dopt: allow-wallclock -- timeout diagnostics, reporting only
         except (OSError, ValueError, KeyError, TypeError):
             return f"no heartbeat file at {p}"
         return (f"heartbeat {age:.1f}s old "
@@ -940,9 +940,9 @@ class ServeDaemon:
                                       self.device)
         if not self.is_leader:
             trainer.checkpoint_writer = False
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- checkpoint_restore SLO latency meter, reporting only
         trainer.restore(self.ckpt_path)
-        restore_s = time.perf_counter() - t0
+        restore_s = time.perf_counter() - t0  # dopt: allow-wallclock -- checkpoint_restore SLO latency meter, reporting only
         if self.telemetry is not None:
             from dopt_torch.obs import attach
 

@@ -58,12 +58,12 @@ class PhaseTimers:
         device finishes: the engines end ``round_step`` with the fetch)."""
         span = (self.tracer.span(name) if self.tracer is not None
                 else contextlib.nullcontext())
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- phase span timing, not training math
         try:
             with span:
                 yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
+            self.totals[name] += time.perf_counter() - t0  # dopt: allow-wallclock -- phase span timing, not training math
             self.counts[name] += 1
 
     def measure(self, name: str, fn, *args, **kwargs):
@@ -71,11 +71,11 @@ class PhaseTimers:
         to ``name``."""
         span = (self.tracer.span(name) if self.tracer is not None
                 else contextlib.nullcontext())
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- measure span timing, not training math
         with span:
             out = fn(*args, **kwargs)
             block_until_ready(out)
-        self.totals[name] += time.perf_counter() - t0
+        self.totals[name] += time.perf_counter() - t0  # dopt: allow-wallclock -- measure span timing, not training math
         self.counts[name] += 1
         return out
 
@@ -148,11 +148,11 @@ def emit_device_resource(trainer, t: int, fn_name: str) -> None:
     trainer._last_step_total = step_total
     comp = trainer._compile_watch.observe(fn_name, trainer.graphs)
     if comp is not None:
-        tele.emit("compile", round=int(t), fn=fn_name, count=comp["count"],
+        tele.emit("compile", round=int(t), fn=fn_name, count=comp["count"],  # dopt: allow-nondet-event -- retrace channel is execution-path state, documented non-deterministic
                   total=comp["total"], seconds=round(seconds, 6))
     stats = device_memory_stats(trainer.device)
     if stats is not None:
-        tele.emit("resource", round=int(t), engine=trainer.engine_kind,
+        tele.emit("resource", round=int(t), engine=trainer.engine_kind,  # dopt: allow-nondet-event -- HBM occupancy sampling cadence is execution-path state, documented non-deterministic
                   **stats)
 
 
@@ -245,20 +245,22 @@ _COMM_KERNELS = ("mix_sgd_narrow_kernel", "mix_sgd_ring_kernel", "nccl")
 # cuDNN's kernels run the convolutions: its namespace (layout transposes,
 # scaling) and its algorithms' names, some of which carry no "cudnn"
 # (``sm80_xmma_dgrad_implicit_gemm_...``; the FFT algorithm's transforms,
-# complex GEMMs and ``flip_filter``: the port does no complex math).  The
-# f64 work is conv too, by construction: the port's only f64 kernels are
-# ``_RoundedConv``'s (models/zoo.py) — the f64 GEMMs of its output and
-# weight gradient, their reductions and the im2col copy they read.
-# tests/test_torch_profiling.py fails when f64 tensor work appears
-# anywhere else in the package.
+# complex GEMMs and ``flip_filter``: the port does no complex math).
 _CONV_KERNELS = re.compile(r"cudnn|implicit_gemm|fprop|dgrad|wgrad|winograd"
-                           r"|fft|flip_filter|cf32"
-                           r"|f64|dgemm|d\d{3}gemm|\bdouble\b")
+                           r"|fft|flip_filter|cf32")
+# The f64 kernels are the card's rounded training layers' (the f64 GEMMs,
+# their reductions and casts, ``_RoundedConv``'s im2col copy), and a name
+# cannot tell a conv's from a dense layer's: they file under the phase of
+# the layer that the window's model rounds (``models.zoo.ROUNDED_F64``;
+# conv where the caller names no model).  tests/test_torch_profiling.py
+# fails when f64 tensor work appears anywhere else in the package.
+_F64_KERNELS = re.compile(r"f64|dgemm|d\d{3}gemm|\bdouble\b")
 
 PHASES = ("conv", "comm", "update", "other")
 
 
-def classify_phase(op_type: str | None, operation: str | None = None) -> str:
+def classify_phase(op_type: str | None, operation: str | None = None,
+                   f64_phase: str = "conv") -> str:
     """Classify one profiled op into conv | comm | update | other.
 
     ``op_type`` is its category and ``operation`` its name: for the
@@ -266,7 +268,8 @@ def classify_phase(op_type: str | None, operation: str | None = None) -> str:
     name with its scope.  dopt's precedence: the update first (its
     ``dopt_update`` tag, or an update kernel), then collectives, NCCL and
     the mixing contraction (the ``dopt_mix`` scope, or kernel 2) as
-    comm, then convolutions."""
+    comm, then convolutions; then an f64 kernel under ``f64_phase``, the
+    phase of the window's rounded layer (``models.zoo.ROUNDED_F64``)."""
     t = (op_type or "").lower()
     n = (operation or "").lower()
     if "dopt_update" in n or any(k in n for k in _UPDATE_KERNELS):
@@ -277,20 +280,32 @@ def classify_phase(op_type: str | None, operation: str | None = None) -> str:
         return "comm"
     if _CONV_RE.search(t) or _CONV_RE.search(n) or _CONV_KERNELS.search(n):
         return "conv"
+    if _F64_KERNELS.search(n):
+        return f64_phase
     return "other"
 
 
-def phase_totals(rows) -> dict[str, Any]:
+def phase_totals(rows, f64_phase: str = "conv") -> dict[str, Any]:
     """Reduce ``(op_type, operation, self_time_us)`` rows to per-phase
-    totals + fractions: ``{conv_us, ..., conv_fraction, ...}``."""
+    totals + fractions: ``{conv_us, ..., conv_fraction, ...}``
+    (``f64_phase`` as ``classify_phase``'s)."""
     tot = {k: 0.0 for k in PHASES}
     for op_type, operation, self_us in rows:
-        tot[classify_phase(op_type, operation)] += float(self_us)
+        tot[classify_phase(op_type, operation, f64_phase)] += float(self_us)
     dev = sum(tot.values())
     out: dict[str, Any] = {f"{k}_us": round(v, 1) for k, v in tot.items()}
     for k, v in tot.items():
         out[f"{k}_fraction"] = round(v / dev, 4) if dev > 0 else 0.0
     return out
+
+
+def f64_phase_of(model: str | None) -> str:
+    """The phase that the f64 kernels of a window training zoo model
+    ``model`` file under (``models.zoo.ROUNDED_F64``); conv when no model
+    is named or the model rounds no layer (it launches no f64 kernel)."""
+    from dopt_torch.models.zoo import ROUNDED_F64
+
+    return ROUNDED_F64.get(model, (None, "conv"))[1]
 
 
 def _device_category(name: str) -> str:
@@ -365,7 +380,7 @@ def _overlap(recs) -> dict[str, Any]:
                           for n, v in names.most_common(5) if v > 0]}
 
 
-def profiler_op_stats(prof) -> dict[str, Any]:
+def profiler_op_stats(prof, f64_phase: str = "conv") -> dict[str, Any]:
     """Reduce a stopped ``torch.profiler.profile`` to dopt's
     ``xplane_op_stats`` shape: ``{device_self_time_us, host_self_time_us,
     device_categories: [{op_type, self_time_us, pct_of_device,
@@ -382,7 +397,7 @@ def profiler_op_stats(prof) -> dict[str, Any]:
     busy time, and why; and ``guard_records``: how many of
     ``device_stats_of``'s guard kernels the trace holds before and after
     the window's own first record, which are left out of everything
-    else."""
+    else.  ``f64_phase`` files the f64 kernels (``classify_phase``)."""
     cuda = torch.autograd.DeviceType.CUDA
     device_total = host_total = 0.0
     ops, phase_rows = [], []
@@ -408,7 +423,8 @@ def profiler_op_stats(prof) -> dict[str, Any]:
             guards.append(e.time_range.start)
             continue
         recs.append((e.time_range.start, e.time_range.end,
-                     classify_phase(_device_category(e.name), e.name),
+                     classify_phase(_device_category(e.name), e.name,
+                                    f64_phase),
                      getattr(e, "device_resource_id", e.thread), e.name))
     recs.sort()
     first = recs[0][0] if recs else math.inf
@@ -433,15 +449,16 @@ def profiler_op_stats(prof) -> dict[str, Any]:
              "pct_of_device": round(100.0 * o["total_self_time_us"]
                                     / max(device_total, 1e-9), 2),
              "occurrences": o["occurrences"],
-             "phase": classify_phase(o["op_type"], o["operation"])}
+             "phase": classify_phase(o["op_type"], o["operation"],
+                                     f64_phase)}
             for o in ops],
-        "device_phases": phase_totals(phase_rows),
+        "device_phases": phase_totals(phase_rows, f64_phase),
         "top_device_ops": ops[:20],
     }
 
 
 def device_stats_of(fn, *, trace_prefix: str = "dopt-devtime-",
-                    telemetry=None) -> dict:
+                    telemetry=None, model: str | None = None) -> dict:
     """Run ``fn()`` under ``torch.profiler`` with the device activity
     only (recording the host ops too doubles the profiler's cost) and
     return ``profiler_op_stats``' reduction: the device self time and
@@ -496,7 +513,7 @@ def device_stats_of(fn, *, trace_prefix: str = "dopt-devtime-",
     stats = None
     if warning is None:
         try:
-            stats = profiler_op_stats(prof)
+            stats = profiler_op_stats(prof, f64_phase_of(model))
         except Exception as e:
             warning = f"profiler reduction failed: {e!r}"
     if stats is not None and cuda and stats["device_categories"] \
@@ -512,7 +529,7 @@ def device_stats_of(fn, *, trace_prefix: str = "dopt-devtime-",
     if warning is not None:
         stats["warning"] = warning
         if telemetry is not None:
-            telemetry.emit("warning", message=warning,
+            telemetry.emit("warning", message=warning,  # dopt: allow-nondet-event -- degraded-profiler warning, outside DETERMINISTIC_KINDS by design
                            source="device_stats_of")
     return stats
 

@@ -4,10 +4,11 @@ against dopt's (dopt.utils.profiling), on the CPU.
 * ``classify_phase``/``phase_totals``: dopt's rows
   (tests/test_update_sharding.py) classify the same in both packages,
   and the card's kernel names (both hand kernels, NCCL, cuDNN, the f64
-  GEMMs of ``_RoundedConv``, the plain update's foreach kernels) get the
-  phases the port's rules state.  The rule that files f64 kernels under
-  conv holds because ``_RoundedConv`` is the package's only f64 tensor
-  work: a scan of the package's code fails on any other.
+  GEMMs of the rounded layers, the plain update's foreach kernels) get
+  the phases the port's rules state.  The f64 kernels file under the
+  phase of the layer the window's model rounds
+  (``models.zoo.ROUNDED_F64``): conv for ``_RoundedConv`` alone, and a
+  scan of the package's code fails on f64 work anywhere else.
 * ``profiler_op_stats``: the guards left out, and where the summed
   device time exceeds the busy time (overlap within and across streams,
   duplicates), with each phase on the busy basis.
@@ -145,17 +146,53 @@ def _f64_sites(tree: ast.AST):
 
 
 def test_f64_tensor_work_is_only_rounded_conv():
-    """``classify_phase`` files every f64 kernel (``dgemm``, ``f64``,
-    ``double``) under conv because ``_RoundedConv`` (models/zoo.py) is the
-    port's only f64 tensor work.  Any other f64 site in the package would
-    be filed as conv with no sign: this fails first."""
+    """``classify_phase`` files an f64 kernel (``dgemm``, ``f64``,
+    ``double``) by the rounded layer of the window's model
+    (``models.zoo.ROUNDED_F64``), since a name cannot tell a conv's f64
+    GEMM from a dense layer's: under conv only where that layer is
+    ``_RoundedConv``.  Any f64 site in the package outside the table's
+    layers would be filed with no sign: this fails first."""
+    from dopt_torch.models.zoo import ROUNDED_F64
+
     pkg = Path(TP.__file__).resolve().parent.parent
     owners = {}
     for path in sorted(pkg.rglob("*.py")):
         for line, owner in _f64_sites(ast.parse(path.read_text())):
             owners.setdefault((path.relative_to(pkg).as_posix(), owner),
                               []).append(line)
-    assert set(owners) == {("models/zoo.py", "_RoundedConv")}, owners
+    assert set(owners) == {("models/zoo.py", layer)
+                           for layer, _ in ROUNDED_F64.values()}, owners
+    assert {layer for layer, phase in ROUNDED_F64.values()
+            if phase == "conv"} == {"_RoundedConv"}
+
+
+F64_KERNELS = [n for n, _ in CARD_KERNELS if TP._F64_KERNELS.search(n.lower())
+               and not TP._CONV_KERNELS.search(n.lower())]
+
+
+@pytest.mark.parametrize("model,phase", [
+    ("model1", "conv"), ("model3", "conv"), ("mlp", "other"),
+    ("resnet18", "conv"), (None, "conv")])
+def test_f64_kernels_file_by_the_models_rounded_layer(model, phase):
+    """The MLP's f64 kernels (``_RoundedLinear``'s) are dense-layer work
+    and file under other, the CNNs' (``_RoundedConv``'s) under conv, in
+    ``classify_phase`` and in ``profiler_op_stats``; cuDNN's kernels
+    stay conv whatever the model."""
+    assert len(F64_KERNELS) >= 4
+    got = TP.f64_phase_of(model)
+    assert got == phase
+    for name in F64_KERNELS:
+        assert TP.classify_phase("kernel", name, got) == phase
+    cudnn = CARD_KERNELS[6][0]
+    assert TP.classify_phase("kernel", cudnn, got) == "conv"
+    rows = [(F64_KERNELS[0], 0, 40), (cudnn, 50, 60)]
+    st = TP.profiler_op_stats(_fake_profile(rows), got)
+    want = {"conv": 10.0, "other": 0.0}
+    want[phase] += 40.0
+    ph = st["device_phases"]
+    assert (ph["conv_us"], ph["other_us"]) == (want["conv"], want["other"])
+    assert {c["op_type"]: c["phase"] for c in st["device_categories"]} == {
+        F64_KERNELS[0]: phase, cudnn: "conv"}
 
 
 def test_phase_totals_equals_dopts():
@@ -189,7 +226,7 @@ def test_device_stats_degrade_returns_warning(monkeypatch):
     a failed reduction, then a profiler that cannot start."""
     monkeypatch.setattr(torch.profiler, "profile", _StubProfile)
 
-    def boom(_):
+    def boom(*_):
         raise RuntimeError("no reduction here")
 
     monkeypatch.setattr(TP, "profiler_op_stats", boom)
