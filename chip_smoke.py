@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py        # from the repo root; one GPU, nvcc
     python3 chip_smoke.py --conv-ab   # only the rounded-layer A/B
+    python3 chip_smoke.py --resnet-ab DIR  # ResNet-18's f32 step, this
+                                           # tree against DIR's
 
 Phases, each printing its own lines; any failure exits non-zero before
 the final line:
@@ -41,13 +43,13 @@ the final line:
    same checks;
 5c. the federated path users run — baseline3 as typed (compact: only
    the 8 sampled lanes train; plain SGD update, so no kernel of the
-   port runs) for two rounds, timed beside 5b;
-5d/5e. the JAX bench's fast legs — headline-dsgd-model1-bf16 and
-   headline-dsgd-model1-idiomatic-bf16 (bf16 compute, f32 storage) for
-   two rounds each, rounds/s against phase 5's f32 headline;
-5f. bf16 storage — headline-fedavg-model1 and headline-dsgd-model1 with
-   bf16 compute and storage, two rounds each, with the launch counts
-   and the dtype every kernel launch received;
+   port runs) for one round, timed beside 5b;
+5d/5e. the JAX bench's fast legs — headline-dsgd-model1-bf16 (two
+   rounds) and headline-dsgd-model1-idiomatic-bf16 (one) (bf16 compute,
+   f32 storage), rounds/s against phase 5's f32 headline;
+5f. bf16 storage — headline-fedavg-model1 (one round) and
+   headline-dsgd-model1 (two) with bf16 compute and storage, with the
+   launch counts and the dtype every kernel launch received;
 6. profile — one more round of the gossip path under
    ``dopt_torch.utils.profiling.device_stats_of`` (torch.profiler, the
    device activity): device time by kernel and by phase (conv, comm,
@@ -68,8 +70,9 @@ the final line:
    own per-round runs: gossip with both fused switches, gossip with bf16
    storage and clip 1.0, fedprox compact with bf16 storage, clip and the
    holdout, fedadmm compact with the holdout, scaffold at full width;
-7c. rates — per-round against blocked (block 2, 2 rounds, after one
-   warm-up block) on headline-dsgd-model1-bf16 and headline-dsgd-model1
+7c. rates — per-round (one round after a warm-up round) against
+   blocked (one block of 2 after a warm-up block) on
+   headline-dsgd-model1-bf16 and headline-dsgd-model1
    with eval_every beyond the run (dopt bench's shape): rounds/s, peak
    memory, each graph's capture and instantiate time and node count,
    and one blocked f32 round under the profiler, as phase 6 (the
@@ -91,8 +94,8 @@ the final line:
    checkpoint restored into an unfused trainer must raise.  The
    checkpoints go to a temporary directory, removed at the end;
 9. the paths of the dense models and the gossip algorithms at full width
-   (dopt's presets, 2 rounds each, finite metrics, launch counts as the
-   round structure implies, rounds/s and peak memory): 9a
+   (dopt's presets, one round each but 9c's two, finite metrics, launch
+   counts as the round structure implies, rounds/s and peak memory): 9a
    reference-gossip with both fused switches (Model1, 6 workers, a
    matching drawn each round into kernel 2); 9b baseline2 with both
    switches (Model3 on CIFAR-10-shaped data, 50,000/10,000, 16 workers,
@@ -126,10 +129,10 @@ Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
    idle share of a profiled blocked round and the steady rate of 4
    replayed rounds; 10b the same (unprofiled) with optim.fused_update (kernel 1 gated by the straggler budget, one
    launch a step); 10c baseline1-faulty with both fused switches
-   (kernel 2 on crash- and partition-repaired matrices),
+   (kernel 2 on crash- and partition-repaired matrices, one round),
    baseline1-byzantine for 9 rounds in blocks of 3 (the quarantine
    fires at round 2 and readmits at round 8) and baseline1-lossy
-   (push-sum: node mass plus in-flight mass is 4); 10d
+   (push-sum: node mass plus in-flight mass is 4, one round); 10d
    headline-dsgd-model1-faulty (Model1, 6 workers, both kernels),
    killed after round 0 and resumed, bit-identical to the continuous
    run; 10e the new call sites timed as 3b times the others: kernel 1
@@ -206,7 +209,7 @@ also runs two small faulty configurations on the GPU against the CPU.
    elements — and a tiny choco run on the GPU against the CPU; 14c
    14a's rand-k run in blocks of 2 and killed and resumed, bit for bit
    with x_hat; 14d ``comm_dtype="bfloat16"`` on both headlines (fused
-   epilogue off) beside the f32 wire; 14e baseline5 with choco rand-k
+   epilogue off), one round, beside the f32 wire's two; 14e baseline5 with choco rand-k
    0.01 in bf16 compute, one round (the exchange's share, the peak);
    14f the compressors' pieces (draw, select, scatter) and whole calls
    timed at 14a's and 14e's shapes beside their bytes bounds.
@@ -217,11 +220,13 @@ also runs two small faulty configurations on the GPU against the CPU.
    ``update_sharding="scatter"`` (2 buckets), 2 rounds per-round and a
    blocked run of 2 bit for bit, its History within the multi-round
    bound of 14d's dense f32 run (one mix of the same inputs within 1e-6
-   of the dense mix; 15c and 15d likewise); 15b the q8 codec with no budget and the 6-worker
-   lossy-link budget (q4 everywhere), the exchange's time and share and
-   the plan's bytes; 15c the explicit shift path with scatter against
-   15a; 15d headline-fedavg-model1 at full width with the scatter reduce,
-   f32 (against 14d's) and ``comm.wire_dtype="bfloat16"``; 15e baseline5
+   of the dense mix; 15c and 15d likewise); 15b the q8 codec with no
+   budget (2 rounds) and the 6-worker lossy-link budget (q4 everywhere,
+   one round), the exchange's time and share and the plan's bytes; 15c
+   the explicit shift path with scatter against 15a; 15d
+   headline-fedavg-model1 at full width with the scatter reduce, f32
+   (against 14d's) and ``comm.wire_dtype="bfloat16"`` (one round); 15e
+   baseline5
    with scatter and q8 in bf16 compute, one round (11 buckets, the
    exchange's share, the peak); 15f the collectives on a world-size-1
    NCCL group (``init_file_group``) equal to their group-None forms bit
@@ -339,10 +344,31 @@ also runs two small faulty configurations on the GPU against the CPU.
    params 1e-4 max-relative), both rates and the launches printed; 21b
    ``headline-dsgd-model1`` one round on the oracle: finite, its seconds
    a round beside phase 5's and its distance from phase 5's round 0
-   printed, not bounded (the oracle's convs are cuDNN's f32 convs); 21c
+   held to 1e-3 train loss and 1e-4 test accuracy; 21c
    one full-width step of the gossip headline's model (6 lanes, batch
    128, f32), ``"vmap"`` against ``"auto"``, every tensor within 1e-5
    relative L2.  The kernels line gains 21a's launches.
+
+22. dopt's library surface (``phase22``), f32 under the deterministic mode and
+   ``full_f32``: 22b (first) ResNet-18's step at ``baseline5``'s full
+   size — 32 lanes, batch 128 a lane, 32×32×3 — on the card against the
+   port's CPU step of lane 0 alone, as 4c holds Model1's: lane 0's 62
+   gradients and 62 updated parameters within 1e-5 relative L2 (max-rel
+   printed), the card's step twice bit for bit, its conv kernels named
+   from the profiler, and on a miss each side's distance from lane 0's
+   f64 gradients; 22a each zoo model at its preset's width and input
+   (Model1 28×28×1, Model3 32×32×3, the MLP, the logistic model on 123
+   features, ResNet-18 32×32×3), batch 128: ``build_model`` on the card,
+   3 steps of ``cross_entropy``, autograd and
+   ``fused_sgd_momentum_tree`` (kernel 1, a launch per 16 tensors a
+   step), bit for bit the same steps through its plain version, the
+   first step within 1e-5 relative L2 of ``build_model``'s CPU step
+   (ResNet-18's: 22b's CPU lane) and ``accuracy`` after it equal; 22c
+   kernel 1 through the tree wrapper at each model's one-worker site,
+   bit for bit its plain version, timed on the device alone
+   (``event_ms(..., device_only=True)``: the wrapper's Python runs while
+   a sleep kernel holds the card).  The kernels line gains 22a's
+   launches.
 
 Phase 4c holds one full-size Model1 step (headline-dsgd-model1's model:
 28×28×1, batch 128 a lane, f32, deterministic, ``full_f32``) at 6 and at
@@ -423,6 +449,55 @@ LOSS_TOL, ACC_TOL, PARAM_REL_TOL = 1e-3, 1e-4, 1e-4
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them,
+    printed; fails first where torch sees no card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}")
+    return smi
+
+
+# A sleep kernel of this many clock cycles (about 10 ms at the H100's
+# 1.98 GHz) holds the card while a timed call's Python runs.
+HOLD_CYCLES = 20_000_000
+
+
+def event_ms(fn, flush, device_only: bool = False) -> float:
+    """CUDA-event time of one call of ``fn``, the L2 flushed (``flush``
+    zeroed) before each: the median of ``REPS`` calls after dropping the
+    fastest and the slowest, after 3 warm-up calls.  With
+    ``device_only`` a sleep kernel (``HOLD_CYCLES``) is queued before the
+    first event, so the call's host work (a wrapper's checks, its
+    launches) runs while the card sleeps and the events enclose the
+    device's work alone."""
+    import torch
+
+    from dopt_torch.utils.metrics import trimmed_stats
+
+    for _ in range(3):
+        fn()
+    evs = []
+    for _ in range(REPS):
+        flush.zero_()
+        if device_only:
+            torch.cuda._sleep(HOLD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return trimmed_stats([a.elapsed_time(b) for a, b in evs])[0]
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1497,13 +1572,15 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                         for k, v in tr.x_hat.items()}
         return out
 
-    def run14(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False):
+    def run14(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False,
+              after_round=None):
         """A fresh trainer (or ``tr``) runs n rounds, per-round (each
-        timed alone, choco's exchange timed inside it) or in one blocked
-        call; eval in round 0 only (none with ``skip_eval``: the run
-        starts at round 1).  The counts are set to 0 just before the run
-        and read just after; the peak is over what was allocated before
-        the trainer."""
+        timed alone, choco's exchange timed inside it, then
+        ``after_round(tr)`` outside the timing) or in one blocked call;
+        eval in round 0 only (none with ``skip_eval``: the run starts at
+        round 1).  The counts are set to 0 just before the run and read
+        just after; the peak is over what was allocated before the
+        trainer."""
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         t = time.perf_counter()
@@ -1535,6 +1612,8 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
             tr.run(rounds=1 if block == 1 else n, block=block)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
+            if after_round is not None:
+                after_round(tr)
         got = launch_counts()
         tr.__dict__.pop("_choco_mix", None)
         peak = torch.cuda.max_memory_allocated() - base
@@ -1687,9 +1766,18 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 14d. the narrowed wire on both headlines, beside the f32 wire,
-    # 2 rounds each.
+    # -- 14d. the narrowed wire on both headlines, beside the f32 wire:
+    # the f32 wire 2 rounds (phases 15 and 17 hold their runs against
+    # them), the bf16 wire one (cut from 2 for the budget), held against
+    # the f32 wire's round 0: the gossip workers' params (the wire carries
+    # round 0's mix) and the federated theta (the wire carries round 0's
+    # aggregation; the lanes' params are the same after it).
     n = 2
+
+    def wired(tr):
+        return (tr.global_params() if isinstance(tr, FederatedTrainer)
+                else tr.worker_params())
+
     f32wire: dict[str, dict] = {}
     g32 = head.replace(gossip=rep(head.gossip, fused_update="off"))
     f32 = fhead.replace(federated=rep(fhead.federated, fused_update="off",
@@ -1700,20 +1788,21 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         for wire in (None, "bfloat16"):
             sec = "gossip" if cls is GossipTrainer else "federated"
             c = cfg.replace(**{sec: rep(getattr(cfg, sec), comm_dtype=wire)})
+            round0 = []
             tr, got, walls, peak, _ = run14(
                 f"14d {label} headline, fused epilogue off, wire "
-                f"{wire or 'float32'}", cls, c, n)
+                f"{wire or 'float32'}", cls, c, n if wire is None else 1,
+                after_round=lambda t: round0.append(wired(t))
+                if not round0 else None)
             if cls is FederatedTrainer and tr._use_compact():
                 fail("14d: the federated run left the full width")
-            res[wire] = (tr.worker_params(), n / sum(walls))
+            res[wire] = (round0[0], len(walls) / sum(walls))
             if wire is None:
                 # Phase 15 holds the scatter path against this run.
                 f32wire[label] = {
                     "rate": n / sum(walls),
                     "rows": [dict(r) for r in tr.history.rows],
-                    "params": (tr.global_params()
-                               if cls is FederatedTrainer
-                               else tr.worker_params())}
+                    "params": wired(tr)}
             if wire:
                 launch[f"headline-{'dsgd' if sec == 'gossip' else 'fedavg'}"
                        f"-model1-wire-bf16"] = got
@@ -1725,8 +1814,9 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         print(f"14d {label}: bf16 wire {res['bfloat16'][1]:.4f} against f32 "
               f"wire {res[None][1]:.4f} rounds/s "
               f"({res['bfloat16'][1] / res[None][1]:.4f}x; phase 5's fused "
-              f"headline {base_rate:.4f}); params max-rel distance from the "
-              f"f32 wire after {n} rounds {rel:.3e}; {smi}")
+              f"headline {base_rate:.4f}); "
+              f"{'theta' if cls is FederatedTrainer else 'params'} max-rel "
+              f"distance from the f32 wire after round 0 {rel:.3e}; {smi}")
         if not (rel > 0 and math.isfinite(rel)):
             fail(f"14d {label}: the bf16 wire moved params by {rel}")
 
@@ -2045,14 +2135,16 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                                        byte_budget_mb=budget / (1 << 20)))}
     b_res = {}
     for name, cfg in codec_cfgs.items():
+        # q4 one round (cut from 2 for the budget); 15g holds q8's two.
         tr, got, walls, peak, mix_s = run15(f"15b codec {name}",
-                                            GossipTrainer, cfg, n)
+                                            GossipTrainer, cfg,
+                                            n if name == "q8" else 1)
         plan = tr.codec_plan
         if plan.kinds != (name, name):
             fail(f"15b {name}: plan {plan.kinds}")
         pb = plan_bytes(plan, tr.scatter_spec)
         launch[f"headline-dsgd-model1-scatter-{name}"] = got
-        rate = n / sum(walls)
+        rate = len(walls) / sum(walls)
         share = 100 * sum(mix_s) / sum(walls)
         print(f"15b codec {name}: plan {pb['kinds']}, {pb['wire_bytes']} "
               f"wire B a lane a round against {pb['dense_bytes']} dense "
@@ -2089,14 +2181,15 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     for wire in (None, "bfloat16"):
         cfg = fs.replace(comm=None if wire is None
                          else CommConfig(wire_dtype=wire))
+        # The bf16 wire one round (cut from 2 for the budget): its rate.
         tr, got, walls, peak, _ = run15(
             f"15d fedavg headline scatter, wire {wire or 'float32'}",
-            FederatedTrainer, cfg, n)
+            FederatedTrainer, cfg, n if wire is None else 1)
         if tr._use_compact():
             fail("15d: the federated scatter run left the full width")
         launch["headline-fedavg-model1-scatter"
                + ("" if wire is None else "-wire-bf16")] = got
-        rate = n / sum(walls)
+        rate = len(walls) / sum(walls)
         if wire is None:
             bounded("15d fedavg scatter against 14d's f32 run",
                     f14["rows"], f14["params"], tr, fkeys, "test_acc")
@@ -2800,16 +2893,7 @@ def phase4c(dev, smi: str, get_preset) -> None:
         out = {**{f"grad {k}": m.cpu().numpy() for k, m in moms.items()},
                **{f"param {k}": v.detach().cpu().numpy()
                   for k, v in params.items()}}
-        names = []
-        if prof:
-            evs = [e for e in p.key_averages()
-                   if getattr(e, "device_time_total", 0) > 0]
-            names = [f"{e.key[:110]} ({e.count}x, "
-                     f"{e.device_time_total / 1e3:.3f} ms)"
-                     for e in sorted(evs, key=lambda e: -e.device_time_total)
-                     if re.search(r"conv|xmma|cudnn|cutlass|winograd|"
-                                  r"implicit|gemm|Transpose", e.key)]
-        return out, names
+        return out, (_conv_kernels(p) if prof else [])
 
     t = time.perf_counter()
     cpu, _ = step("cpu", lanes)
@@ -4032,9 +4116,8 @@ def phase21(dev, smi: str, get_preset, kit) -> dict:
     and the params within 1e-4 max-relative (dopt's own bar for its
     engine against this oracle).  21b: ``headline-dsgd-model1`` one round
     on the oracle: finite metrics, its seconds a round beside phase 5's
-    and its distance from phase 5's round 0, printed unbounded (the
-    oracle's convs are cuDNN's f32 convs, whose max-pool routing PR 16's
-    phase 4c found apart from the CPU's).  21c: one full-width step of
+    and its distance from phase 5's round 0, held to the trajectory
+    bound (1e-3 train loss, 1e-4 test accuracy).  21c: one full-width step of
     the gossip headline's model (6 lanes, batch 128, f32), ``"vmap"``
     against ``"auto"``: every gradient and updated tensor within 1e-5
     relative L2.  Returns 21a's stacked launches."""
@@ -4117,9 +4200,12 @@ def phase21(dev, smi: str, get_preset, kit) -> dict:
     print(f"21b headline-dsgd-model1 on the oracle: {json.dumps(orow)}; "
           f"{owall:.3f} s a round against phase 5's "
           f"{kit.gwall / kit.rounds:.3f} (both fused switches, 2 rounds); "
-          f"distance from phase 5's round 0 {dist} (not bounded: the "
-          f"oracle's cuDNN f32 convs route a max-pool near-tie apart, "
-          f"phase 4c); {smi}")
+          f"distance from phase 5's round 0 {dist} (limits: train loss "
+          f"{LOSS_TOL}, test accuracy {ACC_TOL}); {smi}")
+    if not (dist["avg_train_loss"] <= LOSS_TOL
+            and dist["avg_test_acc"] <= ACC_TOL):
+        fail(f"21b: the oracle's round is beyond the trajectory bound of "
+             f"phase 5's round 0: {dist}")
     del oracle
 
     # -- 21c. stacked_impl vmap against auto, one full-width step --------
@@ -4344,6 +4430,510 @@ def cli_serve(state: Path, smi: str) -> None:
           f"{time.perf_counter() - t:.1f} s; {smi}")
 
 
+def _resnet_grads_f64(p0: dict, x, y) -> dict:
+    """One worker's ResNet-18 gradients of the mean cross-entropy over
+    ``x`` ([B, H, W, C]) in float64 on the CPU, written out apart from
+    the port's forward (flax's GroupNorm: eps 1e-6, biased variance;
+    XLA's 'SAME' padding, (0, 1) for a stride-2 3×3 conv of an even
+    axis): the reference the f32 steps are read against."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    p = {k: v.double().clone().requires_grad_() for k, v in p0.items()}
+
+    def conv(z, name, stride=1):
+        k = p[name]
+        size, kk = z.shape[-1], k.shape[-1]
+        total = max((-(-size // stride) - 1) * stride + kk - size, 0)
+        lo, hi = total // 2, total - total // 2
+        return F.conv2d(F.pad(z, (lo, hi, lo, hi)), k, stride=stride)
+
+    def gn(z, prefix):
+        b, c = z.shape[:2]
+        zg = z.reshape(b, min(32, c), -1)
+        mean = zg.mean(-1, keepdim=True)
+        var = ((zg - mean) ** 2).mean(-1, keepdim=True)
+        z = ((zg - mean) / torch.sqrt(var + 1e-6)).reshape(z.shape)
+        return (z * p[f"{prefix}.scale"].view(1, c, 1, 1)
+                + p[f"{prefix}.bias"].view(1, c, 1, 1))
+
+    z = F.relu(gn(conv(x.double().permute(0, 3, 1, 2), "Conv_0.weight"),
+                  "GroupNorm_0"))
+    k = 0
+    while f"ResidualBlock_{k}.Conv_0.weight" in p:
+        blk = f"ResidualBlock_{k}"
+        proj = f"{blk}.Conv_2.weight" in p
+        s = 2 if proj else 1
+        h = F.relu(gn(conv(z, f"{blk}.Conv_0.weight", s),
+                      f"{blk}.GroupNorm_0"))
+        h = gn(conv(h, f"{blk}.Conv_1.weight"), f"{blk}.GroupNorm_1")
+        if proj:
+            z = gn(conv(z, f"{blk}.Conv_2.weight", s), f"{blk}.GroupNorm_2")
+        z = F.relu(h + z)
+        k += 1
+    logits = F.linear(z.mean((2, 3)), p["head.weight"], p["head.bias"])
+    nll = -torch.log_softmax(logits, -1).gather(-1, y[:, None]).squeeze(-1)
+    grads = torch.autograd.grad(nll.mean(), list(p.values()))
+    return {k: g.numpy().astype(np.float64) for k, g in zip(p, grads)}
+
+
+def _conv_kernels(prof) -> list[str]:
+    """The conv and GEMM kernels of a profiler window, by device time."""
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0) > 0]
+    return [f"{e.key[:110]} ({e.count}x, {e.device_time_total / 1e3:.3f} ms)"
+            for e in sorted(evs, key=lambda e: -e.device_time_total)
+            if re.search(r"conv|xmma|cudnn|cutlass|winograd|implicit|gemm|"
+                         r"Transpose|dgrad|wgrad", e.key)]
+
+
+def _resnet_b5_steps(dev, get_preset) -> dict:
+    """ResNet-18's f32 step at ``baseline5``'s full size on the card and
+    on the CPU: 32 lanes, batch 128 a lane, 32×32×3, the corrected head,
+    lr 0.1 and momentum 0.9, from one init (``init_worker_params``
+    seeded with the preset's seed, every lane the same) and one batch
+    (the first 32×128 training samples; lane 0 takes the first 128),
+    through ``stacked_step`` with the plain update under the
+    deterministic mode and ``full_f32``.  The CPU steps lane 0 alone;
+    the card steps 32 lanes twice, the second under the profiler.
+    Returns lane 0's gradients (the momentum after one step from zero)
+    and updated values on each side, the profiler's conv kernels, the
+    init and the batch."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dopt_torch.engine import gossip as gossip_engine
+    from dopt_torch.engine.local import stacked_step
+    from dopt_torch.models.zoo import (deterministic, full_f32,
+                                       init_worker_params, stacked_forward)
+
+    cfg = get_preset("baseline5")
+    mc, d = cfg.model, cfg.data
+    lanes, bs = d.num_users, cfg.gossip.local_bs
+    ds = gossip_engine.load_dataset(
+        d.dataset, data_dir=d.data_dir, train_size=d.synthetic_train_size,
+        test_size=d.synthetic_test_size, seed=cfg.seed,
+        input_shape=mc.input_shape, num_classes=mc.num_classes)
+    x = torch.from_numpy(ds.train_x[:lanes * bs]).view(lanes, bs,
+                                                       *mc.input_shape)
+    y = torch.from_numpy(ds.train_y[:lanes * bs].astype(np.int64)).view(
+        lanes, bs)
+    p0 = init_worker_params("resnet18", input_shape=mc.input_shape,
+                            generator=torch.Generator().manual_seed(
+                                cfg.seed))
+
+    def step(device, n, prof=False):
+        device = torch.device(device)
+        # A copy even at one lane, where expand().contiguous() would be
+        # a view of p0 that the step updates in place.
+        params = {k: v.expand(n, *v.shape).clone(
+            memory_format=torch.contiguous_format).to(device)
+            .requires_grad_() for k, v in p0.items()}
+        moms = {k: torch.zeros_like(v) for k, v in params.items()}
+        args = (x[:n].to(device), y[:n].to(device),
+                torch.ones(n, bs, device=device))
+        ctx = (profile(activities=[ProfilerActivity.CUDA]) if prof
+               else contextlib.nullcontext())
+        with deterministic(device), full_f32(device), ctx as p:
+            stacked_step(lambda z: stacked_forward(
+                "resnet18", params, z, faithful=mc.faithful), params, moms,
+                *args, lr=cfg.optim.lr, momentum=cfg.optim.momentum,
+                fused=False)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        out = {**{f"grad {k}": m[0].cpu().numpy() for k, m in moms.items()},
+               **{f"param {k}": v[0].detach().cpu().numpy()
+                  for k, v in params.items()}}
+        return out, (_conv_kernels(p) if prof else [])
+
+    t = time.perf_counter()
+    cpu, _ = step("cpu", 1)
+    cpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    card, _ = step(dev, lanes)
+    card_s = time.perf_counter() - t
+    again, names = step(dev, lanes, prof=True)
+    return {"cpu": cpu, "card": card, "again": again, "names": names,
+            "cpu_s": cpu_s, "card_s": card_s, "lanes": lanes, "bs": bs,
+            "p0": p0, "x": x, "y": y, "cfg": cfg}
+
+
+def phase22b(dev, smi: str, get_preset) -> dict:
+    """Phase 22b, ResNet-18's f32 step at ``baseline5``'s full size on
+    the card against the port's CPU step, as 4c holds Model1's
+    (``_resnet_b5_steps``; on the CPU one lane equals lane 0 of many bit
+    for bit, tests/test_torch_library.py).  The card's two 32-lane steps
+    must be bit-identical; lane 0's 62 gradients and 62 updated
+    parameters are each held to 1e-5 relative L2 of the CPU's (max-rel
+    printed), and the conv kernels the card ran are named from the
+    profiler.  A miss prints each side's distance from lane 0's f64
+    gradients.  Returns ``_resnet_b5_steps``' result for 22a."""
+    import numpy as np
+
+    t22 = time.perf_counter()
+    r = _resnet_b5_steps(dev, get_preset)
+    cpu, card, lanes = r["cpu"], r["card"], r["lanes"]
+    print(f"22b the CPU step at 1 lane (ResNet-18, "
+          f"{r['cfg'].model.input_shape}, batch {r['bs']}): "
+          f"{r['cpu_s']:.1f} s")
+    if any(not np.array_equal(card[k], r["again"][k]) for k in card):
+        fail(f"22b: two card steps at {lanes} lanes differ")
+    print(f"22b the card's step at {lanes} lanes: {r['card_s']:.2f} s; run "
+          "twice, bit-identical")
+    worst, bad = {}, []
+    for key in card:
+        want, got = cpu[key], card[key]
+        l2 = _rel_l2(want, got)
+        kind = key.split()[0]
+        worst[kind] = max(worst.get(kind, 0.0), l2)
+        print(f"22b lane 0 of {lanes}, {key}: relative L2 {l2:.3e}, max-rel "
+              f"{_elem_rel(want, got):.3e}")
+        if not l2 <= 1e-5:
+            bad.append(f"{key} {l2:.3e}")
+    print(f"22b the conv and GEMM kernels the card ran at {lanes} lanes:")
+    for name in r["names"]:
+        print(f"    {name}")
+    if bad:
+        f64 = _resnet_grads_f64(r["p0"], r["x"][0], r["y"][0])
+        for key in card:
+            kind, name = key.split()
+            if kind == "grad":
+                print(f"22b against f64, {name}: card "
+                      f"{_rel_l2(f64[name], card[key]):.3e}, CPU "
+                      f"{_rel_l2(f64[name], cpu[key]):.3e}")
+    print(f"22b ResNet-18's step at baseline5's size, lane 0 of the card's "
+          f"{lanes} against the CPU's 1 lane: worst relative L2 "
+          f"{ {k: f'{v:.3e}' for k, v in worst.items()} } (limit 1e-5) on "
+          f"{len(card)} tensors; 22b in {time.perf_counter() - t22:.1f} s; "
+          f"{smi}")
+    if bad:
+        fail(f"22b: the card's step is beyond 1e-5 relative L2 of the "
+             f"CPU's: {bad}")
+    return r
+
+
+# One arm of ``--resnet-ab``: ``python3 -c _AB_ARM TREE SCRIPT LABEL
+# STEPS`` imports ``dopt_torch`` from TREE, then this script's
+# functions, and runs ``resnet_ab_arm``.
+_AB_ARM = """
+import importlib.util, sys
+tree, script, label, steps = sys.argv[1:]
+sys.path.insert(0, tree)
+import dopt_torch
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", script)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod.resnet_ab_arm(label, tree, steps == "1")
+"""
+
+
+def resnet_ab(parent: str) -> None:
+    """``python3 chip_smoke.py --resnet-ab DIR``: ResNet-18's f32 training
+    arithmetic in this tree against DIR's, a checkout of the parent
+    commit (``git archive`` unpacked into a directory that .gitignore
+    lists), on one card in one call.  Each arm is a process of its own
+    that imports its tree's ``dopt_torch`` (``resnet_ab_arm``), in the
+    order DIR, this tree, this tree, DIR; the first arm of each tree also
+    takes phase 22b's steps.  Prints each tree's mean second round of
+    ``baseline5`` with both fused switches and the ratio of this tree's
+    to DIR's."""
+    here = ROOT / "chip_smoke.py"
+    smi = nvidia_smi()
+    walls: dict = {"parent": [], "this": []}
+    for i, (label, tree) in enumerate((("parent", parent), ("this", ROOT),
+                                       ("this", ROOT), ("parent", parent))):
+        r = subprocess.run(
+            [sys.executable, "-c", _AB_ARM, str(Path(tree).resolve()),
+             str(here), label, "1" if i < 2 else "0"],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        print(r.stdout, end="", flush=True)
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr)
+            fail(f"resnet-ab: the {label} arm exited {r.returncode}")
+        walls[label].append(json.loads(r.stdout.splitlines()[-1])["walls"])
+    # Each arm's second round (its first takes the arm's first calls).
+    this = sum(w[1] for w in walls["this"]) / 2
+    base = sum(w[1] for w in walls["parent"]) / 2
+    print(f"resnet-ab baseline5 f32 round: this tree {this:.3f} s, parent "
+          f"{base:.3f} s, this/parent {this / base:.4f}; {smi}")
+
+
+def resnet_ab_arm(label: str, tree: str, steps: bool) -> None:
+    """One arm of ``--resnet-ab``, in a process whose ``dopt_torch`` is
+    ``tree``'s.  With ``steps``: phase 22b's steps (``_resnet_b5_steps``)
+    and the card's lane 0 and the CPU's against each other and against
+    lane 0's f64 gradients (the worst tensor, the tensors beyond 1e-5,
+    each conv's weight gradient).  Then a fresh ``baseline5`` trainer
+    with both fused switches takes rounds 1 and 2 (no eval, as 13a),
+    timed, with the peak over what was held before it.  The last line is
+    ``{"walls": [...]}``."""
+    import dopt_torch
+    import torch
+
+    from dopt_torch.engine import GossipTrainer
+    from dopt_torch.ops import _build
+    from dopt_torch.presets import get_preset
+
+    if not Path(dopt_torch.__file__).resolve().is_relative_to(
+            Path(tree).resolve()):
+        fail(f"resnet-ab {label}: dopt_torch is {dopt_torch.__file__}, "
+             f"not {tree}'s")
+    smi = nvidia_smi()
+    dev = torch.device("cuda")
+    _build.build()
+    _build.load_library()
+    if steps:
+        r = _resnet_b5_steps(dev, get_preset)
+        f64 = _resnet_grads_f64(r["p0"], r["x"][0], r["y"][0])
+        grads = [k for k in r["card"] if k.startswith("grad")]
+        for side in ("card", "cpu"):
+            worst = max(_rel_l2(f64[k.split()[1]], r[side][k]) for k in grads)
+            print(f"resnet-ab {label}: {side} against f64, worst gradient "
+                  f"relative L2 {worst:.3e}")
+        l2 = {k: _rel_l2(r["cpu"][k], r["card"][k]) for k in r["card"]}
+        over = sorted(k for k, v in l2.items() if v > 1e-5)
+        print(f"resnet-ab {label}: card vs CPU at {r['lanes']} lanes, worst "
+              f"relative L2 {max(l2.values()):.3e}; {len(over)} of "
+              f"{len(l2)} tensors beyond 1e-5: {over}; card step "
+              f"{r['card_s']:.2f} s; {smi}")
+        print(f"resnet-ab {label}: conv weight gradients, card vs CPU: "
+              + ", ".join(f"{k.split()[1]} {v:.3e}" for k, v in l2.items()
+                          if k.startswith("grad") and "Conv" in k))
+        print(f"resnet-ab {label}: the conv and GEMM kernels of the card's "
+              f"step at {r['lanes']} lanes:")
+        for name in r["names"]:
+            print(f"    {name}")
+        del r
+    b5 = get_preset("baseline5")
+    cfg = b5.replace(optim=dataclasses.replace(b5.optim, fused_update=True),
+                     gossip=dataclasses.replace(b5.gossip,
+                                                fused_update="on"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = GossipTrainer(cfg, device=dev, eval_every=10 ** 9)
+    tr.round = 1
+    got = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.run(rounds=1)
+        torch.cuda.synchronize()
+        got.append(time.perf_counter() - t)
+    print(f"resnet-ab baseline5 f32, both fused switches, {label}: round "
+          f"walls {got} s; peak "
+          f"{torch.cuda.max_memory_allocated() - base} B over what was "
+          f"held; {smi}")
+    print(json.dumps({"walls": got}))
+
+
+# Phase 22a's models: each at its preset's width and input.
+LIBRARY_PRESETS = {"model1": "headline-dsgd-model1", "model3": "baseline2",
+                   "mlp": "baseline1", "logistic": "baseline4",
+                   "resnet18": "baseline5"}
+
+
+def phase22(dev, smi: str, get_preset, kit) -> dict:
+    """Phase 22, dopt's library surface on the card.  22b first
+    (``phase22b``).  22a: for each zoo model at its preset's width and
+    input (``LIBRARY_PRESETS``), batch 128, f32 under the deterministic
+    mode and ``full_f32``: ``build_model`` on the card, three SGD steps
+    of ``cross_entropy`` → autograd → ``fused_sgd_momentum_tree`` (kernel
+    1, its launches counted: a launch per 16 tensors a step), bit for bit
+    the same steps through kernel 1's plain version on the card; the
+    first step held to 1e-5 relative L2 a tensor (gradient and updated
+    value) of ``build_model``'s CPU step on the same init and batch
+    (ResNet-18's: 22b's CPU lane, 22b's init and lane-0 batch, so this
+    is also 22b's one-worker library check), and ``accuracy`` after it
+    equal on both.  Inputs are normal draws from a seed (ResNet-18's:
+    22b's batches).  22c: kernel 1 at the new call site, the tree wrapper
+    over one model's tensors, against its plain version, bit for bit, and
+    timed on the device alone (``event_ms``'s ``device_only``: cold L2,
+    the median of 25) beside the plain version, ``SGD(fused=True).step``
+    and the bytes bound.  ``kit`` holds the L2 flush buffer.  Returns
+    each model's launches and timing row."""
+    import numpy as np
+    import torch
+
+    import dopt_torch
+    from dopt_torch.models import accuracy, cross_entropy
+    from dopt_torch.models.zoo import deterministic, full_f32
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             fused_sgd_momentum_tree,
+                                             sgd_momentum_reference)
+    from dopt_torch.optim import init_sgd
+
+    t22 = time.perf_counter()
+    res22b = phase22b(dev, smi, get_preset)
+    cpu_dev = torch.device("cpu")
+    rng = np.random.default_rng(22)
+
+    def run(name, cfg, device, batches, steps, fused):
+        """``steps`` library steps of zoo model ``name`` on ``device``
+        from the seeded init (ResNet-18: 22b's); returns the first
+        step's gradients and values, its accuracy and the final state."""
+        mc = cfg.model
+        model = dopt_torch.build_model(
+            name, num_classes=mc.num_classes, faithful=mc.faithful,
+            input_shape=mc.input_shape, device=device,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        params = dict(model.named_parameters())
+        if name == "resnet18":
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.copy_(res22b["p0"][k])
+        moms = init_sgd(params).momentum
+        first = None
+        with deterministic(device), full_f32(device):
+            for t, (x, y) in enumerate(batches[:steps]):
+                x, y = x.to(device), y.to(device)
+                loss = cross_entropy(model(x), y)
+                grads = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+                if fused:
+                    fused_sgd_momentum_tree(params, moms, grads,
+                                            lr=cfg.optim.lr,
+                                            mu=cfg.optim.momentum)
+                else:
+                    sgd_momentum_reference(
+                        list(params.values()), [moms[k] for k in params],
+                        [grads[k] for k in params], lr=cfg.optim.lr,
+                        momentum=cfg.optim.momentum)
+                if t == 0:
+                    with torch.no_grad():
+                        acc = float(accuracy(model(x), y))
+                    first = {**{f"grad {k}": g.cpu().numpy()
+                                for k, g in grads.items()},
+                             **{f"param {k}": v.detach().cpu().numpy()
+                                for k, v in params.items()}}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        final = {**{f"mom {k}": m.cpu().numpy() for k, m in moms.items()},
+                 **{f"param {k}": v.detach().cpu().numpy()
+                    for k, v in params.items()}}
+        return first, acc, final, len(params)
+
+    # -- 22a. the library path at full width ------------------------------
+    out: dict = {}
+    for name, preset in LIBRARY_PRESETS.items():
+        t = time.perf_counter()
+        cfg = get_preset(preset)
+        mc = cfg.model
+        if name == "resnet18":
+            batches = [(res22b["x"][i], res22b["y"][i]) for i in range(3)]
+        else:
+            batches = [(torch.from_numpy(rng.standard_normal(
+                (128, *mc.input_shape), dtype=np.float32)),
+                torch.from_numpy(rng.integers(0, mc.num_classes, 128)))
+                for _ in range(3)]
+        fused_sgd_momentum.launches = 0
+        fused_mix_sgd.launches = 0
+        first, acc, final, n = run(name, cfg, dev, batches, 3, True)
+        launches = {"fused_sgd_momentum": fused_sgd_momentum.launches,
+                    "fused_mix_sgd": fused_mix_sgd.launches}
+        want = {"fused_sgd_momentum": 3 * -(-n // 16), "fused_mix_sgd": 0}
+        if launches != want:
+            fail(f"22a {name}: launches {launches}, expected {want} (3 steps "
+                 f"over {n} tensors)")
+        _, plain_acc, plain, _ = run(name, cfg, dev, batches, 3, False)
+        if any(not np.array_equal(final[k], plain[k]) for k in final) or \
+                plain_acc != acc:
+            fail(f"22a {name}: the kernel's 3 steps differ from the plain "
+                 "update's")
+        if name == "resnet18":
+            cpu = res22b["cpu"]
+            model = dopt_torch.build_model(name, input_shape=mc.input_shape,
+                                           device=cpu_dev)
+            with torch.no_grad(), full_f32(cpu_dev):
+                for k, v in model.named_parameters():
+                    v.copy_(torch.from_numpy(cpu[f"param {k}"]))
+                cpu_acc = float(accuracy(model(batches[0][0]),
+                                         batches[0][1]))
+            del model
+        else:
+            cpu, cpu_acc, _, _ = run(name, cfg, cpu_dev, batches, 1, False)
+        worst = {k: _rel_l2(cpu[k], first[k]) for k in first}
+        top = max(worst.values())
+        label = ("22a resnet18 (and 22b's one-worker library step)"
+                 if name == "resnet18" else f"22a {name}")
+        print(f"{label} at {preset}'s width, {mc.input_shape}, batch 128: "
+              f"3 steps, kernel 1 {launches['fused_sgd_momentum']} launches "
+              f"over {n} tensors, bit for bit the plain update's; step 1 "
+              f"against the CPU's: worst relative L2 {top:.3e} (limit 1e-5; "
+              f"max-rel {max(_elem_rel(cpu[k], first[k]) for k in first):.3e}"
+              f"); accuracy after it: card {acc}, CPU {cpu_acc}; "
+              f"{time.perf_counter() - t:.1f} s")
+        if not top <= 1e-5:
+            fail(f"22a {name}: step 1 beyond 1e-5 of the CPU's: "
+                 f"{ {k: v for k, v in worst.items() if v > 1e-5} }")
+        if abs(cpu_acc - acc) > ACC_TOL:
+            fail(f"22a {name}: accuracy {acc} on the card, {cpu_acc} on the "
+                 "CPU")
+        out[name] = {"launches": launches, "tensors": n}
+
+    # -- 22c. kernel 1 at the new call site, timed ------------------------
+    gen = torch.Generator(device=dev).manual_seed(22)
+    lr1, mu1 = 0.01, 0.5
+
+    def device_ms(fn) -> float:
+        return event_ms(fn, kit.flush, device_only=True)
+
+    for name, preset in LIBRARY_PRESETS.items():
+        mc = get_preset(preset).model
+        model = dopt_torch.build_model(name, num_classes=mc.num_classes,
+                                       input_shape=mc.input_shape, device=dev)
+        shapes = {k: v.shape for k, v in model.named_parameters()}
+        del model
+
+        def draw():
+            return {k: torch.randn(s, device=dev, generator=gen)
+                    for k, s in shapes.items()}
+
+        p, m, g = draw(), draw(), draw()
+        pk = {k: v.clone() for k, v in p.items()}
+        mk = {k: v.clone() for k, v in m.items()}
+        fused_sgd_momentum_tree(pk, mk, g, lr=lr1, mu=mu1)
+        pr = [v.clone() for v in p.values()]
+        mr = [v.clone() for v in m.values()]
+        sgd_momentum_reference(pr, mr, list(g.values()), lr=lr1,
+                               momentum=mu1)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(list(pk.values()) + list(mk.values()),
+                                  pr + mr))
+        if err != 0.0:
+            fail(f"22c {name}: the tree wrapper differs from the plain "
+                 f"version by {err:.3e}")
+        row = {"ms": device_ms(lambda: fused_sgd_momentum_tree(
+                   p, m, g, lr=lr1, mu=mu1)),
+               "plain_ms": device_ms(lambda: sgd_momentum_reference(
+                   list(p.values()), list(m.values()), list(g.values()),
+                   lr=lr1, momentum=mu1)),
+               "max_abs_err": err}
+        lp = [v.clone().requires_grad_() for v in p.values()]
+        for v, gr in zip(lp, g.values()):
+            v.grad = gr.clone()
+        opt = torch.optim.SGD(lp, lr=lr1, momentum=mu1, fused=True)
+        row["library_ms"] = device_ms(opt.step)
+        elems = sum(v.numel() for v in p.values())
+        row["bound_ms"], row["bound_by"] = bound_ms(20 * elems, 4 * elems)
+        out[name]["row"] = row
+        print(f"22c time fused_sgd_momentum_tree {name} (one model, "
+              f"{len(shapes)} tensors, {elems} f32): kernel "
+              f"{1e3 * row['ms']:.1f} us, plain {1e3 * row['plain_ms']:.1f} "
+              f"us, SGD(fused=True) {1e3 * row['library_ms']:.1f} us (device "
+              f"time alone, each), bound {1e3 * row['bound_ms']:.1f} us "
+              f"({row['bound_by']}); bit-identical to the plain version; "
+              f"{smi}")
+    print(f"22: phase 22 in {time.perf_counter() - t22:.1f} s")
+    return out
+
+
 def main() -> None:
     global T0
     T0 = time.perf_counter()
@@ -4369,22 +4959,14 @@ def main() -> None:
         from dopt_torch.topology import (build_mixing_matrices,
                                          random_matching_matrix)
         from dopt_torch.obs import MemorySink, Telemetry, attach
-        from dopt_torch.utils.metrics import trimmed_stats
         from dopt_torch.utils.profiling import device_stats_of
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repo): {e}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    # -- 1. environment ---------------------------------------------------
+    smi = nvidia_smi()
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    # -- 1. environment ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True
-    ).stdout.strip().splitlines()[0]
-    print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
@@ -4454,21 +5036,7 @@ def main() -> None:
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
     def time_ms(fn) -> float:
-        """CUDA-event time of one call, L2 flushed before each: the
-        median after dropping the fastest and the slowest call."""
-        for _ in range(3):
-            fn()
-        evs = []
-        for _ in range(REPS):
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            evs.append((a, b))
-        torch.cuda.synchronize()
-        return trimmed_stats([a.elapsed_time(b) for a, b in evs])[0]
+        return event_ms(fn, flush)
 
     def within(got, want, rtol, atol) -> float:
         err = (got.float() - want.float()).abs()
@@ -5067,30 +5635,34 @@ def main() -> None:
              + k2f["ms"] * rounds) / (1e3 * fwall)
     print(f"kernel share of the federated main path's wall time (event "
           f"times x launches): {100 * share:.2f}%")
+    # One round (cut from 2 for the budget): its rate beside 5b's.
     btr, _, bwall = main_path(
-        "baseline3", FederatedTrainer, rounds,
+        "baseline3", FederatedTrainer, 1,
         ("train_loss", "test_loss", "local_loss"),
         ("train_acc", "test_acc"), fw)
     if not btr._use_compact():
         fail("baseline3 as typed must take the compact path")
     print(f"baseline3 as typed ({btr._sampled_count()} of {fw} lanes train, "
-          f"unfused): {rounds / bwall:.4f} rounds/s; headline-fedavg-model1 "
-          f"(all {fw} lanes, both fused switches): {rounds / fwall:.4f} "
-          f"rounds/s; the fused full-width path takes {fwall / bwall:.3f}x "
-          f"the time")
+          f"unfused): {1 / bwall:.4f} rounds/s (round 0); "
+          f"headline-fedavg-model1 (all {fw} lanes, both fused switches): "
+          f"{rounds / fwall:.4f} rounds/s; the fused full-width path takes "
+          f"{fwall / rounds / bwall:.3f}x the time a round")
     del btr
 
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 5d/5e")
     # -- 5d/5e. the JAX bench's fast legs: bf16 compute, f32 storage -----
     fast, fast_walls = {}, {}
-    for name in ("headline-dsgd-model1-bf16",
-                 "headline-dsgd-model1-idiomatic-bf16"):
+    # The idiomatic leg one round (cut from 2 for the budget): only its
+    # rate is read; 7b holds the fast leg's 2 rounds blocked.
+    for name, n_rounds in (("headline-dsgd-model1-bf16", rounds),
+                           ("headline-dsgd-model1-idiomatic-bf16", 1)):
         tr, launch, wall = main_path(
-            name, GossipTrainer, rounds, ("avg_train_loss", "avg_test_loss"),
+            name, GossipTrainer, n_rounds, ("avg_train_loss",
+                                            "avg_test_loss"),
             ("avg_train_acc", "avg_test_acc"), gw)
-        print(f"{name}: {rounds / wall:.4f} rounds/s against the f32 "
+        print(f"{name}: {n_rounds / wall:.4f} rounds/s against the f32 "
               f"headline's {rounds / gwall:.4f} in this run: "
-              f"{gwall / wall:.3f}x")
+              f"{gwall / rounds / (wall / n_rounds):.3f}x")
         fast[name] = (tr, launch, state(tr))
         fast_walls[name] = wall
         del tr
@@ -5128,9 +5700,12 @@ def main() -> None:
         for fn, (_, seen) in codes.items():
             seen.clear()
             setattr(lib, fn, recording(fn))
+        # The federated run one round (cut from 2 for the budget); 8c
+        # resumes the gossip run's 2 rounds.
         try:
             tr, bf16_launch[label], _ = main_path(
-                f"{preset} (bf16 compute and storage)", cls, rounds, keys,
+                f"{preset} (bf16 compute and storage)", cls,
+                1 if label == "federated" else rounds, keys,
                 accs, fw if label == "federated" else gw, cfg=cfg)
         finally:
             for fn, orig in originals.items():
@@ -5334,18 +5909,21 @@ def main() -> None:
             # Warm-up: round 0 (the eval round); blocked, one block of 2,
             # which captures the eval and the no-eval graph.
             tr.run(rounds=block, block=block)
+            # Timed: one block of 2 rounds, or one round per-round (cut
+            # from 2 for the budget).
+            timed = block
             torch.cuda.synchronize()
             t = time.perf_counter()
-            tr.run(rounds=2, block=block)
+            tr.run(rounds=timed, block=block)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            got[mode] = 2 / wall
+            got[mode] = timed / wall
             if not all(math.isfinite(r["avg_train_loss"])
                        for r in tr.history.rows):
                 fail(f"{name} {mode}: non-finite train loss")
             caps = {("eval" if k else "no-eval"): v
                     for k, v in tr.graphs.captures.items()}
-            print(f"7c {name} {mode}: 2 rounds in {wall:.3f} s = "
+            print(f"7c {name} {mode}: {timed} rounds in {wall:.3f} s = "
                   f"{got[mode]:.4f} rounds/s; max_memory_allocated "
                   f"{torch.cuda.max_memory_allocated()} B, "
                   f"max_memory_reserved {torch.cuda.max_memory_reserved()} "
@@ -5454,17 +6032,18 @@ def main() -> None:
     fed_keys = (("train_loss", "test_loss", "local_loss"),
                 ("train_acc", "test_acc"))
     slice_launch, slice_rate = {}, {}
+    # One round each (cut from 2 for the budget) but 9c's, which 9f holds
+    # blocked.
     for key, preset, cls, both, keys, workers, n_rounds in (
             ("9a", "reference-gossip", GossipTrainer, True, gossip_keys, 6,
-             rounds),
-            ("9b", "baseline2", GossipTrainer, True, gossip_keys, 16, rounds),
+             1),
+            ("9b", "baseline2", GossipTrainer, True, gossip_keys, 16, 1),
             ("9c", "baseline1", GossipTrainer, True, gossip_keys, 4, rounds),
-            ("9d", "baseline4", FederatedTrainer, False, fed_keys, 16,
-             rounds),
+            ("9d", "baseline4", FederatedTrainer, False, fed_keys, 16, 1),
             ("9e", "reference-fedlcon", GossipTrainer, False, gossip_keys, 6,
-             rounds),
+             1),
             ("9e", "reference-nocons-noniid", GossipTrainer, False,
-             gossip_keys, 6, rounds),
+             gossip_keys, 6, 1),
             ("9e", "reference-centralized", GossipTrainer, False,
              gossip_keys, 1, 1)):
         cfg = switched(get_preset(preset), both)
@@ -5679,12 +6258,14 @@ def main() -> None:
              "a step)")
 
     # 10c: dopt's three gossip fault presets at full width.
+    # baseline1-faulty and baseline1-lossy one round each (cut from 2 for
+    # the budget).
     b1f = switched(get_preset("baseline1-faulty"))
     tr, _, got, rate, peak, _ = fault_run("10c baseline1-faulty (both fused "
-                                          "switches)", b1f, rounds, 1)
+                                          "switches)", b1f, 1, 1)
     fault_launch["baseline1-faulty"] = got
     fault_rate["10c baseline1-faulty"] = (rate, None, peak, None, None, None)
-    if got["fused_mix_sgd"] != rounds or not got["fused_sgd_momentum"]:
+    if got["fused_mix_sgd"] != 1 or not got["fused_sgd_momentum"]:
         fail(f"10c baseline1-faulty: launches {got}")
     del tr
     byz = get_preset("baseline1-byzantine")
@@ -5715,8 +6296,8 @@ def main() -> None:
             fail(f"10c: worker {w} lied or was screened while benched")
     del tr
     lossy = get_preset("baseline1-lossy")
-    tr, st, got, rate, peak, _ = fault_run("10c baseline1-lossy", lossy,
-                                           rounds, 1)
+    tr, st, got, rate, peak, _ = fault_run("10c baseline1-lossy", lossy, 1,
+                                           1)
     fault_rate["10c baseline1-lossy"] = (rate, None, peak, None, None, None)
     total = float(tr._mass.double().sum()
                   + tr._link_buf_mass.double().sum())
@@ -5914,6 +6495,11 @@ def main() -> None:
     # -- 21. backend="torch" and stacked_impl="vmap" -----------------------
     launch21 = phase21(dev, smi, get_preset, types.SimpleNamespace(
         rounds=rounds, gwall=gwall, g_rows=g_state["rows"]))
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 22")
+
+    # -- 22. dopt's library surface ----------------------------------------
+    res22 = phase22(dev, smi, get_preset, types.SimpleNamespace(
+        flush=torch.empty(256 << 20, dtype=torch.uint8, device=dev)))
     print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
 
     source = "dopt_torch/csrc/fused_update.cu"
@@ -6067,6 +6653,17 @@ def main() -> None:
                             "route": "cuda", "source": source,
                             "replaces": "dopt/ops/fused_update.py:134",
                             "launches": launched["fused_mix_sgd"], **t2})
+    for name, preset in LIBRARY_PRESETS.items():
+        kernels.append({
+            "name": f"fused_sgd_momentum:library-{name}",
+            "path": f"22a: build_model('{name}') at {preset}'s width, one "
+                    "worker, batch 128, 3 steps of cross_entropy, autograd "
+                    "and fused_sgd_momentum_tree (a launch per 16 tensors a "
+                    "step); timed at the same site (22c)",
+            "route": "cuda", "source": source,
+            "replaces": "dopt/ops/fused_update.py:57",
+            "launches": res22[name]["launches"]["fused_sgd_momentum"],
+            **res22[name]["row"]})
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6077,5 +6674,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--conv-ab"]:
         conv_ab()
+    elif sys.argv[1:2] == ["--resnet-ab"] and len(sys.argv) == 3:
+        resnet_ab(sys.argv[2])
     else:
         main()

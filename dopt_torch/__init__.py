@@ -47,6 +47,13 @@ torch model and optimizer a worker, state-dict consensus) and
 ``model.stacked_impl="vmap"`` runs the engines' forward as a
 ``torch.func.vmap`` over the worker's model; ``dopt_torch.analysis``
 holds dopt's static gates (lint, eligibility, fingerprint).
+
+dopt's library surface is here too: ``build_model`` (lazy, as dopt's)
+gives one worker's zoo model as an ``nn.Module`` that loads dopt's flax
+params (``load_jax_params``), ``dopt_torch.models`` has the single-model
+losses, ``dopt_torch.optim`` ``init_sgd`` and ``clip_by_global_norm``,
+and ``dopt_torch.ops.fused_sgd_momentum_tree`` steps one model's
+tensors through the update kernel.
 """
 
 import os
@@ -61,13 +68,33 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 from dopt_torch.config import (CommConfig, DataConfig, ExperimentConfig,
                                FaultConfig, FederatedConfig, GossipConfig,
                                ModelConfig, OptimizerConfig, PopulationConfig,
-                               RobustConfig, SeqLMConfig)
+                               RobustConfig, SeqLMConfig, from_reference_args)
 from dopt_torch.engine import FederatedTrainer, GossipTrainer, SeqLMTrainer
 from dopt_torch.parallel import (WorkerGroup, engine_group, init_file_group,
                                  spawn_ranks)
 from dopt_torch.presets import PRESETS, get_preset
+from dopt_torch.topology import (MixingMatrices, Topology,
+                                 build_mixing_matrices)
+
+# Resolved at first use (PEP 562), as dopt's ``_LAZY``.
+_LAZY = {"build_model": ("dopt_torch.models", "build_model")}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'dopt_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(__all__)
+
 
 __all__ = [
+    "from_reference_args",
     "CommConfig",
     "DataConfig",
     "ExperimentConfig",
@@ -88,4 +115,8 @@ __all__ = [
     "get_preset",
     "init_file_group",
     "spawn_ranks",
+    "MixingMatrices",
+    "Topology",
+    "build_mixing_matrices",
+    *_LAZY,
 ]

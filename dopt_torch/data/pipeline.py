@@ -95,6 +95,14 @@ def make_batch_plan(index_matrix: np.ndarray, *, batch_size: int,
     return BatchPlan(idx=idx, weight=weight)
 
 
+def gather_batches(x: np.ndarray, y: np.ndarray, plan: BatchPlan
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Materialise ``[W, S, B, ...]`` feature, int32 label and weight
+    arrays from a plan on the host (dopt's one-round transfer payload;
+    the port's engines gather on the device instead)."""
+    return x[plan.idx], y[plan.idx].astype(np.int32), plan.weight
+
+
 def eval_batches(x: np.ndarray, y: np.ndarray, *, batch_size: int
                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Static-shape eval split: [S, B, ...] with a wraparound padding

@@ -38,9 +38,26 @@ on that event before it reads the tensors.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
+
+
+def timed_build(build, timers):
+    """Wrap a pure block ``build`` so its runtime adds to ``timers``'
+    ``host_batch_plan`` totals from the stager's background thread
+    (dopt's ``timed_build``: the ``PhaseTimers`` spans are not for
+    concurrent use across threads, so the totals are added directly)."""
+
+    def wrapped(meta):
+        t0 = time.perf_counter()  # dopt: allow-wallclock -- span timing only, never training math
+        out = build(meta)
+        timers.totals["host_batch_plan"] += time.perf_counter() - t0  # dopt: allow-wallclock -- span timing only, never training math
+        timers.counts["host_batch_plan"] += 1
+        return out
+
+    return wrapped
 
 
 class _Staged:

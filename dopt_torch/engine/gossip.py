@@ -187,11 +187,12 @@ from dopt_torch.data import (eval_batches, load_dataset, make_batch_plan,
                              partition, sharded_eval_batches, upload)
 from dopt_torch.engine.graphs import RoundGraphs, run_blocked
 from dopt_torch.engine.local import (local_steps, prepare_holdout,
-                                     stacked_eval_gathered, stacked_evaluate)
+                                     stacked_eval_gathered, stacked_evaluate,
+                                     validate_optimizer)
 from dopt_torch.faults import (FaultPlan, churn_ledger_rows, corrupt_update,
                                validate_fault_config)
-from dopt_torch.models.zoo import (MODELS, STACKED, StackedModel,
-                                   deterministic, full_f32,
+from dopt_torch.models.zoo import (COMPUTE_DTYPES, MODELS, STACKED,
+                                   StackedModel, deterministic, full_f32,
                                    init_worker_params, param_shapes,
                                    stacked_forward)
 from dopt_torch.obs import consensus_distance
@@ -215,6 +216,8 @@ from dopt_torch.population import (ClientRegistry, population_gauges,
 from dopt_torch.robust import (byzantine_mix, clipped_gossip_mix,
                                finite_lane_mask, lane_sq_norms,
                                validate_robust_config)
+# random_matching_matrix is also this module's name for it, at dopt's path
+# (dopt.engine.gossip.random_matching_matrix).
 from dopt_torch.topology import (build_mixing_matrices, coeffs_for_matrix,
                                  push_sum_link_matrix, random_matching_matrix,
                                  repair_for_dropout, repair_for_dropout_torch,
@@ -228,7 +231,7 @@ from dopt_torch.utils.profiling import (CompileWatcher, PhaseTimers,
                                         emit_device_resource)
 
 # The dtypes ``model.compute_dtype`` and ``model.param_dtype`` take.
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = COMPUTE_DTYPES
 ALGORITHMS = ("dsgd", "nocons", "centralized", "fedlcon", "gossip", "choco")
 # The algorithms that mix with a topology's schedule (gossip draws a
 # matching each round; nocons does not mix).
@@ -292,9 +295,7 @@ def validate_common(cfg: ExperimentConfig) -> None:
         if getattr(m, knob) not in DTYPES:
             raise ValueError(f"unknown model.{knob} {getattr(m, knob)!r}; "
                              f"one of {'|'.join(DTYPES)}")
-    if cfg.optim.optimizer.lower() != "sgd":
-        raise ValueError(f"unknown optimizer {cfg.optim.optimizer!r}: only "
-                         "'sgd' exists (the reference's single optimizer)")
+    validate_optimizer(cfg)
 
 
 def validate_slice(cfg: ExperimentConfig) -> None:

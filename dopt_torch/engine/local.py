@@ -35,6 +35,16 @@ from dopt_torch.ops.fused_update import fused_sgd_momentum
 from dopt_torch.optim import clip_by_global_norm_stacked, sgd_step
 
 
+def validate_optimizer(cfg) -> None:
+    """Only 'sgd' exists (the reference's single optimizer,
+    clients.py:14): anything else fails at trainer construction rather
+    than silently running SGD.  The one check every engine makes."""
+    if cfg.optim.optimizer.lower() != "sgd":
+        raise ValueError(
+            f"unknown optimizer {cfg.optim.optimizer!r}: only 'sgd' "
+            "exists (the reference's single optimizer, clients.py:14)")
+
+
 def prepare_holdout(cfg, index_matrix, *, batch_size: int):
     """The reference's local train/val holdout (``train_val_test``):
     returns ``(train_matrix, val)`` where ``val`` is the per-worker

@@ -38,6 +38,7 @@ import torch
 from dopt_torch.config import ExperimentConfig
 from dopt_torch.convert import params_to_jax, port_layout
 from dopt_torch.engine.gossip import DTYPES, resolve_device
+from dopt_torch.engine.local import validate_optimizer
 from dopt_torch.models.zoo import (TransformerLM, count_params, deterministic,
                                    full_f32, init_transformer_params,
                                    transformer_shapes)
@@ -89,10 +90,7 @@ class SeqLMTrainer:
         if s.attn not in ATTN:
             raise ValueError(
                 f"unknown attn {s.attn!r}; one of ring|ulysses|dense")
-        if cfg.optim.optimizer.lower() != "sgd":
-            raise ValueError(
-                f"unknown optimizer {cfg.optim.optimizer!r}: only 'sgd' "
-                "exists (the reference's single optimizer, clients.py:14)")
+        validate_optimizer(cfg)
         if cfg.model.compute_dtype not in DTYPES:
             raise ValueError(f"unknown model.compute_dtype "
                              f"{cfg.model.compute_dtype!r}; one of "

@@ -40,6 +40,7 @@ from dopt_torch.convert import params_to_jax
 from dopt_torch.data import (eval_batches, holdout_split, load_dataset,
                              make_batch_plan, partition, stacked_eval_batches)
 from dopt_torch.engine.gossip import initial_params, resolve_device
+from dopt_torch.engine.local import validate_optimizer
 from dopt_torch.engine.oracle import (OracleWorker, consensus, nhwc_to_nchw,
                                       port_to_twin, torch_logistic, torch_mlp,
                                       torch_reference_cnn, twin_to_port)
@@ -91,20 +92,13 @@ def _layout_converter(model_cfg):
     return lambda x: x
 
 
-def _validate_optimizer(cfg: ExperimentConfig) -> None:
-    if cfg.optim.optimizer.lower() != "sgd":
-        raise ValueError(
-            f"unknown optimizer {cfg.optim.optimizer!r}: only 'sgd' "
-            "exists (the reference's single optimizer, clients.py:14)")
-
-
 class _TorchTrainerBase:
     """Shared setup: data, partition, holdout, eval stacks and the fleet
     of twins, every one loaded with the engines' init."""
 
     def __init__(self, cfg: ExperimentConfig, section, *, device=None,
                  init_params=None):
-        _validate_optimizer(cfg)
+        validate_optimizer(cfg)
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.round = 0

@@ -1,4 +1,5 @@
-"""Per-worker loss and metric over the stacked fleet's outputs.
+"""Loss and metric over one model's outputs, and per worker over the
+stacked fleet's.
 
 ``cross_entropy_stacked`` is ``nn.CrossEntropyLoss`` applied to the
 model output, per worker: with the faithful head the output is already
@@ -10,6 +11,36 @@ with ``Σw`` in the denominator makes padded samples invisible.
 from __future__ import annotations
 
 import torch
+
+
+def _one_lane(outputs, labels, weights):
+    """One model's batch as the stacked forms' one lane: ``[1, B, ...]``
+    with unit weights where none are given."""
+    if weights is None:
+        weights = torch.ones(labels.shape, device=labels.device)
+    return outputs[None], labels[None], weights[None]
+
+
+def cross_entropy(outputs: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over one model's batch (dopt's ``cross_entropy``): the
+    one-lane ``cross_entropy_stacked``, unit weights when none given."""
+    return cross_entropy_stacked(*_one_lane(outputs, labels, weights))[0]
+
+
+def accuracy(outputs: torch.Tensor, labels: torch.Tensor,
+             weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Fraction of correct argmax predictions over one model's batch:
+    the one-lane ``accuracy_stacked``."""
+    return accuracy_stacked(*_one_lane(outputs, labels, weights))[0]
+
+
+def l2_regulariser(params: dict[str, torch.Tensor], lam: float
+                   ) -> torch.Tensor:
+    """½·λ·Σ‖p‖² over one model's tensors in jax's leaf order (sorted
+    names): the one-lane ``l2_stacked``, the a9a logistic model's ℓ2
+    term."""
+    return l2_stacked({k: params[k][None] for k in sorted(params)}, lam)[0]
 
 
 def cross_entropy_stacked(outputs: torch.Tensor, labels: torch.Tensor,

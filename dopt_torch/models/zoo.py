@@ -48,7 +48,11 @@ GEMMs and rounded once, so the card's step stays within 1e-6 of the
 CPU's (the CPU, and the eval forward, keep the library's f32 conv); a
 differentiated f32 hidden layer of the MLP is ``_RoundedLinear``, its
 output summed in f64 and rounded once, so its ReLU routes as the exact
-sum does (``ROUNDED_F64``: a model rounds one kind of layer).
+sum does.  ResNet-18's f32 training convs and GroupNorms are summed in
+f64 and rounded once on the CPU and the card alike
+(``_RoundedResNetConv``, ``_RoundedGroupNorm``), so both devices route
+every ReLU the same (``ROUNDED_F64`` lists each model's rounded
+layers).
 
 ``TransformerLM`` is dopt's decoder-only LM (zoo.py:249-308), the model
 of ``SeqLMTrainer``: one model with no worker axis, fed one rank's slice
@@ -150,11 +154,16 @@ def init_worker_params(name: str, *, num_classes: int = 10,
         if key.endswith("scale"):
             t.fill_(1.0)
         elif key.endswith("weight"):
-            std = math.sqrt(1.0 / math.prod(shape[1:])) / 0.87962566103423978
-            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            _lecun_normal_(t, generator)
         out[key] = t
     return out
+
+
+def _lecun_normal_(t: torch.Tensor, generator) -> None:
+    """flax's LeCun-normal kernel init of a torch-layout ``[out, in, ...]``
+    weight, in place."""
+    std = math.sqrt(1.0 / math.prod(t.shape[1:])) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 @contextlib.contextmanager
@@ -382,16 +391,19 @@ class _RoundedLinear(torch.autograd.Function):
         return gb, gw, gz
 
 
-# The port's f64 tensor work: each model's layer that the card sums in
-# f64 and rounds once in f32 training, and the device-time phase its f64
+# The port's f64 tensor work: each model's layers that are summed in f64
+# and rounded once in f32 training, and the device-time phase their f64
 # kernels belong to.  A kernel's name cannot tell a conv's f64 GEMM from
-# a dense layer's, so a model rounds one kind of layer, and
+# a dense layer's, so a model's rounded layers share one phase, and
 # ``utils.profiling.device_stats_of(model=...)`` files the f64 kernels of
 # a window by this table (tests/test_torch_profiling.py holds the
-# package's f64 sites to its classes).
-ROUNDED_F64 = {"model1": ("_RoundedConv", "conv"),
-               "model3": ("_RoundedConv", "conv"),
-               "mlp": ("_RoundedLinear", "other")}
+# package's f64 sites to its classes).  ResNet-18's GroupNorms, rounded
+# with its convs, file their f64 kernels under conv too.
+ROUNDED_F64 = {"model1": (("_RoundedConv",), "conv"),
+               "model3": (("_RoundedConv",), "conv"),
+               "mlp": (("_RoundedLinear",), "other"),
+               "resnet18": (("_RoundedResNetConv", "_RoundedGroupNorm"),
+                            "conv")}
 
 
 def _stacked_linear(zt, weight, bias, dtype):
@@ -470,15 +482,230 @@ def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
 def _resnet_conv(z, weight, groups, dtype, stride=1):
     """'SAME' conv without bias of worker-major channels with
     [W, Cout, Cin, k, k] kernels, as one grouped conv in ``dtype``; an
-    uneven 'SAME' padding is applied explicitly first."""
+    uneven 'SAME' padding is applied explicitly first.  A differentiated
+    f32 conv, on either device, is ``_RoundedResNetConv``."""
     k = weight.shape[-1]
     (ht, hb), (wl, wr) = (_same_pad(n, k, stride) for n in z.shape[2:])
     if ht == hb and wl == wr:
         pad = (ht, wl)
     else:
         z, pad = F.pad(z, (wl, wr, ht, hb)), 0
-    return F.conv2d(z, weight.reshape(-1, *weight.shape[2:]).to(dtype),
-                    stride=stride, padding=pad, groups=groups)
+    w = weight.reshape(-1, *weight.shape[2:]).to(dtype)
+    if _rounds_resnet(dtype):
+        return _RoundedResNetConv.apply(z, w, stride, pad, groups)
+    return F.conv2d(z, w, stride=stride, padding=pad, groups=groups)
+
+
+def _rounds_resnet(dtype) -> bool:
+    """ResNet-18's f32 training forward sums its convs and GroupNorms in
+    f64 and rounds each once (``_RoundedResNetConv``,
+    ``_RoundedGroupNorm``), on the CPU and the card alike."""
+    return dtype == torch.float32 and torch.is_grad_enabled()
+
+
+# The weight-gradient sums of ResNet-18's f32 training convs as long as
+# this (samples × output positions) or longer are summed in f64.
+WGRAD_F64_MIN = 65_536
+# The most bytes one f64 im2col copy of ``_RoundedResNetConv`` holds: it
+# takes as many lanes at a time as fit, one at least.
+F64_COLS_BYTES = 2 << 30
+
+
+class _RoundedResNetConv(torch.autograd.Function):
+    """ResNet-18's f32 training conv: the output summed in f64 and rounded
+    once to f32; the input gradient is the library's f32 convolution of
+    the saved f32 operands, and so is the weight gradient, but for a sum
+    over ``WGRAD_F64_MIN`` terms or more, which is summed in f64 and
+    rounded once.  The f64 sums are one batched GEMM a chunk of lanes
+    over an f64 im2col copy of those lanes (``F64_COLS_BYTES`` at most),
+    which the card runs on its f64 tensor cores; at ``baseline5``'s
+    32×32 a lane's copy is 604 MB.
+
+    Every ReLU of ResNet-18 follows a GroupNorm, whose outputs cluster
+    about zero, and a ReLU routes each element's gradient by its sign:
+    two devices whose f32 sums round apart route the elements nearest
+    zero apart, and GroupNorm's backward spreads each such element over
+    its group.  At ``baseline5``'s full size (32 lanes, batch 128) the
+    card's step with the library's f32 convs was 2.9e-3 relative L2 from
+    the CPU's, and each side 3.6-4.0e-3 from f64.  Summed in f64 and
+    rounded once, a conv or GroupNorm of the same f32 inputs gives the
+    same f32 result on any device, so the forward, and with it every
+    ReLU's routing, is the same on the CPU and the card, and the f32
+    backward is left to differ by its own rounding.  That rounding grows
+    with the weight gradient's sum: cuDNN's f32 Winograd weight gradients
+    of the 32×32 convs (batch 128 × 1,024 positions) were 1.3-2.2e-5
+    relative L2 from the CPU's, so the longest sums take f64.  Its
+    ``vmap`` rule folds a vmapped worker axis into the groups, as the
+    stacked forward lays the workers' channels side by side."""
+
+    @staticmethod
+    def forward(z, weight, stride, padding, groups):
+        b, co = z.shape[0], weight.shape[0] // groups
+        hw = _RoundedResNetConv.out_hw(z, weight, stride, padding)
+        out = z.new_empty(b, groups * co, *hw)
+        ov = out.view(b, groups, co, -1)
+        wv = weight.reshape(groups, co, -1)
+        for lanes, cols in _RoundedResNetConv.lane_cols(
+                z, weight.shape[-1], stride, padding, groups, hw):
+            y = torch.bmm(wv[lanes].double(), cols)        # [n, co, B·L]
+            ov[:, lanes].copy_(y.view(y.shape[0], co, b, -1)
+                               .permute(2, 0, 1, 3))
+        return out
+
+    @staticmethod
+    def out_hw(z, weight, stride, padding) -> tuple[int, int]:
+        k = weight.shape[-1]
+        pad = (padding,) * 2 if isinstance(padding, int) else padding
+        return tuple((n + 2 * p - k) // stride + 1
+                     for n, p in zip(z.shape[2:], pad))
+
+    @staticmethod
+    def lane_cols(z, k, stride, padding, groups, hw):
+        """Yields ``(lanes, cols)`` over chunks of lanes: ``cols`` the f64
+        im2col copy ``[n, C·k·k, B·Ho·Wo]`` of those lanes of
+        worker-major ``z`` ``[B, G·C, H, W]``, rows in (c, kh, kw) order
+        (the weight's), columns sample-major."""
+        b, (h, w) = z.shape[0], z.shape[2:]
+        c = z.shape[1] // groups
+        ph, pw = (padding,) * 2 if isinstance(padding, int) else padding
+        zv = z.reshape(b, groups, c, h, w)
+        step = max(1, F64_COLS_BYTES // (8 * c * k * k * b * hw[0] * hw[1]))
+        for l0 in range(0, groups, step):
+            lanes = slice(l0, min(groups, l0 + step))
+            xp = z.new_zeros((lanes.stop - l0, c, b, h + 2 * ph, w + 2 * pw),
+                             dtype=torch.float64)
+            xp[..., ph:ph + h, pw:pw + w].copy_(
+                zv[:, lanes].permute(1, 2, 0, 3, 4))
+            s = xp.stride()
+            yield lanes, xp.as_strided(
+                (xp.shape[0], c, k, k, b, *hw),
+                (s[0], s[1], s[3], s[4], s[2], s[3] * stride,
+                 s[4] * stride)).reshape(xp.shape[0], c * k * k, -1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        z, weight, stride, padding, groups = inputs
+        ctx.save_for_backward(z, weight)
+        ctx.conv = (stride, padding, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, weight = ctx.saved_tensors
+        stride, padding, groups = ctx.conv
+        gz = gw = None
+        if ctx.needs_input_grad[0]:
+            gz = torch.nn.grad.conv2d_input(z.shape, weight, grad,
+                                            stride=stride, padding=padding,
+                                            groups=groups)
+        if not ctx.needs_input_grad[1]:
+            return gz, gw, None, None, None
+        b, co = grad.shape[0], weight.shape[0] // groups
+        if b * grad[0, 0].numel() < WGRAD_F64_MIN:
+            gw = torch.nn.grad.conv2d_weight(
+                z, weight.shape, grad, stride=stride, padding=padding,
+                groups=groups).contiguous()
+            return gz, gw, None, None, None
+        gw = torch.empty_like(weight, memory_format=torch.contiguous_format)
+        gwv, gv = gw.view(groups, co, -1), grad.reshape(b, groups, co, -1)
+        for lanes, cols in _RoundedResNetConv.lane_cols(
+                z, weight.shape[-1], stride, padding, groups, grad.shape[2:]):
+            g = gv[:, lanes].permute(1, 2, 0, 3).double().reshape(
+                cols.shape[0], co, -1)
+            gwv[lanes].copy_(torch.bmm(g, cols.transpose(1, 2)))
+        return gz, gw, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, z, weight, stride, padding, groups):
+        v = info.batch_size
+        z, weight = (
+            t.movedim(d, 0) if d is not None else t.expand(v, *t.shape)
+            for t, d in zip((z, weight), in_dims[:2]))
+        b = z.shape[1]
+        out = _RoundedResNetConv.apply(
+            z.transpose(0, 1).reshape(b, -1, *z.shape[3:]),
+            weight.reshape(-1, *weight.shape[2:]), stride, padding,
+            v * groups)
+        return out.view(b, v, -1, *out.shape[2:]), 1
+
+
+class _RoundedGroupNorm(torch.autograd.Function):
+    """``group_norm_stacked`` of ResNet-18's f32 training forward summed
+    in f64 and rounded once to f32 (``_RoundedResNetConv`` says why):
+    ``apply(z, scale, bias, groups, eps)`` on ``[B, C, H, W]`` and ``[C]``
+    returns the output and the f64 ``[B, groups]`` mean and inverse
+    deviation.  The group sums of z and z² accumulate in f64 from the
+    f32 input, and the affine map z·a + c runs in f64 with f64 per-
+    (sample, channel) coefficients, stored once to f32, in one pass.
+    The backward is f32 elementwise with coefficients from f64 sums of
+    the gradient and of gradient × input per (sample, channel).  Its
+    ``vmap`` rule folds a vmapped worker axis into the groups, as the
+    stacked forward lays the workers' channels side by side."""
+
+    @staticmethod
+    def forward(z, scale, bias, groups, eps):
+        b, c = z.shape[:2]
+        zg = z.reshape(b, groups, -1)
+        n = zg.shape[-1]
+        mean = zg.sum(-1, dtype=torch.float64) / n               # [b, g]
+        sq = torch.linalg.vector_norm(zg, dim=-1, dtype=torch.float64)
+        var = (sq * sq / n - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        a = scale.double().view(1, groups, -1) * inv[..., None]
+        c0 = bias.double().view(1, groups, -1) - mean[..., None] * a
+        out = torch.empty_like(z, memory_format=torch.contiguous_format)
+        torch.addcmul(c0.reshape(b, c, 1, 1), z, a.reshape(b, c, 1, 1),
+                      out=out)
+        return out, mean, inv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        z, scale, _, groups, _ = inputs
+        _, mean, inv = output
+        ctx.mark_non_differentiable(mean, inv)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(z, scale, mean, inv)
+        ctx.groups = groups
+
+    @staticmethod
+    def backward(ctx, grad, _mean_grad, _inv_grad):
+        z, scale, mean, inv = ctx.saved_tensors
+        b, c = z.shape[:2]
+        g = ctx.groups
+        n = z[0].numel() // g
+        q = grad.sum((2, 3), dtype=torch.float64).view(b, g, -1)  # Σ g
+        p = (grad * z).sum((2, 3), dtype=torch.float64).view(b, g, -1)
+        sc = scale.double().view(1, g, -1)
+        mu, iv = mean[..., None], inv[..., None]
+        gz = gs = gb = None
+        if ctx.needs_input_grad[0]:
+            # dL/dz = iv·(gy − mean(gy) − x̂·mean(gy·x̂)), gy = grad·scale,
+            # as a·grad + bz·z + c0 per (sample, channel).
+            s1 = (sc * q).sum(-1, keepdim=True) / n
+            s2 = (sc * (p - mu * q)).sum(-1, keepdim=True) * iv / n
+            a = (iv * sc).reshape(b, c, 1, 1).float()
+            bz = (-iv * iv * s2).expand(b, g, c // g).reshape(
+                b, c, 1, 1).float()
+            c0 = (iv * (mu * iv * s2 - s1)).expand(b, g, c // g).reshape(
+                b, c, 1, 1).float()
+            gz = torch.addcmul(c0, bz, z).addcmul_(a, grad)
+        if ctx.needs_input_grad[1]:
+            gs = (iv * (p - mu * q)).sum(0).reshape(c).float()
+        if ctx.needs_input_grad[2]:
+            gb = q.sum(0).reshape(c).float()
+        return gz, gs, gb, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, z, scale, bias, groups, eps):
+        v = info.batch_size
+        z, scale, bias = (
+            t.movedim(d, 0) if d is not None else t.expand(v, *t.shape)
+            for t, d in zip((z, scale, bias), in_dims[:3]))
+        b = z.shape[1]
+        out, mean, inv = _RoundedGroupNorm.apply(
+            z.transpose(0, 1).reshape(b, -1, *z.shape[3:]),
+            scale.reshape(-1), bias.reshape(-1), v * groups, eps)
+        return ((out.view(b, v, -1, *out.shape[2:]),
+                 mean.view(b, v, groups), inv.view(b, v, groups)), (1, 1, 1))
 
 
 def group_norm_stacked(z: torch.Tensor, scale: torch.Tensor,
@@ -523,40 +750,57 @@ def stacked_resnet_forward(params: dict[str, torch.Tensor], x: torch.Tensor,
     depth is read off ``params``: ``ResidualBlock_k`` for k = 0, 1, …,
     and a block with a ``Conv_2`` projection strides 2 (``_resnet_shapes``).
     Every conv, GroupNorm and the head run in ``dtype``."""
+    with _cpu_conv_flags(x):
+        return _resnet_forward(params, x, faithful=faithful, dtype=dtype)
+
+
+def _cpu_conv_flags(x: torch.Tensor):
+    """NNPACK's fast CPU convs (batches of 16 and more) keep five digits
+    (6e-6 relative against f64; 2e-7 without), which GroupNorm's
+    E[x²] − E[x]² turns into 1e-3 on the gradients: off for a CPU
+    ResNet forward."""
     if x.device.type == "cpu":
-        # NNPACK's fast CPU convs (batches of 16 and more) keep five
-        # digits (6e-6 relative against f64; 2e-7 without), which
-        # GroupNorm's E[x²] − E[x]² turns into 1e-3 on the gradients.
-        with torch.backends.nnpack.flags(enabled=False):
-            return _resnet_forward(params, x, faithful=faithful, dtype=dtype)
-    return _resnet_forward(params, x, faithful=faithful, dtype=dtype)
+        return torch.backends.nnpack.flags(enabled=False)
+    return contextlib.nullcontext()
+
+
+def _gn(params, z, prefix, w, gpw):
+    scale, bias = params[f"{prefix}.scale"], params[f"{prefix}.bias"]
+    if _rounds_resnet(z.dtype):
+        return _RoundedGroupNorm.apply(z, scale.reshape(-1),
+                                       bias.reshape(-1), w * gpw, 1e-6)[0]
+    return group_norm_stacked(z, scale, bias, num_workers=w,
+                              groups_per_worker=gpw)
+
+
+def _resnet_block(params, prefix: str, z: torch.Tensor, w: int, dtype,
+                  stride: int) -> torch.Tensor:
+    """dopt's ``ResidualBlock`` over worker-major NCHW channels: the
+    block's tensors are ``{prefix}Conv_i.weight`` and
+    ``{prefix}GroupNorm_i.{scale,bias}``, with the projection shortcut
+    (``Conv_2``) where they hold one."""
+    gpw = min(32, params[f"{prefix}Conv_0.weight"].shape[1])
+    y = _resnet_conv(z, params[f"{prefix}Conv_0.weight"], w, dtype, stride)
+    y = F.relu(_gn(params, y, f"{prefix}GroupNorm_0", w, gpw))
+    y = _gn(params, _resnet_conv(y, params[f"{prefix}Conv_1.weight"], w,
+                                 dtype), f"{prefix}GroupNorm_1", w, gpw)
+    if f"{prefix}Conv_2.weight" in params:
+        z = _gn(params, _resnet_conv(z, params[f"{prefix}Conv_2.weight"], w,
+                                     dtype, stride),
+                f"{prefix}GroupNorm_2", w, gpw)
+    return F.relu(y + z)
 
 
 def _resnet_forward(params, x, *, faithful, dtype):
     w, b, h, wd, c = x.shape
     z = x.to(dtype).permute(1, 0, 4, 2, 3).reshape(b, w * c, h, wd)
-
-    def gn(z, prefix, gpw):
-        return group_norm_stacked(z, params[f"{prefix}.scale"],
-                                  params[f"{prefix}.bias"], num_workers=w,
-                                  groups_per_worker=gpw)
-
-    z = F.relu(gn(_resnet_conv(z, params["Conv_0.weight"], w, dtype),
-                  "GroupNorm_0", 32))
+    z = F.relu(_gn(params, _resnet_conv(z, params["Conv_0.weight"], w,
+                                        dtype), "GroupNorm_0", w, 32))
     k = 0
     while f"ResidualBlock_{k}.Conv_0.weight" in params:
-        blk = f"ResidualBlock_{k}"
-        proj = f"{blk}.Conv_2.weight" in params
-        stride = 2 if proj else 1
-        gpw = min(32, params[f"{blk}.Conv_0.weight"].shape[1])
-        y = _resnet_conv(z, params[f"{blk}.Conv_0.weight"], w, dtype, stride)
-        y = F.relu(gn(y, f"{blk}.GroupNorm_0", gpw))
-        y = gn(_resnet_conv(y, params[f"{blk}.Conv_1.weight"], w, dtype),
-               f"{blk}.GroupNorm_1", gpw)
-        if proj:
-            z = gn(_resnet_conv(z, params[f"{blk}.Conv_2.weight"], w, dtype,
-                                stride), f"{blk}.GroupNorm_2", gpw)
-        z = F.relu(y + z)
+        blk = f"ResidualBlock_{k}."
+        z = _resnet_block(params, blk, z, w, dtype,
+                          2 if f"{blk}Conv_2.weight" in params else 1)
         k += 1
     # Global mean pool, then the head over the worker axis in ``dtype``
     # (dopt zoo.py:428-434), feature-major as ``_stacked_linear`` takes it.
@@ -675,6 +919,239 @@ class StackedCNN(StackedModel):
         super().__init__("model1", params, faithful=faithful, dtype=dtype)
 
 
+# -- one worker's models (dopt's flax modules) --------------------------------
+# Each model's input when the caller names none: its presets' datasets
+# (MNIST for Model1 and the MLP, CIFAR-10 for Model3 and ResNet-18, a9a's
+# 123 features for the logistic model).
+DEFAULT_INPUT_SHAPE = {"model1": (28, 28, 1), "model3": (32, 32, 3),
+                       "mlp": (28, 28, 1), "logistic": (123,),
+                       "resnet18": (32, 32, 3)}
+# The port's compute and storage dtypes, by name.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A compute dtype by torch dtype or by name (dopt's ``dtype=`` takes
+    a string too); the port computes in f32 or bf16."""
+    if isinstance(dtype, str):
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}; one of "
+                             f"{'|'.join(COMPUTE_DTYPES)}")
+        return COMPUTE_DTYPES[dtype]
+    if dtype not in COMPUTE_DTYPES.values():
+        raise ValueError(f"unsupported compute dtype {dtype}; the port "
+                         "computes in float32 or bfloat16")
+    return dtype
+
+
+def _placed(params: dict[str, torch.Tensor], device) -> dict:
+    """``params`` on the port's device (``resolve_device``: the GPU unless
+    the caller names the CPU)."""
+    from dopt_torch.engine.gossip import resolve_device
+
+    dev = resolve_device(device)
+    return {k: v.to(dev) for k, v in params.items()}
+
+
+class _WorkerModel(nn.Module):
+    """One worker of a zoo model: the one-lane case of
+    ``stacked_forward`` over this module's parameters, so each model's
+    arithmetic (the rounded layers of ``ROUNDED_F64`` among it) lives in
+    one place.  Built with flax's default init drawn from
+    ``generator`` on the CPU (``init_worker_params``), then placed on
+    ``device``.  Input NHWC ``[B, H, W, C]`` (``[B, D]`` rows for the
+    dense models); output f32 ``[B, num_classes]``, probabilities when
+    faithful.  ``load_jax_params``/``jax_params`` carry one worker's
+    dopt flax params across (``dopt_torch.convert``)."""
+
+    model_name = ""
+    default_faithful = False
+
+    def __init__(self, num_classes: int = 10, faithful: bool | None = None,
+                 dtype=torch.float32, *, input_shape=None, stage_sizes=None,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        name = self.model_name
+        self.num_classes = num_classes
+        self.faithful = (self.default_faithful if faithful is None
+                         else faithful)
+        self.compute_dtype = compute_dtype(dtype)
+        self.input_shape = tuple(input_shape or DEFAULT_INPUT_SHAPE[name])
+        params = _placed(init_worker_params(
+            name, num_classes=num_classes, input_shape=self.input_shape,
+            generator=generator, stage_sizes=stage_sizes), device)
+        if name == "resnet18":
+            _register_nested(self, params)
+        else:
+            for layer in LAYERS[name]:
+                setattr(self, layer, _Layer(params[f"{layer}.weight"],
+                                            params[f"{layer}.bias"]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = {k: v.unsqueeze(0) for k, v in self.named_parameters()}
+        return stacked_forward(self.model_name, p, x.unsqueeze(0),
+                               faithful=self.faithful,
+                               dtype=self.compute_dtype)[0]
+
+    @torch.no_grad()
+    def load_jax_params(self, tree) -> "_WorkerModel":
+        """Copy one worker's dopt flax params (``model.init(...)``'s tree,
+        with or without its ``"params"`` level; numpy or jax leaves) into
+        this module, in place; returns the module."""
+        from dopt_torch.convert import params_from_jax
+
+        if set(tree) == {"params"}:
+            tree = tree["params"]
+        got = params_from_jax(tree, input_shape=self.input_shape)
+        own = dict(self.named_parameters())
+        if got.keys() != own.keys():
+            raise ValueError(f"the flax tree's leaves {sorted(got)} are not "
+                             f"{self.model_name}'s {sorted(own)}")
+        for k, v in own.items():
+            if tuple(got[k].shape) != tuple(v.shape):
+                raise ValueError(f"{k}: the flax leaf has shape "
+                                 f"{tuple(got[k].shape)}, the module "
+                                 f"{tuple(v.shape)}")
+            v.copy_(torch.from_numpy(got[k]))
+        return self
+
+    def jax_params(self) -> dict:
+        """This worker's parameters as dopt's flax tree (numpy leaves, as
+        ``model.init`` returns them under ``"params"``)."""
+        from dopt_torch.convert import params_to_jax
+
+        return {"params": params_to_jax(dict(self.named_parameters()),
+                                        input_shape=self.input_shape)}
+
+
+class Model1(_WorkerModel):
+    """The MNIST/FMNIST CNN (the reference's ``models.py:6-27``),
+    1,663,370 params on 28×28×1; the faithful double-softmax head by
+    default."""
+
+    model_name = "model1"
+    default_faithful = True
+
+
+class Model3(_WorkerModel):
+    """The CIFAR CNN (the reference's ``models.py:31-51``), 1,105,098
+    params on 32×32×3 at 10 classes; faithful by default."""
+
+    model_name = "model3"
+    default_faithful = True
+
+
+class MLP(_WorkerModel):
+    """The 2×200 MLP (BASELINE.json config 1), 199,210 params on
+    28×28×1."""
+
+    model_name = "mlp"
+
+
+class LogisticRegression(_WorkerModel):
+    """ℓ2-regularised logistic regression (BASELINE.json config 4) on
+    a9a's 123 features; the ℓ2 term lives in the loss
+    (``losses.l2_regulariser``).  dopt's default is 2 classes."""
+
+    model_name = "logistic"
+
+    def __init__(self, num_classes: int = 2, faithful: bool | None = None,
+                 dtype=torch.float32, **kw):
+        super().__init__(num_classes, faithful, dtype, **kw)
+
+
+class ResNet18(_WorkerModel):
+    """dopt's CIFAR-style GroupNorm ResNet-18 (BASELINE.json config 5),
+    11,173,962 params in 62 tensors on 32×32×3; ``stage_sizes`` its
+    block count a stage ((2, 2, 2, 2) by default).  Parameters carry
+    dopt's nested names dotted (``ResidualBlock_0.Conv_0.weight``)."""
+
+    model_name = "resnet18"
+
+    def __init__(self, num_classes: int = 10, faithful: bool | None = None,
+                 dtype=torch.float32, stage_sizes=RESNET_STAGES, **kw):
+        super().__init__(num_classes, faithful, dtype,
+                         stage_sizes=tuple(stage_sizes), **kw)
+
+
+class ResidualBlock(nn.Module):
+    """dopt's ``ResidualBlock`` alone: 3×3 conv (stride ``strides``) →
+    GroupNorm → ReLU → 3×3 conv → GroupNorm, plus the input, through a
+    1×1 conv and GroupNorm where the shape changes, then ReLU; no bias,
+    ``min(32, features)`` groups.  flax reads the input channels off the
+    first call; a torch module needs them at construction
+    (``in_features``, ``features`` by default).  NHWC in and out; the
+    block ``ResNet18`` runs (``_resnet_block``)."""
+
+    def __init__(self, features: int, strides: int = 1, dtype=torch.float32,
+                 *, in_features: int | None = None, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cin = in_features or features
+        self.strides = strides
+        self.compute_dtype = compute_dtype(dtype)
+        convs = [(features, cin, 3, 3), (features, features, 3, 3)]
+        if strides != 1 or cin != features:
+            convs.append((features, cin, 1, 1))
+        params = {}
+        for i, shape in enumerate(convs):
+            w = torch.zeros(shape)
+            _lecun_normal_(w, generator)
+            params[f"Conv_{i}.weight"] = w
+            params[f"GroupNorm_{i}.scale"] = torch.ones(features)
+            params[f"GroupNorm_{i}.bias"] = torch.zeros(features)
+        _register_nested(self, _placed(params, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = {k: v.unsqueeze(0) for k, v in self.named_parameters()}
+        with _cpu_conv_flags(x):
+            z = _resnet_block(p, "", x.to(self.compute_dtype).permute(
+                0, 3, 1, 2), 1, self.compute_dtype, self.strides)
+        return z.permute(0, 2, 3, 1)
+
+
+def _transformer(num_classes: int = 256, faithful: bool | None = None,
+                 dtype=torch.float32, *, input_shape=None, device=None,
+                 generator: torch.Generator | None = None) -> nn.Module:
+    """dopt's ``TransformerLM`` at its defaults (dim 128, depth 2, 4
+    heads, max_len 2048), ``num_classes`` its vocabulary."""
+    if input_shape is not None:
+        raise ValueError("input_shape applies to the image and tabular "
+                         "models, not the transformer")
+    params = _placed(init_transformer_params(vocab=num_classes,
+                                             generator=generator), device)
+    return TransformerLM(params, heads=4, dtype=compute_dtype(dtype),
+                         faithful=bool(faithful))
+
+
+def build_model(name: str, *, num_classes: int = 10,
+                faithful: bool | None = None, dtype=torch.float32,
+                stage_sizes=None, input_shape=None, device=None,
+                generator: torch.Generator | None = None) -> nn.Module:
+    """Model dispatch by name, dopt's ``build_model``: one worker's model,
+    initialised (flax's defaults from ``generator``) on ``device`` (the
+    GPU unless the caller names the CPU).  ``faithful=None`` keeps each
+    model's default (True for the reference CNNs only); ``dtype`` (a
+    torch dtype or its name) is the compute dtype, the parameters stay
+    f32; ``stage_sizes`` is ResNet-18's only.  ``input_shape`` is the
+    port's own: a torch module needs its shapes at construction, where
+    flax reads them off the first call (default ``DEFAULT_INPUT_SHAPE``)."""
+    key = name.lower()
+    if key not in _ZOO:
+        raise ValueError(f"unknown model {name!r}; one of {sorted(_ZOO)}")
+    kwargs: dict = dict(num_classes=num_classes, dtype=dtype, device=device,
+                        generator=generator)
+    if faithful is not None:
+        kwargs["faithful"] = faithful
+    if stage_sizes is not None:
+        if key != "resnet18":
+            raise ValueError("stage_sizes applies to resnet18 only")
+        kwargs["stage_sizes"] = tuple(stage_sizes)
+    if input_shape is not None:
+        kwargs["input_shape"] = tuple(input_shape)
+    return _ZOO[key](**kwargs)
+
+
 # -- the sequence model -----------------------------------------------------
 def transformer_shapes(*, vocab: int, dim: int = 128, depth: int = 2,
                        max_len: int = 2048) -> dict[str, tuple[int, ...]]:
@@ -764,8 +1241,9 @@ class TransformerLM(nn.Module):
     accumulate rows by atomics."""
 
     def __init__(self, params: dict[str, torch.Tensor], *, heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, faithful: bool = False):
         super().__init__()
+        self.faithful = faithful
         self.vocab, self.dim = params["tok_emb.weight"].shape
         self.max_len = params["pos_emb"].shape[0]
         self.depth = sum(k.startswith("qkv_") for k in params)
@@ -807,7 +1285,14 @@ class TransformerLM(nn.Module):
             x = x + F.linear(y, p[f"down_{i}.weight"].to(dt),
                              p[f"down_{i}.bias"].to(dt))
         x = layer_norm(x, p["ln_f.scale"], p["ln_f.bias"])
-        return x @ emb.t()
+        logits = x @ emb.t()
+        return torch.softmax(logits.float(), -1) if self.faithful else logits
+
+
+# dopt's ``_ZOO``: every model ``build_model`` builds, by name.
+_ZOO = {"model1": Model1, "model3": Model3, "mlp": MLP,
+        "logistic": LogisticRegression, "resnet18": ResNet18,
+        "transformer": _transformer}
 
 
 def count_params(params) -> int:

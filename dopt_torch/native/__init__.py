@@ -77,6 +77,17 @@ def load_native() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the planner builds and loads here (dopt's probe before
+    its fallback; the port has none, so ``plan_impl="native"`` raises
+    where this is False)."""
+    try:
+        load_native()
+    except (OSError, RuntimeError, AttributeError):
+        return False
+    return True
+
+
 def fill_batch_plan_native(index_matrix: np.ndarray, *, batch_size: int,
                            local_ep: int, seed: int, round_idx: int,
                            worker_ids: np.ndarray | None = None

@@ -3,8 +3,9 @@ port's copy of dopt's ``obs.spans``.
 
 ``SpanTracer.span("block")`` is a nestable context manager recording
 (name, start, duration, depth) against the tracer's epoch, the newest
-``SPAN_CAPACITY`` records kept (the per-name totals stay exact).  The
-engines reach it through ``dopt_torch.utils.profiling.PhaseTimers``'
+``DEFAULT_SPAN_CAPACITY`` records kept (the per-name totals stay
+exact).  The engines reach it through
+``dopt_torch.utils.profiling.PhaseTimers``'
 ``tracer`` hook: attaching telemetry (``dopt_torch.obs.attach``) turns
 every ``timers.phase(...)`` site — host batch planning, the round or
 block dispatch with its fetch, checkpoint writes — into a span.
@@ -24,7 +25,7 @@ from typing import Any, Iterator
 
 from dopt_torch.utils.metrics import atomic_write_text
 
-SPAN_CAPACITY = 100_000
+DEFAULT_SPAN_CAPACITY = 100_000
 
 
 class SpanTracer:
@@ -33,7 +34,8 @@ class SpanTracer:
     def __init__(self):
         self._t0 = time.perf_counter()  # dopt: allow-wallclock -- span timing only, never training math
         self._depth = 0
-        self._ring: deque[dict[str, Any]] = deque(maxlen=SPAN_CAPACITY)
+        self._ring: deque[dict[str, Any]] = deque(
+            maxlen=DEFAULT_SPAN_CAPACITY)
         self._totals: dict[str, float] = {}
 
     @property

@@ -1,7 +1,8 @@
 """The training round's two bandwidth-bound update ops, as CUDA kernels.
 
 ``fused_sgd_momentum`` replaces dopt/ops/fused_update.py
-``fused_sgd_momentum`` (+ its tree wrapper ``fused_sgd_momentum_tree``):
+``fused_sgd_momentum`` (+ its tree wrapper, ``fused_sgd_momentum_tree``
+here too, over one model's tensor dicts):
 every SGD step's ``buf ← μ·buf + g;  p ← p − lr·buf`` over all of the
 step's tensors.  Bound on the H100: bytes — 20 an f32 element (read p,
 m, g; write p, m), ~60 µs a Model1 step of six workers at 3.35 TB/s.
@@ -164,6 +165,33 @@ def fused_sgd_momentum(params, moms, grads, *, lr: float, mu: float,
 
 
 fused_sgd_momentum.launches = 0
+
+
+def fused_sgd_momentum_tree(params: dict[str, torch.Tensor],
+                            momentum: dict[str, torch.Tensor],
+                            grads: dict[str, torch.Tensor], *, lr: float,
+                            mu: float, interpret: bool | None = None):
+    """Kernel 1 over one model's tensor dicts (dopt's pytrees), in place:
+    one ``fused_sgd_momentum`` call over the model's tensor list, as the
+    engines' sites make it (a launch per 16 tensors).  Returns
+    ``(params, momentum)``, the same dicts updated, so dopt's
+    ``p, m = fused_sgd_momentum_tree(p, m, g, ...)`` reads unchanged.
+    dopt's ``interpret`` picks Pallas's interpreter off the TPU; here the
+    tensors' device decides (CUDA: the kernel or an error; CPU: the
+    plain version), so only ``None`` is taken."""
+    if interpret is not None:
+        raise ValueError("fused_sgd_momentum_tree: interpret= selects "
+                         "Pallas's interpreter, which the port has not; the "
+                         "tensors' device picks the kernel or its plain "
+                         "version")
+    if not (params.keys() == momentum.keys() == grads.keys()):
+        raise ValueError("fused_sgd_momentum_tree: params, momentum and "
+                         "grads must have the same keys")
+    names = list(params)
+    fused_sgd_momentum([params[k] for k in names],
+                       [momentum[k] for k in names],
+                       [grads[k] for k in names], lr=lr, mu=mu)
+    return params, momentum
 
 
 def mix_sgd_reference(p: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,

@@ -28,6 +28,7 @@ body uses.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +46,22 @@ def _scalar(x: float, like: torch.Tensor) -> float:
     return rounded(float(x), like.dtype)
 
 
+class SGDState(NamedTuple):
+    """One model's momentum buffers: a dict of tensors matching its
+    parameters (dopt's pytree)."""
+    momentum: dict[str, torch.Tensor]
+
+
+@torch.no_grad()
+def init_sgd(params: dict[str, torch.Tensor]) -> SGDState:
+    """Zero momentum buffers, contiguous, each in its parameter's dtype
+    and on its device (a torch SGD buffer starts at the first gradient,
+    which from zero is the same step)."""
+    return SGDState(momentum={
+        k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+        for k, p in params.items()})
+
+
 @torch.no_grad()
 def sgd_step(params, moms, grads, *, lr: float, momentum: float) -> None:
     """One momentum-SGD step over lists of tensors, in place: dopt's
@@ -55,6 +72,16 @@ def sgd_step(params, moms, grads, *, lr: float, momentum: float) -> None:
     for p, m, g in zip(params, moms, grads):
         m.mul_(_scalar(momentum, m)).add_(g)
         p.sub_(m * _scalar(lr, p))
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor],
+                        max_norm: float) -> dict[str, torch.Tensor]:
+    """Scale one model's gradient dict so its global ℓ2 norm is at most
+    ``max_norm`` (dopt's ``clip_by_global_norm``): the one-lane
+    ``clip_by_global_norm_stacked``."""
+    out = clip_by_global_norm_stacked({k: g[None] for k, g in grads.items()},
+                                      max_norm)
+    return {k: g[0] for k, g in out.items()}
 
 
 @torch.no_grad()

@@ -128,6 +128,19 @@ def mix_dense(stacked: dict[str, torch.Tensor], w_matrix: torch.Tensor,
     return out
 
 
+def mix_power(stacked: dict[str, torch.Tensor], w_matrix: torch.Tensor,
+              eps: int = 1, group=None, comm_dtype: torch.dtype | None = None
+              ) -> dict[str, torch.Tensor]:
+    """``eps`` consensus sweeps of ``mix_dense`` (FedLCon,
+    simulators.py:182-212), each reading the previous sweep's output, as
+    dopt fixed the reference's stale accumulation; eps = 1 is plain
+    consensus.  ``group`` takes dopt's ``mesh`` place."""
+    out = stacked
+    for _ in range(eps):
+        out = mix_dense(out, w_matrix, comm_dtype, group)
+    return out
+
+
 def _lane(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A [W] mask shaped to broadcast over a ``[W, ...]`` tensor."""
     return mask.reshape((-1,) + (1,) * (x.dim() - 1))

@@ -28,6 +28,10 @@ from pathlib import Path
 
 import numpy as np
 
+# dopt's mesh axis names, at dopt's path (the port keeps them with the
+# rank coordinates in ``parallel.mesh``).
+from dopt_torch.parallel.mesh import HOST_AXIS, ICI_AXIS  # noqa: F401
+
 
 def pick_ephemeral_port(host: str = "127.0.0.1") -> int:
     """Bind port 0, read back the kernel's choice, release it."""

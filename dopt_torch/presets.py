@@ -62,6 +62,12 @@ from dopt_torch.config import (DataConfig, ExperimentConfig, FaultConfig,
 MNIST_TRAIN, MNIST_TEST = 60_000, 10_000
 CIFAR_TRAIN, CIFAR_TEST = 50_000, 10_000
 
+# dopt's per-preset throughput-trim compute dtype (its time-to-target
+# runs): baseline2's corrected-head CNN pays a convergence tax in bf16
+# that swamps bf16's step-time win, so it trims in float32; baseline5's
+# GroupNorm ResNet keeps bfloat16.  Presets not listed trim in bfloat16.
+TRIM_COMPUTE_DTYPE = {"baseline2": "float32", "baseline5": "bfloat16"}
+
 
 def _mnist_data(num_users: int, iid: bool, shards: int = 2,
                 **kw) -> DataConfig:

@@ -7,8 +7,9 @@ against dopt's (dopt.utils.profiling), on the CPU.
   GEMMs of the rounded layers, the plain update's foreach kernels) get
   the phases the port's rules state.  The f64 kernels file under the
   phase of the layer the window's model rounds
-  (``models.zoo.ROUNDED_F64``): conv for ``_RoundedConv`` alone, and a
-  scan of the package's code fails on f64 work anywhere else.
+  (``models.zoo.ROUNDED_F64``): conv for the convs and ResNet-18's
+  GroupNorms, and a scan of the package's code fails on f64 work
+  anywhere else.
 * ``profiler_op_stats``: the guards left out, and where the summed
   device time exceeds the busy time (overlap within and across streams,
   duplicates), with each phase on the busy basis.
@@ -150,8 +151,9 @@ def test_f64_tensor_work_is_only_rounded_conv():
     ``double``) by the rounded layer of the window's model
     (``models.zoo.ROUNDED_F64``), since a name cannot tell a conv's f64
     GEMM from a dense layer's: under conv only where that layer is
-    ``_RoundedConv``.  Any f64 site in the package outside the table's
-    layers would be filed with no sign: this fails first."""
+    a rounded conv or ResNet-18's GroupNorm, rounded with its convs.  Any
+    f64 site in the package outside the table's layers would be filed
+    with no sign: this fails first."""
     from dopt_torch.models.zoo import ROUNDED_F64
 
     pkg = Path(TP.__file__).resolve().parent.parent
@@ -161,9 +163,11 @@ def test_f64_tensor_work_is_only_rounded_conv():
             owners.setdefault((path.relative_to(pkg).as_posix(), owner),
                               []).append(line)
     assert set(owners) == {("models/zoo.py", layer)
-                           for layer, _ in ROUNDED_F64.values()}, owners
-    assert {layer for layer, phase in ROUNDED_F64.values()
-            if phase == "conv"} == {"_RoundedConv"}
+                           for layers, _ in ROUNDED_F64.values()
+                           for layer in layers}, owners
+    assert {layer for layers, phase in ROUNDED_F64.values()
+            if phase == "conv" for layer in layers} == {
+        "_RoundedConv", "_RoundedResNetConv", "_RoundedGroupNorm"}
 
 
 F64_KERNELS = [n for n, _ in CARD_KERNELS if TP._F64_KERNELS.search(n.lower())
