@@ -108,7 +108,7 @@ the final line:
    (blocks of 2, prefetch on) and killed after round 1 and resumed, each
    bit for bit the per-round run (the matching stream included); and
    9c's baseline1 blocked against per-round; 9g times baseline1
-   per-round against blocked (as 7c).
+   per-round against blocked (as 7c; 2 timed rounds each).
 
 Phase 3 also holds both kernels at this slice's call sites (3b): kernel
 1 over the MLP (4 workers), Model3 (16 lanes, 32×32×3), logistic (16
@@ -126,7 +126,7 @@ Phase 4 also runs the MLP dsgd, the logistic fedadmm, matching, fedlcon
    block of 2 (CUDA-graph replays): History, ledger (content and order) and
    final state bit-identical, the ledger equal to the one the host
    stage computes with no device run, rounds/s, peak memory and the
-   idle share of a profiled blocked round and the steady rate of 4
+   idle share of a profiled blocked round and the steady rate of 2
    replayed rounds; 10b the same (unprofiled) with optim.fused_update (kernel 1 gated by the straggler budget, one
    launch a step); 10c baseline1-faulty with both fused switches
    (kernel 2 on crash- and partition-repaired matrices, one round),
@@ -150,13 +150,13 @@ also runs two small faulty configurations on the GPU against the CPU.
    each bit for bit; 11b baseline3-faulty as typed (compact, fixed-width
    lanes, no kernel), 2 rounds per-round and in one block; 11c
    baseline3-byzantine (signflip liars, trimmed mean) at 15,000/2,500
-   samples 2 rounds, then one
+   samples one round, then one
    round each under the mean, median, Krum, multi-Krum and the mean with
    clip_radius 1.0, and each aggregation call timed alone on 8 Model1
    lanes with its peak memory (the five one-round runs at one local
    epoch, the preset's five in the trimmed-mean run); 11d baseline3-elastic (drop stragglers,
    lossy and delayed uplinks, churn, the staleness buffer) at
-   15,000/2,500 samples 4 rounds
+   15,000/2,500 samples 3 rounds
    per-round and in blocks of 2 through the chaos round (History,
    ledger, theta, the buffer and the counters bit for bit); 11e baseline3 with two
    pinned nan liars and the quarantine (after 2, for 3 rounds) at
@@ -209,7 +209,8 @@ also runs two small faulty configurations on the GPU against the CPU.
    elements — and a tiny choco run on the GPU against the CPU; 14c
    14a's rand-k run in blocks of 2 and killed and resumed, bit for bit
    with x_hat; 14d ``comm_dtype="bfloat16"`` on both headlines (fused
-   epilogue off), one round, beside the f32 wire's two; 14e baseline5 with choco rand-k
+   epilogue off), one round, beside the f32 wire's (two rounds of the
+   gossip headline, one of the federated); 14e baseline5 with choco rand-k
    0.01 in bf16 compute, one round (the exchange's share, the peak);
    14f the compressors' pieces (draw, select, scatter) and whole calls
    timed at 14a's and 14e's shapes beside their bytes bounds.
@@ -223,9 +224,10 @@ also runs two small faulty configurations on the GPU against the CPU.
    of the dense mix; 15c and 15d likewise); 15b the q8 codec with no
    budget (2 rounds) and the 6-worker lossy-link budget (q4 everywhere,
    one round), the exchange's time and share and the plan's bytes; 15c
-   the explicit shift path with scatter against 15a; 15d
-   headline-fedavg-model1 at full width with the scatter reduce, f32
-   (against 14d's) and ``comm.wire_dtype="bfloat16"`` (one round); 15e
+   the explicit shift path with scatter, one round against 15a's round
+   0; 15d headline-fedavg-model1 at full width with the scatter reduce,
+   one round each, f32 (against 14d's one-round f32 run) and
+   ``comm.wire_dtype="bfloat16"``; 15e
    baseline5
    with scatter and q8 in bf16 compute, one round (11 buckets, the
    exchange's share, the peak); 15f the collectives on a world-size-1
@@ -259,13 +261,14 @@ also runs two small faulty configurations on the GPU against the CPU.
    kernel 1 on and the fused epilogue off (dopt refuses it on a
    multi-device mesh).  On one card the ranks share it over host-staged
    gloo: 17a ``headline-dsgd-model1`` (3 lanes a rank; dopt's 'auto'
-   rule takes the shift path) and 17b ``headline-fedavg-model1`` (8
-   lanes a rank, full width), 2 rounds with eval each round: walls,
+   rule takes the shift path), 2 rounds, and 17b
+   ``headline-fedavg-model1`` (8 lanes a rank, full width), one round
+   (cut from 2 for the budget), with eval each round: walls,
    rates, per-rank peaks, kernel 1 every step on each rank and kernel 2
    never, the History equal on both ranks, the bytes each rank handed to
    the consensus wire (the meter) equal to the plan's, round 0 within
-   the multi-round bound of 14d's one-rank f32 runs (round 1 and the
-   params printed); 17m one mix (dense and shift) and one f32 masked
+   the multi-round bound of 14d's one-rank f32 runs (17a's round 1 and
+   the params printed); 17m one mix (dense and shift) and one f32 masked
    average at 2 ranks within 1e-6 of one rank; 17c 17a killed after
    round 0 and resumed at 2 ranks, bit for bit with 17a, and rank 0's
    checkpoint resumed at one rank for round 1 within the bound; 17d
@@ -314,7 +317,8 @@ also runs two small faulty configurations on the GPU against the CPU.
    of 2 with a leave and a join, each kind captured once and replayed,
    bit for bit the per-round served run.  19c's CLI leg, 19d and 19e
    run at once, after every phase-19 number is taken, beside phase 20d's
-   wire probe; phase 20c's watch runs over 19a's and 19d's state dirs.
+   wire probe and phase 23's window part (23a-23d, ``phase23_window``);
+   phase 20c's watch runs over 19a's and 19d's state dirs.
 
 20. the meters and the stream tools (``phase20``): 20a the headlines'
    MFU — ``train_flops_per_sample`` of Model1 (dopt's convention, counted
@@ -352,7 +356,8 @@ also runs two small faulty configurations on the GPU against the CPU.
 22. dopt's library surface (``phase22``), f32 under the deterministic mode and
    ``full_f32``: 22b (first) ResNet-18's step at ``baseline5``'s full
    size — 32 lanes, batch 128 a lane, 32×32×3 — on the card against the
-   port's CPU step of lane 0 alone, as 4c holds Model1's: lane 0's 62
+   port's CPU step of lane 0 alone (taken in phase 23), as 4c holds
+   Model1's: lane 0's 62
    gradients and 62 updated parameters within 1e-5 relative L2 (max-rel
    printed), the card's step twice bit for bit, its conv kernels named
    from the profiler, and on a miss each side's distance from lane 0's
@@ -369,6 +374,33 @@ also runs two small faulty configurations on the GPU against the CPU.
    (``event_ms(..., device_only=True)``: the wrapper's Python runs while
    a sleep kernel holds the card).  The kernels line gains 22a's
    launches.
+
+23. dopt's acceptance harnesses (``phase23``, ``dopt_torch.scripts``)
+   at dopt's settings (both fused switches off): 23a
+   ``chaos_soak.main(["--rounds", "8", "--seed", "0", ...])``
+   in-process, the four cocktail legs (push-sum gossip under link
+   faults, async one-peer gossip, scatter with the qsgd bucket codec,
+   federated with the staleness buffer; each run continuous, again,
+   blocked and killed-and-resumed, bit for bit) and both monitor gates,
+   then ``python -m dopt_torch.obs.check`` on its stream: each leg's
+   wall, ledger rows and alerts, and both kernels at 0 launches; 23b
+   ``chaos_soak.main(["--rounds", "8", "--engine", "gossip", "--kill",
+   "--skip-gates"])`` (a real SIGKILLed child, resumed bit for bit);
+   23c each leg's 8-round continuous run on the card against the port's
+   CPU run of the same leg (the ledger row for row, History within
+   LOSS_TOL / ACC_TOL, the worst distance printed); 23d ``python -m
+   dopt_torch.scripts.serve_soak --rounds 24`` (real daemons on the
+   card, a SIGTERM re-exec, bit for bit the uninterrupted leg; dopt's
+   README runs 48 rounds, cut to 24 for the budget with the same
+   schedule).  All but 23d's collection run in phase 19's shared window
+   (``phase23_window``: 23d started as a subprocess, then 23a, 23c and
+   23b on the main thread, beside 19c's CLI leg, 19d's fleet and 20d's
+   probe, where nothing is timed; their walls are printed as taken
+   there); ``phase23``, after phase 20 and before 21, takes phase 22b's
+   CPU step while 23d finishes, then collects 23d, so no phase's timed
+   number shares the card with it.  The serve soak's federated, fleet,
+   decoupled and long modes run on the CPU only
+   (``tests/test_torch_soak.py``).
 
 Phase 4c holds one full-size Model1 step (headline-dsgd-model1's model:
 28×28×1, batch 128 a lane, f32, deterministic, ``full_f32``) at 6 and at
@@ -879,10 +911,12 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
             cfg.data, synthetic_train_size=15_000,
             synthetic_test_size=2_500))
 
+    # The trimmed-mean run one round (cut from 2 for the budget: round
+    # 0 samples liars 0 and 2).
     byz = quarter(get_preset("baseline3-byzantine"))
     tr, byz_state, _ = fed_run("11c baseline3-byzantine (trimmed mean)", byz,
-                               rounds, 1)
-    check_ledger("11c", byz_state["ledger"], byz, rounds)
+                               1, 1)
+    check_ledger("11c", byz_state["ledger"], byz, 1)
     liars = sorted({r["worker"] for r in byz_state["ledger"]
                     if r["action"] == "injected_signflip"})
     print(f"11c liars sampled: {liars}")
@@ -945,8 +979,11 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
 
     # -- 11d. baseline3-elastic: drop stragglers and delayed uplinks
     # through the staleness buffer, per-round and through the chaos block.
+    # 3 rounds (cut from 4 for the budget: rounds 1 and 2 admit late
+    # updates after 1 and 2 rounds), the blocked run in a block of 2 and
+    # a block of 1.
     el = quarter(get_preset("baseline3-elastic"))
-    tr, el_state, got = fed_run("11d baseline3-elastic per-round", el, 4, 1)
+    tr, el_state, got = fed_run("11d baseline3-elastic per-round", el, 3, 1)
     if tr._use_compact() or not tr._has_stale:
         fail("11d: baseline3-elastic must run full width with the buffer")
     kinds = {r["kind"] for r in el_state["ledger"]}
@@ -954,11 +991,11 @@ def phase11(dev, smi: str, get_preset, kit) -> dict:
     print(f"11d ledger kinds {sorted(kinds)}; admissions "
           f"{[a for a in actions if a.startswith('admitted')]}")
     if not any(a.startswith("admitted_after") for a in actions):
-        fail("11d: no late update was admitted in 4 rounds")
+        fail("11d: no late update was admitted in 3 rounds")
     del tr
-    check_ledger("11d", el_state["ledger"], el, 4)
+    check_ledger("11d", el_state["ledger"], el, 3)
     tr, _, _ = fed_run("11d baseline3-elastic, blocks of 2 (chaos round)",
-                       el, 4, 2, el_state, got)
+                       el, 3, 2, el_state, got)
     print(f"11d baseline3-elastic: graphs {tr.graphs.captures}; {smi}")
     del tr
     torch.cuda.empty_cache()
@@ -1767,12 +1804,14 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     torch.cuda.empty_cache()
 
     # -- 14d. the narrowed wire on both headlines, beside the f32 wire:
-    # the f32 wire 2 rounds (phases 15 and 17 hold their runs against
-    # them), the bf16 wire one (cut from 2 for the budget), held against
-    # the f32 wire's round 0: the gossip workers' params (the wire carries
-    # round 0's mix) and the federated theta (the wire carries round 0's
-    # aggregation; the lanes' params are the same after it).
-    n = 2
+    # the gossip f32 wire 2 rounds (15a and 17a hold their 2 rounds
+    # against it), the federated f32 wire one (cut from 2 for the budget;
+    # 15d and 17b hold their one round against it), the bf16 wire one
+    # (cut from 2 for the budget), held against the f32 wire's round 0:
+    # the gossip workers' params (the wire carries round 0's mix) and the
+    # federated theta (the wire carries round 0's aggregation; the lanes'
+    # params are the same after it).
+    f32_rounds = {"gossip": 2, "federated": 1}
 
     def wired(tr):
         return (tr.global_params() if isinstance(tr, FederatedTrainer)
@@ -1791,16 +1830,17 @@ def phase14(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
             round0 = []
             tr, got, walls, peak, _ = run14(
                 f"14d {label} headline, fused epilogue off, wire "
-                f"{wire or 'float32'}", cls, c, n if wire is None else 1,
+                f"{wire or 'float32'}", cls, c,
+                f32_rounds[label] if wire is None else 1,
                 after_round=lambda t: round0.append(wired(t))
                 if not round0 else None)
             if cls is FederatedTrainer and tr._use_compact():
                 fail("14d: the federated run left the full width")
             res[wire] = (round0[0], len(walls) / sum(walls))
             if wire is None:
-                # Phase 15 holds the scatter path against this run.
+                # Phases 15 and 17 hold their runs against this one.
                 f32wire[label] = {
-                    "rate": n / sum(walls),
+                    "rate": len(walls) / sum(walls),
                     "rows": [dict(r) for r in tr.history.rows],
                     "params": wired(tr)}
             if wire:
@@ -1964,14 +2004,16 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                                 for i, r in enumerate(tr._comm_res)}
         return out
 
-    def run15(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False):
+    def run15(label, cls, cfg, n, *, block=1, tr=None, skip_eval=False,
+              first=None):
         """A fresh trainer (or ``tr``) runs n rounds, per-round (each
         timed alone, the codec exchange timed inside it) or in one
         blocked call, eval in round 0 only (none with ``skip_eval``: the
         run starts at round 1).  The counts are set to 0 just before the
         run and read just after; kernel 1 must launch every step and
         kernel 2 never; the peak is over what was allocated before the
-        trainer."""
+        trainer.  ``first`` (a dict) takes the state after the first
+        per-round round, outside the timed walls."""
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         t = time.perf_counter()
@@ -2003,6 +2045,8 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
             tr.run(rounds=1 if block == 1 else n, block=block)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
+            if first is not None and not first:
+                first.update(state(tr))
         got = launch_counts()
         tr.__dict__.pop("_codec_mix", None)
         peak = torch.cuda.max_memory_allocated() - base
@@ -2023,7 +2067,8 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
               f"launches {got}; {smi}")
         return tr, got, walls, peak, mix_s
 
-    def bounded(label, want_rows, want_params, tr, keys, acc) -> float:
+    def bounded(label, want_rows, want_params, tr, keys, acc,
+                rounds=n) -> float:
         """The multi-round History bound (slice 1: LOSS_TOL, ACC_TOL) and
         the params' max-relative distance after the run, printed: over
         a full-width round's 316 steps a reassociated sum grows past
@@ -2040,7 +2085,8 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         if not math.isfinite(rel):
             fail(f"{label}: params distance {rel}")
         print(f"{label}: History within {LOSS_TOL}/{ACC_TOL}; params "
-              f"max-rel distance {rel:.3e} after {n} full-width rounds")
+              f"max-rel distance {rel:.3e} after {rounds} full-width "
+              "rounds")
         return rel
 
     def one_mix(label, want, got) -> None:
@@ -2099,8 +2145,9 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     # -- 15a. scatter on the gossip headline: 2 buckets, per-round and
     # blocked, held against 14d's dense unfused f32 run.
     a_cfg = scatter(head)
+    a_first: dict = {}
     tr, got, walls, peak, _ = run15("15a headline scatter", GossipTrainer,
-                                    a_cfg, n)
+                                    a_cfg, n, first=a_first)
     widths = [b - a for a, b in zip(tr.scatter_spec.bounds,
                                     tr.scatter_spec.bounds[1:])]
     if widths != [1_048_576, 614_794]:
@@ -2158,18 +2205,20 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 15c. the explicit shift path with scatter, against 15a.
+    # -- 15c. the explicit shift path with scatter, one round (cut from 2
+    # for the budget), against 15a's round 0.
     tr, got, walls, peak, _ = run15("15c headline scatter + shift",
                                     GossipTrainer,
-                                    scatter(head, comm_impl="shift"), n)
+                                    scatter(head, comm_impl="shift"), 1)
     if tr._shift_ids is None:
         fail("15c: comm_impl='shift' did not take the shift path")
     launch["headline-dsgd-model1-scatter-shift"] = got
-    bounded(f"15c shift {tr._shift_ids} against 15a", a_state["rows"],
-            a_state["params"], tr, gkeys, "avg_test_acc")
-    print(f"15c shift: {n / sum(walls):.4f} rounds/s against 15a's "
+    bounded(f"15c shift {tr._shift_ids} against 15a's round 0",
+            a_first["rows"], a_first["params"], tr, gkeys, "avg_test_acc",
+            rounds=1)
+    print(f"15c shift: {1 / sum(walls):.4f} rounds/s against 15a's "
           f"{a_rate:.4f}; {smi}")
-    del tr, a_state
+    del tr, a_state, a_first
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2181,18 +2230,19 @@ def phase15(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
     for wire in (None, "bfloat16"):
         cfg = fs.replace(comm=None if wire is None
                          else CommConfig(wire_dtype=wire))
-        # The bf16 wire one round (cut from 2 for the budget): its rate.
+        # One round each (cut from 2 for the budget): the f32 wire held
+        # against 14d's one-round f32 run, the bf16 wire's rate.
         tr, got, walls, peak, _ = run15(
             f"15d fedavg headline scatter, wire {wire or 'float32'}",
-            FederatedTrainer, cfg, n if wire is None else 1)
+            FederatedTrainer, cfg, 1)
         if tr._use_compact():
             fail("15d: the federated scatter run left the full width")
         launch["headline-fedavg-model1-scatter"
                + ("" if wire is None else "-wire-bf16")] = got
         rate = len(walls) / sum(walls)
         if wire is None:
-            bounded("15d fedavg scatter against 14d's f32 run",
-                    f14["rows"], f14["params"], tr, fkeys, "test_acc")
+            bounded("15d fedavg scatter against 14d's f32 run", f14["rows"],
+                    f14["params"], tr, fkeys, "test_acc", rounds=1)
         print(f"15d fedavg scatter wire {wire or 'float32'}: {rate:.4f} "
               f"rounds/s against 14d's f32 wire {f14['rate']:.4f} "
               f"({rate / f14['rate']:.4f}x); peak {peak} B; {smi}")
@@ -3303,7 +3353,9 @@ def phase17_rank(wg, out_dir: str, parts: tuple, rounds: int) -> None:
     for part in (p for p in parts if p in cfgs):
         engine, cfg = cfgs[part]
         cls = GossipTrainer if engine == "gossip" else FederatedTrainer
-        tr = drive(part, cls, cfg, rounds,
+        # 17b one round (cut from 2 for the budget, as 14d's federated f32
+        # run it is held against).
+        tr = drive(part, cls, cfg, 1 if part == "b" else rounds,
                    ck=out / "17c.ck" if part == "a" and "c" in parts
                    else None)
         if part == "a":
@@ -3512,7 +3564,8 @@ def phase17(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                                       for k, v in arrays.items()
                                       if k.startswith(prefix)})
         walls = [[round(w, 4) for w in rec[part]["walls"]] for rec in recs]
-        rates = [n / sum(rec[part]["walls"]) for rec in recs]
+        rates = [len(rec[part]["walls"]) / sum(rec[part]["walls"])
+                 for rec in recs]
         wire = ("" if part == "b" else
                 f"consensus over {r0['wire'][0]} ({r0['wire'][1]} B a round "
                 f"a rank; the dense all-gather's {r0['gather_bytes']}); ")
@@ -3520,7 +3573,7 @@ def phase17(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
               f"gloo ({r0['lanes']} lanes a rank): {wire}walls {walls} s, "
               f"{min(rates):.4f} rounds/s (one rank, 14d: "
               f"{one['rate']:.4f}); round 0 within {LOSS_TOL}/{ACC_TOL} of "
-              f"14d's one-rank f32 run, round 1 off by {later}, "
+              f"14d's one-rank f32 run, later rounds off by {later}, "
               f"{'theta' if part == 'b' else 'params'} max-rel {rel:.3e} "
               f"(both printed, not bounded); launches a rank "
               f"{[rec[part]['launch'] for rec in recs]}; bytes handed to "
@@ -3591,7 +3644,8 @@ def phase17(dev, smi: str, get_preset, kit, ckdir: Path) -> dict:
                 fail(f"17d {part}: NCCL differs from gloo")
             launch[f"headline-{'dsgd' if part == 'a' else 'fedavg'}-model1-"
                    "ranks2-nccl"] = nrecs[0][part]["launch"]
-            rates = [n / sum(rec[part]["walls"]) for rec in nrecs]
+            rates = [len(rec[part]["walls"]) / sum(rec[part]["walls"])
+                     for rec in nrecs]
             print(f"17d {part} over NCCL, one rank a card: bit for bit the "
                   f"gloo run; {min(rates):.4f} rounds/s; walls "
                   f"{[rec[part]['walls'] for rec in nrecs]}; {smi}")
@@ -3669,8 +3723,10 @@ def _served_latency(events, name: str) -> list[float]:
 
 def phase19(dev, smi: str, get_preset, kit) -> dict:
     """Phase 19, the resident serve daemon (``dopt_torch.serve``) on the
-    card.  ``kit`` holds phase 3's ``k2_site`` and phase 5's scripted
-    walls (``rounds``, ``gwall``, ``fwall``).  Returns the served paths'
+    card.  ``kit`` holds phase 3's ``k2_site``, phase 5's scripted walls
+    (``rounds``, ``gwall``, ``fwall``) and ``beside``, the work that
+    shares the window once 19c's CLI leg, 19d and 20d's probe are
+    started (phase 23's ``phase23_window``).  Returns the served paths'
     launch counts (``launch``) and the served gossip kernel-2 site on the
     churn-repaired matrix (``site``) for the kernels line."""
     import shutil
@@ -3887,6 +3943,8 @@ def phase19(dev, smi: str, get_preset, kit) -> dict:
         cli = _CliLeg(root / "cli", smi)
         cli.start()
         try:
+            # Phase 23's legs that share this window (``kit.beside``).
+            kit.beside()
             graphs_under_serve(root, get_preset)
             try:
                 out = fleet_proc.communicate(timeout=300)[0]
@@ -4488,28 +4546,17 @@ def _conv_kernels(prof) -> list[str]:
                          r"Transpose|dgrad|wgrad", e.key)]
 
 
-def _resnet_b5_steps(dev, get_preset) -> dict:
-    """ResNet-18's f32 step at ``baseline5``'s full size on the card and
-    on the CPU: 32 lanes, batch 128 a lane, 32×32×3, the corrected head,
-    lr 0.1 and momentum 0.9, from one init (``init_worker_params``
-    seeded with the preset's seed, every lane the same) and one batch
-    (the first 32×128 training samples; lane 0 takes the first 128),
-    through ``stacked_step`` with the plain update under the
-    deterministic mode and ``full_f32``.  The CPU steps lane 0 alone;
-    the card steps 32 lanes twice, the second under the profiler.
-    Returns lane 0's gradients (the momentum after one step from zero)
-    and updated values on each side, the profiler's conv kernels, the
-    init and the batch."""
-    import contextlib
-
+def _resnet_b5_inputs(get_preset) -> dict:
+    """ResNet-18's f32 step at ``baseline5``'s full size: 32 lanes, batch
+    128 a lane, 32×32×3, the corrected head, lr 0.1 and momentum 0.9,
+    from one init (``init_worker_params`` seeded with the preset's seed,
+    every lane the same) and one batch (the first 32×128 training
+    samples; lane 0 takes the first 128)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dopt_torch.engine import gossip as gossip_engine
-    from dopt_torch.engine.local import stacked_step
-    from dopt_torch.models.zoo import (deterministic, full_f32,
-                                       init_worker_params, stacked_forward)
+    from dopt_torch.models.zoo import init_worker_params
 
     cfg = get_preset("baseline5")
     mc, d = cfg.model, cfg.data
@@ -4525,44 +4572,74 @@ def _resnet_b5_steps(dev, get_preset) -> dict:
     p0 = init_worker_params("resnet18", input_shape=mc.input_shape,
                             generator=torch.Generator().manual_seed(
                                 cfg.seed))
+    return {"cfg": cfg, "lanes": lanes, "bs": bs, "p0": p0, "x": x, "y": y}
 
-    def step(device, n, prof=False):
-        device = torch.device(device)
-        # A copy even at one lane, where expand().contiguous() would be
-        # a view of p0 that the step updates in place.
-        params = {k: v.expand(n, *v.shape).clone(
-            memory_format=torch.contiguous_format).to(device)
-            .requires_grad_() for k, v in p0.items()}
-        moms = {k: torch.zeros_like(v) for k, v in params.items()}
-        args = (x[:n].to(device), y[:n].to(device),
-                torch.ones(n, bs, device=device))
-        ctx = (profile(activities=[ProfilerActivity.CUDA]) if prof
-               else contextlib.nullcontext())
-        with deterministic(device), full_f32(device), ctx as p:
-            stacked_step(lambda z: stacked_forward(
-                "resnet18", params, z, faithful=mc.faithful), params, moms,
-                *args, lr=cfg.optim.lr, momentum=cfg.optim.momentum,
-                fused=False)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-        out = {**{f"grad {k}": m[0].cpu().numpy() for k, m in moms.items()},
-               **{f"param {k}": v[0].detach().cpu().numpy()
-                  for k, v in params.items()}}
-        return out, (_conv_kernels(p) if prof else [])
 
+def _resnet_b5_step(inp: dict, device, n: int, prof: bool = False):
+    """One step of ``_resnet_b5_inputs``' lanes 0..n-1 on ``device``
+    through ``stacked_step`` with the plain update under the
+    deterministic mode and ``full_f32``.  Returns lane 0's gradients (the
+    momentum after one step from zero) and updated values, and with
+    ``prof`` the conv kernels the profiler saw."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dopt_torch.engine.local import stacked_step
+    from dopt_torch.models.zoo import deterministic, full_f32, stacked_forward
+
+    cfg, p0, x, y, bs = (inp[k] for k in ("cfg", "p0", "x", "y", "bs"))
+    device = torch.device(device)
+    # A copy even at one lane, where expand().contiguous() would be a view
+    # of p0 that the step updates in place.
+    params = {k: v.expand(n, *v.shape).clone(
+        memory_format=torch.contiguous_format).to(device).requires_grad_()
+        for k, v in p0.items()}
+    moms = {k: torch.zeros_like(v) for k, v in params.items()}
+    args = (x[:n].to(device), y[:n].to(device),
+            torch.ones(n, bs, device=device))
+    ctx = (profile(activities=[ProfilerActivity.CUDA]) if prof
+           else contextlib.nullcontext())
+    with deterministic(device), full_f32(device), ctx as p:
+        stacked_step(lambda z: stacked_forward(
+            "resnet18", params, z, faithful=cfg.model.faithful), params,
+            moms, *args, lr=cfg.optim.lr, momentum=cfg.optim.momentum,
+            fused=False)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    out = {**{f"grad {k}": m[0].cpu().numpy() for k, m in moms.items()},
+           **{f"param {k}": v[0].detach().cpu().numpy()
+              for k, v in params.items()}}
+    return out, (_conv_kernels(p) if prof else [])
+
+
+def _resnet_b5_cpu(get_preset) -> dict:
+    """``_resnet_b5_inputs`` and the CPU's step of lane 0 alone, with its
+    seconds (``cpu``, ``cpu_s``)."""
+    inp = _resnet_b5_inputs(get_preset)
     t = time.perf_counter()
-    cpu, _ = step("cpu", 1)
-    cpu_s = time.perf_counter() - t
+    inp["cpu"], _ = _resnet_b5_step(inp, "cpu", 1)
+    inp["cpu_s"] = time.perf_counter() - t
+    return inp
+
+
+def _resnet_b5_steps(dev, get_preset, cpu: dict | None = None) -> dict:
+    """ResNet-18's f32 step at ``baseline5``'s full size on the card and
+    on the CPU (``_resnet_b5_inputs``): the CPU steps lane 0 alone (or
+    ``cpu``, ``_resnet_b5_cpu``'s result, is taken as it), the card
+    steps 32 lanes twice, the second under the profiler.  Returns lane
+    0's gradients and updated values on each side, the profiler's conv
+    kernels, the init and the batch."""
+    r = dict(cpu or _resnet_b5_cpu(get_preset))
     t = time.perf_counter()
-    card, _ = step(dev, lanes)
-    card_s = time.perf_counter() - t
-    again, names = step(dev, lanes, prof=True)
-    return {"cpu": cpu, "card": card, "again": again, "names": names,
-            "cpu_s": cpu_s, "card_s": card_s, "lanes": lanes, "bs": bs,
-            "p0": p0, "x": x, "y": y, "cfg": cfg}
+    r["card"], _ = _resnet_b5_step(r, dev, r["lanes"])
+    r["card_s"] = time.perf_counter() - t
+    r["again"], r["names"] = _resnet_b5_step(r, dev, r["lanes"], prof=True)
+    return r
 
 
-def phase22b(dev, smi: str, get_preset) -> dict:
+def phase22b(dev, smi: str, get_preset, pre: dict | None = None) -> dict:
     """Phase 22b, ResNet-18's f32 step at ``baseline5``'s full size on
     the card against the port's CPU step, as 4c holds Model1's
     (``_resnet_b5_steps``; on the CPU one lane equals lane 0 of many bit
@@ -4571,15 +4648,19 @@ def phase22b(dev, smi: str, get_preset) -> dict:
     parameters are each held to 1e-5 relative L2 of the CPU's (max-rel
     printed), and the conv kernels the card ran are named from the
     profiler.  A miss prints each side's distance from lane 0's f64
-    gradients.  Returns ``_resnet_b5_steps``' result for 22a."""
+    gradients.  ``pre`` is the CPU step phase 23 took while its
+    subprocess legs ran (``_resnet_b5_cpu``).  Returns
+    ``_resnet_b5_steps``' result for 22a."""
     import numpy as np
 
     t22 = time.perf_counter()
-    r = _resnet_b5_steps(dev, get_preset)
+    r = _resnet_b5_steps(dev, get_preset, pre)
     cpu, card, lanes = r["cpu"], r["card"], r["lanes"]
     print(f"22b the CPU step at 1 lane (ResNet-18, "
           f"{r['cfg'].model.input_shape}, batch {r['bs']}): "
-          f"{r['cpu_s']:.1f} s")
+          f"{r['cpu_s']:.1f} s"
+          + (" (taken in phase 23, beside its subprocess legs)" if pre
+             else ""))
     if any(not np.array_equal(card[k], r["again"][k]) for k in card):
         fail(f"22b: two card steps at {lanes} lanes differ")
     print(f"22b the card's step at {lanes} lanes: {r['card_s']:.2f} s; run "
@@ -4754,8 +4835,9 @@ def phase22(dev, smi: str, get_preset, kit) -> dict:
     over one model's tensors, against its plain version, bit for bit, and
     timed on the device alone (``event_ms``'s ``device_only``: cold L2,
     the median of 25) beside the plain version, ``SGD(fused=True).step``
-    and the bytes bound.  ``kit`` holds the L2 flush buffer.  Returns
-    each model's launches and timing row."""
+    and the bytes bound.  ``kit`` holds the L2 flush buffer and phase
+    23's CPU step for 22b (``resnet_cpu``).  Returns each model's
+    launches and timing row."""
     import numpy as np
     import torch
 
@@ -4769,7 +4851,7 @@ def phase22(dev, smi: str, get_preset, kit) -> dict:
     from dopt_torch.optim import init_sgd
 
     t22 = time.perf_counter()
-    res22b = phase22b(dev, smi, get_preset)
+    res22b = phase22b(dev, smi, get_preset, kit.resnet_cpu)
     cpu_dev = torch.device("cpu")
     rng = np.random.default_rng(22)
 
@@ -4932,6 +5014,238 @@ def phase22(dev, smi: str, get_preset, kit) -> dict:
               f"{smi}")
     print(f"22: phase 22 in {time.perf_counter() - t22:.1f} s")
     return out
+
+
+# Phase 23d's serve soak: dopt's single-host acceptance leg at half its
+# README's 48 rounds (cut for the budget; the same leave, SIGTERM, lr
+# rebuild and join, at rounds 6, 9, 12 and 15).
+SERVE_SOAK_ROUNDS = 24
+
+
+def phase23_window(dev, smi: str) -> dict:
+    """Phase 23's part in phase 19's shared window, where no phase's timed
+    number is taken (phase 19 calls it once its own subprocesses run):
+    23d ``python -m dopt_torch.scripts.serve_soak --rounds 24`` started as
+    a subprocess logging to a file (``phase23`` collects it; a process
+    still running when the script exits is killed); then, on this thread,
+    23a ``chaos_soak.main(["--rounds", "8", "--seed", "0", ...])``, the
+    four cocktail legs and both monitor gates, and ``python -m
+    dopt_torch.obs.check`` on its ``--metrics-out``; 23c each leg's
+    8-round continuous run on the card against the port's CPU run of the
+    same leg (ledger row for row, History within LOSS_TOL/ACC_TOL); 23b
+    ``chaos_soak.main(["--rounds", "8", "--engine", "gossip", "--kill",
+    "--skip-gates"])`` (a real SIGKILLed child, the only new
+    interpreter).  Every wall here is taken beside the window's
+    subprocesses.  The soaks run at dopt's settings (both fused switches
+    off), so kernel 1 and kernel 2 must launch 0 times.  Returns what
+    ``phase23`` collects and the walls."""
+    import atexit
+    import tempfile
+
+    import torch
+
+    from dopt_torch.ops.fused_update import (fused_mix_sgd,
+                                             fused_sgd_momentum,
+                                             launch_counts)
+    from dopt_torch.scripts import chaos_soak as cs
+
+    out = Path(tempfile.mkdtemp(prefix="dopt-torch-soak-"))
+    log = open(out / "23d.log", "w")
+    t_d = time.perf_counter()
+    serve = subprocess.Popen(
+        [sys.executable, "-m", "dopt_torch.scripts.serve_soak", "--rounds",
+         str(SERVE_SOAK_ROUNDS), "--state-root", str(out / "serve"),
+         "--report-out", str(out / "serve-report.json")],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    ends: dict = {}
+
+    def waiter() -> None:
+        serve.wait()
+        ends["23d"] = time.perf_counter()
+
+    threading.Thread(target=waiter, daemon=True).start()
+
+    def stop() -> None:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
+
+    atexit.register(stop)
+    t23 = time.perf_counter()
+
+    # -- 23a. the chaos soak in-process: every leg's wall and its
+    # continuous trainer (the first one the leg builds) recorded.
+    walls: dict[str, float] = {}
+    reports: dict = {}
+    conts: dict = {}
+    soak_one, build_trainer = cs.soak_one, cs.build_trainer
+
+    def timed_soak(engine, *args, **kw):
+        t = time.perf_counter()
+        reports[engine] = soak_one(engine, *args, **kw)
+        walls[engine] = time.perf_counter() - t
+        return reports[engine]
+
+    def first_trainer(engine, *args, **kw):
+        tr = build_trainer(engine, *args, **kw)
+        conts.setdefault(engine, tr)
+        return tr
+
+    cs.soak_one, cs.build_trainer = timed_soak, first_trainer
+    metrics, report = out / "chaos-metrics.jsonl", out / "chaos.json"
+    fused_sgd_momentum.launches = 0
+    fused_mix_sgd.launches = 0
+    t = time.perf_counter()
+    try:
+        rc = cs.main(["--rounds", "8", "--seed", "0",
+                      "--metrics-out", str(metrics),
+                      "--report-out", str(report)])
+    except AssertionError as e:
+        fail(f"23a: the chaos soak failed: {e}")
+    finally:
+        cs.soak_one, cs.build_trainer = soak_one, build_trainer
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t
+    got = launch_counts()
+    if rc != 0:
+        fail(f"23a: chaos_soak.main returned {rc}")
+    if got != {"fused_sgd_momentum": 0, "fused_mix_sgd": 0}:
+        fail(f"23a: launches {got}; the soaks run both fused switches "
+             "off, so neither kernel may launch")
+    for leg, tr in conts.items():
+        if tr.device.type != "cuda":
+            fail(f"23a {leg}: the soak ran on {tr.device}")
+        print(f"23a chaos soak {leg}: {walls[leg]:.2f} s (continuous, "
+              f"rerun, blocked in blocks of 4, killed after round 4 "
+              f"and resumed: 8 rounds each); {len(tr.history.faults)} "
+              f"ledger rows; {reports[leg].alerts} alerts, verdict "
+              f"{reports[leg].verdict}; {smi}")
+    print(f"23a chaos soak: 4 legs and both gates in {wall_a:.2f} s "
+          f"(the gates {wall_a - sum(walls.values()):.2f} s); launches "
+          f"{got}; every 23a-23c wall taken in phase 19's shared window, "
+          f"beside its subprocesses; {smi}")
+    check = subprocess.Popen(
+        [sys.executable, "-m", "dopt_torch.obs.check", str(metrics)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    # -- 23c. each leg's continuous run on the card against the port's
+    # CPU run of the same leg.
+    for leg, tr in conts.items():
+        t = time.perf_counter()
+        cpu = build_trainer(leg, 0, 8, device="cpu")
+        cpu.run(rounds=8)
+        cpu_s = time.perf_counter() - t
+        if cpu.history.faults != tr.history.faults:
+            fail(f"23c {leg}: the card's fault ledger differs from the "
+                 "CPU's")
+        key = cs.loss_key(tr.history)
+        acc = ("avg_test_acc" if "avg_test_acc" in tr.history.rows[0]
+               else "test_acc")
+        dl = da = 0.0
+        for a, b in zip(cpu.history.rows, tr.history.rows, strict=True):
+            dl = max(dl, abs(a[key] - b[key]))
+            da = max(da, abs(a[acc] - b[acc]))
+        if not (dl <= LOSS_TOL and da <= ACC_TOL):
+            fail(f"23c {leg}: History {key} {dl:.3e} / {acc} "
+                 f"{da:.3e} from the CPU's (limits {LOSS_TOL} / "
+                 f"{ACC_TOL})")
+        print(f"23c {leg}: 8 rounds on the card against the CPU "
+              f"({cpu_s:.2f} s there): {len(tr.history.faults)} ledger "
+              f"rows equal; worst {key} {dl:.3e}, {acc} {da:.3e} "
+              f"(limits {LOSS_TOL} / {ACC_TOL}); {smi}")
+    del conts, reports
+
+    # -- 23b. the real SIGKILL: the gossip leg's kill-and-resume through
+    # a SIGKILLed child process.
+    (out / "kill").mkdir()
+    t = time.perf_counter()
+    try:
+        rc = cs.main(["--rounds", "8", "--engine", "gossip", "--kill",
+                      "--skip-gates", "--ckpt-dir", str(out / "kill")])
+    except AssertionError as e:
+        fail(f"23b: the SIGKILL leg failed: {e}")
+    wall_b = time.perf_counter() - t
+    if rc != 0:
+        fail(f"23b: chaos_soak.main returned {rc}")
+    if launch_counts() != got:
+        fail(f"23b-23c: launches {launch_counts()}, expected {got}")
+    print(f"23b SIGKILL leg: {wall_b:.2f} s (the leg's runs and a child "
+          f"started, SIGKILLed after round 4 and resumed); launches "
+          f"{launch_counts()}; {smi}")
+    cout, _ = check.communicate(timeout=120)
+    if check.returncode != 0:
+        fail(f"23a: dopt_torch.obs.check on the soak's stream exited "
+             f"{check.returncode}: {cout}")
+    print(f"23a obs.check: {cout.strip().splitlines()[-1]}")
+    return {"out": out, "serve": (serve, log, t_d), "ends": ends,
+            "walls": {"23a": wall_a, "23b": wall_b, "legs": walls,
+                      "window": time.perf_counter() - t23}}
+
+
+def phase23(dev, smi: str, get_preset, w: dict) -> dict:
+    """Phase 23, after phase 20: dopt's acceptance harnesses' part that
+    ``phase23_window`` left running.  While 23d (``python -m
+    dopt_torch.scripts.serve_soak``: real daemons on the card, a SIGTERM
+    re-exec, bit for bit the uninterrupted leg) finishes, phase 22b's
+    CPU step (``_resnet_b5_cpu``); then 23d is collected.  Returns the
+    walls and 22b's CPU step (``resnet_cpu``)."""
+    import shutil
+
+    t23 = time.perf_counter()
+    out, (serve, log, t_d) = w["out"], w["serve"]
+    try:
+        beside = "23d" if serve.poll() is None else "none"
+        t = time.perf_counter()
+        resnet_cpu = _resnet_b5_cpu(get_preset)
+        cpu_s = time.perf_counter() - t
+        print(f"23: phase 22b's inputs and CPU step (ResNet-18 at "
+              f"baseline5's size, lane 0) in {cpu_s:.1f} s (the step "
+              f"{resnet_cpu['cpu_s']:.1f} s), begun beside the subprocess "
+              f"legs {beside}")
+        try:
+            rc = serve.wait(timeout=max(30.0, 600 - (time.perf_counter()
+                                                     - t_d)))
+        except subprocess.TimeoutExpired:
+            serve.kill()
+            serve.wait()
+            rc = "timeout"
+        log.close()
+        wall_d = w["ends"].get("23d", time.perf_counter()) - t_d
+        # The harness's own lines (the daemons' logs go there too).
+        text = (out / "23d.log").read_text(errors="replace")
+        lines = [line for line in text.splitlines()
+                 if line.startswith(("[", "serve soak"))]
+        for line in lines:
+            print(f"23d | {line}")
+        if rc != 0 or not any(line.startswith("serve soak passed")
+                              for line in lines):
+            print(text[-4000:], file=sys.stderr)
+            fail(f"23d: python -m dopt_torch.scripts.serve_soak exited {rc}")
+        serve_report = json.loads((out / "serve-report.json").read_text())
+        print(f"23d serve soak: {serve_report['rounds']} rounds, SIGTERM at "
+              f">= {serve_report['kill_at']}, uninterrupted leg "
+              f"{serve_report['uninterrupted']['_elapsed_s']:.2f} s, "
+              f"restarted leg {serve_report['restarted']['_elapsed_s']:.2f} "
+              f"s (restarts {serve_report['restarted'].get('restarts')}); "
+              f"exit 0 in {wall_d:.2f} s from its start "
+              f"({max(t23 - t_d, 0.0):.2f} s of it before phase 23 began); "
+              f"{smi}")
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
+        log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - t23
+    ww = w["walls"]
+    print(f"23: phase 23 in {wall:.1f} s in series (22b's inputs and CPU "
+          f"step {cpu_s:.1f} s of it); in phase 19's window 23a "
+          f"{ww['23a']:.1f} s, 23c and 23b {ww['window'] - ww['23a']:.1f} "
+          f"s (23b {ww['23b']:.1f} s); 23d {wall_d:.1f} s from its start; "
+          f"{smi}")
+    return {"wall": wall, "side": wall_d, "cpu22b": cpu_s, **ww,
+            "resnet_cpu": resnet_cpu}
 
 
 def main() -> None:
@@ -6109,16 +6423,17 @@ def main() -> None:
             b1_state, slice_launch["baseline1"], rounds, 2, phase="9f")
     # 9g: baseline1's per-round round is host-bound (470 eager steps of a
     # small MLP); its rate per-round against blocked, as 7c (eval only in
-    # round 0, one warm-up block, 4 timed rounds).
+    # round 0, one warm-up block, 2 timed rounds: cut from 4 for the
+    # budget).
     b1_rate = {}
     for mode, block in (("per-round", 1), ("blocked", 2)):
         tr = GossipTrainer(b1_cfg, device=dev, eval_every=10 ** 6)
         tr.run(rounds=block, block=block)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        tr.run(rounds=4, block=block)
+        tr.run(rounds=2, block=block)
         torch.cuda.synchronize()
-        b1_rate[mode] = 4 / (time.perf_counter() - t)
+        b1_rate[mode] = 2 / (time.perf_counter() - t)
         if not all(math.isfinite(r["avg_train_loss"])
                    for r in tr.history.rows):
             fail(f"9g baseline1 {mode}: non-finite train loss")
@@ -6227,15 +6542,16 @@ def main() -> None:
         steady = None
         if key == "10a":
             # The timed blocked run above includes round 0's eager
-            # warm-up and the capture; the steady rate is that of 4
-            # replayed rounds (10b's shape is 10a's with kernel 1).
+            # warm-up and the capture; the steady rate is that of 2
+            # replayed rounds, one block (cut from 4 for the budget;
+            # 10b's shape is 10a's with kernel 1).
             torch.cuda.synchronize()
             t = time.perf_counter()
-            tr.run(rounds=4, block=2)
+            tr.run(rounds=2, block=2)
             torch.cuda.synchronize()
-            steady = 4 / (time.perf_counter() - t)
+            steady = 2 / (time.perf_counter() - t)
             print(f"{key} {cfg.name}: steady blocked rate {steady:.4f} "
-                  f"rounds/s (4 replayed rounds of blocks of 2, eval each "
+                  f"rounds/s (2 replayed rounds, one block of 2, eval each "
                   f"round); graphs {tr.graphs.captures}")
         losses = [r["avg_train_loss"] for r in tr.history.rows]
         print(f"{key} train losses {losses}")
@@ -6479,8 +6795,10 @@ def main() -> None:
 
     # -- 19. the resident serve daemon -------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    window23: dict = {}
     res19 = phase19(dev, smi, get_preset, types.SimpleNamespace(
-        k2_site=k2_site, rounds=rounds, gwall=gwall, fwall=fwall))
+        k2_site=k2_site, rounds=rounds, gwall=gwall, fwall=fwall,
+        beside=lambda: window23.update(phase23_window(dev, smi))))
     del flush
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 20")
 
@@ -6490,6 +6808,11 @@ def main() -> None:
         bf16_wall=fast_walls["headline-dsgd-model1-bf16"], samples=samples,
         prof6=prof6, g_events=g_events, b_events=b_stream.events,
         res19=res19))
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 23")
+
+    # -- 23. dopt's acceptance harnesses (begun in phase 19's shared
+    # window; nothing is timed from there to here) ------------------------
+    res23 = phase23(dev, smi, get_preset, window23)
     print(f"elapsed {time.perf_counter() - T0:.1f} s at phase 21")
 
     # -- 21. backend="torch" and stacked_impl="vmap" -----------------------
@@ -6499,8 +6822,11 @@ def main() -> None:
 
     # -- 22. dopt's library surface ----------------------------------------
     res22 = phase22(dev, smi, get_preset, types.SimpleNamespace(
-        flush=torch.empty(256 << 20, dtype=torch.uint8, device=dev)))
-    print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line")
+        flush=torch.empty(256 << 20, dtype=torch.uint8, device=dev),
+        resnet_cpu=res23["resnet_cpu"]))
+    print(f"elapsed {time.perf_counter() - T0:.1f} s at the kernels line "
+          f"(this host: the gossip headline at {gwall / rounds:.3f} s a "
+          f"round in phase 5); {smi}")
 
     source = "dopt_torch/csrc/fused_update.cu"
     kernels = []
